@@ -1,0 +1,82 @@
+"""The port's boundaries: what it imports, and where it runs.
+
+``repro_torch`` imports torch and numpy, never JAX and nothing of the JAX
+package ``repro`` (it keeps its own copies of the host modules it needs).
+Its entry points run on CUDA unless the caller passes ``device="cpu"``;
+without a CUDA device the default raises instead of running on the host.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.batched import ProblemBatch
+from repro_torch.sim import paper_sim, run_campaign, run_experiment
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|repro|benchmarks)\b"
+                       r"|from\s+(jax|jaxlib|repro|benchmarks)\b(?!_))", re.M)
+
+
+def test_import_and_campaign_load_no_jax_or_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "from repro_torch.sim import run_campaign\n"
+        "from repro_torch.sim.paper_sim import run\n"
+        "res = run_campaign(['E1', 'I3'], 6, 10, n_pairs=2, n_bounds=3, device='cpu')\n"
+        "assert sorted(res) == ['E1', 'I3']\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_no_jax_or_reference(path):
+    assert path.exists(), path
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, (path, hits)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: repro_torch.resolve_device(),
+    lambda: repro_torch.resolve_device("cuda"),
+    lambda: run_campaign(["E1"], 5, 10, n_pairs=1, n_bounds=2),
+    lambda: run_experiment("E1", 5, 10, n_pairs=1, n_bounds=2),
+    lambda: ProblemBatch.from_arrays(np.ones((1, 3)), np.ones((1, 4)),
+                                     np.ones((1, 2)), 10.0),
+], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
+        "run_experiment", "from_arrays"])
+def test_default_device_without_cuda_raises(entry, monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+
+
+def test_paper_sim_default_device_without_cuda_raises(tmp_path, monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paper_sim.run(tmp_path / "out", ns=(5,), ps=(10,), n_pairs=1, n_bounds=2)
+    assert not (tmp_path / "out").exists()
+
+
+def test_explicit_cpu_device_resolves():
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,94 @@
+"""The hand-written CUDA split-scoring kernels against their plain PyTorch
+versions, on the card.
+
+These tests need a CUDA device (marker ``cuda``) and skip without one.  The
+file imports only torch, numpy and the port, so it also runs where JAX is not
+installed:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
+
+Inputs are random with a fixed seed, live-lane bounds random per row.
+Tolerance: exact (``torch.equal``) on live lanes, and lanes at or past the
+bound must be zero.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.heuristics import _PERMS3, score_2way, score_3way
+from repro_torch.kernels import split_score
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _t(x, device):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _split_inputs(rng, A, K):
+    pre = np.sort(rng.uniform(0.0, 100.0, (A, K + 2)), axis=1)
+    delta = rng.uniform(0.0, 50.0, (A, K + 2))
+    return (pre[:, :1], pre[:, 1:-1], pre[:, -1:], delta[:, :1], delta[:, 1:-1],
+            delta[:, -1:], rng.uniform(0.05, 2.0, (A, 1)), rng.uniform(0.05, 2.0, (A, 1)))
+
+
+def _three_inputs(rng, A, span):
+    o1, o2 = np.triu_indices(span - 1, k=1)
+    K = o1.size
+    inv = rng.uniform(0.05, 2.0, (A, 3))
+    ins = (rng.uniform(0.0, 10.0, (A, 1, 3, K)), rng.uniform(0.1, 100.0, (A, 1, 3, K)),
+           rng.uniform(0.0, 10.0, (A, 1, 3, K)),
+           inv[:, np.asarray(_PERMS3)][:, :, :, None], rng.uniform(1.0, 50.0, (A, 1, 1)))
+    return ins, rng.integers(3, span + 1, A), o2
+
+
+@pytest.mark.parametrize("A,K", [(1, 1), (64, 300), (2400, 159)])
+def test_score_2way_kernel_equals_plain_on_card(cuda_device, A, K):
+    rng = np.random.default_rng(21)
+    ins = [_t(x, cuda_device) for x in _split_inputs(rng, A, K)]
+    need = _t(rng.integers(0, K + 1, A), cuda_device)
+    before = split_score.score_2way_cuda.launches
+    got = split_score.score_2way_cuda(*ins[:6], 10.0, *ins[6:], need=need)
+    torch.cuda.synchronize()
+    assert split_score.score_2way_cuda.launches == before + 1
+    want = score_2way(*ins[:6], 10.0, *ins[6:])
+    live = torch.arange(K, device=cuda_device).repeat(2)[None, :] < need[:, None]
+    for g, w in zip(got, want):
+        assert torch.equal(g[live], w[live])
+        assert not g[~live].any()
+
+
+@pytest.mark.parametrize("A,span", [(1, 3), (32, 40), (70000, 5)])
+def test_score_3way_kernel_equals_plain_on_card(cuda_device, A, span):
+    """(70000 rows pass the grid's 65535-row limit: the kernel loops rows.)"""
+    rng = np.random.default_rng(23)
+    ins, spans, o2 = _three_inputs(rng, A, span)
+    ins = [_t(x, cuda_device) for x in ins]
+    need = split_score.pair_need(_t(spans, cuda_device), span)
+    got = split_score.score_3way_cuda(*ins, need=need)
+    torch.cuda.synchronize()
+    want = score_3way(*ins)
+    live = torch.arange(o2.size, device=cuda_device)[None, :] < need[:, None]
+    for g, w in zip(got, want):
+        lv = live.view((A,) + (1,) * (w.dim() - 2) + (o2.size,)).expand(w.shape)
+        assert torch.equal(g[lv], w[lv])
+        assert not g[~lv].any()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    rng = np.random.default_rng(3)
+    ins = [_t(x, cuda_device) for x in _split_inputs(rng, 4, 8)]
+    with pytest.raises(TypeError):
+        split_score.score_2way_cuda(*ins[:6], 10.0, ins[6].float(), ins[7])
+    with pytest.raises(ValueError):
+        split_score.score_2way_cuda(*ins[:6], 10.0, ins[6].cpu(), ins[7])
+    with pytest.raises(ValueError):
+        split_score.score_2way_cuda(ins[0], ins[1].T.contiguous().T, *ins[2:6], 10.0, *ins[6:])
