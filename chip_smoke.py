@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--json PATH]
 
-Drives the port's main path, the Section-5 campaign planner
-(``repro_torch``), on the card and checks it, in six phases; any failure
-exits non-zero:
+Drives the port's two paths on the card and checks them: the Section-5
+campaign planner, and serving qwen3-4b at full width (``repro_torch``), in
+ten phases; any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -22,11 +22,31 @@ exits non-zero:
               steps, on cuda; every kernel's launch counter is zeroed just
               before and must be > 0 just after;
   6. cpu vs card — 8 of those instances through ``batched_trajectory_sets``
-              (H1-H4) and ``batched_min_period`` on cpu and on cuda: equal.
+              (H1-H4) and ``batched_min_period`` on cpu and on cuda: equal;
+  7. model kernels — RMSNorm, RMSNorm + residual, flash attention (causal,
+              and with a window of 1024) and decode attention (empty slots
+              and a window) against their plain versions at qwen3-4b's
+              full-width shapes, atol 2e-5 (float32) / 0.08 (bfloat16);
+              CUDA-event medians of kernel, plain version and the one
+              PyTorch call that computes the same function, and the bound;
+  8. forward — ``ModelAPI.forward`` of qwen3-4b at full width (36 layers,
+              random weights from a seed), B = 1, S = 4096, with kernels; the
+              RMSNorm and flash-attention counters are zeroed just before and
+              must be > 0 just after; logits finite; wall time, peak memory;
+  9. serve  — ``serve_pool`` of qwen3-4b at full width, 8 requests, batch 4,
+              64-token prompts, 32 new tokens, capacity 1024; every request
+              done, the decode-attention counter > 0 (and the RMSNorm kernel
+              unused: decode keeps the plain formula, as the reference does);
+ 10. model cpu vs card — the same seeded parameters and tokens through the
+              smoke config in float32 and a 2-layer full-width model in
+              bfloat16, forward at S = 1536 and 8 decode steps, cpu (plain
+              versions) against cuda (kernels): logits within atol 1e-4
+              (float32), or max error < 0.35 and mean relative error < 0.05
+              (bfloat16).
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches on the main path, max abs error, kernel / plain / bound
-times in ms); the last line is
+kernel: launches on the main path, max abs error, kernel / plain / bound /
+library times in ms); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With ``--json PATH`` it also writes every number it measured to PATH.
 It needs the repository's ``src/`` beside it and a CUDA device.
@@ -46,9 +66,12 @@ REPO = pathlib.Path(__file__).resolve().parent
 SRC = REPO / "src"
 GOLDEN = REPO / "tests" / "golden" / "paper_sim"
 
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and fp64 (non-tensor) peak
+# H100 SXM (NVIDIA data sheet): HBM3 bandwidth; fp64 and fp32 (non-tensor)
+# and dense bf16 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 34e12
+FP32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 
 # main-path shapes at full width (n = 160, p = 1000, 200 instances):
 # 2-way: 2400 H5/H6 (instance x bound) rows x 159 cuts; 3-way: 400 H2+H3 rows
@@ -86,9 +109,9 @@ def cuda_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, peak: float = FP64_FLOPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP64_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -206,6 +229,214 @@ def check_campaign(res: dict, n_bounds: int) -> None:
             fail(f"{exp}: H5/H6 thresholds differ")
 
 
+# serving path at full width: qwen3-4b (36 layers, d 2560, 32 / 8 heads of
+# 80, d_ff 9728, vocab 151,936); forward at the train_4k sequence length,
+# decode at the serve run's batch and cache capacity
+ARCH = "qwen3-4b"
+FWD_S = 4096
+SERVE = dict(n_requests=8, batch=4, prompt_len=64, max_new=32, capacity=1024, seed=0)
+WINDOW = 1024
+BF16_TOL, F32_TOL, LOGIT_F32_TOL = 0.08, 2e-5, 1e-4
+
+
+def _err(torch, got, want) -> float:
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"shape/dtype {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def _kernel_row(name, replaces, err, ms, plain_ms, nbytes, flops, peak, library_ms, shape):
+    if not err <= BF16_TOL:
+        fail(f"{name} differs from its plain version by {err} (tolerance {BF16_TOL})")
+    b_ms, b_by = bound(nbytes, flops, peak)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{replaces[0]}.cu",
+            "replaces": f"src/repro/kernels/{replaces[0]}.py:{replaces[1]}",
+            "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "library_ms": library_ms}
+
+
+def check_model_kernels(torch, cfg, gen) -> list:
+    """The four model kernels at the full-width shapes of the serving path."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_residual_plain
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    eps = cfg.norm_eps
+
+    def r(*shape, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dtype)
+
+    rows = []
+    # RMSNorm: every row of a B = 1, S = 4096 forward
+    x, res, sc = r(FWD_S, d), r(FWD_S, d), 1.0 + 0.1 * r(d, dtype=torch.float32)
+    x32 = x.float()
+    e = _err(torch, ops.rmsnorm(x32, sc, eps=eps), ref.rmsnorm_ref(x32, sc, eps=eps))
+    if not e <= F32_TOL:
+        fail(f"rmsnorm float32 differs from its plain version by {e}")
+    del x32
+    err = _err(torch, ops.rmsnorm(x, sc, eps=eps), ref.rmsnorm_ref(x, sc, eps=eps))
+    sc16 = sc.to(bf16)
+    n_el = FWD_S * d
+    rows.append(_kernel_row(
+        "rmsnorm", ("rmsnorm", 17), err,
+        cuda_ms(torch, lambda: ops.rmsnorm(x, sc, eps=eps)),
+        cuda_ms(torch, lambda: ref.rmsnorm_ref(x, sc, eps=eps)),
+        4 * n_el + 4 * d, 4 * n_el, FP32_FLOPS_PER_S,
+        cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc16, eps)),
+        {"n": FWD_S, "d": d, "dtype": "bfloat16"}))
+    got = ops.rmsnorm_residual(x, res, sc, eps=eps)
+    want = rmsnorm_residual_plain(x, res, sc, eps=eps)
+    err = max(_err(torch, got[0], want[0]), _err(torch, got[1], want[1]))
+    rows.append(_kernel_row(
+        "rmsnorm_residual", ("rmsnorm", 24), err,
+        cuda_ms(torch, lambda: ops.rmsnorm_residual(x, res, sc, eps=eps)),
+        cuda_ms(torch, lambda: rmsnorm_residual_plain(x, res, sc, eps=eps)),
+        8 * n_el + 4 * d, 5 * n_el, FP32_FLOPS_PER_S, None,
+        {"n": FWD_S, "d": d, "dtype": "bfloat16"}))
+    del x, res
+
+    # flash attention: one layer of the forward, causal; and with a window
+    q, k, v = r(1, FWD_S, H, hd), r(1, FWD_S, K, hd), r(1, FWD_S, K, hd)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    fa = {}
+    for window in (None, WINDOW):
+        err = _err(torch, ops.flash_attention(q, k, v, causal=True, window=window),
+                   ref.flash_attention_ref(q, k, v, causal=True, window=window))
+        torch.cuda.empty_cache()
+        pairs = sum(min(i + 1, window or FWD_S) for i in range(FWD_S))
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True)
+        else:
+            pq = torch.arange(FWD_S, device=dev)
+            band = (pq[:, None] >= pq[None, :]) & (pq[:, None] - pq[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                         enable_gqa=True)
+        fa[window] = _kernel_row(
+            "flash_attention", ("flash_attention", 27), err,
+            cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True, window=window)),
+            cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
+                    reps=5),
+            2 * (2 * FWD_S * H * hd + 2 * FWD_S * K * hd), 4 * hd * H * pairs,
+            BF16_TENSOR_FLOPS_PER_S, cuda_ms(torch, lib),
+            {"B": 1, "S": FWD_S, "T": FWD_S, "H": H, "K": K, "hd": hd, "causal": True,
+             "window": window, "pairs": pairs})
+        torch.cuda.empty_cache()
+    rows.append(fa[None] | {"window_1024": {key: fa[WINDOW][key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}})
+    del q, k, v, qt, kt, vt
+
+    # decode attention: one layer of a serve step, B = 4 against C = 1024,
+    # some slots never written, a window of half the cache
+    B, C = SERVE["batch"], SERVE["capacity"]
+    q, k, v = r(B, H, hd), r(B, C, K, hd), r(B, C, K, hd)
+    pos = torch.randint(C // 2, C, (B,), generator=gen, device=dev).to(torch.int32)
+    slots = torch.arange(C, device=dev, dtype=torch.int32)[None, :]
+    positions = torch.where(slots <= pos[:, None], slots, -1).to(torch.int32)
+    positions[:, 3::7] = -1
+    window = C // 2
+    mask = ops.decode_mask(positions, pos, window)
+    err = _err(torch, ops.decode_attention(q, k, v, positions, pos, window=window),
+               ref.decode_attention_ref(q, k, v, mask))
+    live = int(mask.sum())
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    m4 = mask[:, None, None, :]
+    rows.append(_kernel_row(
+        "decode_attention", ("decode_attention", 24), err,
+        cuda_ms(torch, lambda: ops.decode_attention(q, k, v, positions, pos, window=window)),
+        cuda_ms(torch, lambda: ref.decode_attention_ref(q, k, v, mask)),
+        2 * (2 * B * H * hd + 2 * B * C * K * hd) + B * C, 4 * hd * H * live,
+        BF16_TENSOR_FLOPS_PER_S,
+        cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                                              enable_gqa=True)),
+        {"B": B, "C": C, "H": H, "K": K, "hd": hd, "window": window, "live_slots": live}))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_forward(torch, cfg, counters) -> dict:
+    """The full-width forward with kernels, counters zeroed just before."""
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    params = api.init(SERVE["seed"], "cuda")
+    toks = torch.randint(1, cfg.vocab_size, (1, FWD_S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.time()
+    logits, _ = api.forward(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    if not bool(torch.isfinite(logits).all()):
+        fail("forward: logits not finite")
+    out = {"B": 1, "S": FWD_S, "layers": cfg.n_layers, "wall_s_first": wall,
+           "launches": launches, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "logits_shape": list(logits.shape)}
+    del logits
+    t0 = time.time()
+    api.forward(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    out["wall_s_second"] = time.time() - t0
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _logits_close(got, want, dtype) -> dict:
+    got, want = got.float().cpu(), want.float()
+    err = (got - want).abs()
+    out = {"max_err": float(err.max()), "mean_rel_err": float(err.mean() / want.abs().mean())}
+    ok = bool(got.isfinite().all()) and (
+        out["max_err"] <= LOGIT_F32_TOL if dtype == "float32"
+        else out["max_err"] < 0.35 and out["mean_rel_err"] < 0.05)
+    return out | {"ok": ok}
+
+
+def model_cpu_vs_card(torch, cfg) -> dict:
+    """Same seeded parameters and tokens on cpu (plain versions) and cuda
+    (kernels): forward at S = 1536 and 8 decode steps."""
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    params = api.init(7, "cpu")
+    card = _to(params, "cuda")
+    gen = torch.Generator().manual_seed(8)
+    toks = torch.randint(1, cfg.vocab_size, (2, 1536), generator=gen)
+    worst = {}
+    got, _ = api.forward(card, {"tokens": toks[:1].cuda()}, cfg)
+    want, _ = api.forward(params, {"tokens": toks[:1]}, cfg)
+    worst["forward"] = _logits_close(got, want, cfg.dtype)
+    del got, want
+    st_card, st_cpu = api.init_decode_state(2, 16, "cuda"), api.init_decode_state(2, 16, "cpu")
+    steps = []
+    for t in range(8):
+        got, st_card = api.decode(card, st_card, toks[:, t:t + 1].cuda())
+        want, st_cpu = api.decode(params, st_cpu, toks[:, t:t + 1])
+        steps.append(_logits_close(got, want, cfg.dtype))
+    worst["decode"] = {"max_err": max(s["max_err"] for s in steps),
+                       "mean_rel_err": max(s["mean_rel_err"] for s in steps),
+                       "ok": all(s["ok"] for s in steps)}
+    for part, res in worst.items():
+        if not res["ok"]:
+            fail(f"model cpu vs card ({cfg.arch_id}, {cfg.n_layers} layers, {cfg.dtype}): "
+                 f"{part} {res}")
+    return worst
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -291,6 +522,7 @@ def main() -> None:
     wall = time.time() - t0
     launches = {"score_2way_f64": split_score.score_2way_cuda.launches,
                 "score_3way_f64": split_score.score_3way_cuda.launches}
+    campaign_launches = dict(launches)
     check_campaign(camp, N_BOUNDS)
     for name, count in launches.items():
         if count <= 0:
@@ -298,11 +530,11 @@ def main() -> None:
     report["campaign"] = {
         "families": list(FAMILIES), "n": N_STAGES, "p": N_PROCS,
         "n_pairs": N_PAIRS, "n_bounds": N_BOUNDS, "h4_iters": H4_ITERS,
-        "wall_s": wall, "launches": launches,
+        "wall_s": wall, "launches": campaign_launches,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "thresholds": {e: r.thresholds for e, r in camp.items()}}
     say(f"phase main path: campaign {len(FAMILIES)}x{N_PAIRS} pairs n={N_STAGES} "
-        f"p={N_PROCS} in {wall:.2f} s; launches {launches}")
+        f"p={N_PROCS} in {wall:.2f} s; launches {campaign_launches}")
 
     # 6. cpu against the card at full width
     t0 = time.time()
@@ -324,6 +556,75 @@ def main() -> None:
     report["cpu_vs_card_s"] = time.time() - t0
     say(f"phase cpu vs card: 8 instances at n={N_STAGES} p={N_PROCS} equal "
         f"in {report['cpu_vs_card_s']:.1f} s")
+
+    # 7. the model kernels at full-width shapes
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.launch.serve import serve_pool
+
+    cfg = get_config(ARCH).replace(use_pallas=True)
+    counters = [krn.rmsnorm, krn.rmsnorm_residual, kfa.flash_attention,
+                kdec.decode_attention]
+    t0 = time.time()
+    model_kernels = check_model_kernels(torch, cfg, gen)
+    kernels += model_kernels
+    report["model_kernels_s"] = time.time() - t0
+    for k in model_kernels:
+        lib = "n/a" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+        say(f"phase model kernels: {k['name']} max abs err {k['max_abs_err']:.3g}; "
+            f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"by {k['bound_by']}, library {lib})")
+        if "window_1024" in k:
+            w = k["window_1024"]
+            say(f"phase model kernels: {k['name']} window {WINDOW} max abs err "
+                f"{w['max_abs_err']:.3g}; {w['ms']:.4f} ms (plain {w['plain_ms']:.4f} ms, "
+                f"bound {w['bound_ms']:.4f} ms, library {w['library_ms']:.4f} ms)")
+
+    # 8. the serving model's forward at full width
+    fwd = run_forward(torch, cfg, counters)
+    for name in ("rmsnorm", "flash_attention"):
+        if fwd["launches"][name] <= 0:
+            fail(f"forward launched {name} no time")
+    launches |= fwd["launches"]
+    report["forward"] = fwd
+    say(f"phase forward: {ARCH} B=1 S={FWD_S} {cfg.n_layers} layers in "
+        f"{fwd['wall_s_first']:.3f} s (again {fwd['wall_s_second']:.3f} s), peak "
+        f"{fwd['peak_mem_bytes']} B; launches {fwd['launches']}")
+    torch.cuda.empty_cache()
+
+    # 9. serving at full width
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    served = serve_pool(arch=ARCH, smoke=False, device="cuda", **SERVE)
+    serve_launches = {c.__name__: c.launches for c in counters}
+    if not served["all_done"]:
+        fail(f"serve: not every request finished: {served}")
+    if serve_launches["decode_attention"] <= 0:
+        fail("serve launched decode_attention no time")
+    if serve_launches["rmsnorm"] != 0:
+        fail("serve: decode ran the fused RMSNorm kernel (the reference's decode "
+             "keeps the plain formula)")
+    launches["decode_attention"] = serve_launches["decode_attention"]
+    report["serve"] = served | {"config": SERVE, "launches": serve_launches,
+                                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    say(f"phase serve: {served['tokens_generated']} tokens in {served['decode_steps']} "
+        f"decode steps, {served['wall_s']:.3f} s, {served['tokens_per_s']:.2f} tokens/s; "
+        f"launches {serve_launches}")
+    torch.cuda.empty_cache()
+
+    # 10. the model on cpu against the card
+    t0 = time.time()
+    report["model_cpu_vs_card"] = {}
+    for mcfg in (get_smoke_config(ARCH).replace(dtype="float32", use_pallas=True),
+                 cfg.replace(n_layers=2)):
+        res = model_cpu_vs_card(torch, mcfg)
+        report["model_cpu_vs_card"][f"{mcfg.arch_id}-{mcfg.n_layers}L-{mcfg.dtype}"] = res
+        say(f"phase model cpu vs card: {mcfg.arch_id} {mcfg.n_layers} layers {mcfg.dtype}: "
+            f"forward {res['forward']}, decode {res['decode']}")
+    report["model_cpu_vs_card_s"] = time.time() - t0
 
     line = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces")}

@@ -3,16 +3,17 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 [-fmad=false]
          -shared -Xcompiler -fPIC -Xptxas -v
          -o build/repro_torch/<name>-<hash>.so <name>.cu
 
 under ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``).  The file name carries a hash of the source and the flags, so
 an edited source is rebuilt and a current one is reused.  ``-fmad=false``
-keeps nvcc from contracting a product and a sum into one FMA, which the
-kernels' bit-identity to numpy needs.  A failed build raises; nothing falls
-back.  Nothing here runs when the module is imported.
+(``split_score.cu`` only) keeps nvcc from contracting a product and a sum
+into one FMA, which those kernels' bit-identity to numpy needs; the model
+kernels are held to a tolerance and keep the FMA.  A failed build raises;
+nothing falls back.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -25,10 +26,13 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE_FLAGS = {"split_score": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -57,9 +61,13 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -69,7 +77,7 @@ def _start(name: str, out: pathlib.Path) -> tuple:
     partial file for another process to load.  Returns ``(process, temporary path)``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp
@@ -118,3 +126,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
         return lib
+
+
+def launch(name: str, fn: str, argtypes: list, *args) -> None:
+    """Call ``fn`` of ``csrc/<name>.cu`` with ``args`` and PyTorch's current
+    stream appended; raise if it returns a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    f = getattr(load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = list(argtypes) + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    err = f(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed with cudaError_t {err}")
+
+
+def check_tensor(name, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this shape, type and device."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -44,35 +44,14 @@ def pair_need(span, lanes: int) -> torch.Tensor:
 
 
 _ARGTYPES = {
-    # 8 input pointers, need, b, zero, 3 output pointers, A, K, stream
+    # 8 input pointers, need, b, zero, 3 output pointers, A, K (then the stream)
     "score_2way_f64": [ctypes.c_void_p] * 9 + [ctypes.c_double] * 2
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
-    # 5 input pointers, need, zero, 3 output pointers, A, K, stream
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2,
+    # 5 input pointers, need, zero, 3 output pointers, A, K (then the stream)
     "score_3way_f64": [ctypes.c_void_p] * 6 + [ctypes.c_double]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2,
 }
-
-
-def _kernel(fn: str):
-    lib = build.load("split_score")
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.argtypes = _ARGTYPES[fn]
-        f.restype = ctypes.c_int
-    return f
-
-
-def _check(name, t, shape, dtype, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_check = build.check_tensor
 
 
 def _need(need, A: int, K: int, device) -> torch.Tensor:
@@ -83,9 +62,7 @@ def _need(need, A: int, K: int, device) -> torch.Tensor:
 
 
 def _launch(fn: str, *args) -> None:
-    err = _kernel(fn)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed with cudaError_t {err}")
+    build.launch("split_score", fn, _ARGTYPES[fn], *args)
 
 
 def score_2way_cuda(pre_d1, pre_C, pre_e, delta_d1, delta_C, delta_e, b,

@@ -1,0 +1,7 @@
+"""Model zoo of the port: the dense decoder-only LM so far."""
+
+from .common import SHAPES, ModelConfig, ShapeSpec, active_param_count, param_count
+from .registry import ModelAPI, get_model
+
+__all__ = ["SHAPES", "ModelAPI", "ModelConfig", "ShapeSpec", "active_param_count",
+           "get_model", "param_count"]
