@@ -26,9 +26,12 @@ ten phases; any failure exits non-zero:
   7. model kernels — RMSNorm, RMSNorm + residual, flash attention (causal,
               and with a window of 1024) and decode attention (empty slots
               and a window) against their plain versions at qwen3-4b's
-              full-width shapes, atol 2e-5 (float32) / 0.08 (bfloat16);
-              CUDA-event medians of kernel, plain version and the one
-              PyTorch call that computes the same function, and the bound;
+              full-width shapes, in float32 (atol 2e-5) and in bfloat16 (per
+              element 2e-5 + 2^-6 |want|, two bf16 spacings); the same limit
+              must reject the attention answers with the causal mask, the
+              window or the empty slots ignored; CUDA-event medians of
+              kernel, plain version and the one PyTorch call that computes
+              the same function (bfloat16), and the bound;
   8. forward — ``ModelAPI.forward`` of qwen3-4b at full width (36 layers,
               random weights from a seed), B = 1, S = 4096, with kernels; the
               RMSNorm and flash-attention counters are zeroed just before and
@@ -236,36 +239,61 @@ ARCH = "qwen3-4b"
 FWD_S = 4096
 SERVE = dict(n_requests=8, batch=4, prompt_len=64, max_new=32, capacity=1024, seed=0)
 WINDOW = 1024
-BF16_TOL, F32_TOL, LOGIT_F32_TOL = 0.08, 2e-5, 1e-4
+# kernel against plain version: float32 within atol 2e-5 (the repo's kernel
+# tolerance); bfloat16 per element within 2e-5 + 2^-6 |want| (two bf16
+# spacings of the value: both sides compute in float32 and round once, so
+# they may round a near-tie apart, and no more)
+F32_TOL, BF16_RTOL, LOGIT_F32_TOL = 2e-5, 2.0 ** -6, 1e-4
 
 
-def _err(torch, got, want) -> float:
+def _within(torch, got, want):
+    """(every element within the tolerance of its dtype, max abs error)."""
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"shape/dtype {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
-    return float((got.float() - want.float()).abs().max())
+    diff = (got.float() - want.float()).abs()
+    lim = F32_TOL
+    if want.dtype == torch.bfloat16:
+        lim = F32_TOL + BF16_RTOL * want.float().abs()
+    return bool((diff <= lim).all()), float(diff.max())
+
+
+def _err(torch, name, got, want) -> float:
+    ok, err = _within(torch, got, want)
+    if not ok:
+        fail(f"{name} ({want.dtype}) differs from its plain version: max abs err {err}")
+    return err
+
+
+def _rejects(torch, name, wrong, want) -> float:
+    """The tolerance tells a plainly wrong answer (a mask or window ignored)
+    from the right one; returns the wrong answer's max abs error."""
+    ok, err = _within(torch, wrong, want)
+    if ok:
+        fail(f"{name}: the tolerance does not reject a wrong answer (max abs err {err})")
+    return err
 
 
 def _kernel_row(name, replaces, err, ms, plain_ms, nbytes, flops, peak, library_ms, shape):
-    if not err <= BF16_TOL:
-        fail(f"{name} differs from its plain version by {err} (tolerance {BF16_TOL})")
     b_ms, b_by = bound(nbytes, flops, peak)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{replaces[0]}.cu",
             "replaces": f"src/repro/kernels/{replaces[0]}.py:{replaces[1]}",
             "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "tolerance": f"float32 atol {F32_TOL}; bfloat16 {F32_TOL} + {BF16_RTOL} |want|"}
 
 
 def check_model_kernels(torch, cfg, gen) -> list:
-    """The four model kernels at the full-width shapes of the serving path."""
+    """The four model kernels at the full-width shapes of the serving path,
+    in float32 and in bfloat16 (timed); the attention kernels also show that
+    the tolerance rejects the answer with the window or mask ignored."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_residual_plain
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     eps = cfg.norm_eps
 
@@ -274,13 +302,11 @@ def check_model_kernels(torch, cfg, gen) -> list:
 
     rows = []
     # RMSNorm: every row of a B = 1, S = 4096 forward
-    x, res, sc = r(FWD_S, d), r(FWD_S, d), 1.0 + 0.1 * r(d, dtype=torch.float32)
-    x32 = x.float()
-    e = _err(torch, ops.rmsnorm(x32, sc, eps=eps), ref.rmsnorm_ref(x32, sc, eps=eps))
-    if not e <= F32_TOL:
-        fail(f"rmsnorm float32 differs from its plain version by {e}")
-    del x32
-    err = _err(torch, ops.rmsnorm(x, sc, eps=eps), ref.rmsnorm_ref(x, sc, eps=eps))
+    x, res, sc = r(FWD_S, d), r(FWD_S, d), 1.0 + 0.1 * r(d, dtype=f32)
+    x32, res32 = x.float(), res.float()
+    f32_err = _err(torch, "rmsnorm", ops.rmsnorm(x32, sc, eps=eps),
+                   ref.rmsnorm_ref(x32, sc, eps=eps))
+    err = _err(torch, "rmsnorm", ops.rmsnorm(x, sc, eps=eps), ref.rmsnorm_ref(x, sc, eps=eps))
     sc16 = sc.to(bf16)
     n_el = FWD_S * d
     rows.append(_kernel_row(
@@ -289,25 +315,41 @@ def check_model_kernels(torch, cfg, gen) -> list:
         cuda_ms(torch, lambda: ref.rmsnorm_ref(x, sc, eps=eps)),
         4 * n_el + 4 * d, 4 * n_el, FP32_FLOPS_PER_S,
         cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc16, eps)),
-        {"n": FWD_S, "d": d, "dtype": "bfloat16"}))
-    got = ops.rmsnorm_residual(x, res, sc, eps=eps)
-    want = rmsnorm_residual_plain(x, res, sc, eps=eps)
-    err = max(_err(torch, got[0], want[0]), _err(torch, got[1], want[1]))
+        {"n": FWD_S, "d": d, "dtype": "bfloat16"}) | {"f32_max_abs_err": f32_err})
+    f32_err = 0.0
+    for g, w in zip(ops.rmsnorm_residual(x32, res32, sc, eps=eps),
+                    ref.rmsnorm_residual_ref(x32, res32, sc, eps=eps)):
+        f32_err = max(f32_err, _err(torch, "rmsnorm_residual", g, w))
+    del x32, res32
+    err = 0.0
+    for g, w in zip(ops.rmsnorm_residual(x, res, sc, eps=eps),
+                    ref.rmsnorm_residual_ref(x, res, sc, eps=eps)):
+        err = max(err, _err(torch, "rmsnorm_residual", g, w))
     rows.append(_kernel_row(
         "rmsnorm_residual", ("rmsnorm", 24), err,
         cuda_ms(torch, lambda: ops.rmsnorm_residual(x, res, sc, eps=eps)),
-        cuda_ms(torch, lambda: rmsnorm_residual_plain(x, res, sc, eps=eps)),
+        cuda_ms(torch, lambda: ref.rmsnorm_residual_ref(x, res, sc, eps=eps)),
         8 * n_el + 4 * d, 5 * n_el, FP32_FLOPS_PER_S, None,
-        {"n": FWD_S, "d": d, "dtype": "bfloat16"}))
+        {"n": FWD_S, "d": d, "dtype": "bfloat16"}) | {"f32_max_abs_err": f32_err})
     del x, res
 
-    # flash attention: one layer of the forward, causal; and with a window
+    # flash attention: one layer of the forward, causal; and with a window.
+    # The wrong answer: causality ignored (causal), the window ignored (window)
     q, k, v = r(1, FWD_S, H, hd), r(1, FWD_S, K, hd), r(1, FWD_S, K, hd)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     fa = {}
     for window in (None, WINDOW):
-        err = _err(torch, ops.flash_attention(q, k, v, causal=True, window=window),
-                   ref.flash_attention_ref(q, k, v, causal=True, window=window))
+        name = f"flash_attention (window {window})"
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        f32_err = _err(torch, name, ops.flash_attention(q32, k32, v32, causal=True, window=window),
+                       ref.flash_attention_ref(q32, k32, v32, causal=True, window=window))
+        del q32, k32, v32
+        torch.cuda.empty_cache()
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        err = _err(torch, name, ops.flash_attention(q, k, v, causal=True, window=window), want)
+        wrong_err = _rejects(torch, name, ref.flash_attention_ref(
+            q, k, v, causal=window is not None, window=None), want)
+        del want
         torch.cuda.empty_cache()
         pairs = sum(min(i + 1, window or FWD_S) for i in range(FWD_S))
         if window is None:
@@ -326,24 +368,37 @@ def check_model_kernels(torch, cfg, gen) -> list:
             2 * (2 * FWD_S * H * hd + 2 * FWD_S * K * hd), 4 * hd * H * pairs,
             BF16_TENSOR_FLOPS_PER_S, cuda_ms(torch, lib),
             {"B": 1, "S": FWD_S, "T": FWD_S, "H": H, "K": K, "hd": hd, "causal": True,
-             "window": window, "pairs": pairs})
+             "window": window, "pairs": pairs}) | {"f32_max_abs_err": f32_err,
+                                                   "wrong_max_abs_err": wrong_err}
         torch.cuda.empty_cache()
     rows.append(fa[None] | {"window_1024": {key: fa[WINDOW][key] for key in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}})
+        "max_abs_err", "f32_max_abs_err", "wrong_max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "shape")}})
     del q, k, v, qt, kt, vt
 
     # decode attention: one layer of a serve step, B = 4 against C = 1024,
-    # some slots never written, a window of half the cache
+    # some slots never written, a window of half the cache.  The wrong
+    # answers: the window ignored; the empty slots taken as written
     B, C = SERVE["batch"], SERVE["capacity"]
     q, k, v = r(B, H, hd), r(B, C, K, hd), r(B, C, K, hd)
     pos = torch.randint(C // 2, C, (B,), generator=gen, device=dev).to(torch.int32)
     slots = torch.arange(C, device=dev, dtype=torch.int32)[None, :]
-    positions = torch.where(slots <= pos[:, None], slots, -1).to(torch.int32)
+    written = torch.where(slots <= pos[:, None], slots, -1).to(torch.int32)
+    positions = written.clone()
     positions[:, 3::7] = -1
     window = C // 2
     mask = ops.decode_mask(positions, pos, window)
-    err = _err(torch, ops.decode_attention(q, k, v, positions, pos, window=window),
-               ref.decode_attention_ref(q, k, v, mask))
+    f32_err = _err(torch, "decode_attention", ops.decode_attention(
+        q.float(), k.float(), v.float(), positions, pos, window=window),
+        ref.decode_attention_ref(q.float(), k.float(), v.float(), mask))
+    want = ref.decode_attention_ref(q, k, v, mask)
+    err = _err(torch, "decode_attention",
+               ops.decode_attention(q, k, v, positions, pos, window=window), want)
+    wrong_err = min(
+        _rejects(torch, "decode_attention (window ignored)", ref.decode_attention_ref(
+            q, k, v, ops.decode_mask(positions, pos, None)), want),
+        _rejects(torch, "decode_attention (empty slots taken)", ref.decode_attention_ref(
+            q, k, v, ops.decode_mask(written, pos, window)), want))
     live = int(mask.sum())
     q4, k4, v4 = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     m4 = mask[:, None, None, :]
@@ -351,11 +406,14 @@ def check_model_kernels(torch, cfg, gen) -> list:
         "decode_attention", ("decode_attention", 24), err,
         cuda_ms(torch, lambda: ops.decode_attention(q, k, v, positions, pos, window=window)),
         cuda_ms(torch, lambda: ref.decode_attention_ref(q, k, v, mask)),
-        2 * (2 * B * H * hd + 2 * B * C * K * hd) + B * C, 4 * hd * H * live,
+        # q read and out written; K and V of the live slots only (a masked
+        # slot's K/V never reach the output); the mask
+        2 * (2 * B * H * hd) + 2 * (2 * live * K * hd) + B * C, 4 * hd * H * live,
         BF16_TENSOR_FLOPS_PER_S,
         cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
                                                               enable_gqa=True)),
-        {"B": B, "C": C, "H": H, "K": K, "hd": hd, "window": window, "live_slots": live}))
+        {"B": B, "C": C, "H": H, "K": K, "hd": hd, "window": window, "live_slots": live})
+        | {"f32_max_abs_err": f32_err, "wrong_max_abs_err": wrong_err})
     torch.cuda.empty_cache()
     return rows
 

@@ -1,6 +1,7 @@
 """Plain PyTorch oracles of the model kernels (the correctness contract).
 
-Each function mirrors its namesake in the reference's ``kernels/ref.py``:
+Each function mirrors its namesake in the reference's ``kernels/ref.py``
+(``rmsnorm_residual_ref`` follows the TPU kernel's formula instead):
 the mathematical definition with materialized intermediates and the same
 float32 intermediates, slow and memory-hungry but obviously correct.  The
 kernel wrappers run them for CPU tensors; the tests and ``chip_smoke.py`` hold
@@ -63,8 +64,10 @@ def rmsnorm_ref(x, scale, *, eps: float = 1e-5) -> torch.Tensor:
 
 
 def rmsnorm_residual_ref(x, residual, scale, *, eps: float = 1e-5) -> tuple:
-    """The reference oracle's formula: the norm of the sum *rounded to x's
-    type* (the TPU kernel normalizes the float32 sum instead; see
-    :func:`repro_torch.kernels.rmsnorm.rmsnorm_residual_plain`)."""
-    r = x.float() + residual.float()
-    return rmsnorm_ref(r.to(x.dtype), scale, eps=eps), r.to(x.dtype)
+    """``(norm of the float32 sum, sum rounded to x's type)``: the TPU
+    kernel's formula (``kernels/rmsnorm.py:25-29``), which normalizes the
+    float32 sum.  The reference's own oracle (``kernels/ref.py:63-65``)
+    normalizes the sum rounded to x's type; the kernel is held to its own."""
+    s = x.float() + residual.float()
+    var = torch.mean(s * s, dim=-1, keepdim=True)
+    return (s * torch.rsqrt(var + eps) * scale.float()).to(x.dtype), s.to(x.dtype)

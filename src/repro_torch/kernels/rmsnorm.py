@@ -6,8 +6,8 @@ The port's counterpart of the reference's Pallas ``kernels/rmsnorm.py``:
     statistics and a float32 ``scale``, rounding once to ``x``'s type;
   - :func:`rmsnorm_residual` adds ``residual`` in float32, returns the sum
     rounded to ``x``'s type as the new residual, and normalizes the float32
-    sum (the TPU kernel's formula, which differs from the reference oracle's:
-    see :func:`repro_torch.kernels.ref.rmsnorm_residual_ref`).
+    sum (the TPU kernel's formula, which differs from the reference oracle's;
+    its plain version is :func:`repro_torch.kernels.ref.rmsnorm_residual_ref`).
 
 ``x`` is float32 or bfloat16, ``scale`` float32 of shape ``(d,)``.  A CUDA
 tensor launches the kernel on the current stream and adds one to the
@@ -22,9 +22,9 @@ import ctypes
 import torch
 
 from . import build
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_ref, rmsnorm_residual_ref
 
-__all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_residual_plain"]
+__all__ = ["rmsnorm", "rmsnorm_residual"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -34,14 +34,6 @@ _ARGTYPES = {
     # x, residual, scale, out, r_out, n, d, eps, dtype (then the stream)
     "rmsnorm_residual": [_P] * 5 + [_I64] * 2 + [ctypes.c_float, ctypes.c_int],
 }
-
-
-def rmsnorm_residual_plain(x, residual, scale, *, eps: float = 1e-5) -> tuple:
-    """The TPU kernel's formula in plain PyTorch: ``(norm of the float32 sum,
-    sum rounded to x's type)``."""
-    s = x.float() + residual.float()
-    var = torch.mean(s * s, dim=-1, keepdim=True)
-    return (s * torch.rsqrt(var + eps) * scale.float()).to(x.dtype), s.to(x.dtype)
 
 
 def _rows(x, scale, others=()) -> tuple:
@@ -77,7 +69,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-5) -> torch.Tensor:
 def rmsnorm_residual(x, residual, scale, *, eps: float = 1e-5) -> tuple:
     """Fused ``x + residual`` then RMSNorm; returns ``(normed, new_residual)``."""
     if x.device.type == "cpu":
-        return rmsnorm_residual_plain(x, residual, scale, eps=eps)
+        return rmsnorm_residual_ref(x, residual, scale, eps=eps)
     n, d, code = _rows(x, scale, (("residual", residual),))
     out, r_out = torch.empty_like(x), torch.empty_like(x)
     build.launch("rmsnorm", "rmsnorm_residual", _ARGTYPES["rmsnorm_residual"],

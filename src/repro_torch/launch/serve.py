@@ -57,14 +57,14 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
                capacity: int = 128, seed: int = 0, greedy: bool = True,
                temperature: float = 1.0, pods: int = 0, replan: bool = False,
                replan_every: int = 8, inject_straggler: float = 0.0,
-               use_pallas: bool = True, device=None, params: Optional[dict] = None) -> dict:
+               device=None, params: Optional[dict] = None) -> dict:
     """Run a request pool to completion on ``device`` (``None`` means cuda);
     returns the reference's throughput metrics.
 
-    ``use_pallas`` (default on) runs the model's hand-written kernels, as the
-    reference's flag runs its Pallas kernels.  With ``params=None`` the
-    parameters are drawn from a ``torch.Generator`` seeded with ``seed``;
-    otherwise ``params`` (e.g. from
+    The model runs its hand-written kernels (the config's ``use_pallas`` is
+    set): on the card the serving path is the kernel path.  With
+    ``params=None`` the parameters are drawn from a ``torch.Generator``
+    seeded with ``seed``; otherwise ``params`` (e.g. from
     :func:`repro_torch.models.transformer.params_from_numpy`) are used.  The
     prompts come from ``np.random.default_rng(seed)`` as in the reference.
     ``pods > 0`` and ``replan`` need the planner portfolio and the fleet
@@ -74,7 +74,7 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
                                   "fleet service, not ported yet (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    cfg = cfg.replace(use_pallas=use_pallas)
+    cfg = cfg.replace(use_pallas=True)
     api = get_model(cfg)
     if params is None:
         params = api.init(seed, dev)

@@ -8,9 +8,10 @@ installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_model_kernels_cuda.py
 
-Inputs are random with a fixed seed.  Tolerance: atol 2e-5 in float32 and
-0.08 in bfloat16 (the reference's kernel tests); both sides compute in
-float32 and round once, so they differ only in summation order.
+Inputs are random with a fixed seed.  Tolerance: atol 2e-5 in float32 (the
+reference's kernel tests); in bfloat16, per element 2e-5 + 2^-6 |want| (two
+bf16 spacings of the value), since both sides compute in float32 and round
+once, so they differ only in summation order and may round a near-tie apart.
 """
 
 import numpy as np
@@ -42,11 +43,11 @@ def _rand(rng, shape, dtype, device, scale=0.5):
 
 
 def _close(got, want, dtype):
-    atol = 0.08 if dtype == "bfloat16" else 2e-5
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= atol, err
+    diff = (got.float() - want.float()).abs()
+    lim = 2e-5 + (2.0 ** -6 * want.float().abs() if dtype == "bfloat16" else 0.0)
+    assert bool((diff <= lim).all()), float(diff.max())
 
 
 @pytest.mark.parametrize("shape", [(4, 256), (2, 128, 256), (3, 7, 512), (5, 100),
@@ -71,7 +72,7 @@ def test_rmsnorm_residual_kernel_matches_plain(cuda_device, shape, dtype):
     before = krn.rmsnorm_residual.launches
     got = ops.rmsnorm_residual(x, r, sc)
     assert krn.rmsnorm_residual.launches == before + 1
-    want = krn.rmsnorm_residual_plain(x, r, sc)
+    want = ref.rmsnorm_residual_ref(x, r, sc)
     _close(got[0], want[0], dtype)
     torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)  # one rounding of one sum
 
