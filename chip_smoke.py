@@ -45,7 +45,10 @@ ten phases; any failure exits non-zero:
               bfloat16, forward at S = 1536 and 8 decode steps, cpu (plain
               versions) against cuda (kernels): logits within atol 1e-4
               (float32), or max error < 0.35 and mean relative error < 0.05
-              (bfloat16).
+              (bfloat16); a forward outside the limit is diagnosed before
+              the phase fails (a second card forward, the parameters' card
+              copies, each layer's residual stream, each kernel call
+              against its plain version).
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
 kernel: launches on the main path, max abs error, kernel / plain / bound /
@@ -464,9 +467,65 @@ def _logits_close(got, want, dtype) -> dict:
     return out | {"ok": ok}
 
 
+def diagnose_forward(torch, api, cfg, params, card, toks, got, want) -> dict:
+    """Where a forward's card and cpu logits part: whether a second card
+    forward repeats the first bit for bit, the logit rows over the float32
+    limit, the parameters whose card copy differs from the cpu one, each
+    layer's residual stream (card against cpu), and every kernel call
+    against its plain version on the same card inputs.  ``params`` and
+    ``card`` may sit on any two devices."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+
+    rows = (got.float().cpu() - want.float().cpu()).abs().amax(-1).flatten()
+    bad = (rows > LOGIT_F32_TOL).nonzero().flatten().tolist()
+    out = {"rows_over": len(bad), "rows_over_first": bad[:8],
+           "device": str(next(iter(card["embed"].values())).device)}
+    if torch.cuda.is_available():
+        out["uuid"] = str(torch.cuda.get_device_properties(0).uuid)
+    streams, calls = [], []
+    block, flash, rms = transformer.block_forward, ops.flash_attention, ops.rmsnorm
+
+    def block_rec(p, x, c, positions):
+        y = block(p, x, c, positions)
+        streams.append(y[0].float().cpu())
+        return y
+
+    def flash_rec(q, k, v, **kw):
+        o = flash(q, k, v, **kw)
+        calls.append(("flash_attention", float((o - ref.flash_attention_ref(q, k, v, **kw))
+                                               .abs().max())))
+        return o
+
+    def rms_rec(x, scale, *, eps):
+        o = rms(x, scale, eps=eps)
+        calls.append(("rmsnorm", float((o - ref.rmsnorm_ref(x, scale, eps=eps)).abs().max())))
+        return o
+
+    transformer.block_forward, ops.flash_attention, ops.rmsnorm = block_rec, flash_rec, rms_rec
+    try:
+        again, _ = api.forward(card, {"tokens": toks.to(out["device"])}, cfg)
+        n_card = len(streams)
+        api.forward(params, {"tokens": toks.cpu()}, cfg)
+    finally:
+        transformer.block_forward, ops.flash_attention, ops.rmsnorm = block, flash, rms
+    out["card_repeats_bitwise"] = bool(torch.equal(again, got))
+
+    def differing(a, b, name=""):
+        if isinstance(a, dict):
+            return [n for k in a for n in differing(a[k], b[k], f"{name}/{k}")]
+        return [] if torch.equal(a.cpu(), b.cpu()) else [name]
+    out["params_differing"] = differing(card, params)
+    out["layer_max_err"] = [float((a - b).abs().max())
+                            for a, b in zip(streams[:n_card], streams[n_card:])]
+    out["kernel_vs_plain_max_err"] = calls[:len(calls) // 2]
+    return out
+
+
 def model_cpu_vs_card(torch, cfg) -> dict:
     """Same seeded parameters and tokens on cpu (plain versions) and cuda
-    (kernels): forward at S = 1536 and 8 decode steps."""
+    (kernels): forward at S = 1536 and 8 decode steps.  A forward outside
+    the limit is diagnosed (:func:`diagnose_forward`) before the phase fails."""
     from repro_torch.models import get_model
 
     api = get_model(cfg)
@@ -478,6 +537,9 @@ def model_cpu_vs_card(torch, cfg) -> dict:
     got, _ = api.forward(card, {"tokens": toks[:1].cuda()}, cfg)
     want, _ = api.forward(params, {"tokens": toks[:1]}, cfg)
     worst["forward"] = _logits_close(got, want, cfg.dtype)
+    if not worst["forward"]["ok"]:
+        worst["forward"]["diagnosis"] = diagnose_forward(torch, api, cfg, params, card,
+                                                         toks[:1], got, want)
     del got, want
     st_card, st_cpu = api.init_decode_state(2, 16, "cuda"), api.init_decode_state(2, 16, "cpu")
     steps = []
