@@ -1,0 +1,97 @@
+"""Wrapper of the hand-written CUDA Mamba2 SSD intra-chunk kernel
+(``csrc/mamba2_ssd.cu``), and the chunked SSD built on it.
+
+The port's counterpart of the reference's Pallas
+``kernels/mamba2_ssd.py``: :func:`ssd_intra_chunk` computes, per (batch row,
+chunk, head), the intra-chunk output, the chunk's state contribution and the
+chunk decay; :func:`ssd_chunked_kernel` runs the O(nc) inter-chunk
+recurrence around it in plain PyTorch, a loop over the chunks, as the
+reference's wrapper runs a ``lax.scan``.
+
+A CUDA tensor launches the kernel on the current stream and adds one to
+``ssd_intra_chunk.launches``; a CPU tensor runs the plain version
+(:func:`repro_torch.kernels.ref.ssd_intra_chunk_ref`).  Nothing falls back:
+a CUDA input the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .ref import ssd_intra_chunk_ref
+
+__all__ = ["ssd_chunked_kernel", "ssd_intra_chunk"]
+
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 64
+# x, dt, A, B, C, y, state, decay, B, nc, Q, H, P, N (then the stream)
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+
+
+def ssd_intra_chunk(x, dt, A, Bmat, Cmat) -> tuple:
+    """x: (B,nc,Q,H,P); dt: (B,nc,Q,H); A: (H,); Bmat/Cmat: (B,nc,Q,N), all
+    float32.  Returns (y (B,nc,Q,H,P), chunk state (B,nc,H,N,P), chunk decay
+    (B,nc,H)), float32."""
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_intra_chunk_ref(x, dt, A, Bmat, Cmat)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not {dev}")
+    f32 = torch.float32
+    B, nc, Q, H, P = x.shape
+    N = Bmat.shape[-1]
+    if Q > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
+        raise ValueError(f"chunk {Q}, head dim {P} or state {N} exceeds the kernel's "
+                         f"{MAX_CHUNK}, {MAX_HEAD_DIM}, {MAX_STATE}")
+    if H >= 2 ** 31 or max(B, nc) >= 2 ** 16:
+        raise ValueError(f"shape {(B, nc, H)} exceeds the kernel's grid")
+    build.check_tensor("x", x, (B, nc, Q, H, P), f32, dev)
+    build.check_tensor("dt", dt, (B, nc, Q, H), f32, dev)
+    build.check_tensor("A", A, (H,), f32, dev)
+    build.check_tensor("Bmat", Bmat, (B, nc, Q, N), f32, dev)
+    build.check_tensor("Cmat", Cmat, (B, nc, Q, N), f32, dev)
+    y = torch.empty_like(x)
+    st = torch.empty((B, nc, H, N, P), dtype=f32, device=dev)
+    dec = torch.empty((B, nc, H), dtype=f32, device=dev)
+    build.launch("mamba2_ssd", "ssd_intra_chunk", _ARGTYPES, x.data_ptr(), dt.data_ptr(),
+                 A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(), st.data_ptr(),
+                 dec.data_ptr(), B, nc, Q, H, P, N)
+    ssd_intra_chunk.launches += 1
+    return y, st, dec
+
+
+ssd_intra_chunk.launches = 0
+
+
+def ssd_chunked_kernel(x, dt, A, Bmat, Cmat, chunk: int) -> tuple:
+    """The full SSD through :func:`ssd_intra_chunk` and a plain inter-chunk
+    recurrence (the reference's ``mamba2_ssd.py:85-116``).  Same contract as
+    :func:`repro_torch.models.ssm.ssd_chunked`: x (B,S,H,P) float32, dt
+    (B,S,H), A (H,), Bmat/Cmat (B,S,N); returns (y (B,S,H,P), final state
+    (B,H,P,N))."""
+    Bb, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    nc = S // Q
+    xc = x.reshape(Bb, nc, Q, H, P).contiguous()
+    dtc = dt.reshape(Bb, nc, Q, H).contiguous()
+    Bc = Bmat.reshape(Bb, nc, Q, N).contiguous()
+    Cc = Cmat.reshape(Bb, nc, Q, N).contiguous()
+
+    y_intra, chunk_state, chunk_decay = ssd_intra_chunk(xc, dtc, A.contiguous(), Bc, Cc)
+
+    state = torch.zeros((Bb, H, N, P), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):                                  # the state BEFORE chunk c
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    prev = torch.stack(prev, dim=1)                      # (B,nc,H,N,P)
+
+    cum = torch.cumsum(dtc * A, dim=2)                   # (B,nc,Q,H)
+    y_inter = torch.einsum("bcqn,bcqh,bchnp->bcqhp", Cc, torch.exp(cum), prev)
+    y = (y_intra + y_inter).reshape(Bb, S, H, P)
+    return y, state.transpose(-1, -2)                    # state as (B,H,P,N)

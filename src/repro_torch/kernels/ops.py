@@ -11,10 +11,11 @@ from typing import Optional
 
 from . import decode_attention as _dec
 from .flash_attention import flash_attention
+from .mamba2_ssd import ssd_chunked_kernel
 from .rmsnorm import rmsnorm, rmsnorm_residual
 
 __all__ = ["decode_attention", "decode_mask", "flash_attention", "rmsnorm",
-           "rmsnorm_residual"]
+           "rmsnorm_residual", "ssd_chunked"]
 
 
 def decode_mask(positions, pos, window: Optional[int] = None):
@@ -31,3 +32,9 @@ def decode_attention(q, k, v, positions, pos, *, window: Optional[int] = None):
     stored per slot (-1 = empty); pos: (B,) current decode position."""
     return _dec.decode_attention(q, k, v, decode_mask(positions, pos, window))
 
+
+def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int = 256):
+    """x: (B,S,H,P) float32; dt: (B,S,H); A: (H,); Bmat/Cmat: (B,S,N).
+    Returns (y (B,S,H,P), final state (B,H,P,N)) through the SSD
+    intra-chunk kernel (``ops.py:57-60``)."""
+    return ssd_chunked_kernel(x, dt, A, Bmat, Cmat, chunk)

@@ -4,10 +4,15 @@ reference's ``launch/serve.py::serve_pool``).
 A request pool feeds a fixed-width decode batch; finished sequences free
 their slot for the next request.  A new request's prompt is fed token by
 token through full-batch decode steps (prefill-as-decode), exactly as the
-reference does, so the other slots' caches advance on those steps too.
+reference does, so the other slots' caches advance on those steps too.  The
+loop is model-agnostic: any family that :func:`repro_torch.models.get_model`
+takes runs through it (the dense qwen3-4b, and the hybrid zamba2-7b, whose
+decode state holds the Mamba states beside the KV caches).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --requests 8 --batch 4 --prompt-len 64 --max-new 32 --capacity 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --requests 8 --batch 4 --prompt-len 32 --max-new 16 --capacity 1024
 """
 
 from __future__ import annotations
@@ -64,8 +69,9 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
     The model runs its hand-written kernels (the config's ``use_pallas`` is
     set): on the card the serving path is the kernel path.  With
     ``params=None`` the parameters are drawn from a ``torch.Generator``
-    seeded with ``seed``; otherwise ``params`` (e.g. from
-    :func:`repro_torch.models.transformer.params_from_numpy`) are used.  The
+    seeded with ``seed``; otherwise ``params`` (e.g. from the
+    ``params_from_numpy`` of :mod:`repro_torch.models.transformer` or
+    :mod:`repro_torch.models.hybrid`) are used.  The
     prompts come from ``np.random.default_rng(seed)`` as in the reference.
     ``pods > 0`` and ``replan`` need the planner portfolio and the fleet
     service, which are not ported yet, and raise."""
@@ -152,7 +158,8 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="a ported family's arch id: qwen3-4b (dense) or zamba2-7b (hybrid)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)

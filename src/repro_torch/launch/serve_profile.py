@@ -1,9 +1,10 @@
 """Where the serving path's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve_profile --out <file.json>
+    PYTHONPATH=src python -m repro_torch.launch.serve_profile [--arch ARCH] --out <file.json>
 
-qwen3-4b at full width (random weights from seed 0), kernels on, the shapes
-of ``chip_smoke.py``'s serving phases:
+One ported model at full width (``--arch``: qwen3-4b, the default, or
+zamba2-7b; random weights from seed 0), kernels on, the shapes of
+``chip_smoke.py``'s serving phases:
 
   1. decode: a batch of 4 against a cache of 1024 slots; 64 warm-up steps,
      then 32 steps timed by the host clock (each step as ``serve_pool`` runs
@@ -33,7 +34,6 @@ from .. import resolve_device
 from ..configs import get_config
 from ..models import get_model
 
-ARCH = "qwen3-4b"
 BATCH, CAPACITY, WARM_STEPS, TIMED_STEPS, PROFILED_STEPS = 4, 1024, 64, 32, 8
 FWD_S = 4096
 TOP = 15
@@ -67,18 +67,18 @@ def _breakdown(prof, wall: float) -> dict:
     }
 
 
-def profile() -> dict:
+def profile(arch: str = "qwen3-4b") -> dict:
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
-    cfg = get_config(ARCH).replace(use_pallas=True)
+    cfg = get_config(arch).replace(use_pallas=True)
     api = get_model(cfg)
     params = api.init(0, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {"card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None,
            "torch": torch.__version__,
-           "config": {"arch": ARCH, "batch": BATCH, "capacity": CAPACITY,
+           "config": {"arch": arch, "batch": BATCH, "capacity": CAPACITY,
                       "warm_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
                       "profiled_steps": PROFILED_STEPS, "forward_S": FWD_S}}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -129,9 +129,11 @@ def profile() -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="a ported family's arch id: qwen3-4b (dense) or zamba2-7b (hybrid)")
     ap.add_argument("--out", type=pathlib.Path, required=True)
     args = ap.parse_args()
-    res = profile()
+    res = profile(args.arch)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))
     print(json.dumps(res, indent=1))

@@ -1,0 +1,205 @@
+"""Zamba2-style hybrid: a Mamba2 backbone with a *shared* full-attention
+block applied every ``cfg.attn_every`` layers (the port of the reference's
+``models/hybrid.py``).
+
+The n_layers Mamba blocks are grouped into ng = ceil(L / attn_every) groups
+of ``attn_every``; each group runs [shared attention + MLP] -> [its Mamba
+layers].  As in the reference, the last group is padded to full size: the
+padded layers are computed and their output multiplied by a zero mask
+(zamba2-7b: 14 groups of 6, 84 layers for 81).  The reference's scans over
+groups and layers are Python loops here.
+
+Parameters are nested dicts of tensors in the reference's layout:
+``mamba_groups`` and ``mamba_ln`` are stacked on two leading axes (ng, g),
+the shared block and the embeddings on none.  Matrices are held in the
+compute dtype, cast once at load (:func:`params_from_numpy`,
+:func:`init_params`), except ``conv_w``, which stays float32 because the
+decode step reads it in float32.  Every RMSNorm is the plain formula, as in
+the reference (no call site of ``hybrid.py`` takes the kernel); the shared
+attention takes the flash kernel at S > 1024 with ``use_pallas``, and
+decode takes the decode-attention kernel.
+
+Decode updates the KV caches and the Mamba states in place, as
+:func:`repro_torch.models.transformer.decode_step` does; the returned state
+holds the same tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import resolve_device
+from .attention import KVCache, attention, decode_attention_step, init_attention
+from .common import ModelConfig
+from .layers import (cast_matrices, embed, init_embed, init_mlp, mlp, rms_norm,
+                     tree_from_numpy, unembed)
+from .ssm import (MambaState, init_mamba2, mamba2_decode_step, mamba2_forward,
+                  ssm_dims)
+
+__all__ = ["HybridState", "decode_step", "forward", "group_shape", "init_decode_state",
+           "init_params", "params_from_numpy"]
+
+# weights stacked over (groups, layers of a group), and those that stay float32
+_STACKED_AXES = {"mamba_groups": 2, "mamba_ln": 2}
+_KEEP_FLOAT32 = {"conv_w"}
+
+
+def group_shape(cfg: ModelConfig) -> tuple:
+    """(n_groups, group_size, n_padded_layers)."""
+    g = cfg.attn_every
+    ng = math.ceil(cfg.n_layers / g)
+    pad = ng * g - cfg.n_layers
+    return ng, g, pad
+
+
+def _cast_matrices(tree, cfg: ModelConfig):
+    return cast_matrices(tree, cfg.torch_dtype, _STACKED_AXES, _KEEP_FLOAT32)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random parameters with the reference's distributions, drawn from
+    ``gen`` on ``gen.device``.  The Mamba weights are drawn one group at a
+    time and cast before the next is drawn, so the float32 transient is one
+    group's, not the whole stack's."""
+    ng, g, _ = group_shape(cfg)
+    d, pdt, dev = cfg.d_model, cfg.torch_param_dtype, gen.device
+    tree = {
+        "embed": init_embed(gen, cfg),
+        "shared_attn": {
+            "ln": torch.ones((d,), dtype=pdt, device=dev),
+            "attn": init_attention(gen, cfg),
+            "ln2": torch.ones((d,), dtype=pdt, device=dev),
+            "mlp": init_mlp(gen, cfg),
+        },
+        "mamba_ln": torch.ones((ng, g, d), dtype=pdt, device=dev),
+        "ln_f": torch.ones((d,), dtype=pdt, device=dev),
+    }
+    tree = _cast_matrices(tree, cfg)
+    mamba = None
+    for i in range(ng):
+        grp = _cast_matrices({"mamba_groups": init_mamba2(gen, cfg, lead=(1, g))},
+                             cfg)["mamba_groups"]
+        if mamba is None:
+            mamba = {k: torch.empty((ng,) + v.shape[1:], dtype=v.dtype, device=dev)
+                     for k, v in grp.items()}
+        for k, v in grp.items():
+            mamba[k][i].copy_(v[0])
+        del grp
+    tree["mamba_groups"] = mamba
+    return tree
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The port's parameters from the reference's parameter tree given as
+    nested dicts of numpy arrays, on ``device`` (``None`` means cuda)."""
+    return _cast_matrices(tree_from_numpy(tree, cfg.torch_param_dtype, resolve_device(device)),
+                          cfg)
+
+
+def _layer(params: dict, i: int, j: int) -> dict:
+    return {k: v[i, j] for k, v in params["mamba_groups"].items()}
+
+
+def _layer_mask(cfg: ModelConfig, device, dtype) -> torch.Tensor:
+    """(ng, g): 1 for a real layer, 0 for a padded one."""
+    ng, g, _ = group_shape(cfg)
+    return (torch.arange(ng * g, device=device) < cfg.n_layers).reshape(ng, g).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _group_forward(shared, params, i, mask, x, cfg, positions):
+    """Group ``i``: the shared attention block, then the group's Mamba
+    layers, each masked."""
+    h = rms_norm(x, shared["ln"], cfg.norm_eps)
+    h = attention(shared["attn"], h, cfg, positions=positions, causal=True)
+    x = x + h
+    h = rms_norm(x, shared["ln2"], cfg.norm_eps)
+    x = x + mlp(shared["mlp"], h, cfg)
+    for j in range(mask.shape[1]):
+        h = rms_norm(x, params["mamba_ln"][i, j], cfg.norm_eps)
+        h = mamba2_forward(_layer(params, i, j), h, cfg)
+        x = x + mask[i, j] * h
+    return x
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """Returns (logits, aux_loss).  tokens: (B, S) on the parameters' device."""
+    with torch.inference_mode():
+        x = embed(params["embed"], tokens, cfg)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
+        mask = _layer_mask(cfg, x.device, x.dtype)
+        for i in range(mask.shape[0]):
+            x = _group_forward(params["shared_attn"], params, i, mask, x, cfg, positions)
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return (unembed(params["embed"], x, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+class HybridState(NamedTuple):
+    caches: KVCache        # stacked (ng, B, C, K, hd): one per attention application
+    mamba: MambaState      # stacked (ng, g, B, ...): one per layer
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, capacity: int,
+                      device=None) -> HybridState:
+    """Fresh decode state on ``device`` (``None`` means cuda)."""
+    dev = resolve_device(device)
+    ng, g, _ = group_shape(cfg)
+    d_in, H, P, N = ssm_dims(cfg)
+    conv_dim = d_in + 2 * N
+    kv = (ng, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    caches = KVCache(
+        k=torch.zeros(kv, dtype=cfg.torch_dtype, device=dev),
+        v=torch.zeros(kv, dtype=cfg.torch_dtype, device=dev),
+        pos=torch.zeros((ng, batch), dtype=torch.int32, device=dev),
+        positions=torch.full((ng, batch, capacity), -1, dtype=torch.int32, device=dev),
+    )
+    mamba = MambaState(
+        conv=torch.zeros((ng, g, batch, conv_dim, cfg.ssm_conv - 1), dtype=torch.float32,
+                         device=dev),
+        ssm=torch.zeros((ng, g, batch, H, P, N), dtype=torch.float32, device=dev),
+    )
+    return HybridState(caches, mamba)
+
+
+def decode_step(params: dict, state: HybridState, token: torch.Tensor,
+                cfg: ModelConfig) -> tuple:
+    """One decoding step: token (B, 1) -> (logits (B,1,V), state).  The
+    caches and Mamba states are updated in place."""
+    c, ms = state.caches, state.mamba
+    shared = params["shared_attn"]
+    with torch.inference_mode():
+        x = embed(params["embed"], token, cfg)
+        mask = _layer_mask(cfg, x.device, x.dtype)
+        ng, g = mask.shape
+        for i in range(ng):
+            h = rms_norm(x, shared["ln"], cfg.norm_eps)
+            h, new = decode_attention_step(shared["attn"], h,
+                                           KVCache(c.k[i], c.v[i], c.pos[i], c.positions[i]),
+                                           cfg)
+            c.pos[i] = new.pos
+            x = x + h
+            h = rms_norm(x, shared["ln2"], cfg.norm_eps)
+            x = x + mlp(shared["mlp"], h, cfg)
+            for j in range(g):
+                h = rms_norm(x, params["mamba_ln"][i, j], cfg.norm_eps)
+                h, _ = mamba2_decode_step(_layer(params, i, j), h,
+                                          MambaState(ms.conv[i, j], ms.ssm[i, j]), cfg)
+                x = x + mask[i, j] * h
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return unembed(params["embed"], x, cfg), state

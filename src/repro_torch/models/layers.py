@@ -8,13 +8,15 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .common import ModelConfig
 
-__all__ = ["apply_rope", "dense_init", "embed", "embed_init", "init_embed", "init_mlp",
-           "mlp", "rms_norm", "rope_freqs", "unembed"]
+__all__ = ["apply_rope", "cast_matrices", "dense_init", "embed", "embed_init",
+           "init_embed", "init_mlp", "mlp", "rms_norm", "rope_freqs", "tree_from_numpy",
+           "unembed"]
 
 
 # ---------------------------------------------------------------------------
@@ -32,6 +34,30 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None)
 def embed_init(gen: torch.Generator, shape, dtype):
     x = torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
     return x.mul_(torch.tensor(0.02, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+def cast_matrices(tree, dtype, stacked_axes: dict, keep=frozenset()):
+    """Matrices (two or more axes of their own) to ``dtype``, once; vectors
+    (norm scales) and the leaves named in ``keep`` unchanged.  A subtree
+    named in ``stacked_axes`` stacks its weights on that many leading axes,
+    which do not count as the weight's own."""
+    def walk(node, lead, name):
+        if isinstance(node, dict):
+            return {k: walk(v, stacked_axes.get(k, lead), k) for k, v in node.items()}
+        return node.to(dtype) if node.dim() - lead >= 2 and name not in keep else node
+    return walk(tree, 0, "")
+
+
+def tree_from_numpy(tree, dtype, device):
+    """Nested dicts of numpy arrays as tensors of ``dtype`` on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
+    # a copy: the caller's arrays may be read-only views of its buffers
+    return torch.from_numpy(np.array(tree)).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@
   - init_decode_state(batch, capacity, device=None) -> state
   - decode(params, state, token) -> (logits, state)       [serve_step core]
 
-Only the dense family is ported; the others raise ``NotImplementedError``.
+The dense family goes to :mod:`.transformer`, the ``ssm`` and ``hybrid``
+families to :mod:`.hybrid` (as in the reference); the others are not ported
+yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Callable
 import torch
 
 from .. import resolve_device
-from . import transformer
+from . import hybrid, transformer
 from .common import ModelConfig
 
 __all__ = ["ModelAPI", "get_model"]
@@ -32,19 +34,26 @@ class ModelAPI:
     decode: Callable             # (params, state, token) -> (logits, state)
 
 
-def _init(cfg: ModelConfig, seed: int, device=None) -> dict:
+def _init(module, cfg: ModelConfig, seed: int, device=None) -> dict:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    return transformer.init_params(gen, cfg)
+    return module.init_params(gen, cfg)
+
+
+_MODULES = {"dense": transformer, "ssm": hybrid, "hybrid": hybrid}
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    transformer.check_family(cfg)
+    module = _MODULES.get(cfg.family)
+    if module is None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ported: {', '.join(sorted(_MODULES))}); "
+            "see ROADMAP.md Queue 1")
     return ModelAPI(
         cfg=cfg,
-        init=lambda seed, device=None: _init(cfg, seed, device),
-        forward=lambda params, batch, c: transformer.forward(params, batch["tokens"], c),
-        init_decode_state=lambda b, cap, device=None: transformer.init_decode_state(
+        init=lambda seed, device=None: _init(module, cfg, seed, device),
+        forward=lambda params, batch, c: module.forward(params, batch["tokens"], c),
+        init_decode_state=lambda b, cap, device=None: module.init_decode_state(
             cfg, b, cap, device),
-        decode=lambda p, st, tok: transformer.decode_step(p, st, tok, cfg),
+        decode=lambda p, st, tok: module.decode_step(p, st, tok, cfg),
     )

@@ -18,34 +18,28 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .. import resolve_device
 from .attention import KVCache, attention, decode_attention_step, init_attention
 from .common import ModelConfig
-from .layers import embed, init_embed, init_mlp, mlp, rms_norm, unembed
+from .layers import (cast_matrices, embed, init_embed, init_mlp, mlp, rms_norm,
+                     tree_from_numpy, unembed)
 
 __all__ = ["DecodeState", "block_forward", "check_family", "decode_step", "forward",
            "init_decode_state", "init_params", "params_from_numpy"]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port has not ported (all but ``dense``)."""
+    """Raise for a family this module does not run (all but ``dense``;
+    :func:`repro_torch.models.get_model` routes the other ported ones)."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (only 'dense'); see ROADMAP.md Queue 1")
+            f"family {cfg.family!r} does not run on the dense transformer; see ROADMAP.md Queue 1")
 
 
 def _cast_matrices(tree, cfg: ModelConfig):
-    """Matrices to the compute dtype, once; vectors (norm scales) unchanged.
-    A weight stacked over layers counts its own axes, not the layer axis."""
-    def walk(node, stacked):
-        if isinstance(node, dict):
-            return {k: walk(v, stacked or k == "layers") for k, v in node.items()}
-        own_axes = node.dim() - (1 if stacked else 0)
-        return node.to(cfg.torch_dtype) if own_axes >= 2 else node
-    return walk(tree, False)
+    return cast_matrices(tree, cfg.torch_dtype, {"layers": 1})
 
 
 # ---------------------------------------------------------------------------
@@ -75,14 +69,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     nested dicts of numpy arrays (layer weights stacked on a leading ``L``
     axis), on ``device`` (``None`` means cuda)."""
     check_family(cfg)
-    dev = resolve_device(device)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        # a copy: the caller's arrays may be read-only views of its buffers
-        return torch.from_numpy(np.array(node)).to(device=dev, dtype=cfg.torch_param_dtype)
-    return _cast_matrices(walk(tree), cfg)
+    return _cast_matrices(tree_from_numpy(tree, cfg.torch_param_dtype, resolve_device(device)),
+                          cfg)
 
 
 def _layer(params: dict, i: int) -> dict:

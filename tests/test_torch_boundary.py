@@ -19,12 +19,14 @@ import torch
 import repro_torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.batched import ProblemBatch
+from repro_torch.launch import rounding_probe
 from repro_torch.launch.serve import serve_pool
-from repro_torch.models import get_model
+from repro_torch.models import get_model, hybrid, ssm
 from repro_torch.models.transformer import init_decode_state, params_from_numpy
 from repro_torch.sim import paper_sim, run_campaign, run_experiment
 
 _QWEN = get_smoke_config("qwen3-4b")
+_ZAMBA = get_smoke_config("zamba2-7b")
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -41,9 +43,10 @@ def test_import_and_campaign_load_no_jax_or_reference():
         "res = run_campaign(['E1', 'I3'], 6, 10, n_pairs=2, n_bounds=3, device='cpu')\n"
         "assert sorted(res) == ['E1', 'I3']\n"
         "from repro_torch.launch.serve import serve_pool\n"
-        "out = serve_pool(n_requests=2, batch=2, prompt_len=3, max_new=2, capacity=8,\n"
-        "                 device='cpu')\n"
-        "assert out['all_done']\n"
+        "for arch in ('qwen3-4b', 'zamba2-7b'):\n"
+        "    out = serve_pool(arch=arch, n_requests=2, batch=2, prompt_len=3, max_new=2,\n"
+        "                     capacity=8, device='cpu')\n"
+        "    assert out['all_done']\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
@@ -77,9 +80,17 @@ def _no_cuda(monkeypatch):
     lambda: get_model(_QWEN).init(0),
     lambda: init_decode_state(_QWEN, 1, 4),
     lambda: params_from_numpy({"ln_f": np.ones(4)}, _QWEN),
+    lambda: serve_pool(arch="zamba2-7b", n_requests=1, batch=1, prompt_len=2, max_new=1),
+    lambda: get_model(_ZAMBA).init(0),
+    lambda: hybrid.init_decode_state(_ZAMBA, 1, 4),
+    lambda: hybrid.params_from_numpy({"ln_f": np.ones(4)}, _ZAMBA),
+    lambda: ssm.init_mamba_state(_ZAMBA, 1),
+    lambda: rounding_probe.probe("zamba2-7b", seq=8),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
-        "init_decode_state", "params_from_numpy"])
+        "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
+        "hybrid_init_decode_state", "hybrid_params_from_numpy", "init_mamba_state",
+        "rounding_probe"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -50,3 +50,86 @@ def test_diagnose_forward_names_the_faulty_weight_and_layer(fault):
         assert diag["rows_over"] > 0
         assert diag["layer_max_err"][:layer] == [0.0] * layer
         assert diag["layer_max_err"][layer] > chip_smoke.LOGIT_F32_TOL
+
+
+def test_diagnose_forward_follows_the_hybrid_groups_and_the_ssd_kernel():
+    """The same diagnosis on zamba2's smoke config: one residual stream per
+    group, every SSD call (one per layer, padded ones included) and flash
+    call (one per group at S > 1024) against its plain version."""
+    from repro_torch.models.hybrid import group_shape
+
+    cfg = get_smoke_config("zamba2-7b").replace(dtype="float32", use_pallas=True)
+    api = get_model(cfg)
+    params = api.init(7, "cpu")
+    other = _copy(params)
+    other["mamba_groups"]["in_proj"][1, 0, 3, 5] += 1e-2
+    toks = torch.randint(1, cfg.vocab_size, (1, 1536), generator=torch.Generator().manual_seed(8))
+    got, _ = api.forward(other, {"tokens": toks}, cfg)
+    want, _ = api.forward(params, {"tokens": toks}, cfg)
+    diag = chip_smoke.diagnose_forward(torch, api, cfg, params, other, toks, got, want,
+                                       chip_smoke.HYBRID_FWD_F32_TOL)
+    ng, g, _ = group_shape(cfg)
+    names = [n for n, _ in diag["kernel_vs_plain_max_err"]]
+    assert names.count("ssd_chunked") == ng * g and names.count("flash_attention") == ng
+    assert "rmsnorm" not in names
+    assert diag["card_repeats_bitwise"] and diag["params_differing"] == ["/mamba_groups/in_proj"]
+    assert len(diag["layer_max_err"]) == ng
+    assert diag["layer_max_err"][0] == 0.0 and diag["layer_max_err"][1] > 0.0
+    assert diag["rows_over"] > 0
+
+
+def test_ssd_wrong_answers_are_the_oracle_but_for_their_fault():
+    """Without a fault ``ssd_wrong`` is the plain oracle bit for bit; each
+    fault moves some output past the limit chip_smoke holds the kernel to."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator().manual_seed(3)
+    B, nc, Q, H, P, N = 1, 2, 64, 3, 16, 16
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen) * 0.5
+
+    ins = (r(B, nc, Q, H, P), r(B, nc, Q, H).abs() * 0.1, -r(H).abs() * 0.5,
+           r(B, nc, Q, N), r(B, nc, Q, N))
+    want = ref.ssd_intra_chunk_ref(*ins)
+    same = chip_smoke.ssd_wrong(torch, *ins, exclusive=False, state_decay=True)
+    assert all(torch.equal(a, b) for a, b in zip(same, want))
+    for kw in (dict(exclusive=True, state_decay=True), dict(exclusive=False, state_decay=False)):
+        wrong = chip_smoke.ssd_wrong(torch, *ins, **kw)
+        assert any(bool(((a - b).abs() > chip_smoke.SSD_ATOL + chip_smoke.SSD_RTOL * b.abs())
+                        .any()) for a, b in zip(wrong, want)), kw
+
+
+def test_decode_calls_of_the_serve_runs():
+    """qwen3-4b: 2 waves x (4 x 63 prompt steps + 32); zamba2-7b: 2 x (4 x 31 + 16)."""
+    assert chip_smoke.decode_calls(**chip_smoke.SERVE) == 568
+    assert chip_smoke.decode_calls(**chip_smoke.HYBRID_SERVE) == 280
+
+
+@pytest.mark.parametrize("fault", [dict(exclusive=True, state_decay=True),
+                                   dict(exclusive=False, state_decay=False)])
+def test_a_planted_ssd_fault_moves_the_hybrid_far_past_its_limits(fault, monkeypatch):
+    """The hybrid's float32 limits of phase 12 sit far below what a faulty
+    SSD does to the logits: each wrong answer of ``ssd_wrong``, planted in
+    the kernel route, moves the smoke config's logits by more than 1."""
+    from repro_torch.kernels import mamba2_ssd
+
+    cfg = get_smoke_config("zamba2-7b").replace(dtype="float32", use_pallas=True)
+    api = get_model(cfg)
+    params = api.init(7, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (1, 1536), generator=torch.Generator().manual_seed(8))
+    good, _ = api.forward(params, {"tokens": toks}, cfg)
+    monkeypatch.setattr(mamba2_ssd, "ssd_intra_chunk",
+                        lambda *a: chip_smoke.ssd_wrong(torch, *a, **fault))
+    bad, _ = api.forward(params, {"tokens": toks}, cfg)
+    err = float((bad - good).abs().max())
+    assert err > 1.0 > chip_smoke.HYBRID_FULL_FWD_F32_TOL > chip_smoke.HYBRID_FWD_F32_TOL, err
+
+
+def test_rounding_probe_measures_both_orders():
+    from repro_torch.launch.rounding_probe import probe
+
+    out = probe("zamba2-7b", dtype="float32", seq=64, device="cpu")
+    assert out["arch"] == "zamba2-7b-smoke" and out["max_abs_logit"] > 0
+    for key in ("threads", "ssd_route"):
+        assert 0.0 <= out[key]["max"] < 1e-4 and out[key]["mean_rel"] >= 0.0

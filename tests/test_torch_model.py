@@ -377,7 +377,7 @@ def test_blocked_attention_branch_is_not_ported():
         attention(attn, x, cfg)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-7b", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m", "internvl2-26b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(get_smoke_config(arch))
