@@ -10,7 +10,10 @@ non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
-              with nvcc (one process per source, all started together);
+              with nvcc (one process per source, all started together); the
+              flash library's SASS (``cuobjdump --dump-sass``) must hold
+              tensor-core instructions (HMMA) in every instantiation of its
+              bf16 kernel;
   3. kernels — each hand-written kernel against its plain PyTorch version on
               the card, at the main path's largest shapes with random live-lane
               bounds: equal on live lanes, zero past them; CUDA-event timings
@@ -32,7 +35,11 @@ non-zero:
               must reject the attention answers with the causal mask, the
               window or the empty slots ignored; CUDA-event medians of
               kernel, plain version and the one PyTorch call that computes
-              the same function (bfloat16), and the bound.  Flash and decode
+              the same function (bfloat16), and the bound; flash attention's
+              float32 route (CUDA cores) timed beside its bf16 route (tensor
+              cores), with the bf16 route's executed rate (6 hd FLOP per
+              (query head, key) pair in the band: QK^T and the split PV) and
+              the calls each route took.  Flash and decode
               attention again at zamba2-7b's head shapes (32 query and 32 KV
               heads of 112), and the Mamba2 SSD intra-chunk kernel at its
               full-width shapes in float32 (per element 2e-5 + 1e-4 |want|),
@@ -41,7 +48,8 @@ non-zero:
   8. forward — ``ModelAPI.forward`` of qwen3-4b at full width (36 layers,
               random weights from a seed), B = 1, S = 4096, with kernels; the
               RMSNorm and flash-attention counters are zeroed just before and
-              must be > 0 just after; logits finite; wall time, peak memory;
+              must be > 0 just after, every flash call on the bf16 route;
+              logits finite; wall time, peak memory;
   9. serve  — ``serve_pool`` of qwen3-4b at full width, 8 requests, batch 4,
               64-token prompts, 32 new tokens, capacity 1024; every request
               done, the decode-attention counter > 0 (and the RMSNorm kernel
@@ -49,8 +57,9 @@ non-zero:
  10. hybrid forward — ``ModelAPI.forward`` of zamba2-7b at full width (81
               Mamba2 layers padded to 14 groups of 6, the shared attention
               block), B = 1, S = 4096: exactly 84 SSD and 14 flash-attention
-              launches, no RMSNorm kernel (the hybrid keeps the plain
-              formula); logits finite; wall time, peak memory;
+              launches (all on the bf16 route), no RMSNorm kernel (the
+              hybrid keeps the plain formula); logits finite; wall time, peak
+              memory;
  11. hybrid serve — ``serve_pool`` of zamba2-7b at full width, 8 requests,
               batch 4, 32-token prompts, 16 new tokens, capacity 1024: every
               request done, decode attention launched 14 times per decode
@@ -230,6 +239,29 @@ def check_kernel_3way(torch, split_score, score_3way, gen):
             "library_ms": None}
 
 
+def flash_sass(build) -> dict:
+    """Tensor-core (HMMA) instructions in each function of the flash
+    library's SASS, by ``cuobjdump --dump-sass``; every instantiation of the
+    bf16 kernel must hold some."""
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "--dump-sass", str(build.library_path("flash_attention"))],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"cuobjdump failed on the flash library: {res.stderr.strip()[-500:]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    tc = {f: n for f, n in counts.items() if "flash_tc_kernel" in f}
+    if not tc or min(tc.values()) <= 0:
+        fail(f"flash attention's bf16 kernel holds no tensor-core instruction: {tc}")
+    return {"hmma_per_tc_kernel": tc,
+            "hmma_elsewhere": sum(n for f, n in counts.items() if f not in tc)}
+
+
 def check_campaign(res: dict, n_bounds: int) -> None:
     """The campaign's outputs are well formed: every curve has one finite
     point per bound where any instance is feasible, fractions are in [0, 1],
@@ -389,14 +421,15 @@ def check_model_kernels(torch, cfg, gen) -> list:
 def _sub_row(row) -> dict:
     return {key: row[key] for key in ("max_abs_err", "f32_max_abs_err", "wrong_max_abs_err",
                                       "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                      "shape")}
+                                      "f32_ms", "tc_executed_tflops", "shape") if key in row}
 
 
 def check_flash(torch, gen, H, K, hd, window) -> dict:
     """Flash attention at B = 1, S = T = FWD_S, causal, with ``window``, in
     float32 and bfloat16 against its plain version; the same limit must
     reject the answer with the window ignored (without a window: with
-    causality ignored).  Timed beside its plain version and SDPA (bf16)."""
+    causality ignored).  The bf16 route (tensor cores) timed beside its plain
+    version and SDPA (bf16), and beside the float32 route (CUDA cores)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -408,6 +441,8 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
     q32, k32, v32 = q.float(), k.float(), v.float()
     f32_err = _err(torch, name, ops.flash_attention(q32, k32, v32, causal=True, window=window),
                    ref.flash_attention_ref(q32, k32, v32, causal=True, window=window))
+    f32_ms = cuda_ms(torch, lambda: ops.flash_attention(q32, k32, v32, causal=True,
+                                                        window=window))
     del q32, k32, v32
     torch.cuda.empty_cache()
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
@@ -426,16 +461,18 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
         band = (pq[:, None] >= pq[None, :]) & (pq[:, None] - pq[None, :] < window)
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
                                                      enable_gqa=True)
+    ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True, window=window))
     row = _kernel_row(
-        "flash_attention", ("flash_attention", 27), err,
-        cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True, window=window)),
+        "flash_attention", ("flash_attention", 27), err, ms,
         cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
                 reps=5),
         2 * (2 * FWD_S * H * hd + 2 * FWD_S * K * hd), 4 * hd * H * pairs,
         BF16_TENSOR_FLOPS_PER_S, cuda_ms(torch, lib),
         {"B": 1, "S": FWD_S, "T": FWD_S, "H": H, "K": K, "hd": hd, "causal": True,
-         "window": window, "pairs": pairs}) | {"f32_max_abs_err": f32_err,
-                                               "wrong_max_abs_err": wrong_err}
+         "window": window, "pairs": pairs}) | {
+        "f32_max_abs_err": f32_err, "wrong_max_abs_err": wrong_err, "f32_ms": f32_ms,
+        # the tensor cores' work: QK^T (2 hd) and P V twice, hi and lo (4 hd)
+        "tc_executed_tflops": 6 * hd * H * pairs / (ms * 1e-3) / 1e12}
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -565,6 +602,26 @@ def check_ssd_kernel(torch, cfg, gen) -> dict:
                   "tolerance": f"float32 {SSD_ATOL} + {SSD_RTOL} |want|"}
 
 
+def zero_counters(counters) -> None:
+    """Each kernel's launch count, and its per-route counts where it has
+    routes, to 0."""
+    for c in counters:
+        c.launches = 0
+        for route in getattr(c, "routes", {}):
+            c.routes[route] = 0
+
+
+def route_counts(counters) -> dict:
+    return {c.__name__: dict(c.routes) for c in counters if hasattr(c, "routes")}
+
+
+def check_flash_routes(path: str, launches: dict, routes: dict) -> None:
+    """Every flash call of a bf16 forward took the tensor-core route."""
+    want = {"tc_bf16": launches["flash_attention"], "cuda_f32": 0}
+    if routes["flash_attention"] != want:
+        fail(f"{path}: flash routes {routes['flash_attention']}, expected {want}")
+
+
 def run_forward(torch, cfg, counters) -> dict:
     """The full-width forward with kernels, counters zeroed just before."""
     from repro_torch.models import get_model
@@ -575,17 +632,18 @@ def run_forward(torch, cfg, counters) -> dict:
                          generator=torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    zero_counters(counters)
     t0 = time.time()
     logits, _ = api.forward(params, {"tokens": toks}, cfg)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {c.__name__: c.launches for c in counters}
+    routes = route_counts(counters)
     if not bool(torch.isfinite(logits).all()):
         fail("forward: logits not finite")
     out = {"B": 1, "S": FWD_S, "layers": cfg.n_layers, "wall_s_first": wall,
-           "launches": launches, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "routes": routes,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "logits_shape": list(logits.shape)}
     del logits
     t0 = time.time()
@@ -607,8 +665,7 @@ def run_serve(torch, arch, serve_cfg, counters) -> dict:
     from repro_torch.launch.serve import serve_pool
 
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    zero_counters(counters)
     served = serve_pool(arch=arch, smoke=False, device="cuda", **serve_cfg)
     launches = {c.__name__: c.launches for c in counters}
     if not served["all_done"]:
@@ -781,7 +838,9 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"build {name}: {line.strip()}")
-    say(f"phase build: ok in {report['build_s']:.1f} s")
+    report["flash_sass"] = flash_sass(build)
+    say(f"phase build: ok in {report['build_s']:.1f} s; HMMA per bf16 flash kernel "
+        f"{sorted(report['flash_sass']['hmma_per_tc_kernel'].values())}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -869,6 +928,7 @@ def main() -> None:
     counters = [krn.rmsnorm, krn.rmsnorm_residual, kfa.flash_attention,
                 kdec.decode_attention, kssd.ssd_intra_chunk]
     t0 = time.time()
+    zero_counters(counters)
     model_kernels = check_model_kernels(torch, cfg, gen)
     # flash and decode attention at the hybrid's heads (G = 1, hd 112): the
     # shared block runs no window
@@ -881,20 +941,28 @@ def main() -> None:
     model_kernels.append(check_ssd_kernel(torch, hcfg, gen))
     kernels += model_kernels
     report["model_kernels_s"] = time.time() - t0
+    report["model_kernels_routes"] = route_counts(counters)
+    def routes_note(row):  # flash attention's two routes
+        return "" if "f32_ms" not in row else (
+            f"; bf16 route at {row['tc_executed_tflops']:.1f} TFLOP/s executed, "
+            f"float32 route {row['f32_ms']:.4f} ms")
+
     for k in model_kernels:
         lib = "n/a" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         say(f"phase model kernels: {k['name']} max abs err {k['max_abs_err']:.3g}; "
             f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-            f"by {k['bound_by']}, library {lib})")
+            f"by {k['bound_by']}, library {lib}){routes_note(k)}")
         for sub, label in (("window_1024", f"window {WINDOW}"), (HYBRID, HYBRID)):
             if sub in k:
                 w = k[sub]
                 say(f"phase model kernels: {k['name']} {label} max abs err "
                     f"{w['max_abs_err']:.3g}; {w['ms']:.4f} ms (plain {w['plain_ms']:.4f} ms, "
-                    f"bound {w['bound_ms']:.4f} ms, library {w['library_ms']:.4f} ms)")
+                    f"bound {w['bound_ms']:.4f} ms, library {w['library_ms']:.4f} ms)"
+                    f"{routes_note(w)}")
         if "wrong_max_abs_err" in k:
             say(f"phase model kernels: {k['name']} wrong answers rejected, max abs err "
                 f"{k['wrong_max_abs_err']}")
+    say(f"phase model kernels: routes {report['model_kernels_routes']}")
 
     # 8-11. the main paths of the two models, each with the counters zeroed
     # just before and read just after; a kernel's launches sum over the paths
@@ -905,11 +973,12 @@ def main() -> None:
     for name in ("rmsnorm", "flash_attention"):
         if fwd["launches"][name] <= 0:
             fail(f"forward launched {name} no time")
+    check_flash_routes(f"forward {ARCH}", fwd["launches"], fwd["routes"])
     by_path[f"{ARCH} forward"] = fwd["launches"]
     report["forward"] = fwd
     say(f"phase forward: {ARCH} B=1 S={FWD_S} {cfg.n_layers} layers in "
         f"{fwd['wall_s_first']:.3f} s (again {fwd['wall_s_second']:.3f} s), peak "
-        f"{fwd['peak_mem_bytes']} B; launches {fwd['launches']}")
+        f"{fwd['peak_mem_bytes']} B; launches {fwd['launches']}; routes {fwd['routes']}")
     torch.cuda.empty_cache()
 
     # 9. serving at full width
@@ -936,12 +1005,13 @@ def main() -> None:
             "rmsnorm_residual": 0, "decode_attention": 0}
     if hfwd["launches"] != want:
         fail(f"forward {HYBRID}: launches {hfwd['launches']}, expected {want}")
+    check_flash_routes(f"forward {HYBRID}", hfwd["launches"], hfwd["routes"])
     by_path[f"{HYBRID} forward"] = hfwd["launches"]
     report["hybrid_forward"] = hfwd
     say(f"phase hybrid forward: {HYBRID} B=1 S={FWD_S} {hcfg.n_layers} layers "
         f"({ng} groups of {g}) in {hfwd['wall_s_first']:.3f} s (again "
         f"{hfwd['wall_s_second']:.3f} s), peak {hfwd['peak_mem_bytes']} B; "
-        f"launches {hfwd['launches']}")
+        f"launches {hfwd['launches']}; routes {hfwd['routes']}")
     torch.cuda.empty_cache()
 
     # 11. the hybrid served at full width

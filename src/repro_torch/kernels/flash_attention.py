@@ -9,11 +9,15 @@ band skipped.
 
 ``q`` (B, S, H, hd), ``k``/``v`` (B, T, K, hd) of one type (float32 or
 bfloat16); returns (B, S, H, hd) in ``q``'s type.  Unlike the TPU kernel it
-needs no block divisibility of S or T.  A CUDA tensor launches the kernel on
-the current stream and adds one to ``flash_attention.launches``; a CPU
+needs no block divisibility of S or T.  Two routes, chosen by the type:
+bfloat16 runs on the tensor cores (``mma.sync``, P split as hi + lo in bf16),
+float32 on the CUDA cores (TF32 would not hold atol 2e-5).  A CUDA tensor
+launches its route's kernel on the current stream and adds one to
+``flash_attention.launches`` and to ``flash_attention.routes[route]``; a CPU
 tensor runs the plain version
-(:func:`repro_torch.kernels.ref.flash_attention_ref`).  Nothing falls back:
-a CUDA input the kernel does not take raises.
+(:func:`repro_torch.kernels.ref.flash_attention_ref`).  Nothing falls back,
+from one route to the other or to the plain version: a CUDA input its route
+does not take raises.
 """
 
 from __future__ import annotations
@@ -26,14 +30,16 @@ import torch
 
 from . import build
 from .ref import flash_attention_ref
-from .rmsnorm import DTYPE_CODES
 
 __all__ = ["flash_attention"]
 
 MAX_HEAD_DIM = 256
-# q, k, v, out, B, S, T, H, K, hd, scale, causal, window, dtype (then the stream)
+# dtype -> (route, C entry point)
+ROUTES = {torch.bfloat16: ("tc_bf16", "flash_attention_bf16"),
+          torch.float32: ("cuda_f32", "flash_attention_f32")}
+# q, k, v, out, B, S, T, H, K, hd, scale, causal, window (then the stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] \
-    + [ctypes.c_int] * 3
+    + [ctypes.c_int] * 2
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -45,8 +51,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
-    if q.dtype not in DTYPE_CODES:
+    if q.dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    route, entry = ROUTES[q.dtype]
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if K == 0 or H % K:
@@ -61,11 +68,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     build.check_tensor("k", k, (B, T, K, hd), q.dtype, dev)
     build.check_tensor("v", v, (B, T, K, hd), q.dtype, dev)
     out = torch.empty_like(q)
-    build.launch("flash_attention", "flash_attention", _ARGTYPES, q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, K, hd,
-                 1.0 / math.sqrt(hd), int(causal), int(window or 0), DTYPE_CODES[q.dtype])
+    build.launch("flash_attention", entry, _ARGTYPES, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, S, T, H, K, hd, 1.0 / math.sqrt(hd),
+                 int(causal), int(window or 0))
     flash_attention.launches += 1
+    flash_attention.routes[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.routes = {route: 0 for route, _ in ROUTES.values()}

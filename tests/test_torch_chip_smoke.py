@@ -133,3 +133,23 @@ def test_rounding_probe_measures_both_orders():
     assert out["arch"] == "zamba2-7b-smoke" and out["max_abs_logit"] > 0
     for key in ("threads", "ssd_route"):
         assert 0.0 <= out[key]["max"] < 1e-4 and out[key]["mean_rel"] >= 0.0
+
+
+def test_forward_route_check_refuses_a_flash_call_off_the_bf16_route():
+    """Phases 8 and 10 count each route beside the launches: a bf16 forward
+    passes only if every flash call took the tensor-core route."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krn
+
+    counters = [krn.rmsnorm, kfa.flash_attention]
+    kfa.flash_attention.routes["tc_bf16"] += 3
+    chip_smoke.zero_counters(counters)
+    assert chip_smoke.route_counts(counters) == {
+        "flash_attention": {"tc_bf16": 0, "cuda_f32": 0}}
+    assert kfa.flash_attention.launches == 0 and krn.rmsnorm.launches == 0
+    launches = {"flash_attention": 36}
+    chip_smoke.check_flash_routes("forward", launches, {
+        "flash_attention": {"tc_bf16": 36, "cuda_f32": 0}})
+    for routes in ({"tc_bf16": 35, "cuda_f32": 1}, {"tc_bf16": 0, "cuda_f32": 36}):
+        with pytest.raises(SystemExit):
+            chip_smoke.check_flash_routes("forward", launches, {"flash_attention": routes})

@@ -18,6 +18,9 @@ the model's dt, where exp(cum_i - cum_j) carries the rounding of a running
 sum of ~-180, both float32 routes are held against a float64 oracle instead.
 """
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -82,28 +85,75 @@ def test_rmsnorm_residual_kernel_matches_plain(cuda_device, shape, dtype):
     torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)  # one rounding of one sum
 
 
-@pytest.mark.parametrize("B,S,H,K,hd,causal,window", [
-    (1, 256, 4, 2, 16, True, None),
-    (2, 256, 8, 2, 64, True, None),
-    (1, 512, 8, 2, 80, True, None),
-    (1, 384, 6, 3, 128, False, None),
-    (1, 200, 4, 1, 80, True, 50),
-    (2, 100, 4, 4, 48, False, 30),
-    (1, 1024, 32, 8, 80, True, 256),
-    (1, 512, 8, 8, 112, True, None),
-    (2, 300, 4, 4, 112, False, 100),
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
+    (1, 256, 256, 4, 2, 16, True, None),
+    (2, 256, 256, 8, 2, 64, True, None),
+    (1, 512, 512, 8, 2, 80, True, None),
+    (1, 384, 384, 6, 3, 128, False, None),
+    (1, 200, 200, 4, 1, 80, True, 50),
+    (2, 100, 100, 4, 4, 48, False, 30),
+    (1, 1024, 1024, 32, 8, 80, True, 256),
+    (1, 512, 512, 8, 8, 112, True, None),
+    (2, 300, 300, 4, 4, 112, False, 100),
+    # the bf16 kernel's edges: head dims zero-padded to its tile (160, 256;
+    # 20 and an odd 37 also take 2-byte loads and stores), S and T off the
+    # 128-row and 64-key tiles with S != T, G = 8, a window smaller than one
+    # key tile that crosses tile edges, S < 64
+    (1, 256, 256, 4, 2, 160, True, None),
+    (1, 300, 300, 2, 1, 256, True, 100),
+    (2, 200, 200, 4, 4, 256, False, None),
+    (1, 333, 517, 8, 2, 80, True, None),
+    (2, 517, 333, 4, 1, 112, True, None),
+    (1, 190, 250, 4, 2, 64, False, None),
+    (1, 300, 300, 16, 2, 64, True, None),
+    (1, 700, 700, 8, 1, 80, True, 40),
+    (1, 200, 200, 4, 2, 112, False, 20),
+    (1, 50, 50, 4, 2, 80, True, None),
+    (2, 40, 70, 4, 4, 112, False, 20),
+    (1, 130, 130, 4, 2, 20, True, None),
+    (1, 129, 129, 2, 1, 37, True, 64),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_kernel_matches_plain(cuda_device, B, S, H, K, hd, causal, window,
+def test_flash_attention_kernel_matches_plain(cuda_device, B, S, T, H, K, hd, causal, window,
                                               dtype):
     rng = np.random.default_rng(2)
     q = _rand(rng, (B, S, H, hd), dtype, cuda_device)
-    k = _rand(rng, (B, S, K, hd), dtype, cuda_device)
-    v = _rand(rng, (B, S, K, hd), dtype, cuda_device)
+    k = _rand(rng, (B, T, K, hd), dtype, cuda_device)
+    v = _rand(rng, (B, T, K, hd), dtype, cuda_device)
     before = kfa.flash_attention.launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert kfa.flash_attention.launches == before + 1
     _close(got, ref.flash_attention_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+def test_flash_attention_route_follows_the_dtype(cuda_device):
+    """bfloat16 takes the tensor-core kernel, float32 the CUDA-core one; each
+    call moves its own route's counter and no other."""
+    rng = np.random.default_rng(11)
+    for dtype, route in (("bfloat16", "tc_bf16"), ("float32", "cuda_f32")):
+        q, k, v = (_rand(rng, (1, 200, 4, 80), dtype, cuda_device) for _ in range(3))
+        before = dict(kfa.flash_attention.routes)
+        ops.flash_attention(q, k, v)
+        after = dict(kfa.flash_attention.routes)
+        assert after == before | {route: before[route] + 1}, (dtype, before, after)
+
+
+def test_flash_attention_bf16_route_raises_rather_than_taking_the_f32_kernel(cuda_device):
+    """What the bf16 route refuses raises: nothing is converted to float32
+    and sent down the other route."""
+    rng = np.random.default_rng(12)
+    q = _rand(rng, (1, 64, 4, 80), "bfloat16", cuda_device)
+    before = (kfa.flash_attention.launches, dict(kfa.flash_attention.routes))
+    with pytest.raises(TypeError):  # k and v in float32
+        ops.flash_attention(q, q.float(), q.float())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    big = _rand(rng, (1, 64, 4, 264), "bfloat16", cuda_device)
+    with pytest.raises(ValueError):  # head dim past the kernel's 256
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, window=0)
+    assert (kfa.flash_attention.launches, kfa.flash_attention.routes) == before
 
 
 @pytest.mark.parametrize("B,C,H,K,hd", [(2, 64, 8, 2, 16), (4, 1024, 32, 8, 80),
@@ -184,7 +234,8 @@ def test_smoke_model_on_card_matches_cpu(cuda_device, dtype):
     got, _ = api.forward(on_card, {"tokens": toks.to(cuda_device)}, cfg)
     assert krn.rmsnorm.launches > before[0] and kfa.flash_attention.launches > before[1]
     want, _ = api.forward(params, {"tokens": toks}, cfg)
-    _check_logits(got.cpu(), want, dtype)
+    _check_logits(got.cpu(), want, dtype, diagnose=lambda: _diagnose(
+        api, cfg, params, on_card, toks, got, want))
     st_card, st_cpu = api.init_decode_state(2, 8, cuda_device), api.init_decode_state(2, 8, "cpu")
     before = kdec.decode_attention.launches
     for t in range(6):
@@ -326,11 +377,23 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _check_logits(got, want, dtype, f32_tol=1e-4):
+def _diagnose(api, cfg, params, card, toks, got, want) -> dict:
+    """chip_smoke.py's diagnosis of a card forward that parts from the cpu
+    one (a second card forward, the parameters whose card copy differs, each
+    layer's gap, each kernel call against its plain version)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke.diagnose_forward(torch, api, cfg, params, card, toks, got, want)
+
+
+def _check_logits(got, want, dtype, f32_tol=1e-4, diagnose=None):
+    """``diagnose`` (float32 only) is called when the check fails, and its
+    result goes into the failure message."""
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs()
     if dtype == "float32":
-        assert float(err.max()) < f32_tol, float(err.max())
+        assert float(err.max()) < f32_tol, (float(err.max()), diagnose and diagnose())
     else:
         assert float(err.max()) < 0.35 and float(err.mean() / want.float().abs().mean()) < 0.05
 
