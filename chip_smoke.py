@@ -17,8 +17,9 @@ non-zero:
   3. kernels — each hand-written kernel against its plain PyTorch version on
               the card, at the main path's largest shapes with random live-lane
               bounds: equal on live lanes, zero past them; CUDA-event timings
-              (median of 20) of kernel and plain version, and the least time
-              the card could take for the same work (its bound);
+              (median of 20 single-call windows, host work inside) of kernel
+              and plain version, and the least time the card could take for
+              the same work (its bound);
   4. golden — ``repro_torch.sim.paper_sim.run`` on cuda writes the golden CSVs
               of ``tests/golden/paper_sim`` byte for byte;
   5. main path — the full-width campaign: E1-E4 x 50 instance pairs, n = 160
@@ -28,14 +29,18 @@ non-zero:
   6. cpu vs card — 8 of those instances through ``batched_trajectory_sets``
               (H1-H4) and ``batched_min_period`` on cpu and on cuda: equal;
   7. model kernels — RMSNorm, RMSNorm + residual, flash attention (causal,
-              and with a window of 1024) and decode attention (empty slots
-              and a window) against their plain versions at qwen3-4b's
+              and with a window of 1024) and decode attention (three inputs:
+              mixed empty slots under a window, the serve runs' 96 live
+              slots, a full cache) against their plain versions at qwen3-4b's
               full-width shapes, in float32 (atol 2e-5) and in bfloat16 (per
               element 2e-5 + 2^-6 |want|, two bf16 spacings); the same limit
               must reject the attention answers with the causal mask, the
-              window or the empty slots ignored; CUDA-event medians of
+              window or the empty slots ignored; device time per call of
               kernel, plain version and the one PyTorch call that computes
-              the same function (bfloat16), and the bound; flash attention's
+              the same function (bfloat16), each with its host time per call
+              apart (``device_time``: calls enqueued behind a sleep on the
+              card; RMSNorm's and decode attention's inputs cold), and the
+              bound; flash attention's
               float32 route (CUDA cores) timed beside its bf16 route (tensor
               cores), with the bf16 route's executed rate (6 hd FLOP per
               (query head, key) pair in the band: QK^T and the split PV) and
@@ -80,7 +85,8 @@ non-zero:
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
 kernel: launches summed over the main paths' runs (phases 5, 8-11), max abs
-error, kernel / plain / bound / library times in ms); the last line is
+error, kernel / plain / bound / library device times in ms; decode attention's
+at the serve runs' live count); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With ``--json PATH`` it also writes every number it measured to PATH.
 It needs the repository's ``src/`` beside it and a CUDA device.
@@ -90,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -106,6 +113,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 34e12
 FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
+L2_BYTES = 50e6  # H100 SXM L2 cache
 
 # main-path shapes at full width (n = 160, p = 1000, 200 instances):
 # 2-way: 2400 H5/H6 (instance x bound) rows x 159 cuts; 3-way: 400 H2+H3 rows
@@ -127,7 +135,11 @@ def say(msg: str) -> None:
 
 
 def cuda_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn``, by CUDA events."""
+    """Median time of one call of ``fn`` in a CUDA-event window around it on
+    an idle card: the wrapper's host work is inside the window.  Used only
+    for the split-score kernels, whose plain versions copy host scalars to
+    the card on every call (a copy that waits for the card, so
+    :func:`device_time`'s sleep cannot hide it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -141,6 +153,77 @@ def cuda_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms(torch) -> float:
+    """The rate at which ``torch.cuda._sleep`` counts cycles on this card,
+    by CUDA events around one long sleep (measured once per process)."""
+    if not _CYCLES_PER_MS:
+        cycles = 20_000_000
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def device_time(torch, calls, n: int = REPS, attempts: int = 4) -> dict:
+    """Device time per call, with the host's work kept out of the window.
+
+    ``calls`` is one callable or a ring of them (one per cold buffer), taken
+    in turn.  After a warm-up over the whole ring and one unslept pass of
+    ``n`` calls (which sizes the host's enqueueing), a sleep is enqueued on
+    the card that outlasts the host's enqueueing of the ``n`` calls; the
+    start event is recorded behind it, then the ``n`` calls, then the end
+    event, so the window holds the calls' device work back to back and none
+    of the wrappers' host work (checks, allocation, the ctypes call).  If the
+    start event has already passed when the host is done enqueueing, the
+    sleep did not cover the host work: that window is dropped and the next
+    attempt sleeps twice as long; after ``attempts`` such windows no number
+    is reported.  Returns ``{"ms": device ms per call, "host_us": host µs to
+    enqueue one call}`` (the host time of the window that was kept)."""
+    ring = list(calls) if isinstance(calls, (list, tuple)) else [calls]
+    i = 0
+
+    def enqueue(count):
+        nonlocal i
+        t0 = time.perf_counter()
+        for _ in range(count):
+            ring[i % len(ring)]()
+            i += 1
+        return time.perf_counter() - t0
+
+    enqueue(max(3, len(ring)))
+    torch.cuda.synchronize()
+    sleep_ms = 3e3 * enqueue(n) + 5.0
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms(torch)))
+        start.record()
+        host_s = enqueue(n)
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        if covered:
+            return {"ms": start.elapsed_time(end) / n, "host_us": host_s / n * 1e6}
+        sleep_ms *= 2
+    fail(f"device timing: enqueueing {n} calls outlasted a sleep of {sleep_ms / 2:.3f} ms "
+         f"{attempts} times")
+
+
+def cold_ring(touched_bytes: float) -> int:
+    """Buffers to rotate over so that each call finds its inputs cold: between
+    two uses of one buffer the others touch at least twice the L2 cache."""
+    return math.ceil(2 * L2_BYTES / touched_bytes) + 1
 
 
 def bound(nbytes: float, flops: float, peak: float = FP64_FLOPS_PER_S) -> tuple:
@@ -267,8 +350,6 @@ def check_campaign(res: dict, n_bounds: int) -> None:
     point per bound where any instance is feasible, fractions are in [0, 1],
     thresholds are finite, and H5/H6 thresholds coincide (both are the
     optimal latency)."""
-    import math
-
     import numpy as np
 
     for exp, r in res.items():
@@ -351,14 +432,17 @@ def _rejects(torch, name, wrong, want) -> float:
     return err
 
 
-def _kernel_row(name, replaces, err, ms, plain_ms, nbytes, flops, peak, library_ms, shape):
+def _kernel_row(name, replaces, err, kern, plain, nbytes, flops, peak, lib, shape):
+    """One row of the kernel table; ``kern``, ``plain`` and ``lib`` (or None)
+    are :func:`device_time` results."""
     b_ms, b_by = bound(nbytes, flops, peak)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{replaces[0]}.cu",
             "replaces": f"src/repro/kernels/{replaces[0]}.py:{replaces[1]}",
-            "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-            "library_ms": library_ms,
+            "shape": shape, "max_abs_err": err, "ms": kern["ms"], "host_us": kern["host_us"],
+            "plain_ms": plain["ms"], "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops, "library_ms": None if lib is None else lib["ms"],
+            "library_host_us": None if lib is None else lib["host_us"],
             "tolerance": f"float32 atol {F32_TOL}; bfloat16 {F32_TOL} + {BF16_RTOL} |want|"}
 
 
@@ -378,21 +462,26 @@ def check_model_kernels(torch, cfg, gen) -> list:
         return (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dtype)
 
     rows = []
-    # RMSNorm: every row of a B = 1, S = 4096 forward
-    x, res, sc = r(FWD_S, d), r(FWD_S, d), 1.0 + 0.1 * r(d, dtype=f32)
+    # RMSNorm: every row of a B = 1, S = 4096 forward.  Timed cold: the calls
+    # rotate over enough copies of x (and of the residual) that each finds
+    # its input out of L2, as the bound assumes; scale (10 KB) stays warm
+    n_el = FWD_S * d
+    ring = cold_ring(2 * 2 * n_el)
+    xs, ress = r(ring, FWD_S, d), r(ring, FWD_S, d)
+    x, res, sc = xs[0], ress[0], 1.0 + 0.1 * r(d, dtype=f32)
     x32, res32 = x.float(), res.float()
     f32_err = _err(torch, "rmsnorm", ops.rmsnorm(x32, sc, eps=eps),
                    ref.rmsnorm_ref(x32, sc, eps=eps))
     err = _err(torch, "rmsnorm", ops.rmsnorm(x, sc, eps=eps), ref.rmsnorm_ref(x, sc, eps=eps))
     sc16 = sc.to(bf16)
-    n_el = FWD_S * d
     rows.append(_kernel_row(
         "rmsnorm", ("rmsnorm", 17), err,
-        cuda_ms(torch, lambda: ops.rmsnorm(x, sc, eps=eps)),
-        cuda_ms(torch, lambda: ref.rmsnorm_ref(x, sc, eps=eps)),
+        device_time(torch, [lambda x=x: ops.rmsnorm(x, sc, eps=eps) for x in xs]),
+        device_time(torch, [lambda x=x: ref.rmsnorm_ref(x, sc, eps=eps) for x in xs]),
         4 * n_el + 4 * d, 4 * n_el, FP32_FLOPS_PER_S,
-        cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc16, eps)),
-        {"n": FWD_S, "d": d, "dtype": "bfloat16"}) | {"f32_max_abs_err": f32_err})
+        device_time(torch, [lambda x=x: F.rms_norm(x, (d,), sc16, eps) for x in xs]),
+        {"n": FWD_S, "d": d, "dtype": "bfloat16", "cold_buffers": ring})
+        | {"f32_max_abs_err": f32_err})
     f32_err = 0.0
     for g, w in zip(ops.rmsnorm_residual(x32, res32, sc, eps=eps),
                     ref.rmsnorm_residual_ref(x32, res32, sc, eps=eps)):
@@ -402,26 +491,33 @@ def check_model_kernels(torch, cfg, gen) -> list:
     for g, w in zip(ops.rmsnorm_residual(x, res, sc, eps=eps),
                     ref.rmsnorm_residual_ref(x, res, sc, eps=eps)):
         err = max(err, _err(torch, "rmsnorm_residual", g, w))
+    pairs = list(zip(xs, ress))
     rows.append(_kernel_row(
         "rmsnorm_residual", ("rmsnorm", 24), err,
-        cuda_ms(torch, lambda: ops.rmsnorm_residual(x, res, sc, eps=eps)),
-        cuda_ms(torch, lambda: ref.rmsnorm_residual_ref(x, res, sc, eps=eps)),
+        device_time(torch, [lambda x=x, y=y: ops.rmsnorm_residual(x, y, sc, eps=eps)
+                            for x, y in pairs]),
+        device_time(torch, [lambda x=x, y=y: ref.rmsnorm_residual_ref(x, y, sc, eps=eps)
+                            for x, y in pairs]),
         8 * n_el + 4 * d, 5 * n_el, FP32_FLOPS_PER_S, None,
-        {"n": FWD_S, "d": d, "dtype": "bfloat16"}) | {"f32_max_abs_err": f32_err})
-    del x, res
+        {"n": FWD_S, "d": d, "dtype": "bfloat16", "cold_buffers": ring})
+        | {"f32_max_abs_err": f32_err})
+    del x, res, xs, ress, pairs
+    torch.cuda.empty_cache()
 
     # flash attention: one layer of the forward, causal; and with a window
     fa = {w: check_flash(torch, gen, H, K, hd, w) for w in (None, WINDOW)}
     rows.append(fa[None] | {"window_1024": _sub_row(fa[WINDOW])})
-    # decode attention: one layer of a serve step, a window of half the cache
-    rows.append(check_decode(torch, gen, H, K, hd, SERVE["capacity"] // 2))
+    # decode attention: one layer of a serve step, at its three inputs
+    rows.append(check_decode(torch, gen, ARCH, H, K, hd, SERVE["capacity"] // 2))
     return rows
 
 
 def _sub_row(row) -> dict:
     return {key: row[key] for key in ("max_abs_err", "f32_max_abs_err", "wrong_max_abs_err",
-                                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                      "f32_ms", "tc_executed_tflops", "shape") if key in row}
+                                      "ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "library_host_us", "f32_ms",
+                                      "tc_executed_tflops", "shape", "inputs")
+            if key in row}
 
 
 def check_flash(torch, gen, H, K, hd, window) -> dict:
@@ -429,7 +525,8 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
     float32 and bfloat16 against its plain version; the same limit must
     reject the answer with the window ignored (without a window: with
     causality ignored).  The bf16 route (tensor cores) timed beside its plain
-    version and SDPA (bf16), and beside the float32 route (CUDA cores)."""
+    version and SDPA (bf16), and beside the float32 route (CUDA cores).
+    Bound by operations, so timed warm (one set of inputs)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -441,8 +538,8 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
     q32, k32, v32 = q.float(), k.float(), v.float()
     f32_err = _err(torch, name, ops.flash_attention(q32, k32, v32, causal=True, window=window),
                    ref.flash_attention_ref(q32, k32, v32, causal=True, window=window))
-    f32_ms = cuda_ms(torch, lambda: ops.flash_attention(q32, k32, v32, causal=True,
-                                                        window=window))
+    f32_ms = device_time(torch, lambda: ops.flash_attention(q32, k32, v32, causal=True,
+                                                            window=window))["ms"]
     del q32, k32, v32
     torch.cuda.empty_cache()
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
@@ -461,70 +558,145 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
         band = (pq[:, None] >= pq[None, :]) & (pq[:, None] - pq[None, :] < window)
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
                                                      enable_gqa=True)
-    ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True, window=window))
+    kern = device_time(torch, lambda: ops.flash_attention(q, k, v, causal=True, window=window))
     row = _kernel_row(
-        "flash_attention", ("flash_attention", 27), err, ms,
-        cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
-                reps=5),
+        "flash_attention", ("flash_attention", 27), err, kern,
+        device_time(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                           window=window)),
         2 * (2 * FWD_S * H * hd + 2 * FWD_S * K * hd), 4 * hd * H * pairs,
-        BF16_TENSOR_FLOPS_PER_S, cuda_ms(torch, lib),
+        BF16_TENSOR_FLOPS_PER_S, device_time(torch, lib),
         {"B": 1, "S": FWD_S, "T": FWD_S, "H": H, "K": K, "hd": hd, "causal": True,
          "window": window, "pairs": pairs}) | {
         "f32_max_abs_err": f32_err, "wrong_max_abs_err": wrong_err, "f32_ms": f32_ms,
         # the tensor cores' work: QK^T (2 hd) and P V twice, hi and lo (4 hd)
-        "tc_executed_tflops": 6 * hd * H * pairs / (ms * 1e-3) / 1e12}
+        "tc_executed_tflops": 6 * hd * H * pairs / (kern["ms"] * 1e-3) / 1e12}
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
 
 
-def check_decode(torch, gen, H, K, hd, window) -> dict:
-    """Decode attention at the serve runs' B = 4 against C = 1024, some slots
-    never written, with ``window``, in float32 and bfloat16 against its
-    plain version; the same limit must reject the answers with the empty
-    slots taken as written and (with a window) the window ignored.  Timed
-    beside its plain version and SDPA (bf16, bool mask)."""
+# decode attention's three inputs, at the serve runs' B = 4 and C = 1024 (a
+# slot written at or before pos holds that position; -1 marks an empty slot):
+#   mixed       pos drawn from [C/2, C), every 7th slot emptied, the model's
+#               window (about 440 live slots per row under qwen3-4b's 512)
+#   serve_live  pos 95, the last position of the serve runs' 64-token prompts
+#               and 32 new tokens: 96 live slots, the rest never written
+#   full        every slot written and live, no window
+DECODE_INPUTS = ("mixed", "serve_live", "full")
+
+
+def decode_bytes(B, H, K, hd, live, C, itemsize=2) -> int:
+    """Bytes decode attention must move: q read and out written, K and V of
+    the live slots only (a masked slot's K/V never reach the output), the
+    mask.  ``live`` counts live slots over all batch rows."""
+    return itemsize * (2 * B * H * hd + 2 * live * K * hd) + B * C
+
+
+def decode_plan(torch, kind, H, K, hd, window, gen, device) -> dict:
+    """Input ``kind`` of :data:`DECODE_INPUTS` (``window``: the model's, or
+    None): cache positions, current positions, the window it takes, the
+    slot mask, its live count, the bytes of the bound, and the cold ring."""
+    from repro_torch.kernels import ops
+
+    B, C = SERVE["batch"], SERVE["capacity"]
+    slots = torch.arange(C, device=device, dtype=torch.int32)[None, :]
+    if kind == "mixed":
+        pos = torch.randint(C // 2, C, (B,), generator=gen, device=device)
+    elif kind == "serve_live":
+        pos = torch.full((B,), SERVE["prompt_len"] + SERVE["max_new"] - 1, device=device)
+    else:
+        pos, window = torch.full((B,), C - 1, device=device), None
+    pos = pos.to(torch.int32)
+    written = torch.where(slots <= pos[:, None], slots, -1).to(torch.int32)
+    positions = written.clone()
+    if kind == "mixed":
+        positions[:, 3::7] = -1
+    mask = ops.decode_mask(positions, pos, window)
+    live = int(mask.sum())
+    nbytes = decode_bytes(B, H, K, hd, live, C)
+    return {"kind": kind, "B": B, "C": C, "positions": positions, "written": written,
+            "pos": pos, "window": window, "mask": mask, "live": live, "bytes": nbytes,
+            "ring": cold_ring(nbytes)}
+
+
+def check_decode(torch, gen, arch, H, K, hd, window) -> dict:
+    """Decode attention at the serve runs' B = 4 against C = 1024 at each of
+    :data:`DECODE_INPUTS`, in float32 and bfloat16 against its plain version;
+    at ``mixed`` the same limit must reject the answers with the empty slots
+    taken as written and (with a window) the window ignored.
+
+    Timed by :func:`device_time`: the kernel's wrapper on a prebuilt mask,
+    the ``ops`` wrapper (which also builds the mask from the positions),
+    the plain version, and SDPA on the same prebuilt mask.  The cache is
+    cold, as a real step finds it: every call rotates over ``ring`` distinct
+    K/V buffers (SDPA over the same buffers in its head-major layout), so
+    between two uses of one buffer the others touch at least twice the L2
+    cache.  q, the mask and the positions (a few KB, written just before in
+    a real step) stay warm.  The row's numbers are those of ``serve_live``;
+    ``inputs`` holds all three."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ops, ref
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     B, C = SERVE["batch"], SERVE["capacity"]
-    q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 0.5).to(bf16)
-               for shape in ((B, H, hd), (B, C, K, hd), (B, C, K, hd)))
-    pos = torch.randint(C // 2, C, (B,), generator=gen, device=dev).to(torch.int32)
-    slots = torch.arange(C, device=dev, dtype=torch.int32)[None, :]
-    written = torch.where(slots <= pos[:, None], slots, -1).to(torch.int32)
-    positions = written.clone()
-    positions[:, 3::7] = -1
-    mask = ops.decode_mask(positions, pos, window)
-    name = f"decode_attention (H {H}, K {K}, hd {hd}, window {window})"
-    f32_err = _err(torch, name, ops.decode_attention(
-        q.float(), k.float(), v.float(), positions, pos, window=window),
-        ref.decode_attention_ref(q.float(), k.float(), v.float(), mask))
-    want = ref.decode_attention_ref(q, k, v, mask)
-    err = _err(torch, name, ops.decode_attention(q, k, v, positions, pos, window=window), want)
-    wrong = [ops.decode_mask(written, pos, window)]
-    if window is not None:
-        wrong.append(ops.decode_mask(positions, pos, None))
-    wrong_err = min(_rejects(torch, f"{name}, a wrong mask", ref.decode_attention_ref(
-        q, k, v, m), want) for m in wrong)
-    live = int(mask.sum())
-    q4, k4, v4 = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    m4 = mask[:, None, None, :]
-    row = _kernel_row(
-        "decode_attention", ("decode_attention", 24), err,
-        cuda_ms(torch, lambda: ops.decode_attention(q, k, v, positions, pos, window=window)),
-        cuda_ms(torch, lambda: ref.decode_attention_ref(q, k, v, mask)),
-        # q read and out written; K and V of the live slots only (a masked
-        # slot's K/V never reach the output); the mask
-        2 * (2 * B * H * hd) + 2 * (2 * live * K * hd) + B * C, 4 * hd * H * live,
-        BF16_TENSOR_FLOPS_PER_S,
-        cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
-                                                              enable_gqa=True)),
-        {"B": B, "C": C, "H": H, "K": K, "hd": hd, "window": window, "live_slots": live})
-    torch.cuda.empty_cache()
-    return row | {"f32_max_abs_err": f32_err, "wrong_max_abs_err": wrong_err}
+    q = (torch.randn((B, H, hd), generator=gen, device=dev) * 0.5).to(bf16)
+    # the wrapper's split of the cache (None where it does not size one from the card)
+    split = (kdec.split_slots(B, K, H // K, C, *kdec.card_shape(dev, hd, 1))
+             if hasattr(kdec, "split_slots") else None)
+    inputs = {}
+    for kind in DECODE_INPUTS:
+        plan = decode_plan(torch, kind, H, K, hd, window, gen, dev)
+        mask, positions, pos, win = plan["mask"], plan["positions"], plan["pos"], plan["window"]
+        n = plan["ring"]
+        kv = (torch.randn((n, 2, B, C, K, hd), generator=gen, device=dev) * 0.5).to(bf16)
+        k, v = kv[0, 0], kv[0, 1]
+        name = f"decode_attention (H {H}, K {K}, hd {hd}, {kind}, window {win})"
+        f32_err = _err(torch, name, kdec.decode_attention(q.float(), k.float(), v.float(), mask),
+                       ref.decode_attention_ref(q.float(), k.float(), v.float(), mask))
+        want = ref.decode_attention_ref(q, k, v, mask)
+        err = max(_err(torch, name, kdec.decode_attention(q, k, v, mask), want),
+                  _err(torch, name, ops.decode_attention(q, k, v, positions, pos, window=win),
+                       want))
+        res = {"max_abs_err": err, "f32_max_abs_err": f32_err}
+        if kind == "mixed":
+            wrong = [ops.decode_mask(plan["written"], pos, win)]
+            if win is not None:
+                wrong.append(ops.decode_mask(positions, pos, None))
+            res["wrong_max_abs_err"] = min(_rejects(
+                torch, f"{name}, a wrong mask", ref.decode_attention_ref(q, k, v, m), want)
+                for m in wrong)
+        torch.cuda.empty_cache()
+        kvt = kv.transpose(3, 4).contiguous()  # (ring, 2, B, K, C, hd) for SDPA
+        q4, m4 = q[:, :, None], mask[:, None, None, :]
+        calls = max(REPS, n)
+        kern = device_time(torch, [lambda i=i: kdec.decode_attention(q, kv[i, 0], kv[i, 1], mask)
+                                   for i in range(n)], calls)
+        opsd = device_time(torch, [lambda i=i: ops.decode_attention(
+            q, kv[i, 0], kv[i, 1], positions, pos, window=win) for i in range(n)])
+        plain = device_time(torch, [lambda i=i: ref.decode_attention_ref(q, kv[i, 0], kv[i, 1],
+                                                                         mask)
+                                    for i in range(n)])
+        lib = device_time(torch, [lambda i=i: F.scaled_dot_product_attention(
+            q4, kvt[i, 0], kvt[i, 1], attn_mask=m4, enable_gqa=True) for i in range(n)], calls)
+        del kv, kvt
+        torch.cuda.empty_cache()
+        inputs[kind] = _kernel_row(
+            "decode_attention", ("decode_attention", 24), err, kern, plain, plan["bytes"],
+            4 * hd * H * plan["live"], BF16_TENSOR_FLOPS_PER_S, lib,
+            {"B": B, "C": C, "H": H, "K": K, "hd": hd, "window": win,
+             "live_slots": plan["live"], "cold_buffers": n, "timed_calls": calls,
+             "split_slots": split}) | res | {
+            "ops_ms": opsd["ms"], "ops_host_us": opsd["host_us"]}
+    return inputs["serve_live"] | {
+        "arch": arch, "max_abs_err": max(row["max_abs_err"] for row in inputs.values()),
+        "inputs": {
+        kind: {key: row[key] for key in ("max_abs_err", "f32_max_abs_err", "wrong_max_abs_err",
+                                         "ms", "host_us", "ops_ms", "ops_host_us", "plain_ms",
+                                         "library_ms", "library_host_us", "bound_ms", "bytes",
+                                         "shape") if key in row}
+        for kind, row in inputs.items()}}
 
 
 def _ssd_within(torch, got, want) -> tuple:
@@ -593,8 +765,8 @@ def check_ssd_kernel(torch, cfg, gen) -> dict:
                   + B * nc * Q * H + B * nc * H + H)
     row = _kernel_row(
         "ssd_intra_chunk", ("mamba2_ssd", 23), err,
-        cuda_ms(torch, lambda: mamba2_ssd.ssd_intra_chunk(*ins)),
-        cuda_ms(torch, lambda: ref.ssd_intra_chunk_ref(*ins), reps=5),
+        device_time(torch, lambda: mamba2_ssd.ssd_intra_chunk(*ins)),
+        device_time(torch, lambda: ref.ssd_intra_chunk_ref(*ins)),
         nbytes, flops, FP32_FLOPS_PER_S, None,
         {"B": B, "nc": nc, "Q": Q, "H": H, "P": P, "N": N, "dtype": "float32"})
     torch.cuda.empty_cache()
@@ -695,11 +867,13 @@ def diagnose_forward(torch, api, cfg, params, card, toks, got, want,
                      f32_tol=LOGIT_F32_TOL) -> dict:
     """Where a forward's card and cpu logits part: whether a second card
     forward repeats the first bit for bit, the logit rows over the float32
-    limit, the parameters whose card copy differs from the cpu one, each
-    block's residual stream (card against cpu; a layer of the dense model, a
-    group of the hybrid), and every kernel call against its plain version on
-    the same card inputs.  ``params`` and ``card`` may sit on any two
-    devices."""
+    limit, whether a second cpu forward repeats the first, the parameters
+    whose card copy differs from the cpu one, each block's residual stream
+    (card against cpu; a layer of the dense model, a group of the hybrid),
+    every kernel call against its plain version on the same card inputs, and
+    the head: its input card against cpu, and each side's logits against the
+    float64 product of its own input.  ``params`` and ``card`` may sit on any
+    two devices."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import hybrid, ssm, transformer
 
@@ -714,6 +888,12 @@ def diagnose_forward(torch, api, cfg, params, card, toks, got, want,
                           else (hybrid, "_group_forward"))
     block, flash, rms, ssd = (getattr(module, block_name), ops.flash_attention, ops.rmsnorm,
                               ops.ssd_chunked)
+    head, heads = module.unembed, []
+
+    def head_rec(p, x, c):
+        y = head(p, x, c)
+        heads.append((x.float().cpu(), y.float().cpu()))
+        return y
 
     def block_rec(*a):
         y = block(*a)
@@ -737,15 +917,27 @@ def diagnose_forward(torch, api, cfg, params, card, toks, got, want,
         return o
 
     setattr(module, block_name, block_rec)
+    module.unembed = head_rec
     ops.flash_attention, ops.rmsnorm, ops.ssd_chunked = flash_rec, rms_rec, ssd_rec
     try:
         again, _ = api.forward(card, {"tokens": toks.to(out["device"])}, cfg)
         n_card = len(streams)
-        api.forward(params, {"tokens": toks.cpu()}, cfg)
+        again_cpu, _ = api.forward(params, {"tokens": toks.cpu()}, cfg)
     finally:
         setattr(module, block_name, block)
+        module.unembed = head
         ops.flash_attention, ops.rmsnorm, ops.ssd_chunked = flash, rms, ssd
     out["card_repeats_bitwise"] = bool(torch.equal(again, got))
+    out["cpu_repeats_bitwise"] = bool(torch.equal(again_cpu.cpu(), want.cpu()))
+    # the head: its input (the final norm's output) card against cpu, and
+    # each side's logits against the same product in float64 of its own input
+    emb = {name: t.double().cpu() for name, t in params["embed"].items()}
+    (x_card, y_card), (x_cpu, y_cpu) = heads
+    out["head_input_max_err"] = float((x_card - x_cpu).abs().max())
+    out["head_card_vs_f64"] = float((y_card.double() - head(emb, x_card.double(), cfg))
+                                    .abs().max())
+    out["head_cpu_vs_f64"] = float((y_cpu.double() - head(emb, x_cpu.double(), cfg))
+                                   .abs().max())
 
     def differing(a, b, name=""):
         if isinstance(a, dict):
@@ -794,6 +986,75 @@ def model_cpu_vs_card(torch, cfg, fwd_tol=LOGIT_F32_TOL) -> dict:
     return worst
 
 
+def model_kernel_phase(torch, gen, report) -> tuple:
+    """Phase 7: every model kernel against its plain version at full-width
+    shapes, timed, and the lines that report it.  Returns (rows, the model
+    kernels' launch counters, qwen3-4b's and zamba2-7b's configs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba2_ssd as kssd
+    from repro_torch.kernels import rmsnorm as krn
+
+    cfg = get_config(ARCH).replace(use_pallas=True)
+    hcfg = get_config(HYBRID).replace(use_pallas=True)
+    counters = [krn.rmsnorm, krn.rmsnorm_residual, kfa.flash_attention,
+                kdec.decode_attention, kssd.ssd_intra_chunk]
+    t0 = time.time()
+    zero_counters(counters)
+    model_kernels = check_model_kernels(torch, cfg, gen)
+    # flash and decode attention at the hybrid's heads (G = 1, hd 112): the
+    # shared block runs no window
+    heads = (hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim)
+    hybrid_attn = {"flash_attention": check_flash(torch, gen, *heads, None),
+                   "decode_attention": check_decode(torch, gen, HYBRID, *heads, None)}
+    for k in model_kernels:
+        if k["name"] in hybrid_attn:
+            k[HYBRID] = _sub_row(hybrid_attn[k["name"]])
+    model_kernels.append(check_ssd_kernel(torch, hcfg, gen))
+    report["model_kernels_s"] = time.time() - t0
+    report["model_kernels_routes"] = route_counts(counters)
+    def routes_note(row):  # flash attention's two routes
+        return "" if "f32_ms" not in row else (
+            f"; bf16 route at {row['tc_executed_tflops']:.1f} TFLOP/s executed, "
+            f"float32 route {row['f32_ms']:.4f} ms")
+
+    def decode_note(name, arch, row):  # decode attention's three inputs
+        for kind, w in row.get("inputs", {}).items():
+            say(f"phase model kernels: {name} {arch} {kind} ({w['shape']['live_slots']} live "
+                f"slots, {w['shape']['cold_buffers']} cold buffers): device {w['ms'] * 1e3:.2f} "
+                f"us per call (host {w['host_us']:.1f} us), ops wrapper {w['ops_ms'] * 1e3:.2f} "
+                f"us (host {w['ops_host_us']:.1f} us), plain {w['plain_ms'] * 1e3:.2f} us, SDPA "
+                f"{w['library_ms'] * 1e3:.2f} us (host {w['library_host_us']:.1f} us), bound "
+                f"{w['bound_ms'] * 1e3:.3f} us ({w['bound_ms'] / w['ms']:.1%}); max abs err "
+                f"{w['max_abs_err']:.3g} (float32 {w['f32_max_abs_err']:.3g})"
+                + (f"; wrong masks rejected at {w['wrong_max_abs_err']:.3g}"
+                   if "wrong_max_abs_err" in w else ""))
+
+    for k in model_kernels:
+        lib = "n/a" if k["library_ms"] is None else (
+            f"{k['library_ms']:.4f} ms, host {k['library_host_us']:.1f} us")
+        say(f"phase model kernels: {k['name']} max abs err {k['max_abs_err']:.3g}; "
+            f"{k['ms']:.4f} ms device (host {k['host_us']:.1f} us) (plain {k['plain_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}, library {lib}){routes_note(k)}")
+        decode_note(k["name"], ARCH, k)
+        if HYBRID in k:
+            decode_note(k["name"], HYBRID, k[HYBRID])
+        for sub, label in (("window_1024", f"window {WINDOW}"), (HYBRID, HYBRID)):
+            if sub in k:
+                w = k[sub]
+                say(f"phase model kernels: {k['name']} {label} max abs err "
+                    f"{w['max_abs_err']:.3g}; {w['ms']:.4f} ms (plain {w['plain_ms']:.4f} ms, "
+                    f"bound {w['bound_ms']:.4f} ms, library {w['library_ms']:.4f} ms)"
+                    f"{routes_note(w)}")
+        if "wrong_max_abs_err" in k:
+            say(f"phase model kernels: {k['name']} wrong answers rejected, max abs err "
+                f"{k['wrong_max_abs_err']}")
+    say(f"phase model kernels: routes {report['model_kernels_routes']}")
+
+    return model_kernels, counters, cfg, hcfg
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -810,6 +1071,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch.configs import get_smoke_config
     from repro_torch.core import batched
     from repro_torch.core.heuristics import score_2way, score_3way
     from repro_torch.kernels import build, split_score
@@ -842,9 +1104,10 @@ def main() -> None:
     say(f"phase build: ok in {report['build_s']:.1f} s; HMMA per bf16 flash kernel "
         f"{sorted(report['flash_sass']['hmma_per_tc_kernel'].values())}")
 
-    # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20070611)
+
+    # 3. kernels against their plain versions
     kernels = [check_kernel_2way(torch, split_score, score_2way, gen),
                check_kernel_3way(torch, split_score, score_3way, gen)]
     torch.cuda.empty_cache()
@@ -917,52 +1180,8 @@ def main() -> None:
         f"in {report['cpu_vs_card_s']:.1f} s")
 
     # 7. the model kernels at full-width shapes
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import decode_attention as kdec
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import mamba2_ssd as kssd
-    from repro_torch.kernels import rmsnorm as krn
-
-    cfg = get_config(ARCH).replace(use_pallas=True)
-    hcfg = get_config(HYBRID).replace(use_pallas=True)
-    counters = [krn.rmsnorm, krn.rmsnorm_residual, kfa.flash_attention,
-                kdec.decode_attention, kssd.ssd_intra_chunk]
-    t0 = time.time()
-    zero_counters(counters)
-    model_kernels = check_model_kernels(torch, cfg, gen)
-    # flash and decode attention at the hybrid's heads (G = 1, hd 112): the
-    # shared block runs no window
-    heads = (hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim)
-    hybrid_attn = {"flash_attention": check_flash(torch, gen, *heads, None),
-                   "decode_attention": check_decode(torch, gen, *heads, None)}
-    for k in model_kernels:
-        if k["name"] in hybrid_attn:
-            k[HYBRID] = _sub_row(hybrid_attn[k["name"]])
-    model_kernels.append(check_ssd_kernel(torch, hcfg, gen))
+    model_kernels, counters, cfg, hcfg = model_kernel_phase(torch, gen, report)
     kernels += model_kernels
-    report["model_kernels_s"] = time.time() - t0
-    report["model_kernels_routes"] = route_counts(counters)
-    def routes_note(row):  # flash attention's two routes
-        return "" if "f32_ms" not in row else (
-            f"; bf16 route at {row['tc_executed_tflops']:.1f} TFLOP/s executed, "
-            f"float32 route {row['f32_ms']:.4f} ms")
-
-    for k in model_kernels:
-        lib = "n/a" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
-        say(f"phase model kernels: {k['name']} max abs err {k['max_abs_err']:.3g}; "
-            f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-            f"by {k['bound_by']}, library {lib}){routes_note(k)}")
-        for sub, label in (("window_1024", f"window {WINDOW}"), (HYBRID, HYBRID)):
-            if sub in k:
-                w = k[sub]
-                say(f"phase model kernels: {k['name']} {label} max abs err "
-                    f"{w['max_abs_err']:.3g}; {w['ms']:.4f} ms (plain {w['plain_ms']:.4f} ms, "
-                    f"bound {w['bound_ms']:.4f} ms, library {w['library_ms']:.4f} ms)"
-                    f"{routes_note(w)}")
-        if "wrong_max_abs_err" in k:
-            say(f"phase model kernels: {k['name']} wrong answers rejected, max abs err "
-                f"{k['wrong_max_abs_err']}")
-    say(f"phase model kernels: routes {report['model_kernels_routes']}")
 
     # 8-11. the main paths of the two models, each with the counters zeroed
     # just before and read just after; a kernel's launches sum over the paths

@@ -13,6 +13,11 @@ tensor launches the kernel on the current stream and adds one to
 ``decode_attention.launches``; a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`).  Nothing falls back:
 a CUDA input the kernel does not take raises.
+
+The wrapper picks what the kernel cannot see: the split of the cache, sized
+from the card's SMs and occupancy (:func:`split_slots`, :func:`card_shape`);
+16-byte or 2-byte K/V loads, by head dim and alignment; and the scratch for
+the splits' partial results, allocated per call.
 """
 
 from __future__ import annotations
@@ -29,9 +34,43 @@ from .rmsnorm import DTYPE_CODES
 __all__ = ["decode_attention"]
 
 MAX_HEAD_DIM = 256
-SPLIT = 128  # cache slots per block of the split pass (kSplit in the source)
-# q, k, v, mask, out, part_ml, part_acc, B, C, K, G, hd, scale, dtype (then the stream)
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+TILE = 64  # cache slots per tile (kTile in the source)
+GROUP = 8  # query heads of one KV head per block (kGroup)
+MAX_SPLIT_TILES = 32  # tiles per split (kMaxTiles)
+# q, k, v, mask, out, part_ml, part_acc, B, C, K, G, hd, split, scale, dtype,
+# vec (then the stream)
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+_CARD: dict = {}
+
+
+def split_slots(B: int, K: int, G: int, C: int, n_sm: int, per_sm: int) -> int:
+    """Cache slots per block of the split pass: whole tiles, as many splits
+    per (batch row, KV head, group of query heads) as let the grid run in one
+    wave of ``per_sm`` blocks on each of ``n_sm`` SMs, at most
+    ``MAX_SPLIT_TILES`` tiles.  On the H100's 132 SMs at 2 blocks per SM:
+    qwen3-4b's serve step (B 4, K 8, G 4, C 1024) 128 slots, 8 splits, 256
+    blocks; zamba2-7b's (K 32, G 1) 512 slots, 2 splits, 256 blocks."""
+    tiles = max(1, -(-C // TILE))
+    blocks = B * K * -(-G // GROUP)
+    splits = min(tiles, max(1, per_sm * n_sm // blocks))
+    return min(-(-tiles // splits), MAX_SPLIT_TILES) * TILE
+
+
+def card_shape(dev, hd: int, code: int) -> tuple:
+    """(SMs of the card, split-pass blocks of head dim ``hd`` that fit on one
+    SM), asked of the card once per (device, hd, dtype)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, hd, code)
+    if key not in _CARD:
+        f = build.load("decode_attention").decode_attention_blocks_per_sm
+        f.argtypes, f.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        with torch.cuda.device(idx):
+            per_sm = f(hd, code)
+        if per_sm <= 0:
+            raise RuntimeError(f"decode_attention: occupancy query failed ({per_sm})")
+        _CARD[key] = (torch.cuda.get_device_properties(idx).multi_processor_count, per_sm)
+    return _CARD[key]
 
 
 def decode_attention(q, k, v, mask) -> torch.Tensor:
@@ -49,20 +88,26 @@ def decode_attention(q, k, v, mask) -> torch.Tensor:
         raise ValueError(f"{H} query heads are not a multiple of {K} KV heads")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
-    n_split = -(-C // SPLIT)
-    if max(B, C, H) >= 2 ** 31 or max(B, n_split) >= 2 ** 16:
-        raise ValueError(f"shape {(B, C, H)} exceeds the kernel's grid")
+    G = H // K
+    split = split_slots(B, K, G, C, *card_shape(dev, hd, DTYPE_CODES[q.dtype]))
+    n_split = -(-C // split)
+    if (max(B * C * K * hd, B * H * hd * max(n_split, 1)) >= 2 ** 31
+            or max(B, n_split) >= 2 ** 16):
+        raise ValueError(f"shape {(B, C, H, hd)} exceeds the kernel's grid")
     build.check_tensor("q", q, (B, H, hd), q.dtype, dev)
     build.check_tensor("k", k, (B, C, K, hd), q.dtype, dev)
     build.check_tensor("v", v, (B, C, K, hd), q.dtype, dev)
     build.check_tensor("mask", mask, (B, C), torch.bool, dev)
+    # 16-byte K/V loads need whole 16-byte rows and aligned bases; else 2-byte
+    vec = int(hd * q.element_size() % 16 == 0 and k.data_ptr() % 16 == 0
+              and v.data_ptr() % 16 == 0)
     out = torch.empty_like(q)
-    part_ml = torch.empty((B, K, n_split, H // K, 2), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B, K, n_split, H // K, hd), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((B, H, n_split, hd), dtype=torch.float32, device=dev)
     build.launch("decode_attention", "decode_attention", _ARGTYPES, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                 part_ml.data_ptr(), part_acc.data_ptr(), B, C, K, H // K, hd,
-                 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype])
+                 part_ml.data_ptr(), part_acc.data_ptr(), B, C, K, G, hd, split,
+                 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], vec)
     decode_attention.launches += 1
     return out
 

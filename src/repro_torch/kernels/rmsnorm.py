@@ -9,7 +9,9 @@ The port's counterpart of the reference's Pallas ``kernels/rmsnorm.py``:
     sum (the TPU kernel's formula, which differs from the reference oracle's;
     its plain version is :func:`repro_torch.kernels.ref.rmsnorm_residual_ref`).
 
-``x`` is float32 or bfloat16, ``scale`` float32 of shape ``(d,)``.  A CUDA
+``x`` is float32 or bfloat16, ``scale`` float32 of shape ``(d,)``.
+:func:`rmsnorm` takes one of two kernels, by shape and alignment
+(:func:`rmsnorm_route`); both count as one launch.  A CUDA
 tensor launches the kernel on the current stream and adds one to the
 wrapper's ``launches``; a CPU tensor runs the plain version.  Nothing falls
 back: a CUDA input the kernel does not take raises.
@@ -24,13 +26,14 @@ import torch
 from . import build
 from .ref import rmsnorm_ref, rmsnorm_residual_ref
 
-__all__ = ["rmsnorm", "rmsnorm_residual"]
+__all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_route"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WARP_MAX_VECTORS = 32  # 16-byte vectors per lane of the warp kernel (kMaxVec)
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = {
-    # x, scale, out, n, d, eps, dtype (then the stream)
-    "rmsnorm": [_P] * 3 + [_I64] * 2 + [ctypes.c_float, ctypes.c_int],
+    # x, scale, out, n, d, eps, dtype, warp (then the stream)
+    "rmsnorm": [_P] * 3 + [_I64] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int],
     # x, residual, scale, out, r_out, n, d, eps, dtype (then the stream)
     "rmsnorm_residual": [_P] * 5 + [_I64] * 2 + [ctypes.c_float, ctypes.c_int],
 }
@@ -54,6 +57,19 @@ def _rows(x, scale, others=()) -> tuple:
     return n, d, DTYPE_CODES[x.dtype]
 
 
+def rmsnorm_route(x, scale) -> str:
+    """Which CUDA kernel :func:`rmsnorm` launches for these inputs: ``"warp"``
+    (a warp per row, the row in registers as 16-byte vectors) when a row is
+    whole 16-byte vectors, at most ``WARP_MAX_VECTORS`` per lane, and x and
+    scale are 16-byte aligned; else ``"block"`` (a block per row)."""
+    vec = 16 // x.element_size()
+    d = x.shape[-1]
+    if (d % vec == 0 and 0 < d <= 32 * WARP_MAX_VECTORS * vec
+            and x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0):
+        return "warp"
+    return "block"
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis of ``x`` (any leading shape)."""
     if x.device.type == "cpu":
@@ -61,7 +77,8 @@ def rmsnorm(x, scale, *, eps: float = 1e-5) -> torch.Tensor:
     n, d, code = _rows(x, scale)
     out = torch.empty_like(x)
     build.launch("rmsnorm", "rmsnorm", _ARGTYPES["rmsnorm"], x.data_ptr(),
-                 scale.data_ptr(), out.data_ptr(), n, d, float(eps), code)
+                 scale.data_ptr(), out.data_ptr(), n, d, float(eps), code,
+                 int(rmsnorm_route(x, scale) == "warp"))
     rmsnorm.launches += 1
     return out
 

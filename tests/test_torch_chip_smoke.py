@@ -35,7 +35,10 @@ def test_diagnose_forward_names_the_faulty_weight_and_layer(fault):
     got, _ = api.forward(other, {"tokens": toks}, cfg)
     want, _ = api.forward(params, {"tokens": toks}, cfg)
     diag = chip_smoke.diagnose_forward(torch, api, cfg, params, other, toks, got, want)
-    assert diag["card_repeats_bitwise"]
+    assert diag["card_repeats_bitwise"] and diag["cpu_repeats_bitwise"]
+    # the head: each side's logits are its own input's product, to float32 rounding
+    assert diag["head_card_vs_f64"] < 1e-5 and diag["head_cpu_vs_f64"] < 1e-5
+    assert (diag["head_input_max_err"] == 0.0) == (fault is None)
     # 2 RMSNorms per layer and the final one; one flash call per layer (S > 1024)
     names = [n for n, _ in diag["kernel_vs_plain_max_err"]]
     assert names.count("rmsnorm") == 2 * cfg.n_layers + 1
@@ -153,3 +156,94 @@ def test_forward_route_check_refuses_a_flash_call_off_the_bf16_route():
     for routes in ({"tc_bf16": 35, "cuda_f32": 1}, {"tc_bf16": 0, "cuda_f32": 36}):
         with pytest.raises(SystemExit):
             chip_smoke.check_flash_routes("forward", launches, {"flash_attention": routes})
+
+
+@pytest.mark.parametrize("heads,window,want", [
+    ((32, 8, 80), 512, {"mixed": 439, "serve_live": 96, "full": 1024}),
+    ((32, 32, 112), None, {"serve_live": 96, "full": 1024})])
+def test_decode_inputs_have_their_live_counts_and_bounds(heads, window, want):
+    """Phase 7's decode inputs: about 440 live slots per row (qwen3-4b's
+    window of 512, every 7th slot empty), the serve runs' 96, a full cache of
+    1024; the bound counts the live slots' K/V bytes only."""
+    H, K, hd = heads
+    gen = torch.Generator().manual_seed(0)
+    plans = {kind: chip_smoke.decode_plan(torch, kind, H, K, hd, window, gen, "cpu")
+             for kind in chip_smoke.DECODE_INPUTS}
+    for kind, live in want.items():
+        per_row = plans[kind]["mask"].sum(1)
+        assert int(per_row.min()) >= live - 1 and int(per_row.max()) <= live, (kind, per_row)
+    B, C = chip_smoke.SERVE["batch"], chip_smoke.SERVE["capacity"]
+    for plan in plans.values():
+        kv = 2 * 2 * plan["live"] * K * hd
+        assert plan["bytes"] == 2 * 2 * B * H * hd + kv + B * C
+        assert chip_smoke.bound(plan["bytes"], 4 * hd * H * plan["live"],
+                                chip_smoke.BF16_TENSOR_FLOPS_PER_S) == (
+            plan["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3, "bytes")
+    full, live = plans["full"]["bytes"], plans["serve_live"]["bytes"]
+    assert 0.09 < live / full < 0.11  # 96 of 1024 slots
+    if window is None:  # zamba2-7b's full cache: 58.7 MB, 17.5 us
+        assert abs(chip_smoke.bound(full, 0)[0] - 0.0175) < 1e-4
+
+
+@pytest.mark.parametrize("nbytes", [4096, 1.03e6, 5.6e6, 1.05e7, 4.2e7, 5.9e7])
+def test_cold_ring_keeps_every_call_out_of_l2(nbytes):
+    """The calls of one timing touch more than the 50 MB L2 cache, and
+    between two uses of one buffer the others touch at least twice the L2."""
+    ring = chip_smoke.cold_ring(nbytes)
+    assert max(chip_smoke.REPS, ring) * nbytes > 50e6
+    assert (ring - 1) * nbytes >= 2 * chip_smoke.L2_BYTES
+
+
+class _FakeCuda:
+    """Just enough of torch.cuda for device_time: the card is 'busy' until
+    the sleep's end on a fake clock that the host's enqueueing advances."""
+
+    def __init__(self, host_s_per_call):
+        self.now = 0.0
+        self.busy_until = 0.0
+        self.per_call = host_s_per_call
+        self.cuda = self
+
+    def synchronize(self):
+        self.now = max(self.now, self.busy_until)
+
+    def _sleep(self, cycles):
+        self.busy_until = self.now + cycles / 1e6 * 1e-3  # 1e6 cycles per ms
+
+    def Event(self, enable_timing):
+        fake = self
+
+        class Ev:
+            def record(self):
+                self.t = max(fake.now, fake.busy_until)
+
+            def query(self):
+                return fake.now >= self.t
+
+            def synchronize(self):
+                fake.synchronize()
+
+            def elapsed_time(self, other):
+                return (other.t - self.t) * 1e3 + 0.5  # the calls' device work
+
+        return Ev()
+
+    def call(self):
+        self.now += self.per_call
+
+
+def test_device_time_reports_only_windows_whose_sleep_hid_the_host(monkeypatch):
+    fake = _FakeCuda(1e-4)
+    monkeypatch.setattr(chip_smoke, "_CYCLES_PER_MS", [1e6])
+    monkeypatch.setattr(chip_smoke.time, "perf_counter", lambda: fake.now)
+    got = chip_smoke.device_time(fake, fake.call, n=20)
+    assert abs(got["host_us"] - 100.0) < 1e-6 and got["ms"] > 0
+    # a host that slows down tenfold after the sizing pass outlasts every sleep
+    calls = {"n": 0}
+
+    def slowing():
+        calls["n"] += 1
+        fake.now += 1e-4 if calls["n"] <= 23 else 1e-1
+    with pytest.raises(SystemExit):
+        chip_smoke.device_time(fake, slowing, n=20)
+

@@ -191,6 +191,110 @@ def test_decode_attention_kernel_matches_plain(cuda_device, B, C, H, K, hd, kind
     _close(got, ref.decode_attention_ref(q, k, v, mask), dtype)
 
 
+def _decode_case(rng, B, C, H, K, hd, dtype, device, valid, offset=0):
+    """q, k, v (views ``offset`` elements into their buffers, still
+    contiguous) and a mask of ``valid`` (B, C) numpy bools."""
+    def r(shape):
+        n = int(np.prod(shape))
+        buf = _rand(rng, (n + offset,), dtype, device)
+        return buf[offset:].view(shape)
+    q, k, v = r((B, H, hd)), r((B, C, K, hd)), r((B, C, K, hd))
+    return q, k, v, torch.from_numpy(valid).to(device)
+
+
+def _decode_valid(kind, B, C, K, G, rng, hd=80, dtype="bfloat16"):
+    slots = np.arange(C)[None, :]
+    if kind == "serve_live":  # the serve runs' 96 live slots of 1024
+        return np.broadcast_to(slots <= 95, (B, C)).copy()
+    if kind == "last_split":  # live slots confined to the last split
+        code = 1 if dtype == "bfloat16" else 0
+        split = kdec.split_slots(B, K, G, C, *kdec.card_shape(torch.device("cuda"), hd, code))
+        lo = (C - 1) // split * split
+        return np.broadcast_to(slots >= lo, (B, C)) & (rng.random((B, C)) < 0.5)
+    return rng.random((B, C)) < 0.3  # scattered
+
+
+@pytest.mark.parametrize("B,C,H,K,hd,kind,offset", [
+    (4, 1024, 32, 8, 80, "serve_live", 0),
+    (4, 1024, 32, 32, 112, "serve_live", 0),
+    (4, 1024, 32, 8, 80, "last_split", 0),
+    (2, 1000, 32, 8, 80, "last_split", 0),
+    (2, 300, 8, 2, 100, "scattered", 0),   # hd * 2 bytes not a multiple of 16
+    (3, 129, 4, 4, 36, "scattered", 0),
+    (2, 257, 8, 2, 80, "scattered", 1),    # views 2 (bf16) / 4 bytes off 16-byte alignment
+    (1, 1024, 32, 32, 112, "serve_live", 1),
+    (4, 1024, 64, 8, 80, "scattered", 0),  # G = 8
+    (2, 333, 16, 2, 128, "last_split", 0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_kernel_skips_dead_tiles_and_takes_every_layout(
+        cuda_device, B, C, H, K, hd, kind, offset, dtype):
+    """The serve runs' live count, live slots in one split only, head dims
+    that take the 2-byte path, misaligned views, G = 8: equal to the plain
+    version within the limits, one launch each."""
+    rng = np.random.default_rng(13)
+    q, k, v, mask = _decode_case(rng, B, C, H, K, hd, dtype, cuda_device,
+                                 _decode_valid(kind, B, C, K, H // K, rng, hd, dtype), offset)
+    assert q.is_contiguous() and (offset == 0) == (k.data_ptr() % 16 == 0)
+    before = kdec.decode_attention.launches
+    got = kdec.decode_attention(q, k, v, mask)
+    assert kdec.decode_attention.launches == before + 1
+    _close(got, ref.decode_attention_ref(q, k, v, mask), dtype)
+
+
+def test_decode_attention_launches_at_most_two_kernels_per_call(cuda_device):
+    """The split pass and the combine, and nothing else."""
+    rng = np.random.default_rng(16)
+    q, k, v, mask = _decode_case(rng, 4, 1024, 32, 8, 80, "bfloat16", cuda_device,
+                                 _decode_valid("serve_live", 4, 1024, 8, 4, rng))
+    kdec.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kdec.decode_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and "Memcpy" not in e.name and "Memset" not in e.name]
+    assert len(names) == 2, names
+    assert sum("decode_attention_split" in n for n in names) == 1, names
+    assert sum("decode_attention_combine" in n for n in names) == 1, names
+
+
+RMS_WIDTHS = [2560, 3584, 4096, 5120, 8192, 2561, 12288]
+
+
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 7, 4097])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_at_the_config_widths(cuda_device, d, rows, dtype):
+    """Both RMSNorm kernels at the configs' widths and at widths only the
+    block kernel takes (2561: not whole 16-byte vectors; 12288, and 5120 or
+    8192 in float32: wider than the warp kernel holds)."""
+    rng = np.random.default_rng(14)
+    x = _rand(rng, (rows, d), dtype, cuda_device)
+    sc = _rand(rng, (d,), "float32", cuda_device)
+    vec = 8 if dtype == "bfloat16" else 4
+    assert krn.rmsnorm_route(x, sc) == (
+        "warp" if d % vec == 0 and d <= 32 * krn.WARP_MAX_VECTORS * vec else "block")
+    before = krn.rmsnorm.launches
+    got = ops.rmsnorm(x, sc, eps=1e-6)
+    assert krn.rmsnorm.launches == before + 1
+    _close(got, ref.rmsnorm_ref(x, sc, eps=1e-6), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_on_a_misaligned_row_start(cuda_device, dtype):
+    """A contiguous view one element into its buffer takes the block kernel."""
+    rng = np.random.default_rng(15)
+    d, rows = 2560, 33
+    x = _rand(rng, (rows * d + 1,), dtype, cuda_device)[1:].view(rows, d)
+    sc = _rand(rng, (d,), "float32", cuda_device)
+    assert krn.rmsnorm_route(x, sc) == "block"
+    before = krn.rmsnorm.launches
+    got = ops.rmsnorm(x, sc, eps=1e-6)
+    assert krn.rmsnorm.launches == before + 1
+    _close(got, ref.rmsnorm_ref(x, sc, eps=1e-6), dtype)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     rng = np.random.default_rng(4)
     x = _rand(rng, (4, 64), "bfloat16", cuda_device)
@@ -393,7 +497,8 @@ def _check_logits(got, want, dtype, f32_tol=1e-4, diagnose=None):
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs()
     if dtype == "float32":
-        assert float(err.max()) < f32_tol, (float(err.max()), diagnose and diagnose())
+        # the message is a string, so pytest prints the whole diagnosis
+        assert float(err.max()) < f32_tol, f"{float(err.max())} {diagnose and diagnose()}"
     else:
         assert float(err.max()) < 0.35 and float(err.mean() / want.float().abs().mean()) < 0.05
 
