@@ -11,15 +11,17 @@ non-zero:
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
               with nvcc (one process per source, all started together); the
-              flash library's SASS (``cuobjdump --dump-sass``) must hold
-              tensor-core instructions (HMMA) in every instantiation of its
-              bf16 kernel;
+              SASS (``cuobjdump --dump-sass``) must hold tensor-core
+              instructions (HMMA) in every instantiation of flash attention's
+              bf16 kernel and of the SSD's heads kernel;
   3. kernels — each hand-written kernel against its plain PyTorch version on
               the card, at the main path's largest shapes with random live-lane
-              bounds: equal on live lanes, zero past them; CUDA-event timings
-              (median of 20 single-call windows, host work inside) of kernel
-              and plain version, and the least time the card could take for
-              the same work (its bound);
+              bounds: equal on live lanes, zero past them; the kernel's device
+              time per call (``device_time``, inputs cold) with its host time
+              apart, the plain version's CUDA-event time (median of 20
+              single-call windows, host work inside: it copies host scalars
+              to the card), and the least time the card could take for the
+              same work (its bound);
   4. golden — ``repro_torch.sim.paper_sim.run`` on cuda writes the golden CSVs
               of ``tests/golden/paper_sim`` byte for byte;
   5. main path — the full-width campaign: E1-E4 x 50 instance pairs, n = 160
@@ -49,7 +51,8 @@ non-zero:
               heads of 112), and the Mamba2 SSD intra-chunk kernel at its
               full-width shapes in float32 (per element 2e-5 + 1e-4 |want|),
               which must reject the answers with an exclusive cumsum and
-              with the chunk state's decay left out;
+              with the chunk state's decay left out; its bound counts the
+              products at three TF32 tensor-core products each;
   8. forward — ``ModelAPI.forward`` of qwen3-4b at full width (36 layers,
               random weights from a seed), B = 1, S = 4096, with kernels; the
               RMSNorm and flash-attention counters are zeroed just before and
@@ -108,11 +111,15 @@ SRC = REPO / "src"
 GOLDEN = REPO / "tests" / "golden" / "paper_sim"
 
 # H100 SXM (NVIDIA data sheet): HBM3 bandwidth; fp64 and fp32 (non-tensor)
-# and dense bf16 tensor-core peaks
+# and dense bf16 and TF32 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 34e12
 FP32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
+TF32_TENSOR_FLOPS_PER_S = 495e12
+# the fastest float32-accurate product on the card: three TF32 tensor-core
+# products (hi.hi + hi.lo + lo.hi) for each float32 one
+F32_ACCURATE_FLOPS_PER_S = TF32_TENSOR_FLOPS_PER_S / 3
 L2_BYTES = 50e6  # H100 SXM L2 cache
 
 # main-path shapes at full width (n = 160, p = 1000, 200 instances):
@@ -137,7 +144,7 @@ def say(msg: str) -> None:
 def cuda_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
     """Median time of one call of ``fn`` in a CUDA-event window around it on
     an idle card: the wrapper's host work is inside the window.  Used only
-    for the split-score kernels, whose plain versions copy host scalars to
+    for the split-score kernels' plain versions, which copy host scalars to
     the card on every call (a copy that waits for the card, so
     :func:`device_time`'s sleep cannot hide it)."""
     for _ in range(warmup):
@@ -261,19 +268,24 @@ def check_kernel_2way(torch, split_score, score_2way, gen):
         if g[~live].any():
             fail("score_2way_f64 left non-zero lanes past need")
         err = max(err, float((g[live] - w[live]).abs().max()))
-    ms = cuda_ms(torch, lambda: split_score.score_2way_cuda(*ins, need=need))
-    plain_ms = cuda_ms(torch, lambda: score_2way(*ins))
     n_live = int(need.sum())
     nbytes = 16 * n_live + 56 * A + 48 * A * K
+    # device time on cold inputs: the calls rotate over copies of the inputs
+    ring = [ins] + [tuple(t.clone() if torch.is_tensor(t) else t for t in ins)
+                    for _ in range(cold_ring(nbytes) - 1)]
+    kern = device_time(torch, [lambda x=x: split_score.score_2way_cuda(*x, need=need)
+                               for x in ring], max(REPS, len(ring)))
+    del ring
+    plain_ms = cuda_ms(torch, lambda: score_2way(*ins))
     flops = 25 * n_live + 3 * A
     b_ms, b_by = bound(nbytes, flops)
     return {"name": "score_2way_f64", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/split_score.cu",
             "replaces": "src/repro/kernels/split_score.py:79",
-            "shape": {"A": A, "K": K, "live_lanes": n_live},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-            "library_ms": None}
+            "shape": {"A": A, "K": K, "live_lanes": n_live, "cold_buffers": cold_ring(nbytes)},
+            "max_abs_err": err, "ms": kern["ms"], "host_us": kern["host_us"],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops, "library_ms": None}
 
 
 def check_kernel_3way(torch, split_score, score_3way, gen):
@@ -307,30 +319,35 @@ def check_kernel_3way(torch, split_score, score_3way, gen):
             fail("score_3way_f64 left non-zero lanes past need")
         err = max(err, float((g[lv] - w[lv]).abs().max()))
     del got, want
-    ms = cuda_ms(torch, lambda: split_score.score_3way_cuda(*ins, need=need))
-    plain_ms = cuda_ms(torch, lambda: score_3way(*ins))
     n_live = int(need.sum())
     nbytes = 72 * n_live + 160 * A + 240 * A * K
+    ring = [ins] + [tuple(t.clone() for t in ins) for _ in range(cold_ring(nbytes) - 1)]
+    kern = device_time(torch, [lambda x=x: split_score.score_3way_cuda(*x, need=need)
+                               for x in ring], max(REPS, len(ring)))
+    del ring
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(torch, lambda: score_3way(*ins))
     flops = 102 * n_live
     b_ms, b_by = bound(nbytes, flops)
     return {"name": "score_3way_f64", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/split_score.cu",
             "replaces": "src/repro/kernels/split_score.py:172",
-            "shape": {"A": A, "K": K, "live_lanes": n_live},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-            "library_ms": None}
+            "shape": {"A": A, "K": K, "live_lanes": n_live, "cold_buffers": cold_ring(nbytes)},
+            "max_abs_err": err, "ms": kern["ms"], "host_us": kern["host_us"],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops, "library_ms": None}
 
 
-def flash_sass(build) -> dict:
-    """Tensor-core (HMMA) instructions in each function of the flash
-    library's SASS, by ``cuobjdump --dump-sass``; every instantiation of the
-    bf16 kernel must hold some."""
+def hmma_counts(build, lib: str, kernel: str) -> dict:
+    """Tensor-core (HMMA) instructions in each function of library ``lib``'s
+    SASS, by ``cuobjdump --dump-sass``; every instantiation of the functions
+    whose name holds ``kernel`` must hold some.  Returns ``{"hmma_per_kernel":
+    {function: count}, "hmma_elsewhere": count}``."""
     tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-    res = subprocess.run([str(tool), "--dump-sass", str(build.library_path("flash_attention"))],
+    res = subprocess.run([str(tool), "--dump-sass", str(build.library_path(lib))],
                          capture_output=True, text=True, timeout=120)
     if res.returncode != 0:
-        fail(f"cuobjdump failed on the flash library: {res.stderr.strip()[-500:]}")
+        fail(f"cuobjdump failed on the {lib} library: {res.stderr.strip()[-500:]}")
     counts, fn = {}, None
     for line in res.stdout.splitlines():
         if "Function :" in line:
@@ -338,10 +355,10 @@ def flash_sass(build) -> dict:
             counts[fn] = 0
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
-    tc = {f: n for f, n in counts.items() if "flash_tc_kernel" in f}
+    tc = {f: n for f, n in counts.items() if kernel in f}
     if not tc or min(tc.values()) <= 0:
-        fail(f"flash attention's bf16 kernel holds no tensor-core instruction: {tc}")
-    return {"hmma_per_tc_kernel": tc,
+        fail(f"{lib}: {kernel} holds no tensor-core instruction: {tc}")
+    return {"hmma_per_kernel": tc,
             "hmma_elsewhere": sum(n for f, n in counts.items() if f not in tc)}
 
 
@@ -758,8 +775,14 @@ def check_ssd_kernel(torch, cfg, gen) -> dict:
         wrong[label] = max(e for _, e in res)
     torch.cuda.empty_cache()
     pairs = Q * (Q + 1) // 2
-    # multiply-adds count 2: the causal pairs' C.B scores once per chunk (they
-    # do not depend on the head), then per head the pairs' w x and the state
+    # The bound is the same work whatever implements it: multiply-adds count
+    # 2, the causal pairs' C.B scores once per chunk (they do not depend on
+    # the head), then per head the pairs' w x and the state (11,371,012,608
+    # flops at full width), against each input read once and each output
+    # written once (268,180,928 B).  The fastest rate that keeps the products
+    # float32-accurate is three TF32 tensor-core products per product (495 / 3
+    # = 165 TFLOP/s): 0.069 ms; the bytes take 0.080 ms at 3.35 TB/s, so the
+    # bound is 0.080 ms, by bytes.
     flops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * N * P))
     nbytes = 4 * (2 * B * nc * Q * H * P + B * nc * H * N * P + 2 * B * nc * Q * N
                   + B * nc * Q * H + B * nc * H + H)
@@ -767,7 +790,7 @@ def check_ssd_kernel(torch, cfg, gen) -> dict:
         "ssd_intra_chunk", ("mamba2_ssd", 23), err,
         device_time(torch, lambda: mamba2_ssd.ssd_intra_chunk(*ins)),
         device_time(torch, lambda: ref.ssd_intra_chunk_ref(*ins)),
-        nbytes, flops, FP32_FLOPS_PER_S, None,
+        nbytes, flops, F32_ACCURATE_FLOPS_PER_S, None,
         {"B": B, "nc": nc, "Q": Q, "H": H, "P": P, "N": N, "dtype": "float32"})
     torch.cuda.empty_cache()
     return row | {"wrong_max_abs_err": wrong,
@@ -1100,9 +1123,15 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"build {name}: {line.strip()}")
-    report["flash_sass"] = flash_sass(build)
+    # the tensor cores in the build: flash attention's bf16 kernel and the
+    # SSD's heads kernel (every instantiation), and the SSD's scores kernel
+    report["flash_sass"] = hmma_counts(build, "flash_attention", "flash_tc_kernel")
+    report["ssd_sass"] = hmma_counts(build, "mamba2_ssd", "ssd_heads_kernel")
+    ssd_scores = hmma_counts(build, "mamba2_ssd", "ssd_scores_kernel")["hmma_per_kernel"]
     say(f"phase build: ok in {report['build_s']:.1f} s; HMMA per bf16 flash kernel "
-        f"{sorted(report['flash_sass']['hmma_per_tc_kernel'].values())}")
+        f"{sorted(report['flash_sass']['hmma_per_kernel'].values())}; HMMA per SSD heads "
+        f"kernel {sorted(report['ssd_sass']['hmma_per_kernel'].values())}, SSD scores kernel "
+        f"{sorted(ssd_scores.values())}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20070611)
@@ -1112,8 +1141,9 @@ def main() -> None:
                check_kernel_3way(torch, split_score, score_3way, gen)]
     torch.cuda.empty_cache()
     for k in kernels:
-        say(f"phase kernels: {k['name']} equal to plain on live lanes; "
-            f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms)")
+        say(f"phase kernels: {k['name']} equal to plain on live lanes; {k['ms']:.4f} ms device "
+            f"(host {k['host_us']:.1f} us) (plain {k['plain_ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms)")
 
     # 4. golden CSVs on cuda
     t0 = time.time()

@@ -11,23 +11,47 @@ reference's wrapper runs a ``lax.scan``.
 A CUDA tensor launches the kernel on the current stream and adds one to
 ``ssd_intra_chunk.launches``; a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.ssd_intra_chunk_ref`).  Nothing falls back:
-a CUDA input the kernel does not take raises.
+a CUDA input the kernel does not take raises.  The kernel is two launches
+(the chunk's C.B^T scores once, then the heads on the tensor cores); the
+wrapper allocates their scratch and sizes the heads' groups from the card's
+SMs (:func:`head_group`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import build
 from .ref import ssd_intra_chunk_ref
 
-__all__ = ["ssd_chunked_kernel", "ssd_intra_chunk"]
+__all__ = ["head_group", "scratch_floats", "ssd_chunked_kernel", "ssd_intra_chunk"]
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 64
-# x, dt, A, B, C, y, state, decay, B, nc, Q, H, P, N (then the stream)
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+# x, dt, A, B, C, scores, B^T, y, state, decay, B, nc, Q, H, P, N, G, vec
+# (then the stream)
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+
+
+def head_group(B: int, nc: int, H: int, n_sm: int) -> int:
+    """Heads per block of the heads kernel (one block of 8 warps per batch
+    row, chunk and group of heads, one block per SM): the fewest that keep
+    the grid within one wave of ``n_sm`` blocks.  On the H100's 132 SMs at
+    zamba2-7b's full width (B 1, nc 16, H 112): 14, so 128 blocks."""
+    for G in range(max(1, math.ceil(B * nc * H / n_sm)), H):
+        if B * nc * -(-H // G) <= n_sm:
+            return G
+    return H
+
+
+def scratch_floats(B: int, nc: int, Q: int, N: int) -> tuple:
+    """Floats of the kernel's two scratch buffers: the causal C.B^T score
+    tiles (16 x 8, Mq (Mq + 1) per chunk, Mq = ceil(Q / 16)) and B^T's tiles
+    (ceil(N / 16) x 2 Mq per chunk), 128 floats a tile."""
+    mq = -(-Q // 16)
+    return B * nc * mq * (mq + 1) * 128, B * nc * -(-N // 16) * 2 * mq * 128
 
 
 def ssd_intra_chunk(x, dt, A, Bmat, Cmat) -> tuple:
@@ -52,12 +76,18 @@ def ssd_intra_chunk(x, dt, A, Bmat, Cmat) -> tuple:
     build.check_tensor("A", A, (H,), f32, dev)
     build.check_tensor("Bmat", Bmat, (B, nc, Q, N), f32, dev)
     build.check_tensor("Cmat", Cmat, (B, nc, Q, N), f32, dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    G = head_group(B, nc, H, torch.cuda.get_device_properties(idx).multi_processor_count)
     y = torch.empty_like(x)
     st = torch.empty((B, nc, H, N, P), dtype=f32, device=dev)
     dec = torch.empty((B, nc, H), dtype=f32, device=dev)
+    n_sc, n_bt = scratch_floats(B, nc, Q, N)
+    sc = torch.empty(n_sc, dtype=f32, device=dev)
+    bt = torch.empty(n_bt, dtype=f32, device=dev)
+    vec = int(P % 4 == 0 and x.data_ptr() % 16 == 0)
     build.launch("mamba2_ssd", "ssd_intra_chunk", _ARGTYPES, x.data_ptr(), dt.data_ptr(),
-                 A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(), st.data_ptr(),
-                 dec.data_ptr(), B, nc, Q, H, P, N)
+                 A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), sc.data_ptr(), bt.data_ptr(),
+                 y.data_ptr(), st.data_ptr(), dec.data_ptr(), B, nc, Q, H, P, N, G, vec)
     ssd_intra_chunk.launches += 1
     return y, st, dec
 

@@ -19,7 +19,7 @@ import torch
 import repro_torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.batched import ProblemBatch
-from repro_torch.launch import rounding_probe
+from repro_torch.launch import first_forward_probe, rounding_probe
 from repro_torch.launch.serve import serve_pool
 from repro_torch.models import get_model, hybrid, ssm
 from repro_torch.models.transformer import init_decode_state, params_from_numpy
@@ -86,11 +86,13 @@ def _no_cuda(monkeypatch):
     lambda: hybrid.params_from_numpy({"ln_f": np.ones(4)}, _ZAMBA),
     lambda: ssm.init_mamba_state(_ZAMBA, 1),
     lambda: rounding_probe.probe("zamba2-7b", seq=8),
+    lambda: first_forward_probe.run_sequence(seq=8),
+    lambda: first_forward_probe.probe(processes=1, seq=8),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
         "hybrid_init_decode_state", "hybrid_params_from_numpy", "init_mamba_state",
-        "rounding_probe"])
+        "rounding_probe", "first_forward_probe", "first_forward_probe-processes"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):

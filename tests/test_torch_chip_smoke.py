@@ -4,6 +4,7 @@ copy is named, and so is the first layer whose residual stream it moves."""
 
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import sys
 
@@ -136,6 +137,38 @@ def test_rounding_probe_measures_both_orders():
     assert out["arch"] == "zamba2-7b-smoke" and out["max_abs_logit"] > 0
     for key in ("threads", "ssd_route"):
         assert 0.0 <= out[key]["max"] < 1e-4 and out[key]["mean_rel"] >= 0.0
+
+
+def test_first_forward_probe_names_the_first_op_that_differs(monkeypatch):
+    """The probe's sequence on the CPU: two CPU forwards that repeat bit for
+    bit report no differing op; with one weight moved in the first CPU
+    forward only, the probe names the first op whose output differs."""
+    from repro_torch.launch import first_forward_probe as ffp
+
+    out = ffp.run_sequence(seq=32, device="cpu")
+    assert out["cpu_repeats_bitwise"] and out["first_differing_op"] is None
+    assert out["max_err_first"] == out["max_err_second"] == 0.0
+    assert out["ops"][0] == out["ops"][1] > 100
+
+    real = ffp.get_model
+
+    def moved_once(cfg):  # the first CPU forward (the second call) sees a moved weight
+        api, seen = real(cfg), {"calls": 0}
+
+        def fwd(params, batch, c):
+            seen["calls"] += 1
+            if seen["calls"] == 1:  # the device forward, outside the recorder
+                seen["moved"] = _copy(params)
+                seen["moved"]["layers"]["mlp"]["wo"][1] += 1e-3
+            return api.forward(seen["moved"] if seen["calls"] == 2 else params, batch, c)
+        return dataclasses.replace(api, forward=fwd)
+
+    monkeypatch.setattr(ffp, "get_model", moved_once)
+    out = ffp.run_sequence(seq=32, device="cpu")
+    first = out["first_differing_op"]
+    assert not out["cpu_repeats_bitwise"] and first is not None
+    assert first["index"] > 0 and first["op"][0] == first["op"][1]
+    assert first["num_threads"] == [torch.get_num_threads()] * 2
 
 
 def test_forward_route_check_refuses_a_flash_call_off_the_bf16_route():

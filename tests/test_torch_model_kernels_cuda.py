@@ -385,6 +385,34 @@ def test_ssd_intra_chunk_kernel_matches_plain(cuda_device, B, nc, Q, H, P, N):
         assert bool((diff <= 2e-5 + 1e-4 * w.abs()).all()), float(diff.max())
 
 
+# partly filled last tiles of each product: Q = 100 (a 16-row tile and an
+# 8-key block cut short), P = 20 (an 8-column tile cut short), N = 24 (the
+# scores' last 8-deep step and the state's last 16-row tile cut short); Q = 7
+# and P = 6 (one tile, mostly empty; rows of 24 bytes, copied 4 bytes at a
+# time); and, with nc from the card's SMs, 5 heads in groups of 2 and of 3
+# (the last block of a chunk takes fewer heads)
+SSD_EDGES = [(1, 2, 100, 5, 20, 24), (1, 1, 7, 3, 6, 8), (1, 2, 64, 5, 64, 64),
+             (2, "sms/6", 16, 5, 16, 16), (2, "sms/4", 16, 5, 16, 16)]
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,N", SSD_EDGES)
+def test_ssd_kernel_partial_tiles_and_head_groups_match_plain(cuda_device, B, nc, Q, H, P, N):
+    if isinstance(nc, str):
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        nc = sms // int(nc.split("/")[1])
+        assert H % kssd.head_group(B, nc, H, sms) != 0
+    ins = _ssd_inputs(np.random.default_rng(11), B, nc, Q, H, P, N, cuda_device, "small")
+    before = kssd.ssd_intra_chunk.launches
+    got = kssd.ssd_intra_chunk(*ins)
+    assert kssd.ssd_intra_chunk.launches == before + 1
+    want = ref.ssd_intra_chunk_ref(*ins)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        diff = (g - w).abs()
+        assert bool((diff <= 2e-5 + 1e-4 * w.abs()).all()), float(diff.max())
+
+
 @pytest.mark.parametrize("B,nc,Q,H,P,N", [SSD_SHAPES[0], SSD_SHAPES[1], SSD_SHAPES[4]])
 def test_ssd_kernel_route_at_model_dt_is_as_accurate_as_the_plain_route(
         cuda_device, B, nc, Q, H, P, N):
