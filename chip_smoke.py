@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--json PATH]
 
 Drives the port's paths on the card and checks them: the Section-5
-campaign planner, serving qwen3-4b at full width, and the hybrid zamba2-7b
-at full width (``repro_torch``), in twelve phases; any failure exits
-non-zero:
+campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
+full width, and the planner API (``repro_torch``), in thirteen phases; any
+failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -84,10 +84,24 @@ non-zero:
               (bfloat16); a forward outside the limit is
               diagnosed before the phase fails (a second card forward, the
               parameters' card copies, each block's residual stream, each
-              kernel call against its plain version).
+              kernel call against its plain version);
+ 13. planner — the paper's planner API on cuda, the split-score counters
+              zeroed just before and read just after: ``plan_pareto`` (20
+              bounds per direction), ``plan`` for the period and for the
+              latency under half the fastest single-processor period, on one
+              instance pair of each of E1-E4 at n = 40, p = 100;
+              ``plan_request`` of ``auto_request`` in both directions and of
+              the whole default portfolio (exact solvers included) on two
+              pairs at n = 10, p = 10; ``min_period_exhaustive`` against
+              ``batched_min_period``; the scalar engine's E1 curves against
+              the golden CSV.  The same planner calls on cpu: every
+              candidate (solver, objective, period, latency, feasibility,
+              mapping, error), the chosen plan and the front equal; both
+              split-score kernels launched; wall time and launches per
+              ``plan_pareto``.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11), max abs
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13), max abs
 error, kernel / plain / bound / library device times in ms; decode attention's
 at the serve runs' live count); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1078,6 +1092,127 @@ def model_kernel_phase(torch, gen, report) -> tuple:
     return model_kernels, counters, cfg, hcfg
 
 
+# the planner API: one instance pair of each family at the largest point of
+# the paper's default grid (n = 40, p = 100; repro/sim/experiments.py:62-63),
+# swept over 20 bounds per direction; and two pairs at (n = 10, p = 10), where
+# the exact solvers join the portfolio (p <= 12)
+PLAN_N, PLAN_P, PLAN_K = 40, 100, 20
+EXACT_N, EXACT_P = 10, 10
+PLAN_SEED = 1234
+
+
+def planner_instances(gen_instance_batch, families, n: int, p: int) -> list:
+    return [gen_instance_batch(e, n, p, [PLAN_SEED]).instance(0) for e in families]
+
+
+def _mapping_row(m):
+    return None if m is None else [[list(iv) for iv in m.intervals], list(m.alloc)]
+
+
+def _candidate_row(c) -> list:
+    """Everything a planner Candidate carries but its wall time."""
+    return [c.solver, c.objective.minimize, c.objective.bound, _mapping_row(c.mapping),
+            c.period, c.latency, c.feasible, c.groups, c.error, c.reliability]
+
+
+def _report_row(rep) -> dict:
+    return {"candidates": [_candidate_row(c) for c in rep.candidates],
+            "chosen": None if rep.chosen is None else _candidate_row(rep.chosen),
+            "pareto": [list(pt) for pt in rep.pareto],
+            "plan": None if rep.plan is None else [_mapping_row(rep.plan.mapping),
+                                                   rep.plan.period, rep.plan.latency,
+                                                   rep.plan.planner]}
+
+
+def _plan_row(core, wl, pf, objective, device):
+    try:
+        sp = core.plan(wl, pf, objective, mode="auto", device=device)
+    except core.InfeasiblePlan as ex:
+        return ["InfeasiblePlan", str(ex)]
+    return [_mapping_row(sp.mapping), sp.period, sp.latency, sp.planner]
+
+
+def run_planner(core, big, small, device, k: int = PLAN_K, launches=lambda: (0, 0)) -> dict:
+    """The planner phase's calls on ``device``.  Per instance of ``big``:
+    ``plan_pareto`` (its wall time and the 2-way and 3-way split-score
+    launches it made, as ``launches()`` counts them), ``plan`` for the
+    period and for the latency under half the fastest single-processor
+    period.  Per instance of ``small``: ``plan_request`` of
+    ``auto_request`` in both directions and of the whole default portfolio
+    (the exact solvers included) with both objectives.  Returns the rows (JSON-ready, everything but wall times)
+    and the per-``plan_pareto`` times and launches."""
+    rows = {"plan_pareto": [], "plan_period": [], "plan_latency": [], "plan_request": []}
+    pareto_s, pareto_launches = [], []
+    for wl, pf in big:
+        before = launches()
+        t0 = time.perf_counter()
+        rep = core.plan_pareto(wl, pf, k=k, device=device)
+        pareto_s.append(time.perf_counter() - t0)
+        pareto_launches.append([a - b for a, b in zip(launches(), before)])
+        rows["plan_pareto"].append(_report_row(rep))
+        hi = core.period(wl, pf, core.single_processor_mapping(wl, pf.fastest()))
+        rows["plan_period"].append(_plan_row(core, wl, pf, core.Objective("period"), device))
+        rows["plan_latency"].append(_plan_row(
+            core, wl, pf, core.Objective("latency", bound=0.5 * hi), device))
+    for wl, pf in small:
+        hi = core.period(wl, pf, core.single_processor_mapping(wl, pf.fastest()))
+        for req in (core.auto_request(wl, pf, core.Objective("period")),
+                    core.auto_request(wl, pf, core.Objective("latency")),
+                    core.PlanRequest(wl, pf, (core.Objective("period"),
+                                              core.Objective("latency", bound=0.5 * hi)))):
+            rows["plan_request"].append(_report_row(core.plan_request(req, device=device)))
+    return {"rows": rows, "pareto_s": pareto_s, "pareto_launches": pareto_launches}
+
+
+def compare_planner(got: dict, want: dict, what: str) -> int:
+    """Fail on the first row of ``got`` that is not ``==`` its row in ``want``
+    (solver, objective, (period, latency), feasibility, mapping and error of
+    every candidate; the chosen plan and the front).  Returns the number of
+    candidates compared."""
+    n = 0
+    for kind, rows in want.items():
+        if len(got[kind]) != len(rows):
+            fail(f"{what}: {kind}: {len(got[kind])} rows against {len(rows)}")
+        for i, (g, w) in enumerate(zip(got[kind], rows)):
+            if isinstance(w, dict):
+                if len(g["candidates"]) != len(w["candidates"]):
+                    fail(f"{what}: {kind}[{i}]: {len(g['candidates'])} candidates against "
+                         f"{len(w['candidates'])}")
+                for j, (gc, wc) in enumerate(zip(g["candidates"], w["candidates"])):
+                    if gc != wc:
+                        fail(f"{what}: {kind}[{i}] candidate {j} differs: {gc} against {wc}")
+                for key in w:
+                    if g[key] != w[key]:
+                        fail(f"{what}: {kind}[{i}] {key} differs: {g[key]} against {w[key]}")
+                n += len(w["candidates"])
+            elif g != w:
+                fail(f"{what}: {kind}[{i}] differs: {g} against {w}")
+    return n
+
+
+def check_min_period(core, batched, big, device) -> None:
+    """``min_period_exhaustive`` (the scalar form) against the lockstep
+    engine's ``batched_min_period`` on each instance, both on ``device``."""
+    for i, (wl, pf) in enumerate(big):
+        got = core.min_period_exhaustive(wl, pf, device=device)
+        pb = batched.ProblemBatch.from_arrays(wl.w[None], wl.delta[None], pf.s[None],
+                                              pf.b, device=device)
+        want = batched.batched_min_period(pb)[0]
+        row = [(r.mapping.intervals, r.mapping.alloc, r.period, r.latency, r.feasible,
+                r.splits, r.name) for r in (got, want)]
+        if row[0] != row[1]:
+            fail(f"min_period_exhaustive differs from batched_min_period on instance {i}: "
+                 f"{row[0]} against {row[1]}")
+
+
+def check_scalar_golden(experiments, device) -> None:
+    """The scalar engine writes the golden E1 curves byte for byte."""
+    res = experiments.run_experiment("E1", 5, 10, n_pairs=3, n_bounds=4, engine="scalar",
+                                     device=device)
+    if experiments.summarize_experiment(res) != (GOLDEN / "curves_E1_n5_p10.csv").read_text():
+        fail("scalar engine: curves_E1_n5_p10.csv differs from the golden file")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -1094,11 +1229,12 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch import core
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import batched
     from repro_torch.core.heuristics import score_2way, score_3way
     from repro_torch.kernels import build, split_score
-    from repro_torch.sim import gen_instance_batch, paper_sim, run_campaign
+    from repro_torch.sim import experiments, gen_instance_batch, paper_sim, run_campaign
 
     report = {}
     t_all = time.time()
@@ -1298,6 +1434,42 @@ def main() -> None:
             f"forward {res['forward']}, decode {res['decode']}")
         torch.cuda.empty_cache()
     report["model_cpu_vs_card_s"] = time.time() - t0
+
+    # 13. the planner API on the card, the split-score counters zeroed just
+    # before and read just after; then the same calls on the cpu: equal
+    big = planner_instances(gen_instance_batch, FAMILIES, PLAN_N, PLAN_P)
+    small = planner_instances(gen_instance_batch, FAMILIES[:2], EXACT_N, EXACT_P)
+    score_counters = (split_score.score_2way_cuda, split_score.score_3way_cuda)
+    torch.cuda.synchronize()
+    zero_counters(score_counters)
+    t0 = time.time()
+    on_card = run_planner(core, big, small, "cuda",
+                          launches=lambda: [f.launches for f in score_counters])
+    check_min_period(core, batched, big, "cuda")
+    check_scalar_golden(experiments, "cuda")
+    torch.cuda.synchronize()
+    planner_launches = {"score_2way_f64": split_score.score_2way_cuda.launches,
+                        "score_3way_f64": split_score.score_3way_cuda.launches}
+    card_s = time.time() - t0
+    for name, count in planner_launches.items():
+        if count <= 0:
+            fail(f"planner launched {name} no time")
+    on_cpu = run_planner(core, big, small, "cpu")
+    n_cands = compare_planner(on_card["rows"], on_cpu["rows"], "planner card vs cpu")
+    by_path["planner"] = planner_launches
+    report["planner"] = {
+        "card": card, "instances": {"pareto": [PLAN_N, PLAN_P, len(big), PLAN_K],
+                                    "exact": [EXACT_N, EXACT_P, len(small)]},
+        "candidates_compared": n_cands, "card_s": card_s,
+        "pareto_s_card": on_card["pareto_s"], "pareto_s_cpu": on_cpu["pareto_s"],
+        "pareto_launches": on_card["pareto_launches"], "launches": planner_launches}
+    say(f"phase planner: {n_cands} candidates equal card vs cpu (plan_pareto k={PLAN_K} at "
+        f"n={PLAN_N} p={PLAN_P} on {', '.join(FAMILIES)}; plan; plan_request at n={EXACT_N} "
+        f"p={EXACT_P}); min_period_exhaustive == batched_min_period; scalar engine golden "
+        f"E1 csv byte-identical; launches {planner_launches} in {card_s:.1f} s")
+    say(f"phase planner: plan_pareto wall s card {[round(t, 3) for t in on_card['pareto_s']]}, "
+        f"cpu {[round(t, 3) for t in on_cpu['pareto_s']]}; split-score launches (2-way, "
+        f"3-way) per plan_pareto {on_card['pareto_launches']}; {card}")
 
     launches = {}
     for counts in by_path.values():

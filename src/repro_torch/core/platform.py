@@ -4,9 +4,10 @@ Different-speed processors ``s_u`` interconnected by links of identical
 bandwidth ``b`` (paper Section 2).  The port's own copy of what the campaign
 path uses from ``repro.core.platform``: the :class:`Platform` record (with the
 reliability sequel's optional per-processor failure vector ``fail``, which the
-R1-R4 scenario families draw), its speed ordering, and :func:`make_platform`.
-Numpy on the host: platforms are tiny and their ordering feeds the seed
-contract.
+R1-R4 scenario families draw), its speed ordering, the straggler and
+failure events :meth:`Platform.degrade` / :meth:`Platform.without`, and the
+constructors :func:`make_platform` / :func:`homogeneous_platform`.  Numpy on
+the host: platforms are tiny and their ordering feeds the seed contract.
 """
 
 from __future__ import annotations
@@ -15,6 +16,12 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+
+
+def _suffix_once(name: str, suffix: str) -> str:
+    """Append ``suffix`` unless the name already carries it (events that fire
+    repeatedly must not grow the name without bound)."""
+    return name if name.endswith(suffix) else name + suffix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +63,32 @@ class Platform:
     def fastest(self) -> int:
         return int(self.sorted_indices()[0])
 
+    def degrade(self, proc: int, factor: float) -> "Platform":
+        """Return a platform where processor ``proc`` runs ``factor`` times slower.
+        Used for straggler modeling."""
+        if not (0 < factor):
+            raise ValueError("factor must be positive")
+        s = self.s.copy()
+        s[proc] = s[proc] / factor
+        return Platform(s, self.b, name=_suffix_once(self.name, "-degraded"),
+                        fail=self.fail)
+
+    def without(self, proc: int) -> "Platform":
+        """The platform after processor ``proc`` died: speeds and failure
+        probabilities both lose that row."""
+        if self.p <= 1:
+            raise ValueError("cannot remove the last processor")
+        return Platform(np.delete(self.s, proc), self.b,
+                        name=_suffix_once(self.name, "-failed"),
+                        fail=(None if self.fail is None
+                              else np.delete(self.fail, proc)))
+
 
 def make_platform(s: Sequence[float], b: float, name: str = "platform",
                   fail=None) -> Platform:
     return Platform(np.asarray(s, dtype=np.float64), float(b), name,
                     fail=None if fail is None else np.asarray(fail, float))
+
+
+def homogeneous_platform(p: int, s: float = 1.0, b: float = 10.0) -> Platform:
+    return Platform(np.full(p, s), b, name=f"homog-{p}")

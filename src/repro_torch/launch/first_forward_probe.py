@@ -20,6 +20,10 @@ the first and the second CPU forward, whether the two CPU forwards agree bit
 for bit, and the first differing op; then how many processes missed.
 ``--device cpu`` runs the same sequence with the "device" forward on the CPU
 too (a rehearsal of the probe, not of the card).
+
+:func:`recorded_cpu_forwards` is the recording alone: the card test itself
+runs its two CPU forwards through it, inside the test process, after the
+tests before it.
 """
 
 from __future__ import annotations
@@ -72,6 +76,35 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def recorded_cpu_forwards(api, params, toks, cfg, got=None) -> tuple:
+    """Two CPU forwards of ``toks``, each with every op recorded.  Returns
+    ``(first logits, second logits, summary)``: whether the two repeat bit
+    for bit, the op counts, the first op whose outputs differ (its inputs'
+    shapes and the thread count when it ran in each forward), and, given the
+    device's logits ``got``, the max difference to each CPU forward."""
+    runs = []
+    for _ in range(2):
+        rec = OpRecorder()
+        with rec:
+            want, _ = api.forward(params, {"tokens": toks}, cfg)
+        runs.append((want, rec.ops))
+    (first, ops1), (second, ops2) = runs
+    out = {"threads": torch.get_num_threads(),
+           "cpu_repeats_bitwise": bool(torch.equal(first, second)),
+           "ops": [len(ops1), len(ops2)], "first_differing_op": None}
+    if got is not None:
+        got = got.float().cpu()
+        out["max_err_first"] = float((got - first).abs().max())
+        out["max_err_second"] = float((got - second).abs().max())
+    for i, (a, b) in enumerate(zip(ops1, ops2)):
+        if a != b:
+            out["first_differing_op"] = {
+                "index": i, "op": [a[0], b[0]], "input_shapes": [a[1], b[1]],
+                "num_threads": [a[3], b[3]], "ops_before": [o[0] for o in ops1[max(0, i - 3):i]]}
+            break
+    return first, second, out
+
+
 def run_sequence(seq: int = 1536, device=None) -> dict:
     """One process's sequence: device forward, CPU forward, CPU forward."""
     dev = resolve_device(device)
@@ -81,26 +114,8 @@ def run_sequence(seq: int = 1536, device=None) -> dict:
     on_dev = _to(params, dev)
     toks = torch.from_numpy(np.random.default_rng(5).integers(1, cfg.vocab_size, (1, seq)))
     got, _ = api.forward(on_dev, {"tokens": toks.to(dev)}, cfg)
-    runs = []
-    for _ in range(2):
-        rec = OpRecorder()
-        with rec:
-            want, _ = api.forward(params, {"tokens": toks}, cfg)
-        runs.append((want, rec.ops))
-    (first, ops1), (second, ops2) = runs
-    got = got.float().cpu()
-    out = {"device": str(dev), "seq": seq, "threads": torch.get_num_threads(),
-           "max_err_first": float((got - first).abs().max()),
-           "max_err_second": float((got - second).abs().max()),
-           "cpu_repeats_bitwise": bool(torch.equal(first, second)),
-           "ops": [len(ops1), len(ops2)], "first_differing_op": None}
-    for i, (a, b) in enumerate(zip(ops1, ops2)):
-        if a != b:
-            out["first_differing_op"] = {
-                "index": i, "op": [a[0], b[0]], "input_shapes": [a[1], b[1]],
-                "num_threads": [a[3], b[3]], "ops_before": [o[0] for o in ops1[max(0, i - 3):i]]}
-            break
-    return out
+    _, _, rec = recorded_cpu_forwards(api, params, toks, cfg, got)
+    return {"device": str(dev), "seq": seq} | rec
 
 
 def probe(processes: int = 30, seq: int = 1536, device=None) -> dict:

@@ -18,9 +18,24 @@ metric evaluation and the curve means stay numpy on the host (their
 summation order is part of the result).  Outputs are bit-identical to
 ``repro.sim.experiments.run_campaign``.
 
-Each stage of a campaign runs under a ``torch.profiler.record_function``
-span (``campaign.setup``, ``campaign.trajectories``, ``campaign.h4``,
-``campaign.h5h6`` and, inside it, ``campaign.evaluate``), which :mod:`repro_torch.sim.campaign_profile`
+Two engines produce identical outputs:
+
+  - ``engine="batched"`` (default): the lockstep engine above;
+  - ``engine="scalar"``: the per-instance reference path (one Python loop per
+    instance and bound through the scalar heuristics and the solver
+    registry), whose split scoring runs on the same device.
+
+The reference's ``"fused"``, ``"sharded"`` and ``"auto"`` engines are not
+ported yet and raise ``ValueError``.
+
+:func:`failure_thresholds` computes the paper's Table 1, and
+:func:`run_replicated` reruns a campaign over R disjoint seed banks with mean
++/- 95% confidence intervals (:func:`summarize_replicated`).
+
+Each stage of a batched campaign runs under a
+``torch.profiler.record_function`` span (``campaign.setup``,
+``campaign.trajectories``, ``campaign.h4``, ``campaign.h5h6`` and, inside
+it, ``campaign.evaluate``), which :mod:`repro_torch.sim.campaign_profile`
 reads; with no profiler running a span costs a few microseconds.
 """
 
@@ -36,9 +51,48 @@ from torch.profiler import record_function
 from .. import resolve_device
 from ..core.batched import (ProblemBatch, _fixed_latency_state, batched_sp_bi_p,
                             batched_trajectory_sets, evaluate_state_rows)
+from ..core.heuristics import scoring_device, sp_bi_p, split_trajectory
 from ..core.metrics import optimal_latency, single_processor_mapping
 from ..core.metrics import period as eval_period
+from ..core.planner import Objective
+from ..core.solvers import solve
 from .generators import gen_instance_batch
+
+N_STAGES_DEFAULT = (5, 10, 20, 40)
+# the large-grid follow-up shapes
+N_STAGES_LARGE = (80, 160)
+N_PROCS_LARGE = (1000,)
+
+ENGINES = ("batched", "scalar")
+
+
+def _check_engine(engine: str) -> None:
+    if engine in ("fused", "sharded", "auto"):
+        raise ValueError(f"engine {engine!r} is not ported yet (ROADMAP.md Queue 1 "
+                         f"items 5 and 7: the fused loop and the sharded engine); "
+                         f"use one of {ENGINES}")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+
+
+def _stacked_batch(batches, device) -> ProblemBatch:
+    """One ProblemBatch of every instance of ``batches`` (InstanceBatches
+    sharing (n, p)) on ``device``."""
+    return ProblemBatch.from_arrays(
+        np.concatenate([b.w for b in batches]),
+        np.concatenate([b.delta for b in batches]),
+        np.concatenate([b.s for b in batches]), batches[0].b,
+        prefix=np.concatenate([b.prefix for b in batches]),
+        order=np.concatenate([b.order for b in batches]), device=device)
+
+
+def _curve(cols, n_pairs: int) -> tuple:
+    """(mean period, mean latency, feasible fraction) per bound from each
+    bound's list of feasible (period, latency) points."""
+    mean_per = np.array([np.mean([a for a, _ in col]) if col else np.nan for col in cols])
+    mean_lat = np.array([np.mean([b for _, b in col]) if col else np.nan for col in cols])
+    frac = np.array([len(col) / n_pairs for col in cols])
+    return mean_per, mean_lat, frac
 
 
 def _result_from_trajectory(traj: list, p_fix: float) -> Optional[tuple]:
@@ -63,11 +117,67 @@ class ExperimentResult:
 
 def run_experiment(exp: str, n: int, p: int, n_pairs: int = 50,
                    n_bounds: int = 16, seed0: int = 1234, h4_iters: int = 10,
-                   include_h4: bool = True, device=None) -> ExperimentResult:
-    """One scenario family at one (n, p) point: ``run_campaign([exp], ...)``."""
-    return run_campaign([exp], n, p, n_pairs=n_pairs, n_bounds=n_bounds,
-                        seed0=seed0, h4_iters=h4_iters, include_h4=include_h4,
-                        device=device)[exp]
+                   include_h4: bool = True, engine: str = "batched",
+                   device=None) -> ExperimentResult:
+    """One scenario family at one (n, p) point on ``device`` (``None`` means
+    CUDA): ``run_campaign([exp], ...)`` with the batched engine, or the
+    per-instance reference path with ``engine="scalar"``."""
+    _check_engine(engine)
+    if engine == "batched":
+        return run_campaign([exp], n, p, n_pairs=n_pairs, n_bounds=n_bounds,
+                            seed0=seed0, h4_iters=h4_iters, include_h4=include_h4,
+                            device=device)[exp]
+    period_fracs = np.geomspace(0.04, 1.0, n_bounds)     # x single-processor period
+    latency_mults = np.linspace(1.0, 3.0, n_bounds)      # x optimal latency
+    codes_p = ["H1", "H2", "H3"] + (["H4"] if include_h4 else [])
+    codes_l = ["H5", "H6"]
+    acc = {c: [[] for _ in range(n_bounds)] for c in codes_p + codes_l}
+    thresholds = {c: [] for c in codes_p + codes_l}
+    with scoring_device(device):
+        batch = gen_instance_batch(exp, n, p, [seed0 + k for k in range(n_pairs)])
+        _run_scalar(batch, h4_iters, include_h4,
+                    period_fracs, latency_mults, codes_l, acc, thresholds)
+
+    curves = {c: _curve(cols, n_pairs) for c, cols in acc.items()}
+    thr = {c: (float(np.mean(v)), float(np.max(v))) for c, v in thresholds.items()}
+    return ExperimentResult(exp, n, p, n_pairs, period_fracs, curves, thr)
+
+
+def _run_scalar(batch, h4_iters, include_h4,
+                period_fracs, latency_mults, codes_l, acc, thresholds) -> None:
+    """Per-instance reference path: one Python loop per (instance, bound),
+    over the per-instance objects of an already-generated InstanceBatch.
+    Split scoring runs on the enclosing ``scoring_device`` block's device."""
+    for wl, pf in batch:
+        hi = eval_period(wl, pf, single_processor_mapping(wl, pf.fastest()))
+        l_opt = optimal_latency(wl, pf)
+        pgrid = hi * period_fracs
+        lgrid = l_opt * latency_mults
+
+        trajs = {c: split_trajectory(c, wl, pf) for c in ["H1", "H2", "H3", "H4"]}
+        for c in ["H1", "H2", "H3"]:
+            thresholds[c].append(min(per for per, _ in trajs[c]))
+            for bi, pb in enumerate(pgrid):
+                r = _result_from_trajectory(trajs[c], pb)
+                if r is not None:
+                    acc[c][bi].append(r)
+        if include_h4:
+            # H4 feasibility is characterized by its inner splitter's trajectory;
+            # the binary search then trades latency. Run the real H4 per bound.
+            thresholds["H4"].append(min(per for per, _ in trajs["H4"]))
+            for bi, pb in enumerate(pgrid):
+                if _result_from_trajectory(trajs["H4"], pb) is None:
+                    continue  # provably infeasible for H4 — skip the binary search
+                r = sp_bi_p(wl, pf, pb, iters=h4_iters)
+                if r.feasible:
+                    acc["H4"][bi].append((r.period, r.latency))
+
+        for c in codes_l:
+            thresholds[c].append(l_opt)
+            for bi, lb in enumerate(lgrid):
+                cand = solve(c, wl, pf, Objective("period", bound=float(lb)))
+                if cand.feasible:
+                    acc[c][bi].append((cand.period, cand.latency))
 
 
 def _campaign_core(pb, workloads, platforms, pgrids, lgrids, n_bounds,
@@ -172,12 +282,7 @@ def run_campaign(exps, n: int, p: int, n_pairs: int = 50, n_bounds: int = 16,
         batches = [gen_instance_batch(exp, n, p, seeds) for exp in exps]
         workloads = [wl for b in batches for wl in b.workloads]
         platforms = [pf for b in batches for pf in b.platforms]
-        pb = ProblemBatch.from_arrays(
-            np.concatenate([b.w for b in batches]),
-            np.concatenate([b.delta for b in batches]),
-            np.concatenate([b.s for b in batches]), batches[0].b,
-            prefix=np.concatenate([b.prefix for b in batches]),
-            order=np.concatenate([b.order for b in batches]), device=dev)
+        pb = _stacked_batch(batches, dev)
         his = [eval_period(wl, pf, single_processor_mapping(wl, pf.fastest()))
                for wl, pf in zip(workloads, platforms)]
         lopts = [optimal_latency(wl, pf) for wl, pf in zip(workloads, platforms)]
@@ -198,16 +303,167 @@ def run_campaign(exps, n: int, p: int, n_pairs: int = 50, n_bounds: int = 16,
         for c in codes:
             cols = [[points[c][g][bi] for g in range(lo, lo + n_pairs)
                      if points[c][g][bi] is not None] for bi in range(n_bounds)]
-            mean_per = np.array([np.mean([a for a, _ in col]) if col else np.nan
-                                 for col in cols])
-            mean_lat = np.array([np.mean([b for _, b in col]) if col else np.nan
-                                 for col in cols])
-            frac = np.array([len(col) / n_pairs for col in cols])
-            curves[c] = (mean_per, mean_lat, frac)
+            curves[c] = _curve(cols, n_pairs)
         thr = {c: (float(np.mean(thr_vals[c][lo:lo + n_pairs])),
                    float(np.max(thr_vals[c][lo:lo + n_pairs]))) for c in codes}
         out[exp] = ExperimentResult(exp, n, p, n_pairs, period_fracs, curves, thr)
     return out
+
+
+def failure_thresholds(exps=("E1", "E2", "E3", "E4"), ns=N_STAGES_DEFAULT,
+                       p: int = 10, n_pairs: int = 50, seed0: int = 1234,
+                       engine: str = "batched", device=None) -> dict:
+    """The paper's Table 1: per (experiment, heuristic, n), the failure
+    threshold, averaged over instances, on ``device`` (``None`` means CUDA).
+    Returns {exp: {code: {n: value}}}."""
+    _check_engine(engine)
+    dev = resolve_device(device)
+    exps = list(exps)
+    out: dict = {exp: {c: {} for c in ["H1", "H2", "H3", "H4", "H5", "H6"]}
+                 for exp in exps}
+    if engine == "batched":
+        # one stacked pass per n across ALL experiment families
+        seeds = [seed0 + k for k in range(n_pairs)]
+        for n in ns:
+            batches = [gen_instance_batch(exp, n, p, seeds) for exp in exps]
+            trajsets = batched_trajectory_sets(["H1", "H2", "H3", "H4"],
+                                               _stacked_batch(batches, dev))
+            for c, trajs in trajsets.items():
+                for ei, exp in enumerate(exps):
+                    sl = trajs[ei * n_pairs:(ei + 1) * n_pairs]
+                    out[exp][c][n] = float(np.mean([min(per for per, _ in t)
+                                                    for t in sl]))
+            for ei, exp in enumerate(exps):
+                lopts = [optimal_latency(wl, pf) for wl, pf in batches[ei]]
+                out[exp]["H5"][n] = float(np.mean(lopts))
+                out[exp]["H6"][n] = float(np.mean(lopts))
+        return out
+    with scoring_device(dev):
+        for exp in exps:
+            for n in ns:
+                vals = {c: [] for c in out[exp]}
+                batch = gen_instance_batch(exp, n, p,
+                                           [seed0 + k for k in range(n_pairs)])
+                for wl, pf in batch:
+                    for c in ["H1", "H2", "H3", "H4"]:
+                        traj = split_trajectory(c, wl, pf)
+                        vals[c].append(min(per for per, _ in traj))
+                    l_opt = optimal_latency(wl, pf)
+                    vals["H5"].append(l_opt)
+                    vals["H6"].append(l_opt)
+                for c, v in vals.items():
+                    out[exp][c][n] = float(np.mean(v))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Replication sweeps: the Section-5 study across many seed banks, with
+# confidence intervals on the Figures 2-7 curves and Table 1 thresholds.
+# ---------------------------------------------------------------------------
+
+# normal-approximation 95% two-sided quantile
+_Z95 = 1.959963984540054
+
+
+@dataclasses.dataclass
+class ReplicatedResult:
+    """Aggregate of R independent campaign replications of one experiment.
+
+    ``curves[code] = (mean_per, ci_per, mean_lat, ci_lat, mean_frac)`` over
+    the bound grid, where the means average each replication's curve point
+    (nan-skipping: a replication with no feasible instance at a bound does
+    not contribute) and ``ci_*`` is the 95% half-width of the mean across
+    replications.  ``thresholds[code] = (mean, ci)`` aggregates the
+    per-replication mean failure thresholds.
+    """
+
+    exp: str
+    n: int
+    p: int
+    n_pairs: int
+    replications: int
+    bounds_rel: np.ndarray
+    curves: dict
+    thresholds: dict
+
+
+def _mean_ci(stack: np.ndarray) -> tuple:
+    """(nan-mean, 95% CI half-width of the mean) along axis 0.  All-NaN
+    columns (a bound infeasible in every replication) stay NaN."""
+    import warnings
+
+    cnt = np.sum(~np.isnan(stack), axis=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        mean = np.where(cnt > 0, np.nanmean(stack, axis=0), np.nan)
+        sd = np.where(cnt > 1, np.nanstd(stack, axis=0, ddof=1), np.nan)
+    ci = np.where(cnt > 1, _Z95 * sd / np.sqrt(np.maximum(cnt, 1)), np.nan)
+    return mean, ci
+
+
+def run_replicated(exps, n: int, p: int, n_pairs: int = 50,
+                   replications: int = 10, n_bounds: int = 16,
+                   seed0: int = 1234, h4_iters: int = 10,
+                   include_h4: bool = True, engine: str = "batched",
+                   device=None) -> tuple:
+    """Run the campaign over ``replications`` disjoint seed banks (bank r
+    uses seeds ``seed0 + r * n_pairs + k``; bank 0 is exactly the
+    non-replicated campaign) on ``device`` (``None`` means CUDA) and
+    aggregate mean +/- 95% CI per experiment.
+
+    Returns ``(replicated, first)`` where ``replicated`` maps each exp to a
+    :class:`ReplicatedResult` and ``first`` is bank 0's plain
+    ``{exp: ExperimentResult}``.
+    """
+    _check_engine(engine)
+    dev = resolve_device(device)
+    if engine == "scalar":  # the reference path replicates per experiment
+        camps = [{exp: run_experiment(exp, n, p, n_pairs=n_pairs,
+                                      n_bounds=n_bounds,
+                                      seed0=seed0 + r * n_pairs,
+                                      h4_iters=h4_iters,
+                                      include_h4=include_h4, engine="scalar",
+                                      device=dev)
+                  for exp in exps} for r in range(replications)]
+    else:
+        camps = [run_campaign(exps, n, p, n_pairs=n_pairs, n_bounds=n_bounds,
+                              seed0=seed0 + r * n_pairs, h4_iters=h4_iters,
+                              include_h4=include_h4, device=dev)
+                 for r in range(replications)]
+    out = {}
+    for exp in exps:
+        reps = [c[exp] for c in camps]
+        codes = sorted(reps[0].curves)
+        curves = {}
+        thr = {}
+        for c in codes:
+            per = np.stack([r.curves[c][0] for r in reps])
+            lat = np.stack([r.curves[c][1] for r in reps])
+            frac = np.stack([r.curves[c][2] for r in reps])
+            mean_per, ci_per = _mean_ci(per)
+            mean_lat, ci_lat = _mean_ci(lat)
+            curves[c] = (mean_per, ci_per, mean_lat, ci_lat, frac.mean(axis=0))
+            tvals = np.array([r.thresholds[c][0] for r in reps])
+            tm, tci = _mean_ci(tvals[:, None])
+            thr[c] = (float(tm[0]), float(tci[0]))
+        out[exp] = ReplicatedResult(exp, n, p, n_pairs, replications,
+                                    reps[0].bounds_rel, curves, thr)
+    return out, camps[0]
+
+
+def summarize_replicated(res: ReplicatedResult) -> str:
+    lines = [f"# {res.exp} n={res.n} p={res.p} pairs={res.n_pairs} "
+             f"replications={res.replications}"]
+    lines.append("heuristic,bound_idx,mean_period,period_ci95,"
+                 "mean_latency,latency_ci95,feasible_frac")
+    for c, (mp, cp, ml, cl, fr) in sorted(res.curves.items()):
+        for i in range(len(mp)):
+            lines.append(f"{c},{i},{mp[i]:.6g},{cp[i]:.6g},{ml[i]:.6g},"
+                         f"{cl[i]:.6g},{fr[i]:.3f}")
+    lines.append("heuristic,threshold_mean,threshold_ci95")
+    for c, (m, ci) in sorted(res.thresholds.items()):
+        lines.append(f"{c},{m:.6g},{ci:.6g}")
+    return "\n".join(lines)
 
 
 def summarize_experiment(res: ExperimentResult) -> str:

@@ -5,14 +5,21 @@ The port's own copy of the CSV and claims writer of
 ``out_dir``:
 
   - curves_<exp>_n<k>_p<P>.csv      — the trade-off curves behind Figures 2-7
+  - curves_<exp>_n<k>_p<P>_ci.csv   — mean +/- 95% CI across seed banks
+                                      (only with --replications R > 1)
   - table1_thresholds.csv           — the failure-threshold table (Table 1)
+  - table1_thresholds_ci.csv        — its replication CIs (with --replications)
   - claims.txt                      — machine-checked qualitative claims
 
 byte-identical to the reference's files for the same grid.  Every (n, p)
-point is one :func:`repro_torch.sim.experiments.run_campaign` on ``device``
-(``None`` means CUDA).  Run it with
+point runs on ``device`` (``None`` means CUDA) through the batched engine
+(one :func:`repro_torch.sim.experiments.run_campaign`) or, with
+``--engine scalar``, the per-instance reference path.  ``--large-grid``
+adds the follow-up study's n in {80, 160}, p = 1000 points (``--large-pairs``
+pairs each).  Run it with
 
-    PYTHONPATH=src python -m repro_torch.sim.paper_sim --out <dir> [--device cuda]
+    PYTHONPATH=src python -m repro_torch.sim.paper_sim --out <dir> [--device cuda] \
+        [--engine batched|scalar] [--replications R] [--large-grid] [--large-pairs 6]
 """
 
 from __future__ import annotations
@@ -24,19 +31,42 @@ import time
 import numpy as np
 
 from .. import resolve_device
-from .experiments import run_campaign, summarize_experiment
+from .experiments import (ENGINES, N_PROCS_LARGE, N_STAGES_LARGE, _check_engine,
+                          run_campaign, run_experiment, run_replicated,
+                          summarize_experiment, summarize_replicated)
 from .generators import FAMILY_SETS, PAPER_FAMILIES
 
 HEURISTICS = ("H1", "H2", "H3", "H4", "H5", "H6")
 
 
+def _run_point(exps, n, p, n_pairs, n_bounds, include_h4, engine, replications,
+               device):
+    """One (n, p) grid point through the selected engine; returns
+    (single-bank {exp: ExperimentResult}, {exp: ReplicatedResult} or None)."""
+    if replications > 1:
+        rep, first = run_replicated(exps, n, p, n_pairs=n_pairs,
+                                    replications=replications,
+                                    n_bounds=n_bounds, include_h4=include_h4,
+                                    engine=engine, device=device)
+        return first, rep
+    if engine == "scalar":
+        return {exp: run_experiment(exp, n, p, n_pairs=n_pairs,
+                                    n_bounds=n_bounds, include_h4=include_h4,
+                                    engine="scalar", device=device)
+                for exp in exps}, None
+    return run_campaign(exps, n, p, n_pairs=n_pairs, n_bounds=n_bounds,
+                        include_h4=include_h4, device=device), None
+
+
 def run(out_dir: pathlib.Path, full: bool = False, families: str = "paper",
         ns: tuple = None, ps: tuple = None, n_pairs: int = None,
-        n_bounds: int = None, device=None) -> dict:
+        n_bounds: int = None, engine: str = "batched", replications: int = 1,
+        large_grid: bool = False, large_pairs: int = 6, device=None) -> dict:
     """Run the study and write its CSVs.  ``families`` selects a family set
     from ``FAMILY_SETS`` (or pass an explicit tuple of family names);
     ``ns``/``ps``/``n_pairs``/``n_bounds`` override the grid."""
     dev = resolve_device(device)
+    _check_engine(engine)
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     exps = FAMILY_SETS[families] if isinstance(families, str) else tuple(families)
@@ -46,15 +76,24 @@ def run(out_dir: pathlib.Path, full: bool = False, families: str = "paper",
     nb = n_bounds if n_bounds is not None else (12 if full else 8)
     t0 = time.time()
 
+    points = [(n, p, n_pairs, nb, full or (n <= 20)) for n in ns for p in ps]
+    if large_grid:
+        points += [(n, p, large_pairs, 8, True)
+                   for n in N_STAGES_LARGE for p in N_PROCS_LARGE]
+
     results = {}
-    for n in ns:
-        for p in ps:
-            camp = run_campaign(exps, n, p, n_pairs=n_pairs, n_bounds=nb,
-                                include_h4=full or (n <= 20), device=dev)
-            for exp in exps:
-                results[(exp, n, p)] = camp[exp]
-                (out_dir / f"curves_{exp}_n{n}_p{p}.csv").write_text(
-                    summarize_experiment(camp[exp]))
+    rep_results = {}
+    for n, p, pairs, n_bounds_pt, include_h4 in points:
+        camp, rep = _run_point(exps, n, p, pairs, n_bounds_pt, include_h4,
+                               engine, replications, dev)
+        for exp in exps:
+            results[(exp, n, p)] = camp[exp]
+            (out_dir / f"curves_{exp}_n{n}_p{p}.csv").write_text(
+                summarize_experiment(camp[exp]))
+            if rep is not None:
+                rep_results[(exp, n, p)] = rep[exp]
+                (out_dir / f"curves_{exp}_n{n}_p{p}_ci.csv").write_text(
+                    summarize_replicated(rep[exp]))
 
     # Table 1: failure thresholds at p=10, straight from the campaign results
     # (mean over the same instances the curves used).
@@ -69,10 +108,23 @@ def run(out_dir: pathlib.Path, full: bool = False, families: str = "paper",
                 lines.append(f"{exp},{code},{vals}")
         (out_dir / "table1_thresholds.csv").write_text("\n".join(lines))
 
+        if replications > 1:
+            lines = ["exp,heuristic,"
+                     + ",".join(f"n{n}_mean,n{n}_ci95" for n in ns)]
+            for exp in exps:
+                for code in HEURISTICS:
+                    cells = []
+                    for n in ns:
+                        m, ci = rep_results[(exp, n, 10)].thresholds[code]
+                        cells.append(f"{m:.2f},{ci:.3f}")
+                    lines.append(f"{exp},{code}," + ",".join(cells))
+            (out_dir / "table1_thresholds_ci.csv").write_text("\n".join(lines))
+
     claims = _check_claims(exps, ns, ps, results, thr)
     (out_dir / "claims.txt").write_text("\n".join(claims))
     return {"claims": claims, "elapsed_s": round(time.time() - t0, 1),
-            "points": len(results), "device": str(dev)}
+            "points": len(results), "device": str(dev), "engine": engine,
+            "replications": replications}
 
 
 def _check_claims(exps, ns, ps, results, thr) -> list:
@@ -142,12 +194,26 @@ def main() -> None:
                     help="torch device (default: cuda; 'cpu' runs on the host)")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--families", choices=tuple(FAMILY_SETS), default="paper")
+    ap.add_argument("--engine", choices=ENGINES, default="batched",
+                    help="the lockstep engine, or the per-instance reference path")
+    ap.add_argument("--replications", type=int, default=1, metavar="R",
+                    help="run each grid point over R disjoint seed banks and "
+                         "emit mean +/- 95%% CI CSVs next to the point CSVs")
+    ap.add_argument("--large-grid", action="store_true",
+                    help="add the n in {80, 160}, p = 1000 follow-up points "
+                         "(reduced pair count)")
+    ap.add_argument("--large-pairs", type=int, default=6,
+                    help="instance pairs per large-grid point (default 6)")
     args = ap.parse_args()
-    out = run(args.out, full=args.full, families=args.families, device=args.device)
+    out = run(args.out, full=args.full, families=args.families, engine=args.engine,
+              replications=args.replications, large_grid=args.large_grid,
+              large_pairs=args.large_pairs, device=args.device)
     for c in out["claims"]:
         print(c)
-    print(f"paper_sim[{out['device']}, {args.families}]: {out['points']} "
-          f"experiment points in {out['elapsed_s']}s")
+    extra = (f", {out['replications']} replications"
+             if out["replications"] > 1 else "")
+    print(f"paper_sim[{out['device']}, {out['engine']}, {args.families}]: "
+          f"{out['points']} experiment points in {out['elapsed_s']}s{extra}")
 
 
 if __name__ == "__main__":

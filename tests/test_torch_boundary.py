@@ -17,16 +17,21 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import core
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.batched import ProblemBatch
 from repro_torch.launch import first_forward_probe, rounding_probe
 from repro_torch.launch.serve import serve_pool
 from repro_torch.models import get_model, hybrid, ssm
 from repro_torch.models.transformer import init_decode_state, params_from_numpy
-from repro_torch.sim import paper_sim, run_campaign, run_experiment
+from repro_torch.sim import (failure_thresholds, paper_sim, run_campaign, run_experiment,
+                             run_replicated)
 
 _QWEN = get_smoke_config("qwen3-4b")
 _ZAMBA = get_smoke_config("zamba2-7b")
+_WL = core.make_workload([3.0, 1.0, 4.0, 1.0, 5.0], [1.0, 2.0, 3.0, 2.0, 1.0, 1.0])
+_PF = core.make_platform([2.0, 5.0, 3.0], 10.0)
+_PLAN = core.StagePlan(core.Mapping(((1, 5),), (1,)), 1.0, 1.0, "single", (5,), 5, 0.0)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -47,6 +52,10 @@ def test_import_and_campaign_load_no_jax_or_reference():
         "    out = serve_pool(arch=arch, n_requests=2, batch=2, prompt_len=3, max_new=2,\n"
         "                     capacity=8, device='cpu')\n"
         "    assert out['all_done']\n"
+        "from repro_torch.core import Objective, make_platform, make_workload, plan\n"
+        "sp = plan(make_workload([3, 1, 4, 1, 5], [1] * 6), make_platform([2, 5, 3], 10.0),\n"
+        "          Objective('period'), mode='auto', device='cpu')\n"
+        "assert sp.planner.startswith('auto(')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
@@ -88,11 +97,32 @@ def _no_cuda(monkeypatch):
     lambda: rounding_probe.probe("zamba2-7b", seq=8),
     lambda: first_forward_probe.run_sequence(seq=8),
     lambda: first_forward_probe.probe(processes=1, seq=8),
+    lambda: core.plan(_WL, _PF, core.Objective("period")),
+    lambda: core.plan(_WL, _PF, core.Objective("period"), mode="exact"),
+    lambda: core.plan_request(core.PlanRequest(_WL, _PF, core.Objective("latency"))),
+    lambda: core.plan_pareto(_WL, _PF, k=2),
+    lambda: core.run_heuristic("H2", _WL, _PF, 1.0),
+    lambda: core.sp_bi_p(_WL, _PF, 1.0),
+    lambda: core.min_period_exhaustive(_WL, _PF),
+    lambda: core.heuristics.split_trajectory("H1", _WL, _PF),
+    lambda: core.solve("single", _WL, _PF, core.Objective("period")),
+    lambda: core.replan_for_straggler(_WL, _PF, _PLAN, [1.0]),
+    lambda: core.sweep_heuristic("H5", _WL, _PF, [1.0]),
+    lambda: core.sweep_solver("H5", _WL, _PF, [1.0]),
+    lambda: core.tradeoff_curves(_WL, _PF, k=2),
+    lambda: failure_thresholds(ns=(5,), n_pairs=1),
+    lambda: failure_thresholds(ns=(5,), n_pairs=1, engine="scalar"),
+    lambda: run_experiment("E1", 5, 10, n_pairs=1, n_bounds=2, engine="scalar"),
+    lambda: run_replicated(["E1"], 5, 10, n_pairs=1, replications=2, n_bounds=2),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
         "hybrid_init_decode_state", "hybrid_params_from_numpy", "init_mamba_state",
-        "rounding_probe", "first_forward_probe", "first_forward_probe-processes"])
+        "rounding_probe", "first_forward_probe", "first_forward_probe-processes",
+        "plan", "plan-exact", "plan_request", "plan_pareto", "run_heuristic", "sp_bi_p",
+        "min_period_exhaustive", "split_trajectory", "solve", "replan_for_straggler",
+        "sweep_heuristic", "sweep_solver", "tradeoff_curves", "failure_thresholds",
+        "failure_thresholds-scalar", "run_experiment-scalar", "run_replicated"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -104,6 +134,57 @@ def test_paper_sim_default_device_without_cuda_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         paper_sim.run(tmp_path / "out", ns=(5,), ps=(10,), n_pairs=1, n_bounds=2)
     assert not (tmp_path / "out").exists()
+
+
+def test_scoring_device_block_without_cuda_raises_and_cpu_nests(monkeypatch):
+    """A heuristic called with no device inside a CPU block scores on the
+    CPU; the default outside any block is CUDA, which raises here."""
+    _no_cuda(monkeypatch)
+    with core.scoring_device("cpu"):
+        assert core.run_heuristic("H5", _WL, _PF, float("inf")).feasible
+        with core.scoring_device() as dev:   # None: the enclosing block's device
+            assert dev == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with core.scoring_device():
+            pass
+
+
+_ON_CARD = [
+    lambda: core.plan(_WL, _PF, core.Objective("period"), device="cuda"),
+    lambda: core.plan_request(core.auto_request(_WL, _PF, core.Objective("period")),
+                              device="cuda"),
+    lambda: core.plan_pareto(_WL, _PF, k=2, device="cuda"),
+    lambda: core.solve("H5", _WL, _PF, core.Objective("period", bound=100.0), device="cuda"),
+    lambda: core.replan_for_straggler(_WL, _PF, _PLAN, [1.0], device="cuda"),
+    lambda: run_experiment("E1", 5, 10, n_pairs=1, n_bounds=2, engine="scalar",
+                           device="cuda"),
+    lambda: failure_thresholds(ns=(5,), n_pairs=1, engine="scalar", device="cuda"),
+]
+
+
+@pytest.mark.parametrize("fault", ["build", "launch"])
+@pytest.mark.parametrize("entry", _ON_CARD, ids=[
+    "plan", "plan_request", "plan_pareto", "solve", "replan_for_straggler",
+    "run_experiment-scalar", "failure_thresholds-scalar"])
+def test_scoring_fault_on_the_card_raises(entry, fault, monkeypatch):
+    """A CUDA request scores on the card or raises: a split-score kernel that
+    does not build, or scoring that fails on the card, is raised out of the
+    portfolio and solver runs, never turned into an infeasible candidate
+    while the host's solvers answer."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+    def refuse(*args):
+        raise RuntimeError(f"{fault} refused")
+
+    if fault == "build":
+        monkeypatch.setattr(build, "load", refuse)
+    else:
+        monkeypatch.setattr(build, "load", lambda name: None)
+        monkeypatch.setattr(build, "launch", refuse)
+    with pytest.raises(core.ScoringDeviceError, match="split scoring on cuda failed"):
+        entry()
 
 
 def test_explicit_cpu_device_resolves():

@@ -280,3 +280,92 @@ def test_device_time_reports_only_windows_whose_sleep_hid_the_host(monkeypatch):
     with pytest.raises(SystemExit):
         chip_smoke.device_time(fake, slowing, n=20)
 
+
+
+def _planner_sets():
+    from repro_torch.sim import gen_instance_batch
+
+    return (chip_smoke.planner_instances(gen_instance_batch, ("E1", "E3"), 9, 7),
+            chip_smoke.planner_instances(gen_instance_batch, ("E2",), 6, 5))
+
+
+class _ReferenceCore:
+    """The JAX package's planner API in the call shape phase 13 uses."""
+
+    def __init__(self):
+        import repro.core as ref
+
+        self.ref = ref
+
+    def __getattr__(self, name):
+        return getattr(self.ref, name)
+
+    def plan_pareto(self, wl, pf, k, device):
+        return self.ref.plan_pareto(wl, pf, k=k)
+
+    def plan(self, wl, pf, objective, mode, device):
+        return self.ref.plan(wl, pf, objective, mode=mode)
+
+    def plan_request(self, request, device):
+        return self.ref.plan_request(request)
+
+
+def test_planner_phase_rows_are_the_references_and_a_planted_difference_fails():
+    """Phase 13's calls on the CPU give the reference's rows (the same
+    instances rebuilt in the JAX package), and the comparison names a
+    candidate one ulp off, a moved plan and a missing row."""
+    import copy
+
+    import numpy as np
+
+    import repro.core as ref
+    from repro_torch import core
+
+    big, small = _planner_sets()
+    got = chip_smoke.run_planner(core, big, small, "cpu", k=3)
+    assert len(got["pareto_s"]) == len(got["pareto_launches"]) == 2
+    assert got["pareto_launches"] == [[0, 0], [0, 0]]   # no kernel on the cpu
+
+    def as_ref(pairs):
+        return [(ref.make_workload(wl.w, wl.delta), ref.make_platform(pf.s, pf.b))
+                for wl, pf in pairs]
+
+    want = chip_smoke.run_planner(_ReferenceCore(), as_ref(big), as_ref(small), None, k=3)
+    n = chip_smoke.compare_planner(got["rows"], want["rows"], "port vs reference")
+    assert n > 60 and len(got["rows"]["plan_request"]) == 3
+    solvers = {c[0] for rep in got["rows"]["plan_request"] for c in rep["candidates"]}
+    assert {"exact", "exact-latency", "dp-speed-ordered", "H4"} <= solvers
+
+    bad = copy.deepcopy(got["rows"])
+    cand = bad["plan_pareto"][1]["candidates"][5]
+    cand[4] = float(np.nextafter(cand[4], np.inf))
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_planner(bad, got["rows"], "planted")
+    bad = copy.deepcopy(got["rows"])
+    bad["plan_period"][0][2] += 1.0
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_planner(bad, got["rows"], "planted")
+    bad = copy.deepcopy(got["rows"])
+    bad["plan_request"].pop()
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_planner(bad, got["rows"], "planted")
+
+
+def test_planner_phase_checks_pass_on_cpu_and_fail_on_a_planted_fault(monkeypatch):
+    """min_period_exhaustive against batched_min_period, and the scalar
+    engine's golden CSV, on the CPU; a lockstep result moved one split
+    off is refused."""
+    import dataclasses
+
+    from repro_torch import core
+    from repro_torch.core import batched
+    from repro_torch.sim import experiments
+
+    big, _ = _planner_sets()
+    chip_smoke.check_min_period(core, batched, big, "cpu")
+    chip_smoke.check_scalar_golden(experiments, "cpu")
+    real = batched.batched_min_period
+    monkeypatch.setattr(batched, "batched_min_period", lambda pb: [
+        dataclasses.replace(r, splits=r.splits + 1) for r in real(pb)])
+    with pytest.raises(SystemExit):
+        chip_smoke.check_min_period(core, batched, big, "cpu")

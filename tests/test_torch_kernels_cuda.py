@@ -9,13 +9,17 @@ installed:
 
 Inputs are random with a fixed seed, live-lane bounds random per row.
 Tolerance: exact (``torch.equal``) on live lanes, and lanes at or past the
-bound must be zero.
+bound must be zero; a scalar heuristic run on the card equals the same run
+on the CPU (mapping, period, latency, splits).
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import make_platform, make_workload, optimal_latency, run_heuristic
 from repro_torch.core.heuristics import _PERMS3, score_2way, score_3way
 from repro_torch.kernels import split_score
 
@@ -92,3 +96,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         split_score.score_2way_cuda(*ins[:6], 10.0, ins[6].cpu(), ins[7])
     with pytest.raises(ValueError):
         split_score.score_2way_cuda(ins[0], ins[1].T.contiguous().T, *ins[2:6], 10.0, *ins[6:])
+
+
+@pytest.mark.parametrize("code", ["H2", "H3", "H5"])
+def test_scalar_heuristic_on_card_equals_cpu(cuda_device, code):
+    """H2/H3 (3-way splits) run to exhaustion and H5 (2-way) under twice the
+    optimal latency, on a 14-stage, 9-processor instance."""
+    rng = np.random.default_rng(31)
+    wl = make_workload(rng.integers(1, 21, 14).astype(float),
+                       rng.integers(1, 101, 15).astype(float))
+    pf = make_platform(rng.integers(1, 21, 9).astype(float), 10.0)
+    bound = -math.inf if code in ("H2", "H3") else 2.0 * optimal_latency(wl, pf)
+    counter = split_score.score_2way_cuda if code == "H5" else split_score.score_3way_cuda
+    before = counter.launches
+    got = run_heuristic(code, wl, pf, bound, device=cuda_device)
+    torch.cuda.synchronize()
+    assert counter.launches > before
+    want = run_heuristic(code, wl, pf, bound, device="cpu")
+    assert got.splits > 0
+    assert ((got.mapping.intervals, got.mapping.alloc, got.period, got.latency,
+             got.feasible, got.splits, got.name)
+            == (want.mapping.intervals, want.mapping.alloc, want.period, want.latency,
+                want.feasible, want.splits, want.name))

@@ -18,6 +18,8 @@ the model's dt, where exp(cum_i - cum_j) carries the rounding of a running
 sum of ~-180, both float32 routes are held against a float64 oracle instead.
 """
 
+import json
+import os
 import pathlib
 import sys
 
@@ -31,6 +33,7 @@ from repro_torch.kernels import decode_attention as kdec
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import mamba2_ssd as kssd
 from repro_torch.kernels import rmsnorm as krn
+from repro_torch.launch import first_forward_probe
 from repro_torch.models import get_model
 
 pytestmark = pytest.mark.cuda
@@ -328,7 +331,15 @@ def test_smoke_model_on_card_matches_cpu(cuda_device, dtype):
     """The smoke qwen3-4b with kernels on the card against the same model
     with plain versions on the CPU: a forward that takes the flash kernel
     (S = 1536) and 6 decode steps.  float32 logits within 1e-4 (summation
-    order only); bfloat16 within the reference's model criterion."""
+    order only); bfloat16 within the reference's model criterion.
+
+    The float32 reference is the plain CPU forward.  Where
+    ``REPRO_TORCH_FORWARD_RECORD`` names a file, the CPU forward instead runs
+    twice with every op recorded (``first_forward_probe.recorded_cpu_forwards``),
+    in this process after the tests before it: the first is held to the
+    limit, and the record (whether the two repeat, the first op that differs)
+    goes onto one JSON line of the file.  On a miss, the recorded forwards
+    run after it and their record joins the failure message."""
     cfg = get_smoke_config("qwen3-4b").replace(dtype=dtype, use_pallas=True)
     api = get_model(cfg)
     params = api.init(0, "cpu")
@@ -337,9 +348,20 @@ def test_smoke_model_on_card_matches_cpu(cuda_device, dtype):
     before = (krn.rmsnorm.launches, kfa.flash_attention.launches)
     got, _ = api.forward(on_card, {"tokens": toks.to(cuda_device)}, cfg)
     assert krn.rmsnorm.launches > before[0] and kfa.flash_attention.launches > before[1]
-    want, _ = api.forward(params, {"tokens": toks}, cfg)
-    _check_logits(got.cpu(), want, dtype, diagnose=lambda: _diagnose(
-        api, cfg, params, on_card, toks, got, want))
+    record = os.environ.get("REPRO_TORCH_FORWARD_RECORD") if dtype == "float32" else None
+    if record:
+        want, _, rec = first_forward_probe.recorded_cpu_forwards(api, params, toks, cfg, got)
+        with open(record, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+    else:
+        want, _ = api.forward(params, {"tokens": toks}, cfg)
+        rec = None
+
+    def diagnose():
+        cpu = rec or first_forward_probe.recorded_cpu_forwards(api, params, toks, cfg, got)[2]
+        return {"cpu_forwards": cpu} | _diagnose(api, cfg, params, on_card, toks, got, want)
+
+    _check_logits(got.cpu(), want, dtype, diagnose=diagnose)
     st_card, st_cpu = api.init_decode_state(2, 8, cuda_device), api.init_decode_state(2, 8, "cpu")
     before = kdec.decode_attention.launches
     for t in range(6):
