@@ -5,8 +5,8 @@
 
 Drives the port's paths on the card and checks them: the Section-5
 campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
-full width, and the planner API (``repro_torch``), in thirteen phases; any
-failure exits non-zero:
+full width, the planner API and its reliability extensions
+(``repro_torch``), in fourteen phases; any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -98,12 +98,27 @@ failure exits non-zero:
               candidate (solver, objective, period, latency, feasibility,
               mapping, error), the chosen plan and the front equal; both
               split-score kernels launched; wall time and launches per
-              ``plan_pareto``.
+              ``plan_pareto``;
+ 14. reliability — the reliability sequel, the deal extension and online
+              replanning on cuda, the split-score counters zeroed just
+              before and read just after, on one instance of each of R1-R4
+              at n = 40, p = 100: ``plan_pareto_tri`` (20 bounds per
+              direction, the six ``-rel`` solvers beside the plain ones)
+              without a floor and with the median candidate reliability as
+              floor; ``plan_with_deal`` for the period, unbounded and under a
+              latency bound; ``plan_pareto`` and ``replicate_stage_plan`` of
+              its plan with a target; ``replan_stages`` with one straggling
+              stage; ``elastic_replan`` from 100 to 75 pods.  The same calls
+              on cpu with each split-scoring call counted: every candidate
+              (groups and reliability included), front, chosen plan, deal
+              plan and replanned plan equal, and each call's launches on the
+              card equal to its scoring calls on the cpu; both kernels
+              launched; wall time and launches per call.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13), max abs
-error, kernel / plain / bound / library device times in ms; decode attention's
-at the serve runs' live count); the last line is
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13, 14),
+max abs error, kernel / plain / bound / library device times in ms; decode
+attention's at the serve runs' live count); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 With ``--json PATH`` it also writes every number it measured to PATH.
 It needs the repository's ``src/`` beside it and a CUDA device.
@@ -112,6 +127,7 @@ It needs the repository's ``src/`` beside it and a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -1115,13 +1131,17 @@ def _candidate_row(c) -> list:
             c.period, c.latency, c.feasible, c.groups, c.error, c.reliability]
 
 
+def _stage_row(sp):
+    """A StagePlan: mapping, period, latency, planner and processor groups."""
+    return None if sp is None else [_mapping_row(sp.mapping), sp.period, sp.latency,
+                                    sp.planner, sp.groups]
+
+
 def _report_row(rep) -> dict:
     return {"candidates": [_candidate_row(c) for c in rep.candidates],
             "chosen": None if rep.chosen is None else _candidate_row(rep.chosen),
             "pareto": [list(pt) for pt in rep.pareto],
-            "plan": None if rep.plan is None else [_mapping_row(rep.plan.mapping),
-                                                   rep.plan.period, rep.plan.latency,
-                                                   rep.plan.planner]}
+            "plan": _stage_row(rep.plan)}
 
 
 def _plan_row(core, wl, pf, objective, device):
@@ -1190,6 +1210,99 @@ def compare_planner(got: dict, want: dict, what: str) -> int:
     return n
 
 
+# the reliability phase: the R families (failure probabilities drawn last,
+# so their workloads and speeds are E2's, E2's, E2's and E3's) at the planner
+# phase's size; the elastic resize keeps three quarters of the pods
+REL_FAMILIES = ("R1", "R2", "R3", "R4")
+
+
+def run_reliability(core, replan, instances, device, k: int = PLAN_K,
+                    launches=lambda: (0, 0)) -> dict:
+    """The reliability phase's calls on ``device``, per instance:
+    ``plan_pareto_tri`` without a floor and with the median reliability of
+    its feasible candidates as floor; ``plan_with_deal`` for the period,
+    unbounded and under a latency bound halfway between its base plan's
+    latency and its own; ``plan_pareto``, then ``replicate_stage_plan`` of its
+    plan with a target of a tenth of the plan's unreliability; ``replan_stages``
+    with a monitor that saw the plan's slowest stage run twice as slow as
+    predicted; ``elastic_replan`` to three quarters of the pods.  Returns the
+    rows (JSON-ready, everything but wall times), and per instance the wall
+    times and the 2-way and 3-way split-score launches (as ``launches()``
+    counts them) of each ``plan_pareto_tri``, ``plan_with_deal`` and
+    ``plan_pareto``."""
+    kinds = ("pareto_tri", "pareto_tri_floor", "deal", "deal_bound", "pareto", "replicated",
+             "replan", "elastic")
+    rows = {kind: [] for kind in kinds}
+    timed = {kind: {"s": [], "launches": []} for kind in kinds[:5]}
+
+    def run(kind, fn):
+        before = launches()
+        t0 = time.perf_counter()
+        out = fn()
+        timed[kind]["s"].append(time.perf_counter() - t0)
+        timed[kind]["launches"].append([a - b for a, b in zip(launches(), before)])
+        return out
+
+    for wl, pf in instances:
+        tri = run("pareto_tri", lambda: core.plan_pareto_tri(wl, pf, k=k, device=device))
+        rows["pareto_tri"].append(_report_row(tri))
+        rels = sorted(c.reliability for c in tri.candidates if c.feasible)
+        floor = rels[len(rels) // 2]
+        rows["pareto_tri_floor"].append(_report_row(run("pareto_tri_floor", lambda: (
+            core.plan_pareto_tri(wl, pf, k=k, reliability_floor=floor, device=device)))))
+        dp = run("deal", lambda: core.plan_with_deal(wl, pf, core.Objective("period"),
+                                                     device=device))
+        rows["deal"].append([_stage_row(dp.base), dp.groups, dp.period, dp.latency])
+        bound = 0.5 * (dp.base.latency + dp.latency)
+        dp = run("deal_bound", lambda: core.plan_with_deal(
+            wl, pf, core.Objective("period", bound=bound), device=device))
+        rows["deal_bound"].append([bound, _stage_row(dp.base), dp.groups, dp.period,
+                                   dp.latency])
+        bi = run("pareto", lambda: core.plan_pareto(wl, pf, k=k, device=device))
+        rows["pareto"].append(_report_row(bi))
+        target = 1.0 - 0.1 * (1.0 - core.reliability(wl, pf, bi.plan.mapping))
+        rows["replicated"].append([target, _stage_row(core.replicate_stage_plan(
+            wl, pf, bi.plan, target=target))])
+        predicted = core.interval_cycle_times(wl, pf, bi.plan.mapping)
+        observed = predicted.copy()
+        observed[int(predicted.argmax())] *= 2.0
+        monitor = replan.StragglerMonitor(num_stages=bi.plan.num_stages)
+        monitor.observe(observed)
+        new, degraded = replan.replan_stages(wl, pf, bi.plan, monitor, device=device)
+        rows["replan"].append([_stage_row(new), degraded.s.tolist(), degraded.name,
+                               degraded.failures.tolist()])
+        rows["elastic"].append(_stage_row(replan.elastic_replan(wl, pf, 3 * pf.p // 4,
+                                                                device=device)))
+    return {"rows": rows, "timed": timed}
+
+
+@contextlib.contextmanager
+def counted_scoring(heuristics):
+    """Within the block, count each split-scoring call of the planner, on
+    any device: yields ``counts``, [2-way, 3-way] calls.  On the card each
+    call is one kernel launch."""
+    real = heuristics.score_kernels
+    counts = [0, 0]
+
+    def kernels(impl="cuda"):
+        score2, score3 = real(impl)
+
+        def counted2(*args, **kw):
+            counts[0] += 1
+            return score2(*args, **kw)
+
+        def counted3(*args, **kw):
+            counts[1] += 1
+            return score3(*args, **kw)
+        return counted2, counted3
+
+    heuristics.score_kernels = kernels
+    try:
+        yield counts
+    finally:
+        heuristics.score_kernels = real
+
+
 def check_min_period(core, batched, big, device) -> None:
     """``min_period_exhaustive`` (the scalar form) against the lockstep
     engine's ``batched_min_period`` on each instance, both on ``device``."""
@@ -1229,9 +1342,9 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
-    from repro_torch import core
+    from repro_torch import core, pipeline
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core import batched
+    from repro_torch.core import batched, heuristics
     from repro_torch.core.heuristics import score_2way, score_3way
     from repro_torch.kernels import build, split_score
     from repro_torch.sim import experiments, gen_instance_batch, paper_sim, run_campaign
@@ -1470,6 +1583,47 @@ def main() -> None:
     say(f"phase planner: plan_pareto wall s card {[round(t, 3) for t in on_card['pareto_s']]}, "
         f"cpu {[round(t, 3) for t in on_cpu['pareto_s']]}; split-score launches (2-way, "
         f"3-way) per plan_pareto {on_card['pareto_launches']}; {card}")
+
+    # 14. reliability: the tri-criteria planner, the deal extension and the
+    # replanning on the card, the split-score counters zeroed just before and
+    # read just after; then the same calls on the cpu, each split-scoring call
+    # counted: every row equal, and each call's launches on the card equal to
+    # its scoring calls on the cpu
+    rel = planner_instances(gen_instance_batch, REL_FAMILIES, PLAN_N, PLAN_P)
+    torch.cuda.synchronize()
+    zero_counters(score_counters)
+    t0 = time.time()
+    rel_card = run_reliability(core, pipeline, rel, "cuda",
+                               launches=lambda: [f.launches for f in score_counters])
+    torch.cuda.synchronize()
+    rel_launches = {"score_2way_f64": split_score.score_2way_cuda.launches,
+                    "score_3way_f64": split_score.score_3way_cuda.launches}
+    rel_card_s = time.time() - t0
+    for name, count in rel_launches.items():
+        if count <= 0:
+            fail(f"reliability launched {name} no time")
+    with counted_scoring(heuristics) as counts:
+        rel_cpu = run_reliability(core, pipeline, rel, "cpu", launches=lambda: list(counts))
+    n_rel = compare_planner(rel_card["rows"], rel_cpu["rows"], "reliability card vs cpu")
+    for kind, timed in rel_card["timed"].items():
+        if timed["launches"] != rel_cpu["timed"][kind]["launches"]:
+            fail(f"reliability: {kind} launched {timed['launches']} on the card against "
+                 f"{rel_cpu['timed'][kind]['launches']} scoring calls on the cpu")
+    by_path["reliability"] = rel_launches
+    report["reliability"] = {
+        "card": card, "instances": [PLAN_N, PLAN_P, list(REL_FAMILIES), PLAN_K],
+        "candidates_compared": n_rel, "card_s": rel_card_s, "launches": rel_launches,
+        "timed_card": rel_card["timed"], "timed_cpu": rel_cpu["timed"]}
+    say(f"phase reliability: {n_rel} candidates equal card vs cpu (plan_pareto_tri k={PLAN_K} "
+        f"with and without a floor, plan_pareto, plan_with_deal, replicate_stage_plan, "
+        f"replan_stages, elastic_replan at n={PLAN_N} p={PLAN_P} on {', '.join(REL_FAMILIES)});"
+        f" launches {rel_launches} in {rel_card_s:.1f} s, each call's equal to its cpu "
+        f"scoring calls")
+    for kind in ("pareto_tri", "deal", "pareto"):
+        say(f"phase reliability: {kind} wall s card "
+            f"{[round(t, 3) for t in rel_card['timed'][kind]['s']]}, cpu "
+            f"{[round(t, 3) for t in rel_cpu['timed'][kind]['s']]}; launches (2-way, 3-way) "
+            f"{rel_card['timed'][kind]['launches']}; {card}")
 
     launches = {}
     for counts in by_path.values():

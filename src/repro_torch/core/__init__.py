@@ -8,6 +8,11 @@ plus the request/report protocol (:mod:`repro_torch.core.planner`):
     report = plan_request(req)        # -> PlanReport with provenance + Pareto
     front = plan_pareto(workload, platform)   # Pareto-first planning
 
+plus the reliability sequel's tri-criteria planning
+(:func:`~repro_torch.core.replication.plan_pareto_tri`) and the deal
+extension (:func:`~repro_torch.core.deal.plan_with_deal`), whose grouped
+solvers register after the ungrouped ones, as in the reference.
+
 Every entry point that reaches split scoring takes ``device=None`` (CUDA).
 The workload/platform/metrics host layer and the exact solvers are numpy
 copies of the reference's; the lockstep engine
@@ -15,10 +20,13 @@ copies of the reference's; the lockstep engine
 """
 
 from .workload import Workload, make_workload, uniform_workload
-from .platform import Platform, homogeneous_platform, make_platform
-from .metrics import (Mapping, all_interval_partitions, evaluate,
-                      evaluate_batch, interval_cycle_times, intervals_from_cuts,
-                      latency, optimal_latency, period, single_processor_mapping)
+from .platform import (Platform, homogeneous_platform, make_platform,
+                       sample_failures)
+from .metrics import (Mapping, ReplicatedMapping, all_interval_partitions,
+                      evaluate, evaluate_batch, evaluate_tri,
+                      interval_cycle_times, intervals_from_cuts, latency,
+                      optimal_latency, period, reliability,
+                      single_processor_mapping)
 from .heuristics import (FIXED_LATENCY_HEURISTICS, FIXED_PERIOD_HEURISTICS,
                          NAMES, HeuristicResult, ScoringDeviceError, explo3_bi,
                          explo3_mono, min_period_exhaustive, run_heuristic,
@@ -34,11 +42,16 @@ from .planner import (AUTO_PORTFOLIO, SELECTION_POLICIES, InfeasiblePlan,
                       Objective, PlanReport, PlanRequest, StagePlan,
                       auto_request, plan, plan_pareto, plan_request,
                       register_selection, replan_for_straggler)
+# deal before replication: registration order is the candidates' order
+from .deal import DealPlan, plan_with_deal
+from .replication import (plan_pareto_tri, replicate_greedy,
+                          replicate_stage_plan)
 
 __all__ = [
     "Workload", "make_workload", "uniform_workload",
-    "Platform", "make_platform", "homogeneous_platform",
-    "Mapping", "period", "latency", "evaluate", "evaluate_batch",
+    "Platform", "make_platform", "homogeneous_platform", "sample_failures",
+    "Mapping", "ReplicatedMapping", "period", "latency", "reliability",
+    "evaluate", "evaluate_batch", "evaluate_tri",
     "interval_cycle_times", "optimal_latency", "single_processor_mapping",
     "intervals_from_cuts", "all_interval_partitions",
     "HeuristicResult", "run_heuristic", "NAMES",
@@ -56,4 +69,6 @@ __all__ = [
     "AUTO_PORTFOLIO", "InfeasiblePlan", "Objective", "PlanReport", "PlanRequest",
     "SELECTION_POLICIES", "StagePlan", "auto_request", "plan", "plan_pareto",
     "plan_request", "register_selection", "replan_for_straggler",
+    "DealPlan", "plan_with_deal",
+    "plan_pareto_tri", "replicate_greedy", "replicate_stage_plan",
 ]

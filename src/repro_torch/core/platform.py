@@ -2,12 +2,16 @@
 
 Different-speed processors ``s_u`` interconnected by links of identical
 bandwidth ``b`` (paper Section 2).  The port's own copy of what the campaign
-path uses from ``repro.core.platform``: the :class:`Platform` record (with the
-reliability sequel's optional per-processor failure vector ``fail``, which the
-R1-R4 scenario families draw), its speed ordering, the straggler and
-failure events :meth:`Platform.degrade` / :meth:`Platform.without`, and the
-constructors :func:`make_platform` / :func:`homogeneous_platform`.  Numpy on
-the host: platforms are tiny and their ordering feeds the seed contract.
+path and the planner use from ``repro.core.platform``: the :class:`Platform`
+record (with the reliability sequel's optional per-processor failure vector
+``fail``, which the R1-R4 scenario families draw, read through
+:attr:`Platform.failures` and replaced by :meth:`Platform.with_failures`),
+its speed ordering, the straggler and failure events
+:meth:`Platform.degrade` / :meth:`Platform.without`, the constructors
+:func:`make_platform` / :func:`homogeneous_platform`, and the seeded failure
+sampler :func:`sample_failures` (the reference's draws in the reference's
+order).  Numpy on the host: platforms are tiny and their ordering and draws
+feed the seed contract.
 """
 
 from __future__ import annotations
@@ -55,6 +59,14 @@ class Platform:
     def p(self) -> int:
         return int(len(self.s))
 
+    @property
+    def failures(self) -> np.ndarray:
+        """Per-processor failure probabilities; zeros when ``fail`` is None
+        (the bi-criteria model's perfectly reliable processors)."""
+        if self.fail is None:
+            return np.zeros(self.p)
+        return self.fail
+
     def sorted_indices(self) -> np.ndarray:
         """Processor indices by non-increasing speed (ties broken by index,
         matching the paper's 'sort processors by non-increasing speed')."""
@@ -83,6 +95,12 @@ class Platform:
                         fail=(None if self.fail is None
                               else np.delete(self.fail, proc)))
 
+    def with_failures(self, fail) -> "Platform":
+        """The same platform with per-processor failure probabilities
+        attached (or stripped, with ``fail=None``)."""
+        return Platform(self.s, self.b, name=self.name,
+                        fail=None if fail is None else np.asarray(fail, float))
+
 
 def make_platform(s: Sequence[float], b: float, name: str = "platform",
                   fail=None) -> Platform:
@@ -92,3 +110,30 @@ def make_platform(s: Sequence[float], b: float, name: str = "platform",
 
 def homogeneous_platform(p: int, s: float = 1.0, b: float = 10.0) -> Platform:
     return Platform(np.full(p, s), b, name=f"homog-{p}")
+
+
+def sample_failures(p: int, *, kind: str = "uniform", lo: float = 1e-3,
+                    hi: float = 2e-2, seed: Optional[int] = None,
+                    rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Seeded per-processor failure-probability sampler (sequel model).
+
+      - ``"uniform"``  — i.i.d. uniform in [lo, hi];
+      - ``"bimodal"``  — mostly near ``lo`` with a flaky minority near ``hi``
+        (20% of processors), the realistic mixed-fleet shape;
+      - ``"loguniform"`` — log-uniform in [lo, hi], spanning orders of
+        magnitude of hardware quality.
+
+    Pass either ``seed`` (new Generator) or an existing ``rng`` (draws
+    consume its stream — the scenario-family contract)."""
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.uniform(lo, hi, p)
+    if kind == "bimodal":
+        flaky = rng.random(p) < 0.2
+        base = rng.uniform(lo, 2 * lo, p)
+        bad = rng.uniform(0.5 * hi, hi, p)
+        return np.where(flaky, bad, base)
+    if kind == "loguniform":
+        return np.exp(rng.uniform(np.log(lo), np.log(hi), p))
+    raise ValueError(f"unknown failure sampler kind {kind!r}")

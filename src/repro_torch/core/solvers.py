@@ -20,9 +20,10 @@ stages and pre-computed metrics).  ``objective.bound`` — when set — is the
 constraint on the criterion the solver does *not* optimize.
 
 The port's own copy of ``repro.core.solvers``, with the twelve ungrouped
-solvers in the reference's registration order and with its metadata.  The
-grouped ones (the deal and replication extensions) are not ported yet.
-:func:`solve` takes ``device=None`` (CUDA): the heuristics' split scoring
+solvers in the reference's registration order and with its metadata; the
+seven grouped ones follow from :mod:`repro_torch.core.deal` (``deal``) and
+:mod:`repro_torch.core.replication` (``H1-rel`` ... ``H6-rel``), all 19 in
+the reference's order.  :func:`solve` takes ``device=None`` (CUDA): the heuristics' split scoring
 runs there, read from the :func:`~repro_torch.core.heuristics.scoring_device`
 block it opens, so a solver keeps the three-argument signature.
 """
@@ -310,7 +311,3 @@ def _solve_brute_force(workload, platform, objective):
     lat_cap = _bound(objective) if objective.minimize == "period" else math.inf
     return _brute_force(workload, platform, period_cap=per_cap,
                         latency_cap=lat_cap, objective=objective.minimize)
-
-# The reference's deal/replication extension registers seven grouped solvers
-# from repro.core.deal and repro.core.replication; the port has not ported
-# them yet.

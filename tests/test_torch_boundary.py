@@ -24,6 +24,7 @@ from repro_torch.launch import first_forward_probe, rounding_probe
 from repro_torch.launch.serve import serve_pool
 from repro_torch.models import get_model, hybrid, ssm
 from repro_torch.models.transformer import init_decode_state, params_from_numpy
+from repro_torch.pipeline import StragglerMonitor, elastic_replan, replan_stages
 from repro_torch.sim import (failure_thresholds, paper_sim, run_campaign, run_experiment,
                              run_replicated)
 
@@ -32,6 +33,14 @@ _ZAMBA = get_smoke_config("zamba2-7b")
 _WL = core.make_workload([3.0, 1.0, 4.0, 1.0, 5.0], [1.0, 2.0, 3.0, 2.0, 1.0, 1.0])
 _PF = core.make_platform([2.0, 5.0, 3.0], 10.0)
 _PLAN = core.StagePlan(core.Mapping(((1, 5),), (1,)), 1.0, 1.0, "single", (5,), 5, 0.0)
+
+
+def _straggling():
+    """A monitor that flags the plan's one stage (observed far slower than
+    predicted), so ``replan_stages`` re-plans."""
+    mon = StragglerMonitor(num_stages=1)
+    mon.observe([1e9])
+    return mon
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -114,6 +123,12 @@ def _no_cuda(monkeypatch):
     lambda: failure_thresholds(ns=(5,), n_pairs=1, engine="scalar"),
     lambda: run_experiment("E1", 5, 10, n_pairs=1, n_bounds=2, engine="scalar"),
     lambda: run_replicated(["E1"], 5, 10, n_pairs=1, replications=2, n_bounds=2),
+    lambda: core.plan_pareto_tri(_WL, _PF, k=2),
+    lambda: core.plan_with_deal(_WL, _PF),
+    lambda: core.solve("deal", _WL, _PF, core.Objective("period")),
+    lambda: core.solve("H1-rel", _WL, _PF, core.Objective("latency", bound=2.0)),
+    lambda: replan_stages(_WL, _PF, _PLAN, _straggling()),
+    lambda: elastic_replan(_WL, _PF, 2),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -122,7 +137,9 @@ def _no_cuda(monkeypatch):
         "plan", "plan-exact", "plan_request", "plan_pareto", "run_heuristic", "sp_bi_p",
         "min_period_exhaustive", "split_trajectory", "solve", "replan_for_straggler",
         "sweep_heuristic", "sweep_solver", "tradeoff_curves", "failure_thresholds",
-        "failure_thresholds-scalar", "run_experiment-scalar", "run_replicated"])
+        "failure_thresholds-scalar", "run_experiment-scalar", "run_replicated",
+        "plan_pareto_tri", "plan_with_deal", "solve-deal", "solve-H1-rel", "replan_stages",
+        "elastic_replan"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -149,6 +166,36 @@ def test_scoring_device_block_without_cuda_raises_and_cpu_nests(monkeypatch):
             pass
 
 
+def test_nested_planner_calls_score_on_the_enclosing_cpu_block(monkeypatch):
+    """The deal solver's ``plan_request`` and the ``-rel`` solvers'
+    heuristics are called with no device from inside a portfolio job: they
+    score on the enclosing block's device (here the CPU), never on a CUDA
+    default of their own."""
+    from repro_torch.core import heuristics
+
+    _no_cuda(monkeypatch)
+    seen = []
+    real = heuristics._device_scores
+
+    def record(dev, host, score):
+        seen.append(str(dev))
+        return real(dev, host, score)
+
+    monkeypatch.setattr(heuristics, "_device_scores", record)
+    with core.scoring_device("cpu"):
+        rep = core.plan_request(core.auto_request(_WL, _PF, core.Objective("period")))
+        assert rep.feasible
+    n_outer = len(seen)
+    rep = core.plan_request(core.PlanRequest(_WL, _PF, core.Objective("period"),
+                                             include=("deal",), allow_groups=True),
+                            device="cpu")
+    assert rep.chosen.solver == "deal" and rep.chosen.groups is not None
+    assert core.plan_pareto_tri(_WL, _PF, k=2, device="cpu").feasible
+    assert core.solve("H2-rel", _WL, _PF, core.Objective("latency", bound=2.0),
+                      device="cpu").feasible
+    assert n_outer > 0 and len(seen) > 2 * n_outer and set(seen) == {"cpu"}
+
+
 _ON_CARD = [
     lambda: core.plan(_WL, _PF, core.Objective("period"), device="cuda"),
     lambda: core.plan_request(core.auto_request(_WL, _PF, core.Objective("period")),
@@ -159,13 +206,21 @@ _ON_CARD = [
     lambda: run_experiment("E1", 5, 10, n_pairs=1, n_bounds=2, engine="scalar",
                            device="cuda"),
     lambda: failure_thresholds(ns=(5,), n_pairs=1, engine="scalar", device="cuda"),
+    lambda: core.plan_pareto_tri(_WL, _PF, k=2, device="cuda"),
+    lambda: core.plan_with_deal(_WL, _PF, device="cuda"),
+    lambda: core.solve("deal", _WL, _PF, core.Objective("period"), device="cuda"),
+    lambda: core.solve("H1-rel", _WL, _PF, core.Objective("latency", bound=2.0),
+                       device="cuda"),
+    lambda: replan_stages(_WL, _PF, _PLAN, _straggling(), device="cuda"),
+    lambda: elastic_replan(_WL, _PF, 3, device="cuda"),
 ]
 
 
 @pytest.mark.parametrize("fault", ["build", "launch"])
 @pytest.mark.parametrize("entry", _ON_CARD, ids=[
     "plan", "plan_request", "plan_pareto", "solve", "replan_for_straggler",
-    "run_experiment-scalar", "failure_thresholds-scalar"])
+    "run_experiment-scalar", "failure_thresholds-scalar", "plan_pareto_tri",
+    "plan_with_deal", "solve-deal", "solve-H1-rel", "replan_stages", "elastic_replan"])
 def test_scoring_fault_on_the_card_raises(entry, fault, monkeypatch):
     """A CUDA request scores on the card or raises: a split-score kernel that
     does not build, or scoring that fails on the card, is raised out of the

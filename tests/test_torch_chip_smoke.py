@@ -369,3 +369,97 @@ def test_planner_phase_checks_pass_on_cpu_and_fail_on_a_planted_fault(monkeypatc
         dataclasses.replace(r, splits=r.splits + 1) for r in real(pb)])
     with pytest.raises(SystemExit):
         chip_smoke.check_min_period(core, batched, big, "cpu")
+
+
+class _ReferenceReplan:
+    """The JAX package's replanning in the call shape phase 14 uses."""
+
+    def __init__(self):
+        from repro.pipeline import replan
+
+        self.StragglerMonitor = replan.StragglerMonitor
+        self.ref = replan
+
+    def replan_stages(self, wl, pf, current, monitor, device):
+        return self.ref.replan_stages(wl, pf, current, monitor)
+
+    def elastic_replan(self, wl, pf, pods, device):
+        return self.ref.elastic_replan(wl, pf, pods)
+
+
+class _ReferenceRelCore(_ReferenceCore):
+    """Phase 14's planner calls of the JAX package (device dropped)."""
+
+    def plan_pareto_tri(self, wl, pf, device, **kw):
+        return self.ref.plan_pareto_tri(wl, pf, **kw)
+
+    def plan_with_deal(self, wl, pf, objective, device):
+        return self.ref.plan_with_deal(wl, pf, objective)
+
+
+def test_reliability_phase_rows_are_the_references_and_a_planted_difference_fails():
+    """Phase 14's calls on the CPU (R1 and R3, n = 9, p = 7, k = 3) give the
+    reference's rows on the same seeded instances, each split-scoring call
+    counted; the comparison refuses a candidate whose replica groups or
+    reliability moved, and a moved deal or replanned plan."""
+    import copy
+
+    import numpy as np
+
+    from repro.sim import gen_instance_batch as ref_batch
+    from repro_torch import core, pipeline
+    from repro_torch.core import heuristics
+    from repro_torch.sim import gen_instance_batch
+
+    fams = ("R1", "R3")
+    mine = chip_smoke.planner_instances(gen_instance_batch, fams, 9, 7)
+    with chip_smoke.counted_scoring(heuristics) as counts:
+        got = chip_smoke.run_reliability(core, pipeline, mine, "cpu", k=3,
+                                         launches=lambda: list(counts))
+    assert heuristics.score_kernels.__name__ == "score_kernels"   # restored
+    timed = got["timed"]
+    in_timed = [sum(c[i] for kind in timed for c in timed[kind]["launches"]) for i in (0, 1)]
+    # the replans' 2-way calls are the only ones outside the timed calls
+    assert in_timed[0] < counts[0] and in_timed[1] == counts[1] > 0
+    # each -rel solver reruns its heuristic at the same bound: twice plan_pareto's
+    assert timed["pareto_tri"]["launches"] == [[2 * a, 2 * b] for a, b in
+                                               timed["pareto"]["launches"]]
+
+    theirs = chip_smoke.planner_instances(ref_batch, fams, 9, 7)
+    for (wl, pf), (rwl, rpf) in zip(mine, theirs):
+        assert pf.fail.tobytes() == rpf.fail.tobytes() and wl.w.tobytes() == rwl.w.tobytes()
+    want = chip_smoke.run_reliability(_ReferenceRelCore(), _ReferenceReplan(), theirs, None,
+                                      k=3)
+    n = chip_smoke.compare_planner(got["rows"], want["rows"], "port vs reference")
+    assert n > 100
+    rows = got["rows"]
+    assert any(g is not None and any(len(x) > 1 for x in g)
+               for rep in rows["pareto_tri"] for *_, g, _e, _r in rep["candidates"])
+    assert all(r[0] is not None for r in rows["replan"])
+
+    def planted(edit):
+        bad = copy.deepcopy(rows)
+        edit(bad)
+        with pytest.raises(SystemExit):
+            chip_smoke.compare_planner(bad, rows, "planted")
+
+    def first_grouped(bad):
+        return next(c for c in bad["pareto_tri"][1]["candidates"]
+                    if c[7] is not None and len(c[7]) > 1)
+
+    def move_groups(bad):
+        cand = first_grouped(bad)
+        cand[7] = (cand[7][1], cand[7][0]) + tuple(cand[7][2:])
+
+    def move_reliability(bad):
+        cand = first_grouped(bad)
+        cand[9] = float(np.nextafter(cand[9], 0.0))
+
+    def move_deal(bad):
+        bad["deal"][0][2] = float(np.nextafter(bad["deal"][0][2], np.inf))
+
+    def move_replan(bad):
+        bad["replan"][1][0][1] += 1.0
+
+    for edit in (move_groups, move_reliability, move_deal, move_replan):
+        planted(edit)

@@ -297,11 +297,13 @@ def test_sweeps_equal_the_reference(code):
 
 
 def test_tradeoff_curves_equal_the_reference_on_the_ungrouped_solvers():
+    """Every bounded solver's curve: the six heuristics, then their
+    replicated ``-rel`` variants, in the reference's order."""
     (rwl, rpf), (wl, pf) = _solver_instance(5)
     got = P.tradeoff_curves(wl, pf, k=6, device=CPU)
     want = R.tradeoff_curves(rwl, rpf, k=6)
-    assert list(got) == ["H1", "H2", "H3", "H4", "H5", "H6"]
-    assert got == {name: want[name] for name in got}
+    assert list(got) == HEURISTICS + [f"{h}-rel" for h in HEURISTICS]
+    assert list(got) == list(want) and got == want
 
 
 # ---------------------------------------------------------------------------
@@ -312,24 +314,29 @@ UNGROUPED = [s.name for s in R.registered_solvers() if not s.supports_groups]
 
 
 def test_registry_is_the_reference_ungrouped_portfolio_in_order():
+    """All 19 solvers in the reference's order: the 12 ungrouped ones, then
+    the deal extension and the six replicated heuristics, with their
+    metadata."""
     assert UNGROUPED == ["single", "H1", "H2", "H3", "H4", "H5", "H6", "dp-speed-ordered",
                          "dp-homogeneous", "exact", "exact-latency", "brute-force"]
-    assert P.solver_names() == UNGROUPED
     grouped = [s.name for s in R.registered_solvers() if s.supports_groups]
-    assert len(grouped) == 7 and not set(grouped) & set(P.solver_names())
+    assert grouped == ["deal"] + [f"{h}-rel" for h in HEURISTICS]
+    assert P.solver_names() == UNGROUPED + grouped == R.solver_names()
+    assert [s.name for s in P.registered_solvers()] == R.solver_names()
     (_, _), (wl, pf) = _solver_instance(0)
     (_, _), (hwl, hpf) = _solver_instance(1, homogeneous=True)
     for got in P.registered_solvers():
         want = R.get_solver(got.name)
         assert ((got.optimizes, got.needs_bound, got.max_p, got.supports_groups, got.auto,
-                 got.description, got.predicate is None)
+                 got.description, got.predicate is None, got.fn.__name__)
                 == (want.optimizes, want.needs_bound, want.max_p, want.supports_groups,
-                    want.auto, want.description, want.predicate is None)), got.name
+                    want.auto, want.description, want.predicate is None,
+                    want.fn.__name__)), got.name
         if got.predicate is not None:
             for w_, p_ in ((wl, pf), (hwl, hpf)):
                 assert got.predicate(w_, p_) == want.predicate(w_, p_)
     with pytest.raises(KeyError):
-        P.get_solver("deal")
+        P.get_solver("H7-rel")
     with pytest.raises(ValueError):
         P.register_solver("x", optimizes="energy")
 
@@ -469,7 +476,7 @@ def test_infeasible_plan_raises_like_the_reference():
     with pytest.raises(KeyError):
         P.PlanRequest(wl, pf, P.Objective("period"), selection="nope")
     with pytest.raises(KeyError):
-        P.PlanRequest(wl, pf, P.Objective("period"), include=("deal",))
+        P.PlanRequest(wl, pf, P.Objective("period"), include=("H7-rel",))
 
 
 def test_plugin_solver_with_three_arguments_and_plugin_selection():
