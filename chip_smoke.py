@@ -6,7 +6,7 @@
 Drives the port's paths on the card and checks them: the Section-5
 campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
 full width, the planner API and its reliability extensions
-(``repro_torch``), in fourteen phases; any failure exits non-zero:
+(``repro_torch``), in fifteen phases; any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -16,7 +16,9 @@ full width, the planner API and its reliability extensions
               bf16 kernel and of the SSD's heads kernel;
   3. kernels — each hand-written kernel against its plain PyTorch version on
               the card, at the main path's largest shapes with random live-lane
-              bounds: equal on live lanes, zero past them; the kernel's device
+              bounds: equal on live lanes, zero past them (and the 2-way
+              kernel's entry point with ``b`` read on the card, which the
+              fused engine's graphs capture, equal to it); the kernel's device
               time per call (``device_time``, inputs cold) with its host time
               apart, the plain version's CUDA-event time (median of 20
               single-call windows, host work inside: it copies host scalars
@@ -113,10 +115,24 @@ full width, the planner API and its reliability extensions
               (groups and reliability included), front, chosen plan, deal
               plan and replanned plan equal, and each call's launches on the
               card equal to its scoring calls on the cpu; both kernels
-              launched; wall time and launches per call.
+              launched; wall time and launches per call;
+ 15. fused — the fused and sharded campaign engines on cuda: ``paper_sim``
+              with ``engine="fused"`` writes the golden CSVs byte for byte;
+              phase 5's full-width campaign through the fused engine, cold
+              (captures included) and then warm, each with the counters
+              zeroed just before and read just after: every curve and
+              threshold equal to phase 5's, captures per chunk size within
+              ``fused.trace_budget(160)``, both split-score kernels launched
+              (graph replays x kernels per graph), replays, host polls and
+              wall times printed beside phase 5's; phase 6's 8 instances
+              (H1-H4 trajectories, ``batched_min_period``, the H4 bisection)
+              through the fused engine on cuda equal to the lockstep engine
+              on cpu; ``backend="sharded"`` over every visible card and over
+              ``[cuda:0, cuda:0]`` (the split, the padding and the merge on
+              one card) equal to the fused engine.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13, 14),
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-15),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -291,12 +307,18 @@ def check_kernel_2way(torch, split_score, score_2way, gen):
     want = score_2way(*ins)
     torch.cuda.synchronize()
     live = torch.arange(K, device=dev).repeat(2)[None, :] < need[:, None]
+    # the fused engine's entry point: b read on the card from a 0-dim tensor
+    b_t = torch.tensor(ins[6], dtype=f64, device=dev)
+    got_ptr = split_score.score_2way_cuda(*ins[:6], b_t, *ins[7:], need=need)
+    torch.cuda.synchronize()
     err = 0.0
-    for g, w in zip(got, want):
+    for g, gp, w in zip(got, got_ptr, want):
         if not torch.equal(g[live], w[live]):
             fail("score_2way_f64 differs from its plain version on live lanes")
         if g[~live].any():
             fail("score_2way_f64 left non-zero lanes past need")
+        if not torch.equal(gp, g):
+            fail("score_2way_f64_bptr (b on the card) differs from score_2way_f64")
         err = max(err, float((g[live] - w[live]).abs().max()))
     n_live = int(need.sum())
     nbytes = 16 * n_live + 56 * A + 48 * A * K
@@ -1326,6 +1348,161 @@ def check_scalar_golden(experiments, device) -> None:
         fail("scalar engine: curves_E1_n5_p10.csv differs from the golden file")
 
 
+def check_golden(res: dict, out_dir: pathlib.Path, what: str) -> None:
+    """``paper_sim.run``'s claims pass and ``out_dir`` holds the golden CSVs
+    byte for byte."""
+    if not all(c.startswith("[PASS]") for c in res["claims"]):
+        fail(f"{what}: golden claims: {res['claims']}")
+    names = sorted(f.name for f in GOLDEN.iterdir())
+    if sorted(f.name for f in out_dir.iterdir()) != names:
+        fail(f"{what}: golden file set differs")
+    for name in names:
+        if (out_dir / name).read_bytes() != (GOLDEN / name).read_bytes():
+            fail(f"{what}: golden {name} differs")
+
+
+def compare_campaigns(got: dict, want: dict, what: str) -> None:
+    """Two ``run_campaign`` results: every curve point (``==``, NaN where
+    NaN) and every threshold equal."""
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        fail(f"{what}: families {sorted(got)} against {sorted(want)}")
+    for exp in want:
+        g, w = got[exp], want[exp]
+        if sorted(g.curves) != sorted(w.curves) or g.thresholds != w.thresholds:
+            fail(f"{what}: {exp} thresholds or heuristics differ")
+        for code in w.curves:
+            for a, b in zip(g.curves[code], w.curves[code]):
+                if not np.array_equal(a, b, equal_nan=True):
+                    fail(f"{what}: {exp} {code} curve differs")
+
+
+def zero_engine_counters(split_score, engines) -> None:
+    for f in (split_score.score_2way_cuda, split_score.score_3way_cuda):
+        f.launches = 0
+    for m in engines:
+        m.reset_trace_count()
+        m.reset_dispatch_count()
+        m.reset_sync_count()
+    engines[0].reset_bucket_trace_count()
+
+
+def engine_counts(split_score, engines) -> dict:
+    """What the fused (and sharded) engine did since the counters were
+    zeroed: bucket captures, step replays, host polls and split-score
+    launches (each replay adds its graph's kernels)."""
+    return {"captures": engines[0].bucket_trace_count(),
+            "replays": sum(m.dispatch_count() for m in engines),
+            "polls": sum(m.sync_count() for m in engines),
+            "launches": {"score_2way_f64": split_score.score_2way_cuda.launches,
+                         "score_3way_f64": split_score.score_3way_cuda.launches}}
+
+
+def fused_campaign(torch, run_campaign, split_score, engines, engine: str, device,
+                   n: int = N_STAGES, p: int = N_PROCS, n_pairs: int = N_PAIRS,
+                   n_bounds: int = N_BOUNDS, h4_iters: int = H4_ITERS) -> dict:
+    """Phase 5's campaign through ``engine`` on ``device``, the counters
+    zeroed just before and read just after; wall time by the host clock
+    around work that ends in a synchronize on a card."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    zero_engine_counters(split_score, engines)
+    t0 = time.time()
+    res = run_campaign(FAMILIES, n, p, n_pairs=n_pairs, n_bounds=n_bounds,
+                       h4_iters=h4_iters, include_h4=True, engine=engine, device=device)
+    sync()
+    return {"result": res, "wall_s": time.time() - t0} | engine_counts(split_score, engines)
+
+
+def h4_bounds(arrays, b: float, fracs=(0.3, 0.6)):
+    """Period bounds for the H4 bisection of stacked instances: ``fracs`` of
+    each one's single-processor period on its fastest processor (host
+    numpy; both engines get the same floats)."""
+    import numpy as np
+
+    w, delta, s = arrays[:3]
+    single = delta[:, 0] / b + w.sum(axis=1) / s.max(axis=1) + delta[:, -1] / b
+    return single * np.resize(np.asarray(fracs), single.shape)
+
+
+def engine_rows(batched, arrays, b, device, backend: str) -> tuple:
+    """H1-H4 trajectories, ``batched_min_period`` and the H4 bisection of
+    the stacked instances ``arrays`` (w, delta, s, prefix, order) on
+    ``device`` through ``backend``, as comparable rows."""
+    pb = batched.ProblemBatch.from_arrays(*arrays[:3], b, prefix=arrays[3], order=arrays[4],
+                                          device=device)
+    trajs = batched.batched_trajectory_sets(["H1", "H2", "H3", "H4"], pb, backend=backend)
+    rows = [[(r.mapping.intervals, r.mapping.alloc, r.period, r.latency, r.feasible,
+              r.splits, r.name) for r in res]
+            for res in (batched.batched_min_period(pb, backend=backend),
+                        batched.batched_sp_bi_p(pb, h4_bounds(arrays, b), iters=H4_ITERS,
+                                                backend=backend))]
+    return trajs, rows[0], rows[1]
+
+
+def fused_phase(torch, batched, paper_sim, run_campaign, split_score, camp, wall,
+                arrays, b, card) -> dict:
+    """Phase 15 on the card: ``paper_sim`` through the fused engine against
+    the golden CSVs; phase 5's campaign (``camp``, ``wall`` s) through the
+    fused engine cold and then warm, each equal to it, captures within the
+    budget; phase 6's instances (``arrays``) through the fused engine on the
+    card, on the cpu, and through the lockstep engine on the cpu, equal; the
+    sharded engine over every card and over cuda:0 twice equal to fused."""
+    from repro_torch.core import fused, sharded
+
+    engines = (fused, sharded)
+    t15 = time.time()
+    gold15 = REPO / "build" / "chip_smoke" / "paper_sim_fused"
+    res = paper_sim.run(gold15, families="all", ns=(5,), ps=(10,), n_pairs=3, n_bounds=4,
+                        engine="fused", device="cuda")
+    check_golden(res, gold15, "fused golden")
+    fused.release_programs()
+    runs = {}
+    for label in ("cold", "warm"):
+        run = fused_campaign(torch, run_campaign, split_score, engines, "fused", "cuda")
+        compare_campaigns(run.pop("result"), camp, f"fused {label} campaign vs batched")
+        for name, count in run["launches"].items():
+            if count <= 0:
+                fail(f"fused {label} campaign launched {name} no time")
+        runs[label] = run
+    caps = fused.captures(N_STAGES)
+    budget = fused.trace_budget(N_STAGES)
+    if not caps or max(caps.values()) > budget:
+        fail(f"fused: captures per chunk size {caps} over the budget {budget}")
+    t8 = time.time()
+    fused8 = engine_rows(batched, arrays, b, "cuda", "fused")
+    card8_s = time.time() - t8
+    for dev, backend in (("cpu", "fused"), ("cpu", "lockstep")):
+        rows = engine_rows(batched, arrays, b, dev, backend)
+        if rows != fused8:
+            fail(f"fused on the card differs from {backend} on the cpu (trajectories, "
+                 f"min period, H4: {[x == y for x, y in zip(fused8, rows)]})")
+    shard_lists = {"every card": [f"cuda:{i}" for i in range(torch.cuda.device_count())],
+                   "cuda:0 twice": ["cuda:0", "cuda:0"]}
+    for label, devs in shard_lists.items():
+        with sharded.use_devices(devs):
+            rows = engine_rows(batched, arrays, b, "cuda", "sharded")
+        if rows != fused8:
+            fail(f"sharded over {label} differs from fused "
+                 f"({[x == y for x, y in zip(rows, fused8)]})")
+    out = {"card": card, "campaign": runs, "batched_cold_wall_s": wall,
+           "captures_per_chunk": {str(k): v for k, v in caps.items()}, "trace_budget": budget,
+           "chunk_rows": {f"k{k}": fused.device_chunk_rows(N_STAGES, k, 2 * N_PAIRS * len(FAMILIES))
+                          for k in (1, 2)},
+           "poll_every": fused.POLL_EVERY, "sharded_devices": shard_lists,
+           "instances8_card_s": card8_s, "phase_s": time.time() - t15}
+    for label, run in runs.items():
+        say(f"phase fused: campaign {len(FAMILIES)}x{N_PAIRS} pairs n={N_STAGES} p={N_PROCS} "
+            f"{label} in {run['wall_s']:.2f} s (batched, phase 5: {wall:.2f} s), equal to "
+            f"batched; {run['captures']} captures, "
+            f"{run['replays']} replays, {run['polls']} polls; launches {run['launches']}")
+    say(f"phase fused: golden CSVs byte-identical; captures per chunk size {caps} "
+        f"<= {budget}; 8 instances at n={N_STAGES} card (fused) == cpu (fused, lockstep); "
+        f"sharded over {list(shard_lists)} == fused; {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -1399,14 +1576,8 @@ def main() -> None:
     gold_dir = REPO / "build" / "chip_smoke" / "paper_sim"
     res = paper_sim.run(gold_dir, families="all", ns=(5,), ps=(10,), n_pairs=3,
                         n_bounds=4, device="cuda")
-    if not all(c.startswith("[PASS]") for c in res["claims"]):
-        fail(f"golden claims: {res['claims']}")
+    check_golden(res, gold_dir, "golden")
     names = sorted(f.name for f in GOLDEN.iterdir())
-    if sorted(f.name for f in gold_dir.iterdir()) != names:
-        fail("golden: file set differs")
-    for name in names:
-        if (gold_dir / name).read_bytes() != (GOLDEN / name).read_bytes():
-            fail(f"golden: {name} differs")
     report["golden_s"] = time.time() - t0
     say(f"phase golden: {len(names)} files byte-identical in {report['golden_s']:.1f} s")
 
@@ -1624,6 +1795,13 @@ def main() -> None:
             f"{[round(t, 3) for t in rel_card['timed'][kind]['s']]}, cpu "
             f"{[round(t, 3) for t in rel_cpu['timed'][kind]['s']]}; launches (2-way, 3-way) "
             f"{rel_card['timed'][kind]['launches']}; {card}")
+
+    # 15. the fused and sharded engines: golden CSVs, then phase 5's campaign
+    # cold and warm (the counters zeroed just before each and read just
+    # after), phase 6's instances card against cpu, and sharded runs
+    report["fused"] = fused_phase(torch, batched, paper_sim, run_campaign, split_score,
+                                  camp, wall, arrays, parts[0].b, card)
+    by_path["fused campaign"] = report["fused"]["campaign"]["warm"]["launches"]
 
     launches = {}
     for counts in by_path.values():

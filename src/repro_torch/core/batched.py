@@ -34,7 +34,12 @@ multiplication by the reciprocal); max/min/argmax reductions are
 order-exact; nothing is summed by a torch reduction.
 
 Entry points take a :class:`ProblemBatch`, which carries the device
-(``ProblemBatch.from_arrays(..., device=None)`` means CUDA).
+(``ProblemBatch.from_arrays(..., device=None)`` means CUDA), and a
+``backend``: ``"lockstep"`` (default) is the loop of this module;
+``"fused"`` runs the whole loop on the device, one fixed-shape step per
+iteration replayed as a CUDA graph (:mod:`repro_torch.core.fused`), and
+``"sharded"`` the same loop with its rows split over several devices
+(:mod:`repro_torch.core.sharded`).  All three give the same floats.
 """
 
 from __future__ import annotations
@@ -56,8 +61,10 @@ from .metrics import Mapping
 __all__ = [
     "ProblemBatch", "batched_trajectories", "batched_trajectory_sets",
     "batched_fixed_latency", "batched_min_period", "batched_sp_bi_p",
-    "evaluate_state_rows", "h4_search_bounds",
+    "evaluate_state_rows", "h4_search_bounds", "BACKENDS",
 ]
+
+BACKENDS = ("lockstep", "fused", "sharded")
 
 F64 = torch.float64
 I64 = torch.int64
@@ -518,15 +525,35 @@ def _apply_splits(state: _BatchState, rows, idx, pd, pe, pu, nparts, consumed):
     state.lat_sum[rows] = new_lat
 
 
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use one of {BACKENDS}")
+
+
 def _run_loop(state: _BatchState, k: int, bi_mode, stop, lat_limit,
-              record: Optional[Callable] = None) -> None:
+              record: Optional[Callable] = None, backend: str = "lockstep") -> None:
     """The paper's splitting loop in lockstep: per row, stop-bound check,
     worst interval, candidate choice, update; rows are deactivated as they
     converge.  ``bi_mode`` (host bool (B,)) selects each row's choice rule
     (False = mono-criterion, True = bi-criteria), so heuristics sharing a
     split arity run together in one pass.  ``stop`` and ``lat_limit`` are
     host float (B,).  ``record(rows, periods, latencies)`` (host arrays) is
-    invoked after each lockstep apply with the rows that accepted a split."""
+    invoked after each lockstep apply with the rows that accepted a split.
+
+    ``backend="fused"`` hands the whole loop to the device-resident engine
+    (:mod:`repro_torch.core.fused`), ``backend="sharded"`` to the same loop
+    with its rows split over devices (:mod:`repro_torch.core.sharded`)."""
+    _check_backend(backend)
+    if backend == "fused":
+        from . import fused
+
+        fused.run_fused(state, k, bi_mode, stop, lat_limit, record)
+        return
+    if backend == "sharded":
+        from . import sharded
+
+        sharded.run_sharded(state, k, bi_mode, stop, lat_limit, record)
+        return
     pb = state.pb
     dev = pb.device
     bi_h = np.asarray(bi_mode, dtype=bool)
@@ -617,17 +644,17 @@ def _run_loop(state: _BatchState, k: int, bi_mode, stop, lat_limit,
 _TRAJ_CONFIG = {"H1": ("mono", 1), "H2": ("mono", 2), "H3": ("bi", 2), "H4": ("bi", 1)}
 
 
-def batched_trajectories(code: str, pb: ProblemBatch) -> list:
+def batched_trajectories(code: str, pb: ProblemBatch, backend: str = "lockstep") -> list:
     """Per-problem (period, latency) exhaustion trajectories of one
     fixed-period heuristic (the state after 0, 1, 2, ... accepted splits; the
     result for any period bound is the first state meeting it).  Returns a
     list of B trajectories."""
     if code not in _TRAJ_CONFIG:
         raise KeyError(f"trajectories are for fixed-period heuristics, not {code}")
-    return batched_trajectory_sets([code], pb)[code]
+    return batched_trajectory_sets([code], pb, backend)[code]
 
 
-def batched_trajectory_sets(codes, pb: ProblemBatch) -> dict:
+def batched_trajectory_sets(codes, pb: ProblemBatch, backend: str = "lockstep") -> dict:
     """Trajectories for several heuristic codes in as few lockstep runs as
     possible: codes sharing a split arity (H1+H4 2-way, H2+H3 3-way) run
     TOGETHER as extra batch rows distinguished only by their per-row choice
@@ -649,7 +676,7 @@ def batched_trajectory_sets(codes, pb: ProblemBatch) -> dict:
                 trajs[i].append((float(p), float(l)))
 
         _run_loop(st, k, bi_mode, np.full(tiled.B, -np.inf),
-                  np.full(tiled.B, np.inf), record=rec)
+                  np.full(tiled.B, np.inf), record=rec, backend=backend)
         for gi, (code, _) in enumerate(group):
             out[code] = trajs[gi * B:(gi + 1) * B]
     return out
@@ -658,23 +685,25 @@ def batched_trajectory_sets(codes, pb: ProblemBatch) -> dict:
 _FIXED_LAT = {"H5": ("mono", "Sp mono L"), "H6": ("bi", "Sp bi L")}
 
 
-def _fixed_latency_state(code: str, pb: ProblemBatch, bounds: np.ndarray):
+def _fixed_latency_state(code: str, pb: ProblemBatch, bounds: np.ndarray,
+                         backend: str = "lockstep"):
     """Run the H5/H6 splitting loop; returns (state, initially_failed host mask)."""
     bi_mode = np.full(pb.B, _FIXED_LAT[code][0] == "bi")
     st = _BatchState(pb)
     failed = st.latency() > bounds + _EPS
     st.active[torch.from_numpy(failed).to(pb.device)] = False
-    _run_loop(st, 1, bi_mode, np.full(pb.B, -np.inf), bounds)
+    _run_loop(st, 1, bi_mode, np.full(pb.B, -np.inf), bounds, backend=backend)
     return st, failed
 
 
-def batched_fixed_latency(code: str, pb: ProblemBatch, bounds) -> list:
+def batched_fixed_latency(code: str, pb: ProblemBatch, bounds,
+                          backend: str = "lockstep") -> list:
     """H5/H6 (min period s.t. latency <= bound) for B problems at once, each
     with its own bound.  Returns per-problem HeuristicResults identical to
     the reference's ``sp_mono_l``/``sp_bi_l``."""
     bounds = np.asarray(bounds, dtype=float)
     name = _FIXED_LAT[code][1]
-    st, failed = _fixed_latency_state(code, pb, bounds)
+    st, failed = _fixed_latency_state(code, pb, bounds, backend)
     per, lat, items, m, splits = st.host()
     return [HeuristicResult.failure(name) if failed[i]
             else HeuristicResult(_mapping_from_rows(items[i], int(m[i])),
@@ -692,7 +721,7 @@ _MIN_PERIOD_STRATEGIES = (
 )
 
 
-def batched_min_period(pb: ProblemBatch) -> list:
+def batched_min_period(pb: ProblemBatch, backend: str = "lockstep") -> list:
     """Unbounded min-period portfolio for B problems at once (the fleet
     replanning service's solve primitive).  Two lockstep runs cover all four
     exhaustion strategies: each run tiles the batch x2 with per-row choice
@@ -705,7 +734,8 @@ def batched_min_period(pb: ProblemBatch) -> list:
     runs = []
     for k in (1, 2):
         st = _BatchState(pb.take(rows2))
-        _run_loop(st, k, bi_mode, np.full(2 * B, -np.inf), np.full(2 * B, np.inf))
+        _run_loop(st, k, bi_mode, np.full(2 * B, -np.inf), np.full(2 * B, np.inf),
+                  backend=backend)
         runs.append(st.host())
     (per1, lat1, it1, m1, sp1), (per2, lat2, it2, m2, sp2) = runs
     per = np.stack([per1[:B], per1[B:], per2[:B], per2[B:]])   # (4, B)
@@ -793,31 +823,66 @@ def h4_search_bounds(pb: ProblemBatch, groups=None) -> tuple:
 
 
 def batched_sp_bi_p(pb: ProblemBatch, bounds, iters: int = 40,
-                    with_mappings: bool = True, groups=None) -> list:
+                    with_mappings: bool = True, groups=None,
+                    backend: str = "lockstep") -> list:
     """H4 'Sp bi P' for B problems at once: ONE binary search whose every
     bisection step probes all still-searching problems in lockstep.
     ``with_mappings=False`` skips Mapping materialization (metrics-only
     campaigns) and deduplicates probe runs across rows sharing a ``groups``
     key (see ``_sp_bi_p_grouped``).  The bisection bookkeeping is numpy on
-    the host; each probe is a lockstep run on the device."""
+    the host; each probe is a lockstep run on the device.  With
+    ``backend="fused"`` or ``"sharded"`` the whole search runs on the device
+    (``_sp_bi_p_fused``), with or without mappings: probes cost no host
+    round trip there, so ``groups`` is not used; results are the same."""
+    _check_backend(backend)
     p_fix = np.asarray(bounds, dtype=float)
     if groups is None:
         groups = np.arange(pb.B)
     groups = np.asarray(groups)
     lo, hi = h4_search_bounds(pb, groups)
+    if backend != "lockstep" and min(pb.n - 1, pb.p - 1) > 0:
+        return _sp_bi_p_fused(pb, p_fix, iters, lo, hi, with_mappings, backend)
     if not with_mappings:
-        return _sp_bi_p_grouped(pb, p_fix, groups, iters, lo, hi)
-    return _sp_bi_p_rowwise(pb, p_fix, iters, lo, hi)
+        return _sp_bi_p_grouped(pb, p_fix, groups, iters, lo, hi, backend)
+    return _sp_bi_p_rowwise(pb, p_fix, iters, lo, hi, backend)
 
 
-def _sp_bi_p_rowwise(pb, p_fix, iters, lo, hi):
+def _sp_bi_p_fused(pb, p_fix, iters, lo, hi, with_mappings, backend):
+    """H4 with the binary search on the device
+    (:func:`repro_torch.core.fused.run_fused_bisection`, or its row-split
+    twin :func:`repro_torch.core.sharded.run_sharded_bisection`): outputs
+    identical to the host-driven probe loops."""
+    if backend == "sharded":
+        from . import sharded
+
+        r = sharded.run_sharded_bisection(pb, p_fix, lo, hi, iters)
+    else:
+        from . import fused
+
+        r = fused.run_fused_bisection(pb, p_fix, lo, hi, iters)
+    out = []
+    for i in range(pb.B):
+        if not r["feas0"][i]:
+            mp = (_mapping_from_rows(r["items0"][i], int(r["m0"][i]))
+                  if with_mappings else None)
+            out.append(HeuristicResult(mp, float(r["per0"][i]), float(r["lat0"][i]),
+                                       False, int(r["sp0"][i]), "Sp bi P"))
+        else:
+            mp = (_mapping_from_rows(r["items"][i], int(r["m"][i]))
+                  if with_mappings else None)
+            out.append(HeuristicResult(mp, float(r["per"][i]), float(r["lat"][i]),
+                                       True, int(r["sp"][i]), "Sp bi P"))
+    return out
+
+
+def _sp_bi_p_rowwise(pb, p_fix, iters, lo, hi, backend="lockstep"):
     """One lockstep probe row per problem: keeps full state for mappings."""
     B = pb.B
     all_bi = np.ones(B, dtype=bool)
 
     def probe(limits, act):
         st = _BatchState(pb, active=act)
-        _run_loop(st, 1, all_bi, p_fix, limits)
+        _run_loop(st, 1, all_bi, p_fix, limits, backend=backend)
         per, lat = st.period(), st.latency()
         feas = (per <= p_fix + _EPS) & (lat <= limits + _EPS)
         return st, per, lat, feas
@@ -861,7 +926,7 @@ def _sp_bi_p_rowwise(pb, p_fix, iters, lo, hi):
     return out
 
 
-def _sp_bi_p_grouped(pb, p_fix, groups, iters, lo, hi):
+def _sp_bi_p_grouped(pb, p_fix, groups, iters, lo, hi, backend="lockstep"):
     """Metrics-only H4 with probe-run deduplication.
 
     A probe's split *choices* never depend on its period stop-bound — only
@@ -889,7 +954,8 @@ def _sp_bi_p_grouped(pb, p_fix, groups, iters, lo, hi):
         recs = []
         _run_loop(st, 1, np.ones(R, dtype=bool), np.full(R, -np.inf),
                   limits[exemplar],
-                  record=lambda rows, pers, lats: recs.append((rows, pers, lats)))
+                  record=lambda rows, pers, lats: recs.append((rows, pers, lats)),
+                  backend=backend)
         # assemble per-run trajectories; step index == split count because an
         # active row accepts a split at every lockstep iteration
         T = len(recs) + 1

@@ -41,16 +41,22 @@ __device__ __forceinline__ double np_max(double m, double x) {
   return (m != m || m >= x) ? m : x;
 }
 
+// kBPtr: `b` is read from device memory (`bp`, one float64) instead of being
+// passed by value, so that a launch captured in a CUDA graph serves any
+// bandwidth; the same double, the same quotients.
+template <bool kBPtr>
 __global__ void score_2way_kernel(
     const double* __restrict__ pre_d1, const double* __restrict__ pre_C,
     const double* __restrict__ pre_e, const double* __restrict__ del_d1,
     const double* __restrict__ del_C, const double* __restrict__ del_e,
     const double* __restrict__ inv_j, const double* __restrict__ inv_p,
-    const int64_t* __restrict__ need, double b, double zero,
+    const int64_t* __restrict__ need, double b_val,
+    const double* __restrict__ bp, double zero,
     double* __restrict__ cyc1, double* __restrict__ cyc2,
     double* __restrict__ dlat, int64_t A, int64_t K) {
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
+  const double b = kBPtr ? *bp : b_val;
   for (int64_t a = blockIdx.y; a < A; a += gridDim.y) {
     const int64_t lane = a * K + k;
     double* c1 = cyc1 + a * 2 * K;
@@ -138,9 +144,25 @@ extern "C" int score_2way_f64(
     double b, double zero, double* cyc1, double* cyc2, double* dlat,
     int64_t A, int64_t K, void* stream) {
   if (A <= 0 || K <= 0) return 0;
-  score_2way_kernel<<<grid_for(A, K), kThreads, 0, (cudaStream_t)stream>>>(
-      pre_d1, pre_C, pre_e, del_d1, del_C, del_e, inv_j, inv_p, need, b, zero,
-      cyc1, cyc2, dlat, A, K);
+  score_2way_kernel<false><<<grid_for(A, K), kThreads, 0, (cudaStream_t)stream>>>(
+      pre_d1, pre_C, pre_e, del_d1, del_C, del_e, inv_j, inv_p, need, b, nullptr,
+      zero, cyc1, cyc2, dlat, A, K);
+  return (int)cudaGetLastError();
+}
+
+// The same, with `b` read on the device from `b_ptr` (a 0-dim float64
+// tensor): the entry point of the fused engine, whose launches are captured
+// in CUDA graphs and replayed for any batch.
+extern "C" int score_2way_f64_bptr(
+    const double* pre_d1, const double* pre_C, const double* pre_e,
+    const double* del_d1, const double* del_C, const double* del_e,
+    const double* inv_j, const double* inv_p, const int64_t* need,
+    const double* b_ptr, double zero, double* cyc1, double* cyc2, double* dlat,
+    int64_t A, int64_t K, void* stream) {
+  if (A <= 0 || K <= 0) return 0;
+  score_2way_kernel<true><<<grid_for(A, K), kThreads, 0, (cudaStream_t)stream>>>(
+      pre_d1, pre_C, pre_e, del_d1, del_C, del_e, inv_j, inv_p, need, 0.0, b_ptr,
+      zero, cyc1, cyc2, dlat, A, K);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,14 @@ it are zero.  A CUDA tensor launches the kernel on the current stream (and
 adds one to the wrapper's ``launches``); a CPU tensor runs the plain PyTorch
 version of :mod:`repro_torch.core.heuristics` and zeroes the same lanes.
 Nothing falls back: a CUDA input the kernel does not take raises.
+
+A call made while the current stream is being captured into a CUDA graph
+launches nothing: it adds one to the wrapper's ``captured`` instead, and
+whoever replays the graph counts its launches (:mod:`repro_torch.core.fused`
+adds each replay's kernels to ``launches``).  ``score_2way_cuda`` takes the
+bandwidth ``b`` as a float, passed by value, or as a 0-dim float64 tensor on
+the inputs' device, read by the kernel where it runs
+(``score_2way_f64_bptr``), which is what a captured launch needs.
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ _ARGTYPES = {
     # 8 input pointers, need, b, zero, 3 output pointers, A, K (then the stream)
     "score_2way_f64": [ctypes.c_void_p] * 9 + [ctypes.c_double] * 2
     + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2,
+    # the same with b as a device pointer
+    "score_2way_f64_bptr": [ctypes.c_void_p] * 10 + [ctypes.c_double]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2,
     # 5 input pointers, need, zero, 3 output pointers, A, K (then the stream)
     "score_3way_f64": [ctypes.c_void_p] * 6 + [ctypes.c_double]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2,
@@ -61,14 +72,19 @@ def _need(need, A: int, K: int, device) -> torch.Tensor:
     return need
 
 
-def _launch(fn: str, *args) -> None:
+def _launch(wrapper, fn: str, *args) -> None:
     build.launch("split_score", fn, _ARGTYPES[fn], *args)
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
 
 
 def score_2way_cuda(pre_d1, pre_C, pre_e, delta_d1, delta_C, delta_e, b,
                     inv_j, inv_p, *, zero=0.0, need=None):
     """Every 2-way cut of each row's worst interval, both placement orders
-    (see the module docstring for shapes).  ``b`` is a float."""
+    (see the module docstring for shapes).  ``b`` is a float or a 0-dim
+    float64 tensor on the inputs' device."""
     A, K = pre_C.shape
     dev = pre_C.device
     need = _need(need, A, K, dev)
@@ -86,11 +102,16 @@ def score_2way_cuda(pre_d1, pre_C, pre_e, delta_d1, delta_C, delta_e, b,
     for nm, c in zip(("pre_d1", "pre_e", "delta_d1", "delta_e", "inv_j", "inv_p"), cols):
         _check(nm, c, (A, 1), f64, dev)
     cyc1, cyc2, dlat = (torch.empty((A, 2 * K), dtype=f64, device=dev) for _ in range(3))
-    _launch("score_2way_f64", pre_d1.data_ptr(), pre_C.data_ptr(), pre_e.data_ptr(),
-            delta_d1.data_ptr(), delta_C.data_ptr(), delta_e.data_ptr(),
-            inv_j.data_ptr(), inv_p.data_ptr(), need.data_ptr(), float(b),
-            float(zero), cyc1.data_ptr(), cyc2.data_ptr(), dlat.data_ptr(), A, K)
-    score_2way_cuda.launches += 1
+    ins = (pre_d1.data_ptr(), pre_C.data_ptr(), pre_e.data_ptr(), delta_d1.data_ptr(),
+           delta_C.data_ptr(), delta_e.data_ptr(), inv_j.data_ptr(), inv_p.data_ptr(),
+           need.data_ptr())
+    outs = (cyc1.data_ptr(), cyc2.data_ptr(), dlat.data_ptr(), A, K)
+    if isinstance(b, torch.Tensor):
+        _check("b", b, (), f64, dev)
+        _launch(score_2way_cuda, "score_2way_f64_bptr", *ins, b.data_ptr(), float(zero),
+                *outs)
+    else:
+        _launch(score_2way_cuda, "score_2way_f64", *ins, float(b), float(zero), *outs)
     return cyc1, cyc2, dlat
 
 
@@ -115,12 +136,11 @@ def score_3way_cuda(dI, W, dO, invp, base_term, *, zero=0.0, need=None):
     cyc = torch.empty((A, 6, 3, K), dtype=f64, device=dev)
     dlat = torch.empty((A, 6, K), dtype=f64, device=dev)
     mx = torch.empty((A, 6, K), dtype=f64, device=dev)
-    _launch("score_3way_f64", dI.data_ptr(), W.data_ptr(), dO.data_ptr(),
+    _launch(score_3way_cuda, "score_3way_f64", dI.data_ptr(), W.data_ptr(), dO.data_ptr(),
             invp.data_ptr(), base_term.data_ptr(), need.data_ptr(), float(zero),
             cyc.data_ptr(), dlat.data_ptr(), mx.data_ptr(), A, K)
-    score_3way_cuda.launches += 1
     return cyc, dlat, mx
 
 
-score_2way_cuda.launches = 0
-score_3way_cuda.launches = 0
+score_2way_cuda.launches = score_2way_cuda.captured = 0
+score_3way_cuda.launches = score_3way_cuda.captured = 0

@@ -1,10 +1,12 @@
 """Where a campaign's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.sim.campaign_profile --out <file.json>
+    PYTHONPATH=src python -m repro_torch.sim.campaign_profile --out <file.json> \
+        [--engine batched|fused|sharded]
 
 Runs the full-width Section-5 campaign (E1-E4 x 50 instance pairs, n = 160
 stages, p = 1000 processors, 12 bounds, H4 with 10 bisection steps) on cuda
-three times:
+through ``--engine`` (default ``batched``, the engine of the earlier
+profiles) three times:
 
   1. a warm-up run;
   2. a run timed by the host clock around work that ends in
@@ -13,11 +15,13 @@ three times:
      of each campaign stage on the host and on the device (the ``campaign.*``
      spans of :mod:`repro_torch.sim.experiments`), the device time summed
      over every kernel (one stream, so no overlap), its share of the profiled
-     wall time, the kernels that take the most device time, and the device
-     time of the port's own split-scoring kernels.
+     wall time, the number of device kernels and copies, the kernels that
+     take the most device time, and the device time of the port's own
+     split-scoring kernels.
 
-It prints the summary as JSON and writes it to ``--out``.  Needs a CUDA
-device; device times are null when the profiler records none.
+With the fused or sharded engine the timed run also counts graph replays
+and host polls.  It prints the summary as JSON and writes it to ``--out``.
+Needs a CUDA device; device times are null when the profiler records none.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import time
 import torch
 
 from .. import resolve_device
+from ..core import fused, sharded
 from ..kernels import split_score
 from .experiments import run_campaign
 
@@ -40,10 +45,11 @@ N_STAGES, N_PROCS, N_PAIRS, N_BOUNDS, H4_ITERS = 160, 1000, 50, 12, 10
 TOP = 15
 
 
-def profile() -> dict:
+def profile(engine: str = "batched") -> dict:
     dev = resolve_device(None)
     n, p = N_STAGES, N_PROCS
-    kw = dict(n_pairs=N_PAIRS, n_bounds=N_BOUNDS, h4_iters=H4_ITERS, device=dev)
+    kw = dict(n_pairs=N_PAIRS, n_bounds=N_BOUNDS, h4_iters=H4_ITERS, engine=engine,
+              device=dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -54,12 +60,18 @@ def profile() -> dict:
     torch.cuda.synchronize()
     split_score.score_2way_cuda.launches = 0
     split_score.score_3way_cuda.launches = 0
+    engines = (fused, sharded)
+    for m in engines:
+        m.reset_dispatch_count()
+        m.reset_sync_count()
     t0 = time.perf_counter()
     run_campaign(FAMILIES, n, p, **kw)
     torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
     out["launches"] = {"score_2way_f64": split_score.score_2way_cuda.launches,
                        "score_3way_f64": split_score.score_3way_cuda.launches}
+    out["replays"] = sum(m.dispatch_count() for m in engines)
+    out["polls"] = sum(m.sync_count() for m in engines)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -70,6 +82,7 @@ def profile() -> dict:
     spans: dict = {}
     kernels: dict = {}
     device_us = 0.0
+    device_events = 0
     for evt in prof.events():
         dur = evt.time_range.elapsed_us()
         on_device = evt.device_type == torch.autograd.DeviceType.CUDA
@@ -78,6 +91,7 @@ def profile() -> dict:
             spans.setdefault(evt.name, {"host_s": 0.0, "device_s": 0.0})[f"{side}_s"] += dur / 1e6
         elif on_device:
             device_us += dur
+            device_events += 1
             mine = [k for k in PORT_KERNELS if k in evt.name]
             k = kernels.setdefault(mine[0] if mine else evt.name[:120], [0, 0.0])
             k[0] += 1
@@ -86,6 +100,7 @@ def profile() -> dict:
     out["spans"] = spans
     out["device_busy_s"] = device_us / 1e6 if device_us > 0 else None
     out["device_busy_share"] = device_us / 1e6 / wall_prof if device_us > 0 else None
+    out["device_events"] = device_events
     ranked = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)
     out["top_device"] = [{"name": name, "count": c, "device_s": s}
                          for name, (c, s) in ranked[:TOP]]
@@ -98,8 +113,9 @@ def profile() -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=pathlib.Path, required=True)
+    ap.add_argument("--engine", choices=("batched", "fused", "sharded"), default="batched")
     args = ap.parse_args()
-    res = profile()
+    res = profile(args.engine)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))
     print(json.dumps(res, indent=1))

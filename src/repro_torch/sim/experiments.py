@@ -18,15 +18,20 @@ metric evaluation and the curve means stay numpy on the host (their
 summation order is part of the result).  Outputs are bit-identical to
 ``repro.sim.experiments.run_campaign``.
 
-Two engines produce identical outputs:
+Five engines produce identical outputs:
 
   - ``engine="batched"`` (default): the lockstep engine above;
+  - ``engine="fused"``: the same campaign structure, but every lockstep loop
+    runs on the device, one fixed-shape step per iteration replayed as a
+    CUDA graph, with a host poll every few iterations
+    (:mod:`repro_torch.core.fused`);
+  - ``engine="sharded"``: the fused campaign with its stacked-instance rows
+    split over several devices (:mod:`repro_torch.core.sharded`);
   - ``engine="scalar"``: the per-instance reference path (one Python loop per
     instance and bound through the scalar heuristics and the solver
-    registry), whose split scoring runs on the same device.
-
-The reference's ``"fused"``, ``"sharded"`` and ``"auto"`` engines are not
-ported yet and raise ``ValueError``.
+    registry), whose split scoring runs on the same device;
+  - ``engine="auto"``: ``fused`` on a card, and on the CPU the reference's
+    ``n * p`` rule between ``fused`` and ``batched`` (:func:`auto_engine`).
 
 :func:`failure_thresholds` computes the paper's Table 1, and
 :func:`run_replicated` reruns a campaign over R disjoint seed banks with mean
@@ -49,8 +54,9 @@ import numpy as np
 from torch.profiler import record_function
 
 from .. import resolve_device
-from ..core.batched import (ProblemBatch, _fixed_latency_state, batched_sp_bi_p,
-                            batched_trajectory_sets, evaluate_state_rows)
+from ..core.batched import (ProblemBatch, _check_backend, _fixed_latency_state,
+                            batched_sp_bi_p, batched_trajectory_sets,
+                            evaluate_state_rows)
 from ..core.heuristics import scoring_device, sp_bi_p, split_trajectory
 from ..core.metrics import optimal_latency, single_processor_mapping
 from ..core.metrics import period as eval_period
@@ -63,16 +69,43 @@ N_STAGES_DEFAULT = (5, 10, 20, 40)
 N_STAGES_LARGE = (80, 160)
 N_PROCS_LARGE = (1000,)
 
-ENGINES = ("batched", "scalar")
+ENGINES = ("batched", "fused", "sharded", "scalar", "auto")
+
+# The reference's engine crossover on the CPU (repro/sim/experiments.py:73-87,
+# measured on a 2-core CPU; no target here): the fused engine at or below
+# this n * p, the batched engine above it.  Both give the same output.
+_AUTO_FUSED_MAX_NP = 2_000
 
 
 def _check_engine(engine: str) -> None:
-    if engine in ("fused", "sharded", "auto"):
-        raise ValueError(f"engine {engine!r} is not ported yet (ROADMAP.md Queue 1 "
-                         f"items 5 and 7: the fused loop and the sharded engine); "
-                         f"use one of {ENGINES}")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+
+
+def auto_engine(n: int, p: int, device=None) -> str:
+    """The engine ``engine="auto"`` runs at an (n, p) campaign point on
+    ``device`` (``None`` means CUDA): ``fused`` on a card (no host sync per
+    iteration is the point of it); on the CPU the reference's rule, ``fused``
+    at or below ``n * p = 2000``, ``batched`` above."""
+    if resolve_device(device).type == "cuda":
+        return "fused"
+    return "fused" if n * p <= _AUTO_FUSED_MAX_NP else "batched"
+
+
+def _resolve_engine(engine: str, n: int, p: int, device) -> str:
+    _check_engine(engine)
+    if engine == "auto":
+        return auto_engine(n, p, device)
+    return engine
+
+
+def _campaign_backend(engine: str) -> str:
+    """The lockstep runner's backend (``repro_torch.core.batched.BACKENDS``)
+    of a campaign engine: the fused and sharded engines are backends of the
+    same entry points; the batched engine is the lockstep loop."""
+    backend = engine if engine in ("fused", "sharded") else "lockstep"
+    _check_backend(backend)
+    return backend
 
 
 def _stacked_batch(batches, device) -> ProblemBatch:
@@ -120,13 +153,13 @@ def run_experiment(exp: str, n: int, p: int, n_pairs: int = 50,
                    include_h4: bool = True, engine: str = "batched",
                    device=None) -> ExperimentResult:
     """One scenario family at one (n, p) point on ``device`` (``None`` means
-    CUDA): ``run_campaign([exp], ...)`` with the batched engine, or the
-    per-instance reference path with ``engine="scalar"``."""
-    _check_engine(engine)
-    if engine == "batched":
+    CUDA): ``run_campaign([exp], ...)`` with the batched, fused or sharded
+    engine, or the per-instance reference path with ``engine="scalar"``."""
+    engine = _resolve_engine(engine, n, p, device)
+    if engine != "scalar":
         return run_campaign([exp], n, p, n_pairs=n_pairs, n_bounds=n_bounds,
                             seed0=seed0, h4_iters=h4_iters, include_h4=include_h4,
-                            device=device)[exp]
+                            engine=engine, device=device)[exp]
     period_fracs = np.geomspace(0.04, 1.0, n_bounds)     # x single-processor period
     latency_mults = np.linspace(1.0, 3.0, n_bounds)      # x optimal latency
     codes_p = ["H1", "H2", "H3"] + (["H4"] if include_h4 else [])
@@ -181,7 +214,7 @@ def _run_scalar(batch, h4_iters, include_h4,
 
 
 def _campaign_core(pb, workloads, platforms, pgrids, lgrids, n_bounds,
-                   h4_iters, include_h4):
+                   h4_iters, include_h4, backend):
     """Lockstep evaluation of G stacked instances (any mix of experiment
     families sharing (n, p)) over per-instance bound grids.
 
@@ -194,7 +227,7 @@ def _campaign_core(pb, workloads, platforms, pgrids, lgrids, n_bounds,
     thr = {}
 
     with record_function("campaign.trajectories"):
-        trajs = batched_trajectory_sets(codes_p, pb)
+        trajs = batched_trajectory_sets(codes_p, pb, backend=backend)
     for c in ["H1", "H2", "H3"]:
         thr[c] = [min(per for per, _ in trajs[c][g]) for g in range(G)]
         for g in range(G):
@@ -212,7 +245,7 @@ def _campaign_core(pb, workloads, platforms, pgrids, lgrids, n_bounds,
             with record_function("campaign.h4"):
                 res4 = batched_sp_bi_p(sub, bounds, iters=h4_iters,
                                        with_mappings=False,
-                                       groups=[g for g, _ in todo])
+                                       groups=[g for g, _ in todo], backend=backend)
             for (g, bi), r in zip(todo, res4):
                 if r.feasible:
                     points["H4"][g][bi] = (r.period, r.latency)
@@ -225,7 +258,7 @@ def _campaign_core(pb, workloads, platforms, pgrids, lgrids, n_bounds,
     for c in ("H5", "H6"):
         with record_function("campaign.h5h6"):
             metr_inf, metr_con = _fixed_latency_grid(c, pb, workloads, platforms,
-                                                     lgrids, n_bounds)
+                                                     lgrids, n_bounds, backend)
         # candidate metrics come from the metrics layer on the mapping,
         # feasibility from the bound (the reference's solve() layer)
         for g in range(G):
@@ -240,11 +273,11 @@ def _campaign_core(pb, workloads, platforms, pgrids, lgrids, n_bounds,
     return points, thr
 
 
-def _fixed_latency_grid(c, pb, workloads, platforms, lgrids, n_bounds):
+def _fixed_latency_grid(c, pb, workloads, platforms, lgrids, n_bounds, backend):
     """H5 or H6 over the (instance x bound) grid: the unconstrained run's
     metrics per instance, and those of the binding bounds by (g, bi)."""
     G = len(workloads)
-    st_inf, _ = _fixed_latency_state(c, pb, np.full(G, np.inf))
+    st_inf, _ = _fixed_latency_state(c, pb, np.full(G, np.inf), backend)
     m_inf = st_inf.latency()
     with record_function("campaign.evaluate"):
         metr_inf = evaluate_state_rows(workloads, platforms, st_inf)
@@ -257,7 +290,7 @@ def _fixed_latency_grid(c, pb, workloads, platforms, lgrids, n_bounds):
     if con:
         sub = pb.take([g for g, _ in con])
         bnds = np.array([lgrids[g][bi] for g, bi in con])
-        st_c, failed_c = _fixed_latency_state(c, sub, bnds)
+        st_c, failed_c = _fixed_latency_state(c, sub, bnds, backend)
         with record_function("campaign.evaluate"):
             mc = evaluate_state_rows([workloads[g] for g, _ in con],
                                      [platforms[g] for g, _ in con],
@@ -269,12 +302,20 @@ def _fixed_latency_grid(c, pb, workloads, platforms, lgrids, n_bounds):
 
 def run_campaign(exps, n: int, p: int, n_pairs: int = 50, n_bounds: int = 16,
                  seed0: int = 1234, h4_iters: int = 10, include_h4: bool = True,
-                 device=None) -> dict:
+                 engine: str = "batched", device=None) -> dict:
     """Run SEVERAL experiment families sharing (n, p) as ONE stacked-instance
     campaign on ``device`` (``None`` means CUDA) and return
-    {exp: ExperimentResult}."""
+    {exp: ExperimentResult}.  ``engine`` picks the lockstep runner
+    (batched, fused or sharded: one stacked campaign) or, with ``"scalar"``,
+    one per-instance reference run per family."""
     dev = resolve_device(device)
     exps = list(exps)
+    engine = _resolve_engine(engine, n, p, dev)
+    if engine == "scalar":
+        return {exp: run_experiment(exp, n, p, n_pairs=n_pairs, n_bounds=n_bounds,
+                                    seed0=seed0, h4_iters=h4_iters,
+                                    include_h4=include_h4, engine="scalar", device=dev)
+                for exp in exps}
     period_fracs = np.geomspace(0.04, 1.0, n_bounds)     # x single-processor period
     latency_mults = np.linspace(1.0, 3.0, n_bounds)      # x optimal latency
     with record_function("campaign.setup"):
@@ -290,7 +331,8 @@ def run_campaign(exps, n: int, p: int, n_pairs: int = 50, n_bounds: int = 16,
         lgrids = [l_opt * latency_mults for l_opt in lopts]
 
     points, thr_vals = _campaign_core(pb, workloads, platforms, pgrids, lgrids,
-                                      n_bounds, h4_iters, include_h4)
+                                      n_bounds, h4_iters, include_h4,
+                                      _campaign_backend(engine))
     thr_vals = dict(thr_vals)
     for c in ("H5", "H6"):
         thr_vals[c] = lopts
@@ -321,13 +363,15 @@ def failure_thresholds(exps=("E1", "E2", "E3", "E4"), ns=N_STAGES_DEFAULT,
     exps = list(exps)
     out: dict = {exp: {c: {} for c in ["H1", "H2", "H3", "H4", "H5", "H6"]}
                  for exp in exps}
-    if engine == "batched":
-        # one stacked pass per n across ALL experiment families
+    if engine != "scalar":
+        # one stacked pass per n across ALL experiment families; "auto"
+        # resolves per n (each n is its own campaign point)
         seeds = [seed0 + k for k in range(n_pairs)]
         for n in ns:
             batches = [gen_instance_batch(exp, n, p, seeds) for exp in exps]
-            trajsets = batched_trajectory_sets(["H1", "H2", "H3", "H4"],
-                                               _stacked_batch(batches, dev))
+            trajsets = batched_trajectory_sets(
+                ["H1", "H2", "H3", "H4"], _stacked_batch(batches, dev),
+                backend=_campaign_backend(_resolve_engine(engine, n, p, dev)))
             for c, trajs in trajsets.items():
                 for ei, exp in enumerate(exps):
                     sl = trajs[ei * n_pairs:(ei + 1) * n_pairs]
@@ -415,8 +459,8 @@ def run_replicated(exps, n: int, p: int, n_pairs: int = 50,
     :class:`ReplicatedResult` and ``first`` is bank 0's plain
     ``{exp: ExperimentResult}``.
     """
-    _check_engine(engine)
     dev = resolve_device(device)
+    engine = _resolve_engine(engine, n, p, dev)
     if engine == "scalar":  # the reference path replicates per experiment
         camps = [{exp: run_experiment(exp, n, p, n_pairs=n_pairs,
                                       n_bounds=n_bounds,
@@ -428,7 +472,7 @@ def run_replicated(exps, n: int, p: int, n_pairs: int = 50,
     else:
         camps = [run_campaign(exps, n, p, n_pairs=n_pairs, n_bounds=n_bounds,
                               seed0=seed0 + r * n_pairs, h4_iters=h4_iters,
-                              include_h4=include_h4, device=dev)
+                              include_h4=include_h4, engine=engine, device=dev)
                  for r in range(replications)]
     out = {}
     for exp in exps:

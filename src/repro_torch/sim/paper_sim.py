@@ -12,14 +12,18 @@ The port's own copy of the CSV and claims writer of
   - claims.txt                      — machine-checked qualitative claims
 
 byte-identical to the reference's files for the same grid.  Every (n, p)
-point runs on ``device`` (``None`` means CUDA) through the batched engine
-(one :func:`repro_torch.sim.experiments.run_campaign`) or, with
-``--engine scalar``, the per-instance reference path.  ``--large-grid``
-adds the follow-up study's n in {80, 160}, p = 1000 points (``--large-pairs``
-pairs each).  Run it with
+point runs on ``device`` (``None`` means CUDA) as one
+:func:`repro_torch.sim.experiments.run_campaign` through the batched engine,
+the fused engine (the loop on the device, replayed as CUDA graphs) or the
+sharded one (the same, rows split over every visible card), or, with
+``--engine scalar``, the per-instance reference path; ``--engine auto``
+picks per point (:func:`repro_torch.sim.experiments.auto_engine`).
+``--large-grid`` adds the follow-up study's n in {80, 160}, p = 1000 points
+(``--large-pairs`` pairs each).  Run it with
 
     PYTHONPATH=src python -m repro_torch.sim.paper_sim --out <dir> [--device cuda] \
-        [--engine batched|scalar] [--replications R] [--large-grid] [--large-pairs 6]
+        [--engine batched|fused|sharded|scalar|auto] [--replications R] \
+        [--large-grid] [--large-pairs 6]
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ import numpy as np
 
 from .. import resolve_device
 from .experiments import (ENGINES, N_PROCS_LARGE, N_STAGES_LARGE, _check_engine,
-                          run_campaign, run_experiment, run_replicated,
-                          summarize_experiment, summarize_replicated)
+                          _resolve_engine, run_campaign, run_experiment,
+                          run_replicated, summarize_experiment,
+                          summarize_replicated)
 from .generators import FAMILY_SETS, PAPER_FAMILIES
 
 HEURISTICS = ("H1", "H2", "H3", "H4", "H5", "H6")
@@ -41,8 +46,10 @@ HEURISTICS = ("H1", "H2", "H3", "H4", "H5", "H6")
 
 def _run_point(exps, n, p, n_pairs, n_bounds, include_h4, engine, replications,
                device):
-    """One (n, p) grid point through the selected engine; returns
-    (single-bank {exp: ExperimentResult}, {exp: ReplicatedResult} or None)."""
+    """One (n, p) grid point through the selected engine (``"auto"``
+    resolves per point); returns (single-bank {exp: ExperimentResult},
+    {exp: ReplicatedResult} or None)."""
+    engine = _resolve_engine(engine, n, p, device)
     if replications > 1:
         rep, first = run_replicated(exps, n, p, n_pairs=n_pairs,
                                     replications=replications,
@@ -55,7 +62,7 @@ def _run_point(exps, n, p, n_pairs, n_bounds, include_h4, engine, replications,
                                     engine="scalar", device=device)
                 for exp in exps}, None
     return run_campaign(exps, n, p, n_pairs=n_pairs, n_bounds=n_bounds,
-                        include_h4=include_h4, device=device), None
+                        include_h4=include_h4, engine=engine, device=device), None
 
 
 def run(out_dir: pathlib.Path, full: bool = False, families: str = "paper",
@@ -195,7 +202,9 @@ def main() -> None:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--families", choices=tuple(FAMILY_SETS), default="paper")
     ap.add_argument("--engine", choices=ENGINES, default="batched",
-                    help="the lockstep engine, or the per-instance reference path")
+                    help="the lockstep engine (batched), the loop on the device "
+                         "(fused), the same over every visible card (sharded), "
+                         "the per-instance reference path (scalar), or auto")
     ap.add_argument("--replications", type=int, default=1, metavar="R",
                     help="run each grid point over R disjoint seed banks and "
                          "emit mean +/- 95%% CI CSVs next to the point CSVs")

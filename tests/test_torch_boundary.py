@@ -19,14 +19,15 @@ import torch
 import repro_torch
 from repro_torch import core
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import sharded
 from repro_torch.core.batched import ProblemBatch
 from repro_torch.launch import first_forward_probe, rounding_probe
 from repro_torch.launch.serve import serve_pool
 from repro_torch.models import get_model, hybrid, ssm
 from repro_torch.models.transformer import init_decode_state, params_from_numpy
 from repro_torch.pipeline import StragglerMonitor, elastic_replan, replan_stages
-from repro_torch.sim import (failure_thresholds, paper_sim, run_campaign, run_experiment,
-                             run_replicated)
+from repro_torch.sim import (experiments, failure_thresholds, paper_sim, run_campaign,
+                             run_experiment, run_replicated)
 
 _QWEN = get_smoke_config("qwen3-4b")
 _ZAMBA = get_smoke_config("zamba2-7b")
@@ -56,6 +57,9 @@ def test_import_and_campaign_load_no_jax_or_reference():
         "from repro_torch.sim.paper_sim import run\n"
         "res = run_campaign(['E1', 'I3'], 6, 10, n_pairs=2, n_bounds=3, device='cpu')\n"
         "assert sorted(res) == ['E1', 'I3']\n"
+        "for engine in ('fused', 'sharded'):\n"
+        "    assert sorted(run_campaign(['E1'], 6, 10, n_pairs=2, n_bounds=3, engine=engine,\n"
+        "                               device='cpu')) == ['E1']\n"
         "from repro_torch.launch.serve import serve_pool\n"
         "for arch in ('qwen3-4b', 'zamba2-7b'):\n"
         "    out = serve_pool(arch=arch, n_requests=2, batch=2, prompt_len=3, max_new=2,\n"
@@ -129,6 +133,15 @@ def _no_cuda(monkeypatch):
     lambda: core.solve("H1-rel", _WL, _PF, core.Objective("latency", bound=2.0)),
     lambda: replan_stages(_WL, _PF, _PLAN, _straggling()),
     lambda: elastic_replan(_WL, _PF, 2),
+    lambda: run_campaign(["E1"], 5, 10, n_pairs=1, n_bounds=2, engine="fused"),
+    lambda: run_experiment("E1", 5, 10, n_pairs=1, n_bounds=2, engine="sharded"),
+    lambda: run_experiment("E1", 5, 10, n_pairs=1, n_bounds=2, engine="auto"),
+    lambda: failure_thresholds(ns=(5,), n_pairs=1, engine="fused"),
+    lambda: run_replicated(["E1"], 5, 10, n_pairs=1, replications=2, n_bounds=2,
+                           engine="sharded"),
+    lambda: experiments.auto_engine(5, 10),
+    lambda: sharded.default_devices(),
+    lambda: sharded.device_count(),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -139,7 +152,9 @@ def _no_cuda(monkeypatch):
         "sweep_heuristic", "sweep_solver", "tradeoff_curves", "failure_thresholds",
         "failure_thresholds-scalar", "run_experiment-scalar", "run_replicated",
         "plan_pareto_tri", "plan_with_deal", "solve-deal", "solve-H1-rel", "replan_stages",
-        "elastic_replan"])
+        "elastic_replan", "run_campaign-fused", "run_experiment-sharded",
+        "run_experiment-auto", "failure_thresholds-fused", "run_replicated-sharded",
+        "auto_engine", "shard_devices", "shard_device_count"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -151,6 +166,26 @@ def test_paper_sim_default_device_without_cuda_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         paper_sim.run(tmp_path / "out", ns=(5,), ps=(10,), n_pairs=1, n_bounds=2)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("engine", ["fused", "sharded", "auto"])
+def test_paper_sim_engines_default_device_without_cuda_raises(engine, tmp_path,
+                                                             monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paper_sim.run(tmp_path / "out", ns=(5,), ps=(10,), n_pairs=1, n_bounds=2,
+                      engine=engine)
+    assert not (tmp_path / "out").exists()
+
+
+def test_fused_engine_modules_load_no_jax_and_report_no_card(monkeypatch):
+    """The engines' modules import without JAX (the source scan above covers
+    them) and, without a card, say that they can run on the CPU only."""
+    from repro_torch.core import fused
+
+    _no_cuda(monkeypatch)
+    assert not fused.fused_available() and not sharded.sharded_available()
+    assert fused.fused_available("cpu") and sharded.sharded_available("cpu")
 
 
 def test_scoring_device_block_without_cuda_raises_and_cpu_nests(monkeypatch):

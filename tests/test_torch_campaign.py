@@ -3,8 +3,8 @@
 ``repro_torch.sim.paper_sim.run`` on ``device="cpu"`` must write the golden
 files of ``tests/golden/paper_sim/`` byte for byte (the reference's own
 regression grid: every family, n=5, p=10, 3 pairs, 4 bounds), and
-``run_campaign`` must equal ``repro.sim.experiments.run_campaign`` exactly on
-a mixed-family point.
+``run_campaign`` (batched, fused and sharded engines) must equal
+``repro.sim.experiments.run_campaign`` exactly on a mixed-family point.
 """
 
 import pathlib
@@ -45,6 +45,22 @@ def test_run_campaign_matches_reference(n, p):
         assert sorted(g.curves) == sorted(w.curves)
         for code in w.curves:
             for a, b in zip(g.curves[code], w.curves[code]):
+                assert np.array_equal(a, b, equal_nan=True), (exp, code)
+
+
+@pytest.mark.parametrize("engine", ["fused", "sharded"])
+@pytest.mark.parametrize("n,p", [(9, 10), (14, 100)])
+def test_run_campaign_engines_match_reference(n, p, engine):
+    """The fused and sharded engines give the reference's campaign too."""
+    exps = ["E1", "E3", "I2", "R4"]
+    kw = dict(n_pairs=4, n_bounds=5, seed0=77, h4_iters=6)
+    want = ref.run_campaign(exps, n, p, **kw)
+    got = port.run_campaign(exps, n, p, engine=engine, device="cpu", **kw)
+    for exp in exps:
+        assert port.summarize_experiment(got[exp]) == ref.summarize_experiment(want[exp])
+        assert got[exp].thresholds == want[exp].thresholds
+        for code in want[exp].curves:
+            for a, b in zip(got[exp].curves[code], want[exp].curves[code]):
                 assert np.array_equal(a, b, equal_nan=True), (exp, code)
 
 

@@ -463,3 +463,56 @@ def test_reliability_phase_rows_are_the_references_and_a_planted_difference_fail
 
     for edit in (move_groups, move_reliability, move_deal, move_replan):
         planted(edit)
+
+
+def test_fused_phase_helpers_pass_on_cpu_and_refuse_a_planted_difference(tmp_path):
+    """Phase 15's helpers at a small size on the CPU: the fused campaign
+    equals the batched one with its counters read; the fused, sharded and
+    lockstep rows of stacked instances are equal; a curve moved one ulp, a
+    threshold moved, and a golden file one byte off are refused."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core import batched, fused, sharded
+    from repro_torch.kernels import split_score
+    from repro_torch.sim import gen_instance_batch, paper_sim, run_campaign
+
+    engines = (fused, sharded)
+    fused.release_programs()      # programs an earlier test left count no capture
+    kw = dict(n=12, p=10, n_pairs=2, n_bounds=4, h4_iters=4)
+    want = chip_smoke.fused_campaign(torch, run_campaign, split_score, engines, "batched",
+                                     "cpu", **kw)
+    got = chip_smoke.fused_campaign(torch, run_campaign, split_score, engines, "fused",
+                                    "cpu", **kw)
+    assert want["replays"] == want["polls"] == want["captures"] == 0
+    assert got["replays"] > 0 and got["polls"] > 0 and got["captures"] >= 2
+    assert got["launches"] == {"score_2way_f64": 0, "score_3way_f64": 0}   # no card
+    chip_smoke.compare_campaigns(got["result"], want["result"], "cpu")
+    bad = copy.deepcopy(got["result"])
+    mp = bad["E2"].curves["H3"][0]
+    i = int(np.flatnonzero(np.isfinite(mp))[0])
+    mp[i] = np.nextafter(mp[i], np.inf)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_campaigns(bad, want["result"], "planted")
+    bad = copy.deepcopy(got["result"])
+    bad["E4"].thresholds["H1"] = (0.0, 0.0)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_campaigns(bad, want["result"], "planted")
+
+    parts = [gen_instance_batch(e, 14, 12, [1234, 1235]) for e in chip_smoke.FAMILIES]
+    arrays = [np.concatenate([getattr(b, f) for b in parts])
+              for f in ("w", "delta", "s", "prefix", "order")]
+    lock = chip_smoke.engine_rows(batched, arrays, parts[0].b, "cpu", "lockstep")
+    assert chip_smoke.engine_rows(batched, arrays, parts[0].b, "cpu", "fused") == lock
+    with sharded.use_devices(["cpu", "cpu"]):
+        assert chip_smoke.engine_rows(batched, arrays, parts[0].b, "cpu", "sharded") == lock
+    assert any(not r[4] for r in lock[2]) and any(r[4] for r in lock[2])  # H4 both ways
+
+    res = paper_sim.run(tmp_path, families="all", ns=(5,), ps=(10,), n_pairs=3, n_bounds=4,
+                        engine="fused", device="cpu")
+    chip_smoke.check_golden(res, tmp_path, "fused golden")
+    f = tmp_path / "curves_E1_n5_p10.csv"
+    f.write_bytes(f.read_bytes()[:-1] + b"?")
+    with pytest.raises(SystemExit):
+        chip_smoke.check_golden(res, tmp_path, "planted")

@@ -114,12 +114,46 @@ def test_large_grid_points_equal_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("engine", ["fused", "sharded", "auto", "nope"])
-def test_engines_not_ported_raise(engine):
-    msg = "ROADMAP.md Queue 1 items 5 and 7" if engine != "nope" else "unknown engine"
-    for call in (lambda: port.run_experiment("E1", 5, 10, engine=engine, device=CPU),
-                 lambda: port.failure_thresholds(engine=engine, device=CPU),
-                 lambda: port.run_replicated(["E1"], 5, 10, engine=engine, device=CPU)):
-        with pytest.raises(ValueError, match=msg):
-            call()
-    with pytest.raises(ValueError, match=msg):
-        paper_sim.run(pathlib.Path("unused"), engine=engine, device=CPU)
+def test_engines_not_ported_raise(engine, tmp_path):
+    """The fused, sharded and auto engines (once refused, hence the name)
+    give the batched engine's output from ``run_experiment``,
+    ``failure_thresholds``, ``run_replicated`` and ``paper_sim.run`` (the
+    golden CSVs byte for byte); an unknown engine raises."""
+    if engine == "nope":
+        for call in (lambda: port.run_experiment("E1", 5, 10, engine=engine, device=CPU),
+                     lambda: port.failure_thresholds(engine=engine, device=CPU),
+                     lambda: port.run_replicated(["E1"], 5, 10, engine=engine, device=CPU),
+                     lambda: port.run_campaign(["E1"], 5, 10, engine=engine, device=CPU)):
+            with pytest.raises(ValueError, match="unknown engine"):
+                call()
+        with pytest.raises(ValueError, match="unknown engine"):
+            paper_sim.run(pathlib.Path("unused"), engine=engine, device=CPU)
+        return
+    kw = dict(n_pairs=3, n_bounds=4, seed0=9, h4_iters=4)
+
+    def both(fn, **more):
+        return (fn(engine=engine, device=CPU, **more), fn(engine="batched", device=CPU, **more))
+
+    got, want = both(lambda **a: port.run_experiment("I3", 8, 10, **kw, **a))
+    assert port.summarize_experiment(got) == port.summarize_experiment(want)
+    assert got.thresholds == want.thresholds
+    got, want = both(lambda **a: port.failure_thresholds(("E2", "R1"), ns=(5, 9), p=10,
+                                                         n_pairs=3, seed0=11, **a))
+    assert got == want
+    (got, gfirst), (want, wfirst) = both(lambda **a: port.run_replicated(
+        ["E4"], 7, 10, replications=2, **kw, **a))
+    assert port.summarize_replicated(got["E4"]) == port.summarize_replicated(want["E4"])
+    assert port.summarize_experiment(gfirst["E4"]) == port.summarize_experiment(wfirst["E4"])
+    res = paper_sim.run(tmp_path, families="all", ns=(5,), ps=(10,), n_pairs=3, n_bounds=4,
+                        engine=engine, device=CPU)
+    assert res["engine"] == engine
+    names = sorted(f.name for f in GOLDEN.iterdir())
+    assert sorted(f.name for f in tmp_path.iterdir()) == names
+    for name in names:
+        assert (tmp_path / name).read_bytes() == (GOLDEN / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("n,p,want", [(5, 10, "fused"), (40, 50, "fused"),
+                                      (41, 50, "batched"), (160, 1000, "batched")])
+def test_auto_engine_keeps_the_references_rule_on_the_cpu(n, p, want):
+    assert port.auto_engine(n, p, device=CPU) == want == ref.auto_engine(n, p)
