@@ -5,8 +5,9 @@
 
 Drives the port's paths on the card and checks them: the Section-5
 campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
-full width, the planner API and its reliability extensions
-(``repro_torch``), in fifteen phases; any failure exits non-zero:
+full width, the planner API and its reliability extensions, and the fleet
+replanning service (``repro_torch``), in sixteen phases; any failure exits
+non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -129,10 +130,31 @@ full width, the planner API and its reliability extensions
               through the fused engine on cuda equal to the lockstep engine
               on cpu; ``backend="sharded"`` over every visible card and over
               ``[cuda:0, cuda:0]`` (the split, the padding and the merge on
-              one card) equal to the fused engine.
+              one card) equal to the fused engine;
+ 16. fleet — ``repro_torch.fleet.ReplanService`` on cuda, the engine
+              counters zeroed just before each run and read just after: the
+              reference fleet benchmark's standard trace (16 groups x 16
+              replicas, n = 12, p = 6, 30 ticks) and its chaos overlay
+              (reliability floor 0.98) through the lockstep and the fused
+              engine with the inline supervisor, each ``fleet_digest()`` the
+              reference's (``FLEET_DIGESTS``), no invalid published plan; the
+              chaos trace through ``crash_restart_run`` (crashes at 1/3 and
+              2/3, a snapshot every 8 ticks) and through
+              ``subprocess_supervisor(workers=2, device="cuda")`` under
+              seeded SIGKILLs mid-solve, the same digest, one restart per
+              injected kill and no scalar fallback; the full-size fleet (256
+              groups x 16 replicas = 4096 instances, n = 40, p = 100, 30
+              ticks) through lockstep and fused (each cold, then warm) on cuda
+              and through lockstep on the cpu, every digest equal; both
+              split-score kernels launched in every card run (graph replays x
+              kernels per graph for the fused engine); wall time, replans/s,
+              p50/p99 replan latency, dedup hit rate, solves, captures and
+              launches per run, each line with the card's name and power
+              limit.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-15),
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-16;
+the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1503,6 +1525,194 @@ def fused_phase(torch, batched, paper_sim, run_campaign, split_score, camp, wall
     return out
 
 
+# the fleet replanning service (repro_torch.fleet).  The standard trace of
+# the reference's fleet benchmark (benchmarks/fleet_bench.py:69-70): 16
+# groups of 16 replicas of one (workload, platform) template each, n = 12,
+# p = 6, 30 ticks of correlated bursts; its chaos overlay (storms, flaps,
+# delivery faults, bimodal failure probabilities, a 0.98 reliability floor);
+# the crash/restart run (crashes at 1/3 and 2/3 of the trace, a snapshot
+# every 8 ticks) and the subprocess workers under seeded mid-solve kills
+# (fleet_bench.py:79-90).  The full-size fleet: 256 groups x 16 replicas =
+# 4096 instances at the paper's largest default point (n = 40, p = 100).
+FLEET_STANDARD = dict(n_groups=16, replicas=16, n=12, p=6, fleet_seed=2007, num_ticks=30,
+                      trace_seed=42, burst_prob=0.6)
+FLEET_CHAOS = dict(chaos_seed=77, fail_seed=5, reliability_floor=0.98)
+FLEET_RECOVERY = dict(snapshot_every=8, crash_fracs=(1 / 3, 2 / 3))
+FLEET_REMOTE = dict(workers=2, kill_prob=0.5, kill_seed=1, max_kills=6, solve_timeout=60.0)
+FLEET_FULL = dict(FLEET_STANDARD, n_groups=256, n=40, p=100)
+# the reference's fleet_digest() of the standard trace and of its chaos
+# overlay (numpy engine, inline supervisor); tests/test_torch_fleet.py
+# re-derives both from a live reference run
+FLEET_DIGESTS = {"standard": "54debaa00af3dbb279526096c022ec38",
+                 "chaos": "207f2bf7dc4d7a2b5cee51efa1f2cc77"}
+
+
+def fleet_fixture(fleet, core, cfg: dict, chaos: bool = False) -> tuple:
+    """(pairs, trace) of ``cfg`` from its seeds; with ``chaos`` each group's
+    platform carries bimodal failure probabilities (one draw per template,
+    so replicas keep sharing it) and the trace the seeded chaos overlay."""
+    pairs, groups = fleet.make_fleet(cfg["n_groups"], cfg["replicas"], cfg["n"], cfg["p"],
+                                     seed=cfg["fleet_seed"])
+    trace = fleet.gen_burst_trace(groups, cfg["num_ticks"], seed=cfg["trace_seed"],
+                                  n_stages=cfg["n"], initial_pods=cfg["p"],
+                                  burst_prob=cfg["burst_prob"])
+    if not chaos:
+        return pairs, trace
+    shared, failing = {}, []
+    for wl, pf in pairs:
+        if id(pf) not in shared:
+            shared[id(pf)] = pf.with_failures(core.sample_failures(
+                pf.p, kind="bimodal", seed=FLEET_CHAOS["fail_seed"] + len(shared)))
+        failing.append((wl, shared[id(pf)]))
+    return failing, fleet.inject_chaos(trace, groups, fleet.ChaosSpec(),
+                                       seed=FLEET_CHAOS["chaos_seed"], initial_pods=cfg["p"])
+
+
+def fleet_run(torch, fleet, split_score, engines, pairs, trace, device, backend: str,
+              **service_kw) -> dict:
+    """One trace through a ``ReplanService`` on ``device`` with the inline
+    supervisor, the engine counters zeroed just before and read just after:
+    its digest, its metrics, wall time (construction, the fleet's initial
+    planning, included) and what the engines did."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    zero_engine_counters(split_score, engines)
+    t0 = time.time()
+    svc = fleet.ReplanService(pairs, backend=backend, device=device, **service_kw)
+    m = svc.run_trace(trace)
+    sync()
+    return {"digest": svc.fleet_digest(), "wall_s": time.time() - t0,
+            "summary": m.summary(), "robustness": m.robustness_summary()} \
+        | engine_counts(split_score, engines)
+
+
+def fleet_recovery(fleet, pairs, trace, device, journal_dir: pathlib.Path,
+                   **service_kw) -> dict:
+    """The journaled service killed mid-tick at 1/3 and 2/3 of the trace and
+    restored from its journal each time."""
+    import shutil
+
+    shutil.rmtree(journal_dir, ignore_errors=True)
+    crash = sorted({max(1, int(trace.num_ticks * f)) for f in FLEET_RECOVERY["crash_fracs"]})
+    journal = fleet.Journal(journal_dir, snapshot_every=FLEET_RECOVERY["snapshot_every"],
+                            fsync=False)
+    t0 = time.time()
+    svc, restarts = fleet.crash_restart_run(pairs, trace, journal, crash_ticks=crash,
+                                            device=device, **service_kw)
+    return {"digest": svc.fleet_digest(), "wall_s": time.time() - t0, "crash_ticks": crash,
+            "restarts": len(restarts),
+            "max_replayed_ticks": max(r["replayed_ticks"] for r in restarts),
+            "invalid_published": svc.metrics.invalid_published,
+            "quarantined_problems": svc.metrics.quarantined_problems}
+
+
+def fleet_remote(fleet, pairs, trace, device, remote: dict = FLEET_REMOTE,
+                 **service_kw) -> dict:
+    """The trace served by process-isolated workers on ``device`` under
+    seeded SIGKILLs mid-solve: digest, restarts against injected faults."""
+    chaos = fleet.TransportChaos(kill_prob=remote["kill_prob"], max_faults=remote["max_kills"],
+                                 seed=remote["kill_seed"])
+    sup = fleet.subprocess_supervisor(device=device, workers=remote["workers"],
+                                      timeout=remote["solve_timeout"], chaos=chaos,
+                                      max_attempts=3, backoff_base=0.0)
+    t0 = time.time()
+    try:
+        svc = fleet.ReplanService(pairs, device=device, supervisor=sup, **service_kw)
+        m = svc.run_trace(trace)
+    finally:
+        sup.close()
+    return {"digest": svc.fleet_digest(), "wall_s": time.time() - t0,
+            "injected": dict(chaos.counts), "faults": chaos.total_faults(),
+            "restarts": sup.stats.restarts, "dispatches": sup.stats.dispatches,
+            "timeouts": sup.stats.timeouts, "metric_restarts": m.worker_restarts,
+            "invalid_published": m.invalid_published, "fallback_solves": m.fallback_solves}
+
+
+def _fleet_line(label: str, run: dict, card: str) -> str:
+    s = run["summary"]
+    return (f"phase fleet: {label} in {run['wall_s']:.3f} s, {s['replans_per_sec']:.1f} "
+            f"replans/s, p50 {s['p50_latency_us']:.0f} us, p99 {s['p99_latency_us']:.0f} us, "
+            f"dedup {s['dedup_hit_rate']:.4f} ({s['requests']} requests, {s['solves']} "
+            f"solves), {run['captures']} captures, {run['replays']} replays, launches "
+            f"{run['launches']}; digest {run['digest']}; {card}")
+
+
+def fleet_phase(torch, split_score, card, device: str = "cuda",
+                standard: dict = FLEET_STANDARD, full: dict = FLEET_FULL,
+                remote: dict = FLEET_REMOTE, digests: dict = FLEET_DIGESTS,
+                journal_dir: pathlib.Path = REPO / "build" / "chip_smoke" / "fleet_journal"
+                ) -> dict:
+    """Phase 16: the fleet replanning service on ``device``.  The standard
+    trace and its chaos overlay through the lockstep and the fused engine,
+    each digest the reference's; the crash/restart run and the subprocess
+    workers under kills on the chaos trace, the same digest, restarts equal
+    to the injected faults; the full-size fleet through lockstep and fused
+    (cold, then warm) on ``device`` and through lockstep on the cpu, every
+    digest equal.  Both split-score kernels must launch in every run on the
+    card."""
+    from repro_torch import core, fleet
+    from repro_torch.core import fused, sharded
+
+    engines = (fused, sharded)
+    on_card = torch.device(device).type == "cuda"
+    t16 = time.time()
+    runs = {}
+
+    def check(label, run, want):
+        if run["digest"] != want:
+            fail(f"fleet {label}: digest {run['digest']} against {want}")
+        for name, count in run["launches"].items():
+            if on_card and count <= 0:
+                fail(f"fleet {label} launched {name} no time")
+        runs[label] = run
+
+    std, std_trace = fleet_fixture(fleet, core, standard)
+    chs, chs_trace = fleet_fixture(fleet, core, standard, chaos=True)
+    floor = {"reliability_floor": FLEET_CHAOS["reliability_floor"]}
+    for backend in ("lockstep", "fused"):
+        check(f"standard {backend}",
+              fleet_run(torch, fleet, split_score, engines, std, std_trace, device, backend),
+              digests["standard"])
+        run = fleet_run(torch, fleet, split_score, engines, chs, chs_trace, device, backend,
+                        **floor)
+        check(f"chaos {backend}", run, digests["chaos"])
+        if run["robustness"]["invalid_published"]:
+            fail(f"fleet chaos {backend}: {run['robustness']['invalid_published']} invalid "
+                 "published plans")
+    rec = fleet_recovery(fleet, chs, chs_trace, device, journal_dir, **floor)
+    if rec["digest"] != digests["chaos"] or rec["invalid_published"] \
+            or rec["restarts"] != len(rec["crash_ticks"]):
+        fail(f"fleet crash/restart: {rec}")
+    rem = fleet_remote(fleet, chs, chs_trace, device, remote, **floor)
+    if rem["digest"] != digests["chaos"] or rem["invalid_published"] or rem["faults"] < 1 \
+            or rem["restarts"] != rem["faults"] or rem["fallback_solves"]:
+        fail(f"fleet subprocess workers: {rem}")
+    big, big_trace = fleet_fixture(fleet, core, full)
+    for label, dev, backend in (("lockstep cold", device, "lockstep"),
+                                ("lockstep warm", device, "lockstep"),
+                                ("fused cold", device, "fused"),
+                                ("fused warm", device, "fused"),
+                                ("lockstep cpu", "cpu", "lockstep")):
+        run = fleet_run(torch, fleet, split_score, engines, big, big_trace, dev, backend)
+        if dev == "cpu":
+            run["launches"] = {}    # the cpu runs the plain versions
+        check(f"full {label}", run, runs.get("full lockstep cold", run)["digest"])
+    out = {"card": card, "device": device, "runs": runs, "recovery": rec, "remote": rem,
+           "full": {"instances": len(big), "n": full["n"], "p": full["p"],
+                    "ticks": full["num_ticks"]},
+           "phase_s": time.time() - t16}
+    for label, run in runs.items():
+        say(_fleet_line(label, run, card))
+    say(f"phase fleet: crash/restart at ticks {rec['crash_ticks']} (max "
+        f"{rec['max_replayed_ticks']} WAL ticks replayed) in {rec['wall_s']:.2f} s; "
+        f"{remote['workers']} subprocess workers on {device}: {rem['restarts']} restarts for "
+        f"{rem['faults']} injected kills, {rem['dispatches']} dispatches, in "
+        f"{rem['wall_s']:.2f} s; every digest the reference's (standard {digests['standard']}, "
+        f"chaos {digests['chaos']}); full size {len(big)} instances n={full['n']} "
+        f"p={full['p']}: {device} == cpu; {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -1802,6 +2012,15 @@ def main() -> None:
     report["fused"] = fused_phase(torch, batched, paper_sim, run_campaign, split_score,
                                   camp, wall, arrays, parts[0].b, card)
     by_path["fused campaign"] = report["fused"]["campaign"]["warm"]["launches"]
+
+    # 16. the fleet replanning service on the card: the standard and chaos
+    # traces (lockstep, fused, crash/restart, subprocess workers) to the
+    # reference's digests, then the full-size fleet card against cpu; each
+    # run's counters zeroed just before and read just after
+    report["fleet"] = fleet_phase(torch, split_score, card)
+    for label, run in report["fleet"]["runs"].items():
+        if run["launches"]:
+            by_path[f"fleet {label}"] = run["launches"]
 
     launches = {}
     for counts in by_path.values():

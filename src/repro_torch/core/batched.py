@@ -33,8 +33,17 @@ device tensor (never a Python scalar divisor, which CUDA turns into a
 multiplication by the reciprocal); max/min/argmax reductions are
 order-exact; nothing is summed by a torch reduction.
 
+Device faults: on a batch off the CPU, every public entry point loads the
+split-score library first and raises any failure of its run (a kernel that
+does not build or launch, a copy, a graph capture or replay, memory) as
+:class:`~repro_torch.core.heuristics.ScoringDeviceError`, as the planner's
+entry points do; nothing falls back to the host.  The engine's host logic is
+the same on every device and is held ``==`` the reference on the CPU, so what
+fails only off the CPU is the device.
+
 Entry points take a :class:`ProblemBatch`, which carries the device
-(``ProblemBatch.from_arrays(..., device=None)`` means CUDA), and a
+(``ProblemBatch.from_arrays(..., device=None)`` means CUDA;
+:func:`stack_instances` stacks (workload, platform) pairs), and a
 ``backend``: ``"lockstep"`` (default) is the loop of this module;
 ``"fused"`` runs the whole loop on the device, one fixed-shape step per
 iteration replayed as a CUDA graph (:mod:`repro_torch.core.fused`), and
@@ -44,23 +53,26 @@ iteration replayed as a CUDA graph (:mod:`repro_torch.core.fused`), and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels import build
 from ..kernels.split_score import pair_need
-from .heuristics import (_EPS, _PERMS3, HeuristicResult, _pick_bi, _pick_mono,
+from .heuristics import (_EPS, _PERMS3, HeuristicResult, ScoringDeviceError,
+                         _device_fault, _pick_bi, _pick_mono,
                          _three_way_candidates, score_kernels)
 from .metrics import Mapping
 
 __all__ = [
-    "ProblemBatch", "batched_trajectories", "batched_trajectory_sets",
-    "batched_fixed_latency", "batched_min_period", "batched_sp_bi_p",
+    "ProblemBatch", "stack_instances", "batched_trajectories",
+    "batched_trajectory_sets", "batched_fixed_latency", "batched_min_period", "batched_sp_bi_p",
     "evaluate_state_rows", "h4_search_bounds", "BACKENDS",
 ]
 
@@ -146,11 +158,12 @@ class ProblemBatch:
         if prefix.shape != (B, n + 1) or order.shape != s.shape:
             raise ValueError(f"need prefix (B, n+1) and order (B, p), got "
                              f"{prefix.shape} and {order.shape}")
-        packed = torch.from_numpy(np.concatenate([delta, prefix, s], axis=1)).to(dev)
+        with _device_faults(dev, load=False):
+            packed = torch.from_numpy(np.concatenate([delta, prefix, s], axis=1)).to(dev)
+            order_t = torch.from_numpy(np.ascontiguousarray(order)).to(dev)
+            b_t = torch.tensor(float(b), dtype=F64, device=dev)
         return cls(w=w, delta=delta, s=s, b=float(b), prefix=prefix, order=order,
-                   device=dev, packed=packed,
-                   order_t=torch.from_numpy(np.ascontiguousarray(order)).to(dev),
-                   b_t=torch.tensor(float(b), dtype=F64, device=dev))
+                   device=dev, packed=packed, order_t=order_t, b_t=b_t)
 
     def take(self, rows) -> "ProblemBatch":
         """Sub-batch of the given rows (with repetition allowed — used to tile
@@ -160,6 +173,43 @@ class ProblemBatch:
         return ProblemBatch(self.w[rows], self.delta[rows], self.s[rows], self.b,
                             self.prefix[rows], self.order[rows], self.device,
                             self.packed[idx], self.order_t[idx], self.b_t)
+
+
+def stack_instances(pairs: Sequence, device=None) -> ProblemBatch:
+    """Stack (Workload, Platform) pairs of identical shape into a
+    :class:`ProblemBatch` on ``device`` (``None``: CUDA) — the reference's
+    ``stack_instances``: ``prefix`` from each workload's ``prefix_w()``,
+    ``order`` from each platform's ``sorted_indices()``."""
+    if not len(pairs):
+        raise ValueError("empty batch")
+    n = pairs[0][0].n
+    p = pairs[0][1].p
+    b = float(pairs[0][1].b)
+    for wl, pf in pairs:
+        if wl.n != n or pf.p != p or float(pf.b) != b:
+            raise ValueError("all instances in a batch must share n, p, and b")
+    return ProblemBatch.from_arrays(
+        np.stack([wl.w for wl, _ in pairs]), np.stack([wl.delta for wl, _ in pairs]),
+        np.stack([pf.s for _, pf in pairs]), b,
+        prefix=np.stack([wl.prefix_w() for wl, _ in pairs]),
+        order=np.stack([pf.sorted_indices() for _, pf in pairs]), device=device)
+
+
+@contextlib.contextmanager
+def _device_faults(dev: torch.device, load: bool = True):
+    """Off the CPU: load the split-score library first (``load``) and raise
+    any failure of the block as :class:`ScoringDeviceError`."""
+    if dev.type == "cpu":
+        yield
+        return
+    try:
+        if load:
+            build.load("split_score")
+        yield
+    except ScoringDeviceError:
+        raise
+    except Exception as ex:
+        raise _device_fault(dev, ex) from ex
 
 
 # ---------------------------------------------------------------------------
@@ -659,26 +709,28 @@ def batched_trajectory_sets(codes, pb: ProblemBatch, backend: str = "lockstep") 
     possible: codes sharing a split arity (H1+H4 2-way, H2+H3 3-way) run
     TOGETHER as extra batch rows distinguished only by their per-row choice
     mode.  Returns {code: [trajectory per problem]}."""
-    B = pb.B
     out = {}
     by_k: dict = {}
     for code in codes:
         mode, k = _TRAJ_CONFIG[code]
         by_k.setdefault(k, []).append((code, mode))
-    for k, group in by_k.items():
-        tiled = pb if len(group) == 1 else pb.take(np.tile(np.arange(B), len(group)))
-        bi_mode = np.concatenate([np.full(B, mode == "bi") for _, mode in group])
-        st = _BatchState(tiled)
-        trajs = [[(float(p), float(l))] for p, l in zip(st.period(), st.latency())]
+    _check_backend(backend)
+    B = pb.B
+    with _device_faults(pb.device):
+        for k, group in by_k.items():
+            tiled = pb if len(group) == 1 else pb.take(np.tile(np.arange(B), len(group)))
+            bi_mode = np.concatenate([np.full(B, mode == "bi") for _, mode in group])
+            st = _BatchState(tiled)
+            trajs = [[(float(p), float(l))] for p, l in zip(st.period(), st.latency())]
 
-        def rec(rows, pers, lats):
-            for i, p, l in zip(rows, pers, lats):
-                trajs[i].append((float(p), float(l)))
+            def rec(rows, pers, lats):
+                for i, p, l in zip(rows, pers, lats):
+                    trajs[i].append((float(p), float(l)))
 
-        _run_loop(st, k, bi_mode, np.full(tiled.B, -np.inf),
-                  np.full(tiled.B, np.inf), record=rec, backend=backend)
-        for gi, (code, _) in enumerate(group):
-            out[code] = trajs[gi * B:(gi + 1) * B]
+            _run_loop(st, k, bi_mode, np.full(tiled.B, -np.inf),
+                      np.full(tiled.B, np.inf), record=rec, backend=backend)
+            for gi, (code, _) in enumerate(group):
+                out[code] = trajs[gi * B:(gi + 1) * B]
     return out
 
 
@@ -703,8 +755,10 @@ def batched_fixed_latency(code: str, pb: ProblemBatch, bounds,
     the reference's ``sp_mono_l``/``sp_bi_l``."""
     bounds = np.asarray(bounds, dtype=float)
     name = _FIXED_LAT[code][1]
-    st, failed = _fixed_latency_state(code, pb, bounds, backend)
-    per, lat, items, m, splits = st.host()
+    _check_backend(backend)
+    with _device_faults(pb.device):
+        st, failed = _fixed_latency_state(code, pb, bounds, backend)
+        per, lat, items, m, splits = st.host()
     return [HeuristicResult.failure(name) if failed[i]
             else HeuristicResult(_mapping_from_rows(items[i], int(m[i])),
                                  float(per[i]), float(lat[i]), True,
@@ -728,15 +782,17 @@ def batched_min_period(pb: ProblemBatch, backend: str = "lockstep") -> list:
     mode (mono rows then bi rows), one run per split arity.  The per-problem
     winner is the lexicographically smallest (period, latency, strategy
     order), picked on the host with ``np.lexsort`` like the reference."""
+    _check_backend(backend)
     B = pb.B
     rows2 = np.tile(np.arange(B), 2)
     bi_mode = np.concatenate([np.zeros(B, dtype=bool), np.ones(B, dtype=bool)])
     runs = []
-    for k in (1, 2):
-        st = _BatchState(pb.take(rows2))
-        _run_loop(st, k, bi_mode, np.full(2 * B, -np.inf), np.full(2 * B, np.inf),
-                  backend=backend)
-        runs.append(st.host())
+    with _device_faults(pb.device):
+        for k in (1, 2):
+            st = _BatchState(pb.take(rows2))
+            _run_loop(st, k, bi_mode, np.full(2 * B, -np.inf), np.full(2 * B, np.inf),
+                      backend=backend)
+            runs.append(st.host())
     (per1, lat1, it1, m1, sp1), (per2, lat2, it2, m2, sp2) = runs
     per = np.stack([per1[:B], per1[B:], per2[:B], per2[B:]])   # (4, B)
     lat = np.stack([lat1[:B], lat1[B:], lat2[:B], lat2[B:]])
@@ -840,11 +896,12 @@ def batched_sp_bi_p(pb: ProblemBatch, bounds, iters: int = 40,
         groups = np.arange(pb.B)
     groups = np.asarray(groups)
     lo, hi = h4_search_bounds(pb, groups)
-    if backend != "lockstep" and min(pb.n - 1, pb.p - 1) > 0:
-        return _sp_bi_p_fused(pb, p_fix, iters, lo, hi, with_mappings, backend)
-    if not with_mappings:
-        return _sp_bi_p_grouped(pb, p_fix, groups, iters, lo, hi, backend)
-    return _sp_bi_p_rowwise(pb, p_fix, iters, lo, hi, backend)
+    with _device_faults(pb.device):
+        if backend != "lockstep" and min(pb.n - 1, pb.p - 1) > 0:
+            return _sp_bi_p_fused(pb, p_fix, iters, lo, hi, with_mappings, backend)
+        if not with_mappings:
+            return _sp_bi_p_grouped(pb, p_fix, groups, iters, lo, hi, backend)
+        return _sp_bi_p_rowwise(pb, p_fix, iters, lo, hi, backend)
 
 
 def _sp_bi_p_fused(pb, p_fix, iters, lo, hi, with_mappings, backend):

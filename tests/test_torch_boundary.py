@@ -6,21 +6,24 @@ Its entry points run on CUDA unless the caller passes ``device="cpu"``;
 without a CUDA device the default raises instead of running on the host.
 """
 
+import dataclasses
 import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
-from repro_torch import core
+from repro_torch import core, fleet
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import sharded
-from repro_torch.core.batched import ProblemBatch
+from repro_torch.core.batched import ProblemBatch, batched_min_period, stack_instances
+from repro_torch.fleet import worker_main
 from repro_torch.launch import first_forward_probe, rounding_probe
 from repro_torch.launch.serve import serve_pool
 from repro_torch.models import get_model, hybrid, ssm
@@ -34,6 +37,53 @@ _ZAMBA = get_smoke_config("zamba2-7b")
 _WL = core.make_workload([3.0, 1.0, 4.0, 1.0, 5.0], [1.0, 2.0, 3.0, 2.0, 1.0, 1.0])
 _PF = core.make_platform([2.0, 5.0, 3.0], 10.0)
 _PLAN = core.StagePlan(core.Mapping(((1, 5),), (1,)), 1.0, 1.0, "single", (5,), 5, 0.0)
+
+
+def _card_batch():
+    """A batch that names the card (its tensors stay on the host, as this
+    machine has none): every engine step on it is a device step."""
+    pb = stack_instances([(_WL, _PF)], device="cpu")
+    return dataclasses.replace(pb, device=torch.device("cuda"))
+
+
+def _card_worker_error_frame():
+    """A subprocess worker on the card whose split scoring fails as the
+    calling test's does (the fault is re-created in the child): its solve
+    comes back as an error frame of kind ``ScoringDeviceError``, which
+    ``SubprocessWorker`` raises as itself."""
+    from repro_torch.kernels import build
+
+    try:
+        build.load("split_score")
+        fault = "launch"
+    except RuntimeError:
+        fault = "build"
+    child = (
+        "import sys, torch\n"
+        "from repro_torch.kernels import build\n"
+        "torch.cuda.is_available = lambda: True\n"
+        "def refuse(*args):\n"
+        f"    raise RuntimeError('{fault} refused')\n"
+        f"if '{fault}' == 'build':\n"
+        "    build.load = refuse\n"
+        "else:\n"
+        "    build.load = lambda name: None\n"
+        "    build.launch = refuse\n"
+        "from repro_torch.fleet import worker_main\n"
+        "sys.exit(worker_main.main(sys.argv[3:]))\n")
+    with tempfile.TemporaryDirectory() as d:
+        python = pathlib.Path(d) / "python"
+        python.write_text(f"#!/bin/sh\nexec {sys.executable} -c \"$CHILD\" \"$@\"\n")
+        python.chmod(0o755)
+        os.environ["CHILD"] = child
+        try:
+            worker = fleet.SubprocessWorker(device="cuda", python=str(python))
+        finally:
+            del os.environ["CHILD"]
+        try:
+            worker.solve(stack_instances([(_WL, _PF)], device="cpu"), timeout=120.0)
+        finally:
+            worker.close()
 
 
 def _straggling():
@@ -142,6 +192,12 @@ def _no_cuda(monkeypatch):
     lambda: experiments.auto_engine(5, 10),
     lambda: sharded.default_devices(),
     lambda: sharded.device_count(),
+    lambda: stack_instances([(_WL, _PF)]),
+    lambda: fleet.ReplanService([(_WL, _PF)]),
+    lambda: fleet.ReplanService([(_WL, _PF)], backend="fused"),
+    lambda: fleet.subprocess_supervisor(),
+    lambda: fleet.SubprocessWorker(),
+    lambda: worker_main.main([]),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -154,7 +210,9 @@ def _no_cuda(monkeypatch):
         "plan_pareto_tri", "plan_with_deal", "solve-deal", "solve-H1-rel", "replan_stages",
         "elastic_replan", "run_campaign-fused", "run_experiment-sharded",
         "run_experiment-auto", "failure_thresholds-fused", "run_replicated-sharded",
-        "auto_engine", "shard_devices", "shard_device_count"])
+        "auto_engine", "shard_devices", "shard_device_count", "stack_instances",
+        "ReplanService", "ReplanService-fused", "subprocess_supervisor",
+        "SubprocessWorker", "worker_main"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -248,6 +306,11 @@ _ON_CARD = [
                        device="cuda"),
     lambda: replan_stages(_WL, _PF, _PLAN, _straggling(), device="cuda"),
     lambda: elastic_replan(_WL, _PF, 3, device="cuda"),
+    lambda: batched_min_period(_card_batch()),
+    lambda: batched_min_period(_card_batch(), backend="fused"),
+    lambda: fleet.ReplanService([(_WL, _PF)], device="cuda"),
+    lambda: fleet.ReplanService([(_WL, _PF)], backend="fused", device="cuda"),
+    _card_worker_error_frame,
 ]
 
 
@@ -255,12 +318,16 @@ _ON_CARD = [
 @pytest.mark.parametrize("entry", _ON_CARD, ids=[
     "plan", "plan_request", "plan_pareto", "solve", "replan_for_straggler",
     "run_experiment-scalar", "failure_thresholds-scalar", "plan_pareto_tri",
-    "plan_with_deal", "solve-deal", "solve-H1-rel", "replan_stages", "elastic_replan"])
+    "plan_with_deal", "solve-deal", "solve-H1-rel", "replan_stages", "elastic_replan",
+    "batched_min_period", "batched_min_period-fused", "ReplanService",
+    "ReplanService-fused", "SubprocessWorker-error-frame"])
 def test_scoring_fault_on_the_card_raises(entry, fault, monkeypatch):
     """A CUDA request scores on the card or raises: a split-score kernel that
     does not build, or scoring that fails on the card, is raised out of the
     portfolio and solver runs, never turned into an infeasible candidate
-    while the host's solvers answer."""
+    while the host's solvers answer; out of the batched engines (lockstep
+    and fused); and out of the fleet service and a subprocess worker's error
+    frame, never turned into a retry, a scalar fallback or a quarantine."""
     from repro_torch.kernels import build
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

@@ -516,3 +516,36 @@ def test_fused_phase_helpers_pass_on_cpu_and_refuse_a_planted_difference(tmp_pat
     f.write_bytes(f.read_bytes()[:-1] + b"?")
     with pytest.raises(SystemExit):
         chip_smoke.check_golden(res, tmp_path, "planted")
+
+
+def test_fleet_phase_passes_on_cpu_and_refuses_a_planted_digest(tmp_path):
+    """Phase 16 at a small size on the CPU (fleet_bench's QUICK trace as the
+    standard one, a 64-instance full-size stand-in, one injected kill),
+    against digests re-derived from a live reference run: every run, the
+    crash/restart and the subprocess workers pass; a digest one character
+    off is refused."""
+    import repro.core as R
+    import repro.fleet as RF
+    from repro_torch.core import fused
+    from repro_torch.kernels import split_score
+
+    fused.release_programs()      # programs an earlier test left count no capture
+    quick = dict(n_groups=6, replicas=8, n=8, p=4, fleet_seed=2007, num_ticks=12,
+                 trace_seed=42, burst_prob=0.6)
+    digests = {}
+    for label, chaos in (("standard", False), ("chaos", True)):
+        pairs, trace = chip_smoke.fleet_fixture(RF, R, quick, chaos)
+        ref = RF.ReplanService(pairs, **({"reliability_floor": 0.98} if chaos else {}))
+        ref.run_trace(trace)
+        digests[label] = ref.fleet_digest()
+    kw = dict(device="cpu", standard=quick, full=dict(quick, n_groups=8, n=10, p=12),
+              remote=dict(chip_smoke.FLEET_REMOTE, max_kills=1), journal_dir=tmp_path / "j")
+    out = chip_smoke.fleet_phase(torch, split_score, "cpu", digests=digests, **kw)
+    assert out["remote"]["restarts"] == out["remote"]["faults"] == 1
+    assert out["recovery"]["restarts"] == 2
+    assert len(out["runs"]) == 9
+    assert len({r["digest"] for k, r in out["runs"].items() if k.startswith("full")}) == 1
+    assert out["runs"]["full fused cold"]["captures"] > 0
+    bad = dict(digests, standard=digests["standard"][:-1] + "?")
+    with pytest.raises(SystemExit):
+        chip_smoke.fleet_phase(torch, split_score, "cpu", digests=bad, **kw)

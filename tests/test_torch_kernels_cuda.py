@@ -13,6 +13,9 @@ bound must be zero; a scalar heuristic run on the card equals the same run
 on the CPU (mapping, period, latency, splits).  The fused engine's step
 replayed as a CUDA graph equals its eager step, buffer for buffer, and the
 fused and sharded engines on the card equal the lockstep engine on the CPU.
+The fleet service on the card publishes the CPU's plans, and a kernel
+launch refused on the card is raised as ``ScoringDeviceError`` out of
+``batched_min_period`` and the service.
 """
 
 import math
@@ -198,3 +201,55 @@ def test_fused_engines_on_card_equal_the_cpu(cuda_device, engine):
     assert rows[0] == rows[1]
     for exp in want:
         assert summarize_experiment(got[exp]) == summarize_experiment(want[exp])
+
+
+@pytest.mark.parametrize("backend", ["lockstep", "fused"])
+def test_fleet_service_on_card_equals_the_cpu(cuda_device, backend):
+    """A small fleet's burst trace with its chaos overlay and a reliability
+    floor: the service on the card publishes the CPU's plans (same digest,
+    same counters), and the card's split-score kernels were launched."""
+    from repro_torch.core import sample_failures
+    from repro_torch.fleet import (ChaosSpec, ReplanService, gen_burst_trace, inject_chaos,
+                                   make_fleet)
+
+    pairs, groups = make_fleet(6, 8, n=8, p=4, seed=2007)
+    pairs = [(wl, pf.with_failures(sample_failures(pf.p, kind="bimodal", seed=5)))
+             for wl, pf in pairs]
+    trace = inject_chaos(gen_burst_trace(groups, 12, seed=42, n_stages=8, initial_pods=4,
+                                         burst_prob=0.6),
+                         groups, ChaosSpec(), seed=77, initial_pods=4)
+    before = split_score.score_2way_cuda.launches
+    runs = []
+    for dev, be in ((cuda_device, backend), ("cpu", "lockstep")):
+        svc = ReplanService(pairs, backend=be, device=dev, reliability_floor=0.98)
+        m = svc.run_trace(trace)
+        runs.append((svc.fleet_digest(), m.requests, m.solves, m.churns,
+                     m.below_floor_ticks, m.invalid_published))
+    assert runs[0] == runs[1]
+    assert split_score.score_2way_cuda.launches > before
+
+
+@pytest.mark.parametrize("backend", ["lockstep", "fused"])
+def test_kernel_launch_fault_on_card_raises_out_of_engine_and_service(cuda_device, backend,
+                                                                     monkeypatch):
+    """A split-score launch that fails on the card is a ScoringDeviceError
+    out of batched_min_period and out of the fleet service: no fallback."""
+    from repro_torch.core import ScoringDeviceError, fused
+    from repro_torch.core.batched import batched_min_period, stack_instances
+    from repro_torch.fleet import ReplanService
+    from repro_torch.kernels import build
+
+    wl = make_workload([3.0, 1.0, 4.0, 1.0, 5.0, 9.0, 2.0], [1.0] * 8)
+    pf = make_platform([2.0, 5.0, 3.0, 7.0, 1.5], 10.0)
+    fused.release_programs()      # a cached graph would replay without a launch
+
+    def refuse(*args):
+        raise RuntimeError("launch refused")
+
+    build.load("split_score")
+    monkeypatch.setattr(build, "launch", refuse)
+    with pytest.raises(ScoringDeviceError, match="split scoring on cuda"):
+        batched_min_period(stack_instances([(wl, pf)], device=cuda_device), backend)
+    with pytest.raises(ScoringDeviceError, match="split scoring on cuda"):
+        ReplanService([(wl, pf)], backend=backend, device=cuda_device)
+    fused.release_programs()
