@@ -5,9 +5,9 @@
 
 Drives the port's paths on the card and checks them: the Section-5
 campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
-full width, the planner API and its reliability extensions, and the fleet
-replanning service (``repro_torch``), in sixteen phases; any failure exits
-non-zero:
+full width, the planner API and its reliability extensions, the fleet
+replanning service, serving's planner hooks with prefill, and training
+(``repro_torch``), in eighteen phases; any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -150,10 +150,40 @@ non-zero:
               kernels per graph for the fused engine); wall time, replans/s,
               p50/p99 replan latency, dedup hit rate, solves, captures and
               launches per run, each line with the card's name and power
-              limit.
+              limit;
+ 17. serve plan + prefill — ``plan_serving`` of qwen3-4b and zamba2-7b at
+              full width over 2, 4 and 8 pods on cuda, the split-score
+              counters zeroed just before and read just after, then on cpu:
+              every field equal but the candidates' ``wall_ms``, each kernel
+              launched as often as the cpu calls the planner's scoring (the
+              2-way kernel at least once); ``serve_pool`` of qwen3-4b at full
+              width, 4 requests, batch 4, 16-token prompts, 32 new tokens,
+              capacity 1024, ``pods=4, replan=True, replan_every=8,
+              inject_straggler=3.0``: every request done, a plan and a replan
+              digest, at least one replan, the published stages covering the
+              36 layers, decode attention launched once per layer per decode
+              call; ``transformer.prefill`` of qwen3-4b at full width with
+              kernels, B = 1, S = 4096: exactly 73 RMSNorm launches and no
+              flash attention (the reference's prefill takes plain or
+              blocked attention), its last logits within the bfloat16 limit
+              of phase 12 of ``forward``'s (flash route), then 16 decode steps
+              from its state (decode attention only, logits finite); wall time
+              and peak memory beside phase 8's forward; the smoke config in
+              float32 prefilled at S = 4096 on cpu and cuda: logits and caches
+              within atol 1e-4;
+ 18. train  — ``train_loop`` of qwen3-4b at full width cut to 4 of its 36
+              layers, B = 1, S = 4096 (blocked attention under autograd, each
+              block recomputed), 3 steps on cuda; again with a checkpoint
+              after step 1 and ``fail_at_step=1``; then resumed from that
+              checkpoint: every loss finite, the resumed step-2 loss equal to
+              the uninterrupted run's, no hand-written kernel launched (the
+              reference trains through the plain versions); step time and
+              peak memory; then the smoke config in float32, 3 steps on cpu
+              and cuda from the same weights: losses within atol 1e-4,
+              parameters within the sum of the steps' learning rates.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-16;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-18;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -944,10 +974,10 @@ def run_serve(torch, arch, serve_cfg, counters) -> dict:
                      "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
-def _to(tree, device):
+def _to(tree, device, copy: bool = False):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _to(v, device, copy) for k, v in tree.items()}
+    return tree.to(device, copy=copy)
 
 
 def _logits_close(got, want, dtype, f32_tol=LOGIT_F32_TOL) -> dict:
@@ -1713,6 +1743,409 @@ def fleet_phase(torch, split_score, card, device: str = "cuda",
     return out
 
 
+# serving's planner hooks: plan_serving of both served models at full width
+# over 2, 4 and 8 pods (the reference's pod platform), and serve_pool of
+# qwen3-4b shadowed by the fleet service, with a straggler on stage 0 after
+# the warm-up window (the reference's CPU run of the smoke config replans
+# 3 times in 32 decode steps)
+PLAN_ARCHS, PLAN_PODS = (ARCH, HYBRID), (2, 4, 8)
+REPLAN_SERVE = dict(n_requests=4, batch=4, prompt_len=16, max_new=32, capacity=1024, seed=0,
+                    pods=4, replan=True, replan_every=8, inject_straggler=3.0)
+# prefill at the forward's length (blocked attention: S > 2048), then decode
+PREFILL_DECODE_STEPS = 16
+# training: qwen3-4b at full width cut to 4 of its 36 layers (float32
+# master weights, gradients and two AdamW moments of 36 layers take ~60 GB
+# before activations), one sequence of the train_4k length; a checkpoint
+# after step 1, a crash there, and a resume
+TRAIN_LAYERS = 4
+TRAIN = dict(arch=ARCH, smoke=False, steps=3, batch=1, seq=FWD_S, seed=0, log_every=1)
+# the CPU parity tests' tolerances (tests/test_torch_train.py): losses atol
+# 1e-4, parameters within the sum of the steps' learning rates
+TRAIN_LOSS_TOL = 1e-4
+# the worst leaf's update against the cpu's, relative to its size (see
+# update_rel_err): 1 for an update that never happened; the port against the
+# reference on the cpu, 3 smoke steps in float32: 1.0e-5 dense, 2.1e-4 hybrid
+TRAIN_UPDATE_RTOL = 1e-2
+TRAIN_SMOKE = dict(steps=3, batch=2, seq=128, base_lr=1e-3, warmup=1, total_steps=10)
+SCORE_ROWS = {"score_2way_cuda": "score_2way_f64", "score_3way_cuda": "score_3way_f64"}
+
+
+def strip_wall(digest: dict) -> dict:
+    """A ``plan_serving`` digest without the candidates' wall times."""
+    return digest | {"candidates": [{k: v for k, v in c.items() if k != "wall_ms"}
+                                    for c in digest["candidates"]]}
+
+
+def compare_plans(got: dict, want: dict, what: str) -> int:
+    """Every digest of ``got`` equal to ``want``'s on every field but the
+    candidates' ``wall_ms``; returns the candidates compared."""
+    if sorted(got) != sorted(want):
+        fail(f"{what}: digests for {sorted(got)} against {sorted(want)}")
+    for key in got:
+        if strip_wall(got[key]) != strip_wall(want[key]):
+            fail(f"{what}: plan_serving{key} differs: {strip_wall(got[key])} against "
+                 f"{strip_wall(want[key])}")
+    return sum(len(d["candidates"]) for d in got.values())
+
+
+def plan_rows(serve, device, archs=PLAN_ARCHS, pods=PLAN_PODS, smoke: bool = False) -> dict:
+    return {(arch, p): serve.plan_serving(arch, p, smoke=smoke, device=device)
+            for arch in archs for p in pods}
+
+
+def prefill_launches(cfg) -> dict:
+    """The model kernels a ``use_pallas`` prefill of the dense model
+    launches: RMSNorm before attention and before the MLP in every layer,
+    and the final one; never flash attention (the reference's prefill takes
+    plain or blocked attention), nothing else."""
+    return {"rmsnorm": 2 * cfg.n_layers + 1, "rmsnorm_residual": 0, "flash_attention": 0,
+            "decode_attention": 0, "ssd_intra_chunk": 0}
+
+
+def check_replan_serve(served: dict, cfg, launches: dict) -> None:
+    """The replan serve run's gates: every request done, a plan and a
+    replan digest, at least one replan, the published stages covering every
+    layer, and decode attention launched once per layer per decode call."""
+    if not served["all_done"]:
+        fail(f"replan serve: not every request finished: {served}")
+    for key in ("plan", "replan"):
+        if key not in served:
+            fail(f"replan serve: no {key!r} digest")
+    rep = served["replan"]
+    if rep["replans"] < 1:
+        fail(f"replan serve: the straggler was never replanned: {rep}")
+    if cfg.n_layers != sum(rep["stage_sizes"]) or cfg.n_layers != sum(
+            served["plan"]["stage_sizes"]):
+        fail(f"replan serve: stages {rep['stage_sizes']} / {served['plan']['stage_sizes']} do "
+             f"not cover {cfg.n_layers} layers")
+    want = cfg.n_layers * decode_calls(**REPLAN_SERVE)
+    if launches.get("decode_attention", want) != want:
+        fail(f"replan serve: decode attention launched {launches['decode_attention']} times, "
+             f"expected {want}")
+
+
+def decode_after_prefill(torch, api, params, state, logits, cfg, counters, steps: int,
+                         sync) -> tuple:
+    """``steps`` decode steps through ``api`` from a prefill's ``state``
+    and last ``logits`` (each step fed the argmax of the one before), then
+    the same steps with the plain decode attention (``use_pallas`` off)
+    from a copy of that state, fed the same tokens: every step's logits
+    within :func:`_logits_close`'s limit of the plain ones.  Returns (the
+    launches of the first run, the worst step's errors).
+    The counters are zeroed just before the first run and read just after;
+    the plain run launches no kernel."""
+    from repro_torch.models import transformer
+
+    plain_state = type(state)(type(state.caches)(*(f.clone() for f in state.caches)))
+    zero_counters(counters)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    fed, got = [], []
+    for _ in range(steps):
+        fed.append(tok)
+        dlogits, state = api.decode(params, state, tok)
+        got.append(dlogits)
+        tok = dlogits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    sync()
+    launches = {c.__name__: c.launches for c in counters}
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fail("decode after prefill: logits not finite")
+    plain_cfg, worst = cfg.replace(use_pallas=False), {"max_err": 0.0, "mean_rel_err": 0.0}
+    for i, (tok, g) in enumerate(zip(fed, got)):
+        want, plain_state = transformer.decode_step(params, plain_state, tok, plain_cfg)
+        close = _logits_close(g, want.float().cpu(), cfg.dtype)
+        if not close["ok"]:
+            fail(f"decode after prefill: step {i}'s logits against the plain decode "
+                 f"attention's: {close}")
+        worst = {k: max(v, close[k]) for k, v in worst.items()}
+    return launches, worst
+
+
+def serve_prefill_phase(torch, split_score, heuristics, counters, cfg, card, fwd: dict,
+                        device: str = "cuda", smoke_cfg=None, archs=PLAN_ARCHS,
+                        plan_smoke: bool = False, serve_smoke: bool = False,
+                        prefill_s: int = FWD_S) -> dict:
+    """Phase 17 on ``device``: ``plan_serving`` of ``archs`` over 2, 4 and 8
+    pods, equal to the same calls on the cpu (each split-score kernel
+    launched as often as the cpu calls the planner's scoring); ``serve_pool``
+    of ``cfg``'s arch with pods and replanning; ``prefill`` at ``prefill_s``
+    with kernels (``cfg``), its last logits against ``forward``'s, then
+    decode steps from its state; and ``smoke_cfg`` prefilled on the cpu and
+    on ``device``.  The counters are zeroed just before each run and read
+    just after.  ``fwd`` is phase 8's forward report."""
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    score_counters = (split_score.score_2way_cuda, split_score.score_3way_cuda)
+    out, by_path = {"card": card}, {}
+
+    def read(cs):   # the split-score counters under their kernel rows' names
+        return {SCORE_ROWS.get(c.__name__, c.__name__): c.launches for c in cs}
+
+    # plan_serving on the device, then on the cpu with each scoring call counted
+    sync()
+    zero_counters(score_counters)
+    t0 = time.time()
+    rows = plan_rows(serve, device, archs, smoke=plan_smoke)
+    sync()
+    plan_s = time.time() - t0
+    plan_launches = read(score_counters)
+    with counted_scoring(heuristics) as counts:
+        rows_cpu = plan_rows(serve, "cpu", archs, smoke=plan_smoke)
+    n_cands = compare_plans(rows, rows_cpu, f"plan_serving {device} vs cpu")
+    if on_card and (list(plan_launches.values()) != counts or counts[0] <= 0):
+        fail(f"plan_serving launched {plan_launches} on the card against {counts} scoring "
+             "calls on the cpu")
+    by_path["plan_serving"] = plan_launches
+    out["plans"] = {"archs": list(archs), "pods": list(PLAN_PODS), "candidates": n_cands,
+                    "wall_s": plan_s, "launches": plan_launches, "cpu_scoring_calls": counts,
+                    "digests": {f"{a} x{p}": {k: v for k, v in d.items() if k != "candidates"}
+                                for (a, p), d in rows.items()}}
+    say(f"phase serve plan: plan_serving of {', '.join(archs)} over {list(PLAN_PODS)} pods "
+        f"on {device} in {plan_s:.2f} s, {n_cands} candidates equal to the cpu's; launches "
+        f"{plan_launches} (cpu scoring calls {counts}); {card}")
+    for (a, p), d in rows.items():
+        say(f"phase serve plan: {a} x{p}: {d['planner']} stages {d['stage_sizes']} on pods "
+            f"{d['pods']}, period {d['period']!r}")
+
+    # serve_pool with the planner and the fleet service shadowing the loop
+    all_counters = tuple(counters) + score_counters
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(all_counters)
+    served = serve.serve_pool(arch=cfg.arch_id.removesuffix("-smoke"), smoke=serve_smoke,
+                              device=device, **REPLAN_SERVE)
+    launches = read(all_counters) if on_card else {}
+    check_replan_serve(served, cfg, launches)
+    by_path["replan serve"] = launches
+    out["replan_serve"] = served | {"config": REPLAN_SERVE, "launches": launches}
+    rep = served["replan"]
+    say(f"phase serve plan: serve_pool {cfg.arch_id} {served['decode_steps']} decode steps in "
+        f"{served['wall_s']:.3f} s ({served['tokens_per_s']:.2f} tokens/s), {rep['replans']} "
+        f"replans, published stages {rep['stage_sizes']} on pods {rep['pods']} (planned "
+        f"{served['plan']['stage_sizes']} on {served['plan']['pods']}); fleet "
+        f"{ {k: rep['metrics'][k] for k in ('ticks', 'requests', 'solves')} }; launches "
+        f"{launches}; {card}")
+
+    # prefill with kernels, against the forward's last logits, then decode
+    api = get_model(cfg)
+    params = api.init(SERVE["seed"], device)
+    toks = torch.randint(1, cfg.vocab_size, (1, prefill_s), device=device,
+                         generator=torch.Generator(device=device).manual_seed(1))
+    want = api.forward(params, {"tokens": toks}, cfg)[0][:, -1:].float().cpu()
+    from repro_torch.models import transformer
+
+    walls = []
+    for _ in range(2):
+        state = None        # the first prefill's state is freed before the second
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counters(counters)
+        t0 = time.time()
+        logits, state = transformer.prefill(params, toks, cfg)
+        sync()
+        walls.append(time.time() - t0)
+        pre_launches = read(counters)
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        if on_card and pre_launches != prefill_launches(cfg):
+            fail(f"prefill: launches {pre_launches}, expected {prefill_launches(cfg)}")
+    close = _logits_close(logits, want, cfg.dtype)
+    if not close["ok"]:
+        fail(f"prefill: last logits against the forward's: {close}")
+    by_path["prefill"] = pre_launches
+    dec_launches, vs_plain = decode_after_prefill(
+        torch, api, params, state, logits, cfg, counters, PREFILL_DECODE_STEPS, sync)
+    want_dec = cfg.n_layers * PREFILL_DECODE_STEPS
+    if on_card and dec_launches != {**prefill_launches(cfg), "rmsnorm": 0,
+                                    "decode_attention": want_dec}:
+        fail(f"decode after prefill: launches {dec_launches}, expected {want_dec} decode "
+             "attention and nothing else")
+    by_path["decode after prefill"] = dec_launches
+    out["prefill"] = {"B": 1, "S": prefill_s, "layers": cfg.n_layers, "wall_s_first": walls[0],
+                      "wall_s_second": walls[1], "peak_mem_bytes": peak,
+                      "forward_wall_s_second": fwd.get("wall_s_second"),
+                      "forward_peak_mem_bytes": fwd.get("peak_mem_bytes"),
+                      "launches": pre_launches, "vs_forward": close,
+                      "capacity": int(state.caches.k.shape[2]),
+                      "decode_steps": PREFILL_DECODE_STEPS, "decode_launches": dec_launches,
+                      "decode_vs_plain": vs_plain}
+    say(f"phase prefill: {cfg.arch_id} B=1 S={prefill_s} {cfg.n_layers} layers in "
+        f"{walls[0]:.3f} s (again {walls[1]:.3f} s; phase 8's forward {fwd.get('wall_s_second')}"
+        f" s), peak {peak} B (forward {fwd.get('peak_mem_bytes')} B); launches {pre_launches};"
+        f" last logits vs forward {close}; {PREFILL_DECODE_STEPS} decode steps after it, "
+        f"launches {dec_launches}, logits vs plain decode attention {vs_plain}; {card}")
+    del params, state, logits, want
+
+    # the smoke config in float32: prefill on the cpu and on the device
+    if smoke_cfg is not None:
+        sapi = get_model(smoke_cfg)
+        sp = sapi.init(7, "cpu")
+        stoks = torch.randint(1, smoke_cfg.vocab_size, (1, prefill_s),
+                              generator=torch.Generator().manual_seed(8))
+        want, wstate = transformer.prefill(sp, stoks, smoke_cfg)
+        got, gstate = transformer.prefill(_to(sp, device), stoks.to(device), smoke_cfg)
+        errs = {"logits": float((got.float().cpu() - want).abs().max())}
+        for name, g, w in zip(wstate.caches._fields, gstate.caches, wstate.caches):
+            if g.dtype == torch.int32:
+                if not torch.equal(g.cpu(), w):
+                    fail(f"prefill cpu vs {device}: cache {name} differs")
+            else:
+                errs[name] = float((g.float().cpu() - w.float()).abs().max())
+        if max(errs.values()) > LOGIT_F32_TOL:
+            fail(f"prefill cpu vs {device} ({smoke_cfg.arch_id}, float32): {errs} over "
+                 f"{LOGIT_F32_TOL}")
+        out["prefill_cpu_vs_card"] = errs
+        say(f"phase prefill: {smoke_cfg.arch_id} float32 S={prefill_s} cpu vs {device}: max abs "
+            f"err {errs} (limit {LOGIT_F32_TOL})")
+    out["by_path"] = by_path
+    return out
+
+
+@contextlib.contextmanager
+def config_cut(module, cfg):
+    """Within the block, ``module``'s config lookups (full and smoke) give
+    ``cfg``: the one cut of a configuration the phase makes (its depth, or
+    its dtype), without a parameter the user-facing entry point lacks."""
+    real = module.get_config, module.get_smoke_config
+    module.get_config = module.get_smoke_config = lambda arch: cfg
+    try:
+        yield
+    finally:
+        module.get_config, module.get_smoke_config = real
+
+
+def train_steps(torch, cfg, device, steps: int, batch: int, seq: int, base_lr: float,
+                warmup: int, total_steps: int) -> tuple:
+    """``steps`` train steps of ``cfg`` on ``device`` from the same seeded
+    master weights (drawn on the cpu): (losses, sum of learning rates,
+    parameters on the cpu, the weights they started from)."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import get_model
+    from repro_torch.models.train import init_optimizer, make_train_step
+
+    api = get_model(cfg)
+    init = api.init(7, "cpu", master=True)
+    params = _to(init, device, copy=True)      # AdamW updates in place
+    state = init_optimizer(params)
+    step = make_train_step(api.train_forward, cfg, base_lr=base_lr, warmup=warmup,
+                           total_steps=total_steps)
+    ds = SyntheticLMDataset(cfg.vocab_size, seq, batch, seed=0)
+    losses, lr_sum = [], 0.0
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(device) for k, v in ds.batch(i).items()}
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        lr_sum += float(m["lr"])
+    return losses, lr_sum, _to(params, "cpu"), init
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _max_param_err(torch, got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(_leaves(got), _leaves(want)))
+
+
+def update_rel_err(got, want, init) -> float:
+    """The worst leaf's ``|got - want| / |want - init|`` (Frobenius norms):
+    how far one run's update of the weights lies from the other's, relative
+    to its size.  An update that never happened gives 1; a leaf ``want``
+    left where it was must stay there in ``got`` too."""
+    worst = 0.0
+    for g, w, i in zip(_leaves(got), _leaves(want), _leaves(init)):
+        diff = float((g.double() - w.double()).norm())
+        size = float((w.double() - i.double()).norm())
+        worst = max(worst, diff / size if size else (0.0 if diff == 0 else math.inf))
+    return worst
+
+
+def train_phase(torch, counters, card, device: str = "cuda", train: dict = TRAIN,
+                n_layers: int = TRAIN_LAYERS, smoke_cfg=None,
+                ckpt_dir: pathlib.Path = REPO / "build" / "chip_smoke" / "train_ckpt") -> dict:
+    """Phase 18 on ``device``: ``train_loop`` of ``train['arch']`` cut to
+    ``n_layers`` layers, uninterrupted, then with a checkpoint after step 1
+    and a crash there, then resumed from it: every loss finite, the resumed
+    step's loss ``==`` the uninterrupted run's, no hand-written kernel
+    launched (training runs the plain versions, as the reference does);
+    then ``smoke_cfg`` trained on the cpu and on ``device``, losses and
+    parameters within the CPU parity tests' tolerances."""
+    import shutil
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import train as tr
+
+    on_card = torch.device(device).type == "cuda"
+    base = get_smoke_config(train["arch"]) if train["smoke"] else get_config(train["arch"])
+    cfg = base.replace(n_layers=n_layers)
+    out = {"card": card, "config": train | {"n_layers": n_layers}}
+    with config_cut(tr, cfg):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counters(counters)
+        t0 = time.time()
+        ref = tr.train_loop(ckpt_dir=None, device=device, **train)
+        out["wall_s"] = time.time() - t0
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+        launches = {c.__name__: c.launches for c in counters}
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        t0 = time.time()
+        try:
+            tr.train_loop(ckpt_dir=str(ckpt_dir), ckpt_every=1, fail_at_step=1, device=device,
+                          **train)
+        except RuntimeError as e:
+            if "simulated failure" not in str(e):
+                raise
+        else:
+            fail("train: the run with fail_at_step=1 did not stop")
+        out["crash_run_s"] = time.time() - t0
+        t0 = time.time()
+        resumed = tr.train_loop(ckpt_dir=str(ckpt_dir), ckpt_every=1, device=device, **train)
+        out["resume_run_s"] = time.time() - t0
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = ref["losses"] + resumed["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {ref['losses']}, resumed {resumed['losses']}")
+    if resumed["start_step"] != 2 or resumed["losses"] != ref["losses"][2:]:
+        fail(f"train: resumed at {resumed['start_step']} with losses {resumed['losses']}, "
+             f"uninterrupted {ref['losses']}")
+    if any(launches.values()):
+        fail(f"train: launched {launches}; training runs no hand-written kernel")
+    out |= {"losses": ref["losses"], "resumed_losses": resumed["losses"],
+            "step_s": ref["step_s"], "launches": launches}
+    say(f"phase train: {cfg.arch_id} {n_layers} layers B={train['batch']} S={train['seq']} "
+        f"on {device}: losses {ref['losses']}, step s {[round(t, 3) for t in ref['step_s']]}, "
+        f"peak {out['peak_mem_bytes']} B; checkpoint at step 1, crash, resume at step 2: loss "
+        f"{resumed['losses']} == uninterrupted (crash run {out['crash_run_s']:.1f} s, resume "
+        f"{out['resume_run_s']:.1f} s); launches {launches}; {card}")
+
+    if smoke_cfg is not None:
+        got = train_steps(torch, smoke_cfg, device, **TRAIN_SMOKE)
+        want = train_steps(torch, smoke_cfg, "cpu", **TRAIN_SMOKE)
+        loss_err = max(abs(a - b) for a, b in zip(got[0], want[0]))
+        param_err = _max_param_err(torch, got[2], want[2])
+        update_err = update_rel_err(got[2], want[2], want[3])
+        if loss_err > TRAIN_LOSS_TOL or param_err > want[1] or update_err > TRAIN_UPDATE_RTOL:
+            fail(f"train cpu vs {device} ({smoke_cfg.arch_id}, float32): losses {got[0]} "
+                 f"against {want[0]}, max parameter err {param_err} (limit {want[1]}), "
+                 f"update err {update_err} (limit {TRAIN_UPDATE_RTOL})")
+        out["cpu_vs_card"] = {"losses": got[0], "cpu_losses": want[0], "loss_err": loss_err,
+                              "param_err": param_err, "lr_sum": want[1],
+                              "update_rel_err": update_err}
+        say(f"phase train: {smoke_cfg.arch_id} float32, {TRAIN_SMOKE['steps']} steps cpu vs "
+            f"{device}: loss err {loss_err:.3g} (limit {TRAIN_LOSS_TOL}), parameter err "
+            f"{param_err:.3g} (limit {want[1]:.3g}), update err {update_err:.3g} (limit "
+            f"{TRAIN_UPDATE_RTOL})")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -2021,6 +2454,28 @@ def main() -> None:
     for label, run in report["fleet"]["runs"].items():
         if run["launches"]:
             by_path[f"fleet {label}"] = run["launches"]
+
+    # 17. serving's planner hooks and prefill: plan_serving card against cpu,
+    # serve_pool with pods and replanning, prefill with kernels against the
+    # forward and decode after it, prefill cpu against the card; each run's
+    # counters zeroed just before and read just after
+    t0 = time.time()
+    report["serve_prefill"] = serve_prefill_phase(
+        torch, split_score, heuristics, counters, cfg, card, report["forward"],
+        smoke_cfg=get_smoke_config(ARCH).replace(dtype="float32", use_pallas=True))
+    report["serve_prefill"]["phase_s"] = time.time() - t0
+    for label, counts in report["serve_prefill"].pop("by_path").items():
+        by_path[f"{ARCH} {label}"] = counts
+    torch.cuda.empty_cache()
+
+    # 18. training at full width cut to 4 layers: uninterrupted, crashed after
+    # a checkpoint, resumed; then the smoke config cpu against the card
+    t0 = time.time()
+    report["train"] = train_phase(torch, counters, card,
+                                  smoke_cfg=get_smoke_config(ARCH).replace(dtype="float32"))
+    report["train"]["phase_s"] = time.time() - t0
+    by_path[f"{ARCH} train"] = report["train"]["launches"]
+    torch.cuda.empty_cache()
 
     launches = {}
     for counts in by_path.values():

@@ -1,7 +1,9 @@
-"""Checkpoint primitives of the port.  Today only the crash-safe file
-writes under the fleet journal (:mod:`repro_torch.fleet.journal`); the
-training checkpoints of ``repro.checkpoint`` are not ported yet."""
+"""Checkpointing of the port (the reference's ``repro.checkpoint``): the
+training checkpoints, in the reference's on-disk format, and the crash-safe
+file writes under them and under the fleet journal
+(:mod:`repro_torch.fleet.journal`)."""
 
-from .checkpointer import atomic_write_bytes, atomic_write_json
+from .checkpointer import (CheckpointManager, Checkpointer, atomic_write_bytes,
+                           atomic_write_json)
 
-__all__ = ["atomic_write_bytes", "atomic_write_json"]
+__all__ = ["CheckpointManager", "Checkpointer", "atomic_write_bytes", "atomic_write_json"]

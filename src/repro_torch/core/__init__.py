@@ -21,7 +21,7 @@ copies of the reference's; the lockstep engine
 
 from .workload import Workload, make_workload, uniform_workload
 from .platform import (Platform, homogeneous_platform, make_platform,
-                       sample_failures)
+                       sample_failures, tpu_pod_platform)
 from .metrics import (Mapping, ReplicatedMapping, all_interval_partitions,
                       evaluate, evaluate_batch, evaluate_tri,
                       interval_cycle_times, intervals_from_cuts, latency,
@@ -50,6 +50,7 @@ from .replication import (plan_pareto_tri, replicate_greedy,
 __all__ = [
     "Workload", "make_workload", "uniform_workload",
     "Platform", "make_platform", "homogeneous_platform", "sample_failures",
+    "tpu_pod_platform",
     "Mapping", "ReplicatedMapping", "period", "latency", "reliability",
     "evaluate", "evaluate_batch", "evaluate_tri",
     "interval_cycle_times", "optimal_latency", "single_processor_mapping",

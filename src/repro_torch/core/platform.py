@@ -8,7 +8,8 @@ record (with the reliability sequel's optional per-processor failure vector
 :attr:`Platform.failures` and replaced by :meth:`Platform.with_failures`),
 its speed ordering, the straggler and failure events
 :meth:`Platform.degrade` / :meth:`Platform.without`, the constructors
-:func:`make_platform` / :func:`homogeneous_platform`, and the seeded failure
+:func:`make_platform` / :func:`homogeneous_platform` / :func:`tpu_pod_platform`,
+and the seeded failure
 sampler :func:`sample_failures` (the reference's draws in the reference's
 order).  Numpy on the host: platforms are tiny and their ordering and draws
 feed the seed contract.
@@ -137,3 +138,26 @@ def sample_failures(p: int, *, kind: str = "uniform", lo: float = 1e-3,
     if kind == "loguniform":
         return np.exp(rng.uniform(np.log(lo), np.log(hi), p))
     raise ValueError(f"unknown failure sampler kind {kind!r}")
+
+
+def tpu_pod_platform(
+    pods: int,
+    chips_per_pod: int = 256,
+    peak_flops: float = 197e12,
+    efficiency: float = 0.4,
+    dcn_bandwidth: float = 25e9,
+    degraded: dict | None = None,
+) -> Platform:
+    """A multi-pod TPU platform for the planner: one 'processor' per pod.
+
+    ``degraded`` maps pod index -> slowdown factor (straggler modeling).
+
+    The reference's processor model, copied with its defaults so that the
+    port plans the same placements: these numbers are planner inputs, not a
+    measurement of any chip.
+    """
+    s = np.full(pods, chips_per_pod * peak_flops * efficiency)
+    if degraded:
+        for k, f in degraded.items():
+            s[k] /= f
+    return Platform(s, dcn_bandwidth, name=f"tpu-{pods}x{chips_per_pod}")

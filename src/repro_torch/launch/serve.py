@@ -9,10 +9,17 @@ loop is model-agnostic: any family that :func:`repro_torch.models.get_model`
 takes runs through it (the dense qwen3-4b, and the hybrid zamba2-7b, whose
 decode state holds the Mamba states beside the KV caches).
 
+With ``pods > 0`` the result carries the placement of the served model over
+that many pods (:func:`plan_serving`, the planner portfolio); with
+``replan`` the fleet service shadows the decode loop and republishes the
+placement when the measured step time drifts.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --requests 8 --batch 4 --prompt-len 64 --max-new 32 --capacity 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --requests 8 --batch 4 --prompt-len 32 --max-new 16 --capacity 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --pods 4 --replan
 """
 
 from __future__ import annotations
@@ -28,9 +35,42 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_config, get_smoke_config
-from ..models import get_model
+from ..core import Objective, PlanRequest, plan_request, tpu_pod_platform
+from ..models import SHAPES, get_model, lm_workload
 
-__all__ = ["Request", "sample_tokens", "serve_pool"]
+__all__ = ["Request", "plan_serving", "sample_tokens", "serve_pool"]
+
+
+def plan_serving(arch: str, pods: int, smoke: bool = True,
+                 shape_name: str = "decode_32k", device=None) -> dict:
+    """Plan the pipeline placement of ``arch`` over ``pods`` pods via the
+    solver-registry portfolio, split scoring on ``device`` (``None`` means
+    cuda); returns a JSON-able digest of the PlanReport (chosen mapping +
+    per-solver provenance), keyed as the reference's."""
+    dev = resolve_device(device)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    wl = lm_workload(cfg, SHAPES[shape_name])
+    pf = tpu_pod_platform(pods)
+    report = plan_request(PlanRequest(wl, pf, Objective("period")), device=dev)
+    digest = {
+        "feasible": report.feasible,
+        "pareto": [list(pt) for pt in report.pareto],
+        "candidates": [
+            {"solver": c.solver, "period": c.period, "latency": c.latency,
+             "feasible": c.feasible, "wall_ms": c.wall_time * 1e3,
+             **({"error": c.error} if c.error else {})}
+            for c in report.candidates
+        ],
+    }
+    if report.feasible:
+        digest.update(
+            planner=report.plan.planner,
+            stage_sizes=list(report.plan.stage_sizes),
+            pods=[int(u) for u in report.plan.mapping.alloc],
+            period=report.plan.period,
+            latency=report.plan.latency,
+        )
+    return digest
 
 
 def sample_tokens(logits: np.ndarray, rng: Optional[np.random.Generator] = None,
@@ -68,16 +108,20 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
 
     The model runs its hand-written kernels (the config's ``use_pallas`` is
     set): on the card the serving path is the kernel path.  With
+    ``pods > 0`` the metrics include a ``plan`` digest (:func:`plan_serving`).
+    With ``replan`` (and ``pods > 0``) the fleet service
+    (:mod:`repro_torch.fleet`) shadows the decode loop: every
+    ``replan_every`` steps the measured step time (the decode call and the
+    logits copy, on this module's ``time.perf_counter``) feeds a
+    ``StageTimings`` event (``inject_straggler`` > 1 additionally slows
+    stage 0, a deterministic straggler) and the service republishes the
+    placement when its EWMA flags drift; the result then has a ``replan``
+    digest.  Planning and replanning score splits on ``device``.  With
     ``params=None`` the parameters are drawn from a ``torch.Generator``
     seeded with ``seed``; otherwise ``params`` (e.g. from the
     ``params_from_numpy`` of :mod:`repro_torch.models.transformer` or
     :mod:`repro_torch.models.hybrid`) are used.  The
-    prompts come from ``np.random.default_rng(seed)`` as in the reference.
-    ``pods > 0`` and ``replan`` need the planner portfolio and the fleet
-    service, which are not ported yet, and raise."""
-    if pods > 0 or replan:
-        raise NotImplementedError("pods/replan need the planner portfolio and the "
-                                  "fleet service, not ported yet (ROADMAP.md Queue 1)")
+    prompts come from ``np.random.default_rng(seed)`` as in the reference."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cfg = cfg.replace(use_pallas=True)
@@ -97,6 +141,17 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
     cur_tokens = np.zeros((batch, 1), np.int32)
     queue = list(reqs)
     sample_rng = np.random.default_rng(seed + 1)
+
+    fleet = None
+    if replan and pods > 0:
+        from ..core import interval_cycle_times
+        from ..fleet import ReplanService, StageTimings
+
+        wl = lm_workload(cfg, SHAPES["decode_32k"])
+        fleet = ReplanService([(wl, tpu_pod_platform(pods))], device=dev)
+        replans = 0
+        baseline_wall = None
+        window: List[float] = []
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -124,9 +179,29 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
 
     state = admit(state)
     while any(slots) or queue:
+        ts = time.perf_counter()
         logits, state = decode(state, cur_tokens)
         steps += 1
         logits_np = logits[:, 0].float().cpu().numpy()
+        if fleet is not None:
+            window.append(time.perf_counter() - ts)
+            if len(window) == replan_every:
+                mean_wall = float(np.mean(window))
+                window.clear()
+                if baseline_wall is None:
+                    baseline_wall = mean_wall     # warmup window sets the norm
+                else:
+                    # the fastest window seen is the platform's true speed;
+                    # measuring against it keeps the drift ratio robust to a
+                    # slow warmup window
+                    baseline_wall = min(baseline_wall, mean_wall)
+                    st = fleet.states[0]
+                    predicted = interval_cycle_times(st.workload, st.platform,
+                                                     st.plan.mapping)
+                    observed = predicted * (mean_wall / baseline_wall)
+                    if inject_straggler > 1.0:
+                        observed[0] *= inject_straggler
+                    replans += len(fleet.tick([StageTimings(0, tuple(observed))]))
         nxt = sample_tokens(logits_np, sample_rng, greedy, temperature)
         for s in range(batch):
             r = slots[s]
@@ -146,7 +221,7 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
-    return {
+    out = {
         "requests": n_requests,
         "decode_steps": steps,
         "tokens_generated": tokens_out,
@@ -154,6 +229,18 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
         "wall_s": dt,
         "all_done": all(r.done for r in reqs),
     }
+    if pods > 0:
+        out["plan"] = plan_serving(arch, pods, smoke=smoke, device=dev)
+    if fleet is not None:
+        fplan = fleet.states[0].plan
+        out["replan"] = {
+            "replans": replans,
+            "stage_sizes": list(fplan.stage_sizes),
+            "pods": [int(u) for u in fplan.mapping.alloc],
+            "period": fplan.period,
+            "metrics": fleet.metrics.summary(),
+        }
+    return out
 
 
 def main() -> None:
@@ -170,13 +257,24 @@ def main() -> None:
     ap.add_argument("--sample", action="store_true",
                     help="temperature sampling instead of greedy decode")
     ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--pods", type=int, default=0,
+                    help="also plan pipeline placement over this many pods")
+    ap.add_argument("--replan", action="store_true",
+                    help="drive the fleet replanning service from live "
+                         "decode-step timings (needs --pods)")
+    ap.add_argument("--replan-every", type=int, default=8)
+    ap.add_argument("--inject-straggler", type=float, default=0.0,
+                    help="slow stage 0 by this factor after warmup "
+                         "(deterministic straggler for smoke tests)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args()
     out = serve_pool(arch=args.arch, smoke=args.smoke, n_requests=args.requests,
                      batch=args.batch, prompt_len=args.prompt_len,
                      max_new=args.max_new, capacity=args.capacity, seed=args.seed,
                      greedy=not args.sample, temperature=args.temperature,
-                     device=args.device)
+                     pods=args.pods, replan=args.replan,
+                     replan_every=args.replan_every,
+                     inject_straggler=args.inject_straggler, device=args.device)
     print(json.dumps(out, indent=2))
 
 

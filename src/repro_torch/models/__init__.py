@@ -1,7 +1,11 @@
-"""Model zoo of the port: the dense decoder-only LM and the Mamba2 hybrid so far."""
+"""Model zoo of the port: the dense decoder-only LM and the Mamba2 hybrid so far,
+with the planner's workload extraction for all ten architectures and the
+training step."""
 
 from .common import SHAPES, ModelConfig, ShapeSpec, active_param_count, param_count
-from .registry import ModelAPI, get_model
+from .registry import ModelAPI, get_model, layer_flops, lm_workload
+from .train import cross_entropy, init_optimizer, make_loss_fn, make_train_step
 
 __all__ = ["SHAPES", "ModelAPI", "ModelConfig", "ShapeSpec", "active_param_count",
-           "get_model", "param_count"]
+           "cross_entropy", "get_model", "init_optimizer", "layer_flops", "lm_workload",
+           "make_loss_fn", "make_train_step", "param_count"]

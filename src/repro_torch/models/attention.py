@@ -2,10 +2,16 @@
 the reference's ``models/attention.py``).
 
 Full-sequence attention takes the flash kernel (:mod:`repro_torch.kernels`)
-where the reference takes its Pallas kernel, and the plain einsum softmax
-where the reference does.  The reference's third branch, the blocked
-attention for long sequences without kernels, is not ported yet and raises.
-Decode runs one token against a ring-buffered KV cache.
+where the reference takes its Pallas kernel, the plain einsum softmax where
+the reference does, and otherwise (long sequences without kernels: training,
+and prefill at any setting) the reference's blocked attention: an online
+softmax per query block over the static list of key blocks in its causal /
+sliding-window band, in plain PyTorch (the reference computes it outside any
+Pallas kernel).  The reference's sequence-parallel variant runs only over a
+mesh axis ``model`` of size > 1, which one card does not have; it waits for
+the mesh's port (ROADMAP.md Queue 1 item 5).  Decode runs one token against
+a ring-buffered KV cache, which :func:`cache_from_prefill` builds from a
+prefill's keys and values.
 """
 
 from __future__ import annotations
@@ -18,8 +24,8 @@ import torch
 from .common import ModelConfig
 from .layers import apply_rope, dense_init, rms_norm
 
-__all__ = ["KVCache", "attention", "decode_attention_step", "init_attention",
-           "init_cache", "plain_attention"]
+__all__ = ["KVCache", "attention", "blocked_attention", "cache_from_prefill",
+           "decode_attention_step", "init_attention", "init_cache", "plain_attention"]
 
 NEG_INF = -1e30
 
@@ -107,7 +113,85 @@ def plain_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence attention entry point (forward)
+# Blocked attention with a static block-pair schedule
+# ---------------------------------------------------------------------------
+
+def _block_pairs(nq: int, nk: int, bq: int, bk: int, causal: bool,
+                 window: Optional[int]) -> list:
+    """Static (qi, ki) schedule: only blocks intersecting the visibility band."""
+    pairs = []
+    for qi in range(nq):
+        q_lo, q_hi = qi * bq, qi * bq + bq - 1
+        for ki in range(nk):
+            k_lo, k_hi = ki * bk, ki * bk + bk - 1
+            if causal and k_lo > q_hi:
+                continue  # entirely in the future
+            if window is not None and k_hi < q_lo - window + 1:
+                continue  # entirely outside the window
+            pairs.append((qi, ki))
+    return pairs
+
+
+def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch: each query block runs an
+    online softmax with a block-sized float32 carry over its own in-band key
+    blocks, so memory stays one (block_q x block_k) score block per step and
+    causal / sliding-window pruning is exact.  Differentiable (training runs
+    it under autograd).  Falls back to :func:`plain_attention` when the
+    sequence lengths are not whole blocks, as the reference does."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    if S % block_q or T % block_k:
+        return plain_attention(q, k, v, causal=causal, window=window)
+    pairs_by_q: dict = {}
+    for qi, ki in _block_pairs(S // block_q, T // block_k, block_q, block_k, causal,
+                               window):
+        pairs_by_q.setdefault(qi, []).append(ki)
+
+    q5 = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)        # (B,K,G,S,hd)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    def run_qblock(qi: int, kis: list) -> torch.Tensor:
+        qs = qi * block_q
+        qb = q5[:, :, :, qs:qs + block_q].float()                 # (B,K,G,bq,hd)
+        m = torch.full((B, K, G, block_q), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, K, G, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, K, G, block_q, hd), dtype=torch.float32, device=dev)
+        pq = qs + torch.arange(block_q, device=dev)
+        for ki in kis:
+            ks = ki * block_k
+            kb = k[:, ks:ks + block_k].float()
+            vb = v[:, ks:ks + block_k].float()
+            s_blk = torch.einsum("bkgqh,btkh->bkgqt", qb, kb) * scale   # (B,K,G,bq,bk)
+            pk = ks + torch.arange(block_k, device=dev)
+            mask = torch.ones((block_q, block_k), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= pq[:, None] >= pk[None, :]
+            if window is not None:
+                mask &= pq[:, None] - pk[None, :] < window
+            s_blk = torch.where(mask, s_blk, NEG_INF)
+            m_blk = s_blk.amax(dim=-1)
+            p_blk = torch.exp(s_blk - m_blk[..., None])
+            m_new = torch.maximum(m, m_blk)
+            alpha = torch.exp(m - m_new)
+            beta = torch.exp(m_blk - m_new)
+            l = alpha * l + beta * p_blk.sum(dim=-1)
+            a_blk = torch.einsum("bkgqt,btkh->bkgqh", p_blk, vb)
+            acc = alpha[..., None] * acc + beta[..., None] * a_blk
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        return acc / l[..., None]                                   # (B,K,G,bq,hd)
+
+    out = torch.cat([run_qblock(qi, pairs_by_q[qi]) for qi in sorted(pairs_by_q)],
+                    dim=3)                                          # (B,K,G,S,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention entry point (train / prefill)
 # ---------------------------------------------------------------------------
 
 def attention(params, x, cfg: ModelConfig, *, positions=None, causal=True,
@@ -126,10 +210,9 @@ def attention(params, x, cfg: ModelConfig, *, positions=None, causal=True,
     elif S <= 2048 or S % 512 or T % 512:
         out = plain_attention(q, k, v, causal=causal, window=window)
     else:
-        raise NotImplementedError(
-            f"attention at S={S} without kernels takes the reference's "
-            "blocked_attention, which is not ported yet (ROADMAP.md, Queue 1: "
-            "prefill / blocked_attention / MoE); run with use_pallas=True")
+        out = blocked_attention(q, k, v, causal=causal, window=window,
+                                block_q=min(cfg.attn_chunk, 512),
+                                block_k=min(cfg.attn_chunk, 512))
     return _out_proj(out, params["wo"].to(x.dtype))
 
 
@@ -160,6 +243,20 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
         pos=torch.zeros((batch,), dtype=torch.int32, device=device),
         positions=torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
     )
+
+
+def cache_from_prefill(cfg: ModelConfig, k, v, window: Optional[int] = None) -> KVCache:
+    """Build a cache holding full-prefill K/V (optionally only the last window).
+    As in the reference, the capacity is the prefill's length (or the
+    window), so decode's ring slot ``pos % C`` is not the slot this cache put
+    ``pos`` in once ``S`` is not a multiple of the capacity."""
+    B, S = k.shape[0], k.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=k.device)[None, :].expand(B, S)
+    if window is not None and S > window:
+        k, v = k[:, -window:], v[:, -window:]
+        positions = positions[:, -window:]
+    return KVCache(k=k, v=v, pos=torch.full((B,), S, dtype=torch.int32, device=k.device),
+                   positions=positions)
 
 
 def decode_attention_step(params, x, cache: KVCache, cfg: ModelConfig,

@@ -11,13 +11,18 @@ groups and layers are Python loops here.
 
 Parameters are nested dicts of tensors in the reference's layout:
 ``mamba_groups`` and ``mamba_ln`` are stacked on two leading axes (ng, g),
-the shared block and the embeddings on none.  Matrices are held in the
-compute dtype, cast once at load (:func:`params_from_numpy`,
+the shared block and the embeddings on none.  For serving, matrices are
+held in the compute dtype, cast once at load (:func:`params_from_numpy`,
 :func:`init_params`), except ``conv_w``, which stays float32 because the
-decode step reads it in float32.  Every RMSNorm is the plain formula, as in
-the reference (no call site of ``hybrid.py`` takes the kernel); the shared
-attention takes the flash kernel at S > 1024 with ``use_pallas``, and
-decode takes the decode-attention kernel.
+decode step reads it in float32; for training (``master=True``) every
+weight stays in the parameter dtype and is cast at each use, as in the
+reference.  :func:`forward` and :func:`decode_step` run under
+``torch.inference_mode``; :func:`train_forward` is the same forward with
+autograd, each group checkpointed when ``cfg.remat == "block"`` (the
+reference's ``jax.checkpoint`` of its group body).  Every RMSNorm is the
+plain formula, as in the reference (no call site of ``hybrid.py`` takes the
+kernel); the shared attention takes the flash kernel at S > 1024 with
+``use_pallas``, and decode takes the decode-attention kernel.
 
 Decode updates the KV caches and the Mamba states in place, as
 :func:`repro_torch.models.transformer.decode_step` does; the returned state
@@ -38,9 +43,10 @@ from .layers import (cast_matrices, embed, init_embed, init_mlp, mlp, rms_norm,
                      tree_from_numpy, unembed)
 from .ssm import (MambaState, init_mamba2, mamba2_decode_step, mamba2_forward,
                   ssm_dims)
+from .transformer import _maybe_remat
 
 __all__ = ["HybridState", "decode_step", "forward", "group_shape", "init_decode_state",
-           "init_params", "params_from_numpy"]
+           "init_params", "params_from_numpy", "train_forward"]
 
 # weights stacked over (groups, layers of a group), and those that stay float32
 _STACKED_AXES = {"mamba_groups": 2, "mamba_ln": 2}
@@ -63,11 +69,13 @@ def _cast_matrices(tree, cfg: ModelConfig):
 # Parameters
 # ---------------------------------------------------------------------------
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_params(gen: torch.Generator, cfg: ModelConfig, master: bool = False) -> dict:
     """Random parameters with the reference's distributions, drawn from
     ``gen`` on ``gen.device``.  The Mamba weights are drawn one group at a
     time and cast before the next is drawn, so the float32 transient is one
-    group's, not the whole stack's."""
+    group's, not the whole stack's; with ``master`` nothing is cast
+    (training)."""
+    cast = (lambda tree: tree) if master else (lambda tree: _cast_matrices(tree, cfg))
     ng, g, _ = group_shape(cfg)
     d, pdt, dev = cfg.d_model, cfg.torch_param_dtype, gen.device
     tree = {
@@ -81,11 +89,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "mamba_ln": torch.ones((ng, g, d), dtype=pdt, device=dev),
         "ln_f": torch.ones((d,), dtype=pdt, device=dev),
     }
-    tree = _cast_matrices(tree, cfg)
+    tree = cast(tree)
     mamba = None
     for i in range(ng):
-        grp = _cast_matrices({"mamba_groups": init_mamba2(gen, cfg, lead=(1, g))},
-                             cfg)["mamba_groups"]
+        grp = cast({"mamba_groups": init_mamba2(gen, cfg, lead=(1, g))})["mamba_groups"]
         if mamba is None:
             mamba = {k: torch.empty((ng,) + v.shape[1:], dtype=v.dtype, device=dev)
                      for k, v in grp.items()}
@@ -96,11 +103,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return tree
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
+                      master: bool = False) -> dict:
     """The port's parameters from the reference's parameter tree given as
-    nested dicts of numpy arrays, on ``device`` (``None`` means cuda)."""
-    return _cast_matrices(tree_from_numpy(tree, cfg.torch_param_dtype, resolve_device(device)),
-                          cfg)
+    nested dicts of numpy arrays, on ``device`` (``None`` means cuda); with
+    ``master`` the uncast tree in the parameter dtype (training)."""
+    tree = tree_from_numpy(tree, cfg.torch_param_dtype, resolve_device(device))
+    return tree if master else _cast_matrices(tree, cfg)
 
 
 def _layer(params: dict, i: int, j: int) -> dict:
@@ -132,18 +141,27 @@ def _group_forward(shared, params, i, mask, x, cfg, positions):
     return x
 
 
+def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """Returns (logits, aux_loss), differentiable in ``params``.  tokens:
+    (B, S) on the parameters' device."""
+    x = embed(params["embed"], tokens, cfg)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    mask = _layer_mask(cfg, x.device, x.dtype)
+    group = _maybe_remat(lambda params, x, i: _group_forward(
+        params["shared_attn"], params, i, mask, x, cfg, positions), cfg)
+    for i in range(mask.shape[0]):
+        x = group(params, x, i)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return (unembed(params["embed"], x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> tuple:
-    """Returns (logits, aux_loss).  tokens: (B, S) on the parameters' device."""
+    """Returns (logits, aux_loss), under ``torch.inference_mode``.  tokens:
+    (B, S) on the parameters' device."""
     with torch.inference_mode():
-        x = embed(params["embed"], tokens, cfg)
-        S = x.shape[1]
-        positions = torch.arange(S, device=x.device)[None, :]
-        mask = _layer_mask(cfg, x.device, x.dtype)
-        for i in range(mask.shape[0]):
-            x = _group_forward(params["shared_attn"], params, i, mask, x, cfg, positions)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-        return (unembed(params["embed"], x, cfg),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        return train_forward(params, tokens, cfg)
 
 
 # ---------------------------------------------------------------------------

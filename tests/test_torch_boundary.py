@@ -24,9 +24,11 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import sharded
 from repro_torch.core.batched import ProblemBatch, batched_min_period, stack_instances
 from repro_torch.fleet import worker_main
+from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.launch import first_forward_probe, rounding_probe
-from repro_torch.launch.serve import serve_pool
-from repro_torch.models import get_model, hybrid, ssm
+from repro_torch.launch.serve import plan_serving, serve_pool
+from repro_torch.launch.train import train_loop
+from repro_torch.models import get_model, hybrid, ssm, transformer
 from repro_torch.models.transformer import init_decode_state, params_from_numpy
 from repro_torch.pipeline import StragglerMonitor, elastic_replan, replan_stages
 from repro_torch.sim import (experiments, failure_thresholds, paper_sim, run_campaign,
@@ -119,6 +121,20 @@ def test_import_and_campaign_load_no_jax_or_reference():
         "sp = plan(make_workload([3, 1, 4, 1, 5], [1] * 6), make_platform([2, 5, 3], 10.0),\n"
         "          Objective('period'), mode='auto', device='cpu')\n"
         "assert sp.planner.startswith('auto(')\n"
+        "from repro_torch.launch.serve import plan_serving\n"
+        "assert plan_serving('qwen3-4b', 4, device='cpu')['feasible']\n"
+        "from repro_torch.launch.train import train_loop\n"
+        "import contextlib, io, tempfile\n"
+        "with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):\n"
+        "    out = train_loop(steps=2, batch=2, seq=16, ckpt_dir=d, ckpt_every=1, device='cpu')\n"
+        "    assert out['steps_run'] == 2\n"
+        "import torch\n"
+        "from repro_torch.models import get_model\n"
+        "from repro_torch.models.transformer import prefill\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "cfg = get_smoke_config('qwen3-4b')\n"
+        "logits, _ = prefill(get_model(cfg).init(0, 'cpu'), torch.ones((1, 8), dtype=torch.int32), cfg)\n"
+        "assert logits.shape == (1, 1, cfg.vocab_size)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
@@ -198,6 +214,15 @@ def _no_cuda(monkeypatch):
     lambda: fleet.subprocess_supervisor(),
     lambda: fleet.SubprocessWorker(),
     lambda: worker_main.main([]),
+    lambda: plan_serving("qwen3-4b", 2),
+    lambda: serve_pool(n_requests=1, batch=1, prompt_len=2, max_new=1, pods=2, replan=True),
+    lambda: transformer.prefill(get_model(_QWEN).init(0), torch.ones((1, 4), dtype=torch.int32),
+                                _QWEN),
+    lambda: get_model(_QWEN).init(0, master=True),
+    lambda: transformer.params_from_numpy({"ln_f": np.ones(4)}, _QWEN, master=True),
+    lambda: train_loop(steps=1, batch=1, seq=8),
+    lambda: train_loop(arch="zamba2-7b", steps=1, batch=1, seq=8),
+    lambda: ShardedLoader(SyntheticLMDataset(16, 8, 1)),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -212,11 +237,22 @@ def _no_cuda(monkeypatch):
         "run_experiment-auto", "failure_thresholds-fused", "run_replicated-sharded",
         "auto_engine", "shard_devices", "shard_device_count", "stack_instances",
         "ReplanService", "ReplanService-fused", "subprocess_supervisor",
-        "SubprocessWorker", "worker_main"])
+        "SubprocessWorker", "worker_main", "plan_serving", "serve_pool-replan", "prefill",
+        "model_init-master", "params_from_numpy-master", "train_loop", "train_loop-hybrid",
+        "ShardedLoader"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+
+
+def test_checkpointed_training_default_device_without_cuda_raises(tmp_path, monkeypatch):
+    """``train_loop`` with a checkpoint directory raises before it restores
+    or writes anything."""
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop(steps=2, batch=1, seq=8, ckpt_dir=str(tmp_path / "ckpt"), ckpt_every=1)
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_paper_sim_default_device_without_cuda_raises(tmp_path, monkeypatch):

@@ -549,3 +549,143 @@ def test_fleet_phase_passes_on_cpu_and_refuses_a_planted_digest(tmp_path):
     bad = dict(digests, standard=digests["standard"][:-1] + "?")
     with pytest.raises(SystemExit):
         chip_smoke.fleet_phase(torch, split_score, "cpu", digests=bad, **kw)
+
+
+def _model_counters():
+    from repro_torch.kernels import decode_attention, flash_attention, mamba2_ssd, rmsnorm
+
+    return [rmsnorm.rmsnorm, rmsnorm.rmsnorm_residual, flash_attention.flash_attention,
+            decode_attention.decode_attention, mamba2_ssd.ssd_intra_chunk]
+
+
+def test_serve_prefill_phase_passes_on_cpu_and_refuses_planted_faults():
+    """Phase 17 at the smoke configs on the CPU (prefill at S = 512):
+    plans equal across two runs, the replan serve run
+    replans, prefill meets the forward; a plan one candidate off, a serve
+    run that never replanned, and a decode-attention count one short are
+    refused.  The launch expectations: 2 RMSNorms per layer and the final
+    one, no flash attention."""
+    from repro_torch.core import heuristics
+    from repro_torch.kernels import split_score
+
+    cfg = get_smoke_config("qwen3-4b").replace(dtype="float32", use_pallas=True)
+    assert chip_smoke.prefill_launches(cfg) == {
+        "rmsnorm": 7, "rmsnorm_residual": 0, "flash_attention": 0, "decode_attention": 0,
+        "ssd_intra_chunk": 0}
+    out = chip_smoke.serve_prefill_phase(
+        torch, split_score, heuristics, _model_counters(), cfg, "cpu", {}, device="cpu",
+        smoke_cfg=cfg, plan_smoke=True, serve_smoke=True, prefill_s=512)
+    assert out["plans"]["candidates"] > 0 and len(out["plans"]["digests"]) == 6
+    assert out["replan_serve"]["replan"]["replans"] >= 1
+    assert out["prefill"]["capacity"] == 512 and out["prefill"]["vs_forward"]["ok"]
+    assert max(out["prefill_cpu_vs_card"].values()) == 0.0      # cpu against itself
+    assert sorted(out["by_path"]) == ["decode after prefill", "plan_serving", "prefill",
+                                      "replan serve"]
+
+    from repro_torch.launch import serve
+
+    rows = chip_smoke.plan_rows(serve, "cpu", ("qwen3-4b",), pods=(2,), smoke=True)
+    bad = {k: dict(v, candidates=v["candidates"][:-1]) for k, v in rows.items()}
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_plans(bad, rows, "planted")
+    timed = {k: dict(v, candidates=[dict(c, wall_ms=c["wall_ms"] + 1.0)
+                                    for c in v["candidates"]]) for k, v in rows.items()}
+    assert chip_smoke.compare_plans(timed, rows, "wall_ms only") == len(
+        rows[("qwen3-4b", 2)]["candidates"])
+    served = out["replan_serve"]
+    calls = cfg.n_layers * chip_smoke.decode_calls(**chip_smoke.REPLAN_SERVE)
+    chip_smoke.check_replan_serve(served, cfg, {"decode_attention": calls})
+    with pytest.raises(SystemExit):
+        chip_smoke.check_replan_serve(served, cfg, {"decode_attention": calls - 1})
+    with pytest.raises(SystemExit):
+        chip_smoke.check_replan_serve(
+            dict(served, replan=dict(served["replan"], replans=0)), cfg, {})
+
+
+def test_decode_after_prefill_holds_every_step_against_plain_decode(monkeypatch):
+    """Phase 17's decode after prefill at the smoke config on the CPU: each
+    step's logits against the plain decode attention's, from a copy of the
+    prefill state and fed the same tokens; a decode attention 1 % off on the
+    kernel route is refused."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    cfg = get_smoke_config("qwen3-4b").replace(dtype="float32", use_pallas=True)
+    api = get_model(cfg)
+    params = api.init(7, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(8))
+
+    def run():
+        logits, state = transformer.prefill(params, toks, cfg)
+        return chip_smoke.decode_after_prefill(torch, api, params, state, logits, cfg,
+                                               _model_counters(), 4, lambda: None)
+
+    _, worst = run()
+    assert worst["max_err"] <= chip_smoke.LOGIT_F32_TOL
+    real = ops.decode_attention
+    monkeypatch.setattr(ops, "decode_attention", lambda *a, **k: real(*a, **k) * 1.01)
+    with pytest.raises(SystemExit):
+        run()
+
+
+def test_update_rel_err_is_one_for_an_update_that_never_happened():
+    init = {"a": torch.zeros(3), "b": {"c": torch.ones(2, 2)}}
+    want = {"a": torch.tensor([1e-3, -1e-3, 1e-3]), "b": {"c": torch.ones(2, 2) - 1e-3}}
+    assert chip_smoke.update_rel_err(want, want, init) == 0.0
+    assert chip_smoke.update_rel_err(init, want, init) == 1.0
+    half = {"a": want["a"] / 2, "b": want["b"]}
+    assert chip_smoke.update_rel_err(half, want, init) == pytest.approx(0.5)
+
+
+_TRAIN_PHASE = """
+import contextlib, io, json, pathlib, sys, tempfile
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import decode_attention, flash_attention, mamba2_ssd, rmsnorm
+
+counters = [rmsnorm.rmsnorm, rmsnorm.rmsnorm_residual, flash_attention.flash_attention,
+            decode_attention.decode_attention, mamba2_ssd.ssd_intra_chunk]
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    out = chip_smoke.train_phase(
+        torch, counters, "cpu", device="cpu",
+        train=dict(chip_smoke.TRAIN, smoke=True, seq=64, batch=2), n_layers=2,
+        smoke_cfg=get_smoke_config("qwen3-4b").replace(dtype="float32"),
+        ckpt_dir=pathlib.Path(d) / "ckpt")
+    left = (pathlib.Path(d) / "ckpt").exists()
+print(json.dumps({k: out[k] for k in ("losses", "resumed_losses", "launches", "cpu_vs_card")}
+                 | {"left": left}))
+"""
+
+
+def test_train_phase_passes_on_cpu_and_refuses_a_resume_that_restarts(tmp_path, monkeypatch):
+    """Phase 18 at the smoke config cut to 2 layers on the CPU: the crash
+    and resume give the uninterrupted losses bit for bit, no kernel
+    launched, the checkpoints removed, cpu against itself within the
+    limits (in a process with ``MKL_CBWR=COMPATIBLE``, as
+    ``tests/test_torch_train.py``'s crash-and-resume test: MKL's float32
+    products otherwise depend on buffer alignment); a resume that finds no
+    checkpoint (and so restarts at step 0) is refused."""
+    import json
+    import os
+    import subprocess
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    env = dict(os.environ, MKL_CBWR="COMPATIBLE", OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", _TRAIN_PHASE, str(ROOT)], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["resumed_losses"] == out["losses"][2:] and len(out["losses"]) == 3
+    assert out["cpu_vs_card"]["loss_err"] <= chip_smoke.TRAIN_LOSS_TOL
+    assert out["cpu_vs_card"]["param_err"] <= out["cpu_vs_card"]["lr_sum"]
+    assert out["cpu_vs_card"]["update_rel_err"] == 0.0      # cpu against itself
+    assert not any(out["launches"].values()) and not out["left"]
+    monkeypatch.setattr(CheckpointManager, "restore_latest", lambda self, like: None)
+    with pytest.raises(SystemExit):
+        chip_smoke.train_phase(torch, _model_counters(), "cpu", device="cpu",
+                               train=dict(chip_smoke.TRAIN, smoke=True, seq=64, batch=2),
+                               n_layers=2, ckpt_dir=tmp_path / "ckpt")

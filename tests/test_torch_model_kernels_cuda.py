@@ -1,6 +1,7 @@
 """The hand-written CUDA model kernels (RMSNorm, RMSNorm + residual, flash
 attention, decode attention, the Mamba2 SSD intra-chunk kernel) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card; and the smoke models' prefill, decode
+and train steps on the card against the cpu.
 
 These tests need a CUDA device (marker ``cuda``) and skip without one.  The
 file imports only torch, numpy and the port, so it also runs where JAX is not
@@ -552,3 +553,82 @@ def _check_logits(got, want, dtype, f32_tol=1e-4, diagnose=None):
     else:
         assert float(err.max()) < 0.35 and float(err.mean() / want.float().abs().mean()) < 0.05
 
+
+
+def test_smoke_prefill_and_decode_on_card_match_cpu(cuda_device):
+    """The smoke qwen3-4b in float32 prefilled at S = 4096 (RMSNorm kernel,
+    blocked attention) on the card and on the cpu, then 4 greedy decode
+    steps from each state (decode-attention kernel on the card): logits and
+    caches within atol 1e-4, the same tokens."""
+    from repro_torch.models import transformer
+
+    cfg = get_smoke_config("qwen3-4b").replace(dtype="float32", use_pallas=True)
+    params = get_model(cfg).init(7, "cpu")
+    card = _tree_to(params, cuda_device)
+    toks = torch.randint(1, cfg.vocab_size, (2, 4096), generator=torch.Generator().manual_seed(3))
+    want, wstate = transformer.prefill(params, toks, cfg)
+    got, gstate = transformer.prefill(card, toks.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(gstate.caches, wstate.caches):
+        if w.dtype == torch.int32:
+            assert torch.equal(g.cpu(), w)
+        else:
+            assert float((g.cpu() - w).abs().max()) <= 1e-4
+    for _ in range(4):
+        assert float((got.cpu() - want).abs().max()) <= 1e-4
+        tw = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        assert torch.equal(got[:, -1].argmax(-1).to(torch.int32)[:, None].cpu(), tw)
+        want, wstate = transformer.decode_step(params, wstate, tw, cfg)
+        got, gstate = transformer.decode_step(card, gstate, tw.to(cuda_device), cfg)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-7b"])
+def test_smoke_train_steps_on_card_match_cpu(cuda_device, arch):
+    """Three train steps of the smoke config in float32 from the same master
+    weights on the card and on the cpu (plain autograd, no kernel): losses
+    within atol 1e-4, parameters within the sum of the learning rates, and
+    the worst leaf's update within 1e-2 of the cpu's, relative to its size
+    (``chip_smoke.update_rel_err``: 1 for an update that never happened)."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.train import init_optimizer, make_train_step
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    api = get_model(cfg)
+    init = api.init(7, "cpu", master=True)
+    out = []
+    for dev in ("cpu", cuda_device):
+        params = _tree_to(init, dev, copy=True)    # AdamW updates in place
+        state = init_optimizer(params)
+        step = make_train_step(api.train_forward, cfg, base_lr=1e-3, warmup=1, total_steps=10)
+        ds = SyntheticLMDataset(cfg.vocab_size, 64, 2, seed=0)
+        losses, lr_sum = [], 0.0
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(i).items()}
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            lr_sum += float(m["lr"])
+        out.append((losses, lr_sum, _tree_to(params, "cpu")))
+    (wl, lr_sum, wp), (gl, _, gp) = out
+    assert max(abs(a - b) for a, b in zip(gl, wl)) <= 1e-4
+    assert lr_sum > 0 and _tree_max_err(gp, wp) <= lr_sum
+    assert _update_rel_err(gp, wp, init) <= 1e-2
+
+
+def _tree_to(tree, device, copy: bool = False):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, copy) for k, v in tree.items()}
+    return tree.to(device, copy=copy)
+
+
+def _tree_max_err(got, want) -> float:
+    if isinstance(got, dict):
+        return max(_tree_max_err(got[k], want[k]) for k in got)
+    return float((got - want).abs().max())
+
+
+def _update_rel_err(got, want, init) -> float:
+    """The worst leaf's ``|got - want| / |want - init|``."""
+    if isinstance(got, dict):
+        return max(_update_rel_err(got[k], want[k], init[k]) for k in got)
+    return float((got.double() - want.double()).norm() / (want.double() - init.double()).norm())
