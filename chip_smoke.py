@@ -6,8 +6,9 @@
 Drives the port's paths on the card and checks them: the Section-5
 campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
 full width, the planner API and its reliability extensions, the fleet
-replanning service, serving's planner hooks with prefill, and training
-(``repro_torch``), in eighteen phases; any failure exits non-zero:
+replanning service, serving's planner hooks with prefill, training, and the
+MoE, VLM, enc-dec and xLSTM families (``repro_torch``), in nineteen phases;
+any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -181,9 +182,36 @@ replanning service, serving's planner hooks with prefill, and training
               peak memory; then the smoke config in float32, 3 steps on cpu
               and cuda from the same weights: losses within atol 1e-4,
               parameters within the sum of the steps' learning rates.
+ 19. families — the new kernel shapes first: flash attention at head dim
+              128 (mixtral-8x7b's window of 4096 at S = 8192, internvl2-26b's
+              48/8 heads and arctic-480b's 56/8 at S = 4096), decode attention
+              at the serve runs' 32 live slots (mixtral, internvl2, and
+              whisper-large-v3's 20 heads of 64 at C = 448), RMSNorm at 4096
+              rows of widths 4096, 6144 and 7168, each against its plain
+              version and the library call, timed as phase 7.  Then, freed one
+              before the next, at full width with random weights: mixtral-8x7b
+              cut to 8 of 32 layers (S = 8192), arctic-480b cut to 2 of 35
+              (S = 4096), internvl2-26b (256 patch embeddings + 3,840 tokens),
+              whisper-large-v3 (1,500 frames, 448 tokens), xlstm-350m (S =
+              4096): the forward with kernels (exact launches: RMSNorm 2L + 1
+              and flash L on the bf16 route for the transformer families,
+              none for whisper and xlstm), each MoE layer's routing ``==`` a
+              plain routing and its output within 2^-6 of a plain per-expert
+              MoE, the plain route's forward (no launch) within phase 12's
+              bf16 limit, a routing that differs across the routes only at a
+              near-tie; prefill (mixtral, internvl2; RMSNorm 2L + 1, no flash)
+              against the forward's last logits; 16 decode steps (after
+              prefill, or from whisper's encoded frames) each against plain
+              decode attention from a copy of the state; ``serve_pool`` at
+              B = 4 (4 requests, 16-token prompts, 16 new tokens; decode
+              attention once per layer per call); init, forward and serve
+              walls, tokens/s and peak memory per model; then each smoke
+              config in float32, cpu against cuda: forward at S = 1536
+              (routing ``==``), 4 decode steps, one train step's loss, within
+              atol 1e-4.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-18;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-19;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -567,12 +595,36 @@ def _kernel_row(name, replaces, err, kern, plain, nbytes, flops, peak, lib, shap
             "tolerance": f"float32 atol {F32_TOL}; bfloat16 {F32_TOL} + {BF16_RTOL} |want|"}
 
 
+def check_rmsnorm(torch, xs, sc, eps) -> dict:
+    """RMSNorm at each of the bf16 inputs ``xs`` (a ring of cold buffers of
+    one shape), in float32 and bfloat16 against its plain version, timed
+    beside its plain version and ``F.rms_norm``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    x = xs[0]
+    n, d = x.shape
+    x32 = x.float()
+    f32_err = _err(torch, "rmsnorm", ops.rmsnorm(x32, sc, eps=eps),
+                   ref.rmsnorm_ref(x32, sc, eps=eps))
+    del x32
+    err = _err(torch, "rmsnorm", ops.rmsnorm(x, sc, eps=eps), ref.rmsnorm_ref(x, sc, eps=eps))
+    sc16 = sc.to(torch.bfloat16)
+    return _kernel_row(
+        "rmsnorm", ("rmsnorm", 17), err,
+        device_time(torch, [lambda x=x: ops.rmsnorm(x, sc, eps=eps) for x in xs]),
+        device_time(torch, [lambda x=x: ref.rmsnorm_ref(x, sc, eps=eps) for x in xs]),
+        4 * n * d + 4 * d, 4 * n * d, FP32_FLOPS_PER_S,
+        device_time(torch, [lambda x=x: F.rms_norm(x, (d,), sc16, eps) for x in xs]),
+        {"n": n, "d": d, "dtype": "bfloat16", "cold_buffers": len(xs)}) | {
+        "f32_max_abs_err": f32_err}
+
+
 def check_model_kernels(torch, cfg, gen) -> list:
     """The four model kernels at the full-width shapes of the serving path,
     in float32 and in bfloat16 (timed); the attention kernels also show that
     the tolerance rejects the answer with the window or mask ignored."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import ops, ref
 
     dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
@@ -591,18 +643,7 @@ def check_model_kernels(torch, cfg, gen) -> list:
     xs, ress = r(ring, FWD_S, d), r(ring, FWD_S, d)
     x, res, sc = xs[0], ress[0], 1.0 + 0.1 * r(d, dtype=f32)
     x32, res32 = x.float(), res.float()
-    f32_err = _err(torch, "rmsnorm", ops.rmsnorm(x32, sc, eps=eps),
-                   ref.rmsnorm_ref(x32, sc, eps=eps))
-    err = _err(torch, "rmsnorm", ops.rmsnorm(x, sc, eps=eps), ref.rmsnorm_ref(x, sc, eps=eps))
-    sc16 = sc.to(bf16)
-    rows.append(_kernel_row(
-        "rmsnorm", ("rmsnorm", 17), err,
-        device_time(torch, [lambda x=x: ops.rmsnorm(x, sc, eps=eps) for x in xs]),
-        device_time(torch, [lambda x=x: ref.rmsnorm_ref(x, sc, eps=eps) for x in xs]),
-        4 * n_el + 4 * d, 4 * n_el, FP32_FLOPS_PER_S,
-        device_time(torch, [lambda x=x: F.rms_norm(x, (d,), sc16, eps) for x in xs]),
-        {"n": FWD_S, "d": d, "dtype": "bfloat16", "cold_buffers": ring})
-        | {"f32_max_abs_err": f32_err})
+    rows.append(check_rmsnorm(torch, xs, sc, eps))
     f32_err = 0.0
     for g, w in zip(ops.rmsnorm_residual(x32, res32, sc, eps=eps),
                     ref.rmsnorm_residual_ref(x32, res32, sc, eps=eps)):
@@ -641,8 +682,8 @@ def _sub_row(row) -> dict:
             if key in row}
 
 
-def check_flash(torch, gen, H, K, hd, window) -> dict:
-    """Flash attention at B = 1, S = T = FWD_S, causal, with ``window``, in
+def check_flash(torch, gen, H, K, hd, window, S=FWD_S) -> dict:
+    """Flash attention at B = 1, S = T = ``S``, causal, with ``window``, in
     float32 and bfloat16 against its plain version; the same limit must
     reject the answer with the window ignored (without a window: with
     causality ignored).  The bf16 route (tensor cores) timed beside its plain
@@ -654,7 +695,7 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 0.5).to(bf16)
-               for shape in ((1, FWD_S, H, hd), (1, FWD_S, K, hd), (1, FWD_S, K, hd)))
+               for shape in ((1, S, H, hd), (1, S, K, hd), (1, S, K, hd)))
     name = f"flash_attention (H {H}, K {K}, hd {hd}, window {window})"
     q32, k32, v32 = q.float(), k.float(), v.float()
     f32_err = _err(torch, name, ops.flash_attention(q32, k32, v32, causal=True, window=window),
@@ -670,12 +711,12 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
     del want
     torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = sum(min(i + 1, window or FWD_S) for i in range(FWD_S))
+    pairs = sum(min(i + 1, window or S) for i in range(S))
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                      enable_gqa=True)
     else:
-        pq = torch.arange(FWD_S, device=dev)
+        pq = torch.arange(S, device=dev)
         band = (pq[:, None] >= pq[None, :]) & (pq[:, None] - pq[None, :] < window)
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
                                                      enable_gqa=True)
@@ -684,9 +725,9 @@ def check_flash(torch, gen, H, K, hd, window) -> dict:
         "flash_attention", ("flash_attention", 27), err, kern,
         device_time(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
                                                            window=window)),
-        2 * (2 * FWD_S * H * hd + 2 * FWD_S * K * hd), 4 * hd * H * pairs,
+        2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
         BF16_TENSOR_FLOPS_PER_S, device_time(torch, lib),
-        {"B": 1, "S": FWD_S, "T": FWD_S, "H": H, "K": K, "hd": hd, "causal": True,
+        {"B": 1, "S": S, "T": S, "H": H, "K": K, "hd": hd, "causal": True,
          "window": window, "pairs": pairs}) | {
         "f32_max_abs_err": f32_err, "wrong_max_abs_err": wrong_err, "f32_ms": f32_ms,
         # the tensor cores' work: QK^T (2 hd) and P V twice, hi and lo (4 hd)
@@ -713,18 +754,21 @@ def decode_bytes(B, H, K, hd, live, C, itemsize=2) -> int:
     return itemsize * (2 * B * H * hd + 2 * live * K * hd) + B * C
 
 
-def decode_plan(torch, kind, H, K, hd, window, gen, device) -> dict:
+def decode_plan(torch, kind, H, K, hd, window, gen, device, C=SERVE["capacity"],
+                last_pos=SERVE["prompt_len"] + SERVE["max_new"] - 1) -> dict:
     """Input ``kind`` of :data:`DECODE_INPUTS` (``window``: the model's, or
-    None): cache positions, current positions, the window it takes, the
-    slot mask, its live count, the bytes of the bound, and the cold ring."""
+    None) at B rows of C slots (``serve_live``: the serve run's last
+    position ``last_pos``): cache positions, current positions, the window
+    it takes, the slot mask, its live count, the bytes of the bound, and the
+    cold ring."""
     from repro_torch.kernels import ops
 
-    B, C = SERVE["batch"], SERVE["capacity"]
+    B = SERVE["batch"]
     slots = torch.arange(C, device=device, dtype=torch.int32)[None, :]
     if kind == "mixed":
         pos = torch.randint(C // 2, C, (B,), generator=gen, device=device)
     elif kind == "serve_live":
-        pos = torch.full((B,), SERVE["prompt_len"] + SERVE["max_new"] - 1, device=device)
+        pos = torch.full((B,), last_pos, device=device)
     else:
         pos, window = torch.full((B,), C - 1, device=device), None
     pos = pos.to(torch.int32)
@@ -740,9 +784,12 @@ def decode_plan(torch, kind, H, K, hd, window, gen, device) -> dict:
             "ring": cold_ring(nbytes)}
 
 
-def check_decode(torch, gen, arch, H, K, hd, window) -> dict:
-    """Decode attention at the serve runs' B = 4 against C = 1024 at each of
-    :data:`DECODE_INPUTS`, in float32 and bfloat16 against its plain version;
+def check_decode(torch, gen, arch, H, K, hd, window, C=SERVE["capacity"],
+                 last_pos=SERVE["prompt_len"] + SERVE["max_new"] - 1,
+                 kinds=DECODE_INPUTS) -> dict:
+    """Decode attention at the serve runs' B = 4 against C slots (qwen3-4b's
+    1024) at each of ``kinds`` (``serve_live``: the serve run's live slots
+    up to ``last_pos``), in float32 and bfloat16 against its plain version;
     at ``mixed`` the same limit must reject the answers with the empty slots
     taken as written and (with a window) the window ignored.
 
@@ -761,14 +808,14 @@ def check_decode(torch, gen, arch, H, K, hd, window) -> dict:
     from repro_torch.kernels import ops, ref
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    B, C = SERVE["batch"], SERVE["capacity"]
+    B = SERVE["batch"]
     q = (torch.randn((B, H, hd), generator=gen, device=dev) * 0.5).to(bf16)
     # the wrapper's split of the cache (None where it does not size one from the card)
     split = (kdec.split_slots(B, K, H // K, C, *kdec.card_shape(dev, hd, 1))
              if hasattr(kdec, "split_slots") else None)
     inputs = {}
-    for kind in DECODE_INPUTS:
-        plan = decode_plan(torch, kind, H, K, hd, window, gen, dev)
+    for kind in kinds:
+        plan = decode_plan(torch, kind, H, K, hd, window, gen, dev, C, last_pos)
         mask, positions, pos, win = plan["mask"], plan["positions"], plan["pos"], plan["window"]
         n = plan["ring"]
         kv = (torch.randn((n, 2, B, C, K, hd), generator=gen, device=dev) * 0.5).to(bf16)
@@ -981,7 +1028,9 @@ def _to(tree, device, copy: bool = False):
 
 
 def _logits_close(got, want, dtype, f32_tol=LOGIT_F32_TOL) -> dict:
-    got, want = got.float().cpu(), want.float()
+    """The float32 limit or the reference's bf16 model criterion, computed
+    on ``want``'s device."""
+    got, want = got.float().to(want.device), want.float()
     err = (got - want).abs()
     out = {"max_err": float(err.max()), "mean_rel_err": float(err.mean() / want.abs().mean())}
     ok = bool(got.isfinite().all()) and (
@@ -991,7 +1040,7 @@ def _logits_close(got, want, dtype, f32_tol=LOGIT_F32_TOL) -> dict:
 
 
 def diagnose_forward(torch, api, cfg, params, card, toks, got, want,
-                     f32_tol=LOGIT_F32_TOL) -> dict:
+                     f32_tol=LOGIT_F32_TOL, extras=None) -> dict:
     """Where a forward's card and cpu logits part: whether a second card
     forward repeats the first bit for bit, the logit rows over the float32
     limit, whether a second cpu forward repeats the first, the parameters
@@ -1000,7 +1049,7 @@ def diagnose_forward(torch, api, cfg, params, card, toks, got, want,
     every kernel call against its plain version on the same card inputs, and
     the head: its input card against cpu, and each side's logits against the
     float64 product of its own input.  ``params`` and ``card`` may sit on any
-    two devices."""
+    two devices; ``extras`` are the batch's stub inputs (on the cpu)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import hybrid, ssm, transformer
 
@@ -1011,7 +1060,7 @@ def diagnose_forward(torch, api, cfg, params, card, toks, got, want,
     if torch.cuda.is_available():
         out["uuid"] = str(torch.cuda.get_device_properties(0).uuid)
     streams, calls = [], []
-    module, block_name = ((transformer, "block_forward") if cfg.family == "dense"
+    module, block_name = ((transformer, "block_forward") if cfg.family in transformer.FAMILIES
                           else (hybrid, "_group_forward"))
     block, flash, rms, ssd = (getattr(module, block_name), ops.flash_attention, ops.rmsnorm,
                               ops.ssd_chunked)
@@ -1046,10 +1095,12 @@ def diagnose_forward(torch, api, cfg, params, card, toks, got, want,
     setattr(module, block_name, block_rec)
     module.unembed = head_rec
     ops.flash_attention, ops.rmsnorm, ops.ssd_chunked = flash_rec, rms_rec, ssd_rec
+    extras = extras or {}
     try:
-        again, _ = api.forward(card, {"tokens": toks.to(out["device"])}, cfg)
+        again, _ = api.forward(card, {"tokens": toks.to(out["device"])}
+                               | {k: v.to(out["device"]) for k, v in extras.items()}, cfg)
         n_card = len(streams)
-        again_cpu, _ = api.forward(params, {"tokens": toks.cpu()}, cfg)
+        again_cpu, _ = api.forward(params, {"tokens": toks.cpu()} | extras, cfg)
     finally:
         setattr(module, block_name, block)
         module.unembed = head
@@ -1824,39 +1875,51 @@ def check_replan_serve(served: dict, cfg, launches: dict) -> None:
              f"expected {want}")
 
 
+def clone_state(state):
+    """A decode state's copy: every tensor of its (nested) named tuples
+    cloned, since decode updates the state in place."""
+    if isinstance(state, tuple):
+        return type(state)(*(clone_state(f) for f in state))
+    return state.clone()
+
+
 def decode_after_prefill(torch, api, params, state, logits, cfg, counters, steps: int,
-                         sync) -> tuple:
-    """``steps`` decode steps through ``api`` from a prefill's ``state``
-    and last ``logits`` (each step fed the argmax of the one before), then
-    the same steps with the plain decode attention (``use_pallas`` off)
-    from a copy of that state, fed the same tokens: every step's logits
+                         sync, moe=None) -> tuple:
+    """``steps`` decode steps through ``api`` from a prefill's (or any)
+    ``state`` and last ``logits`` (each step fed the argmax of the one
+    before), then the same steps with the plain decode attention
+    (``use_pallas`` off) from a copy of that state, fed the same tokens
+    (with the port's ``moe`` module given, each MoE layer of the kernel run
+    held to :func:`check_moe_layer` and the plain run routed as it was): every step's logits
     within :func:`_logits_close`'s limit of the plain ones.  Returns (the
     launches of the first run, the worst step's errors).
     The counters are zeroed just before the first run and read just after;
     the plain run launches no kernel."""
-    from repro_torch.models import transformer
+    from repro_torch.models import get_model
 
-    plain_state = type(state)(type(state.caches)(*(f.clone() for f in state.caches)))
+    plain_state = clone_state(state)
     zero_counters(counters)
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     fed, got = [], []
-    for _ in range(steps):
-        fed.append(tok)
-        dlogits, state = api.decode(params, state, tok)
-        got.append(dlogits)
-        tok = dlogits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    sync()
+    with moe_checks(torch, moe) if moe else contextlib.nullcontext([]) as routed:
+        for _ in range(steps):
+            fed.append(tok)
+            dlogits, state = api.decode(params, state, tok)
+            got.append(dlogits)
+            tok = dlogits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        sync()
     launches = {c.__name__: c.launches for c in counters}
     if not all(bool(torch.isfinite(g).all()) for g in got):
         fail("decode after prefill: logits not finite")
-    plain_cfg, worst = cfg.replace(use_pallas=False), {"max_err": 0.0, "mean_rel_err": 0.0}
-    for i, (tok, g) in enumerate(zip(fed, got)):
-        want, plain_state = transformer.decode_step(params, plain_state, tok, plain_cfg)
-        close = _logits_close(g, want.float().cpu(), cfg.dtype)
-        if not close["ok"]:
-            fail(f"decode after prefill: step {i}'s logits against the plain decode "
-                 f"attention's: {close}")
-        worst = {k: max(v, close[k]) for k, v in worst.items()}
+    plain, worst = get_model(cfg.replace(use_pallas=False)), {"max_err": 0.0, "mean_rel_err": 0.0}
+    with forced_routing(moe, routed) if moe else contextlib.nullcontext():
+        for i, (tok, g) in enumerate(zip(fed, got)):
+            want, plain_state = plain.decode(params, plain_state, tok)
+            close = _logits_close(g, want.float().cpu(), cfg.dtype)
+            if not close["ok"]:
+                fail(f"decode after prefill: step {i}'s logits against the plain decode "
+                     f"attention's: {close}")
+            worst = {k: max(v, close[k]) for k, v in worst.items()}
     return launches, worst
 
 
@@ -2023,7 +2086,7 @@ def train_steps(torch, cfg, device, steps: int, batch: int, seq: int, base_lr: f
     master weights (drawn on the cpu): (losses, sum of learning rates,
     parameters on the cpu, the weights they started from)."""
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, stub_inputs
     from repro_torch.models.train import init_optimizer, make_train_step
 
     api = get_model(cfg)
@@ -2036,6 +2099,7 @@ def train_steps(torch, cfg, device, steps: int, batch: int, seq: int, base_lr: f
     losses, lr_sum = [], 0.0
     for i in range(steps):
         b = {k: torch.from_numpy(v).to(device) for k, v in ds.batch(i).items()}
+        b |= stub_inputs(cfg, batch, device)
         params, state, m = step(params, state, b)
         losses.append(float(m["loss"]))
         lr_sum += float(m["lr"])
@@ -2146,11 +2210,600 @@ def train_phase(torch, counters, card, device: str = "cuda", train: dict = TRAIN
     return out
 
 
+# phase 19: the other families at full width, random weights from a seed,
+# B = 1 forwards.  The only cuts are depth, where the bf16 weights would not
+# fit one card: mixtral-8x7b 8 of 32 layers (2.9 GB per layer), arctic-480b
+# 2 of 35 (26.8 GB of experts per layer).  ``seq`` counts every position:
+# internvl2-26b's 256 patch embeddings and 3,840 text tokens; whisper's 448
+# decoder tokens beside its 1,500 frames.  Decode after prefill (mixtral,
+# internvl2) or from an encoded state (whisper), then serve_pool at B = 4
+FAMILY_RUNS = (
+    {"arch": "mixtral-8x7b", "layers": 8, "seq": 8192, "prefill": True, "capacity": 1024},
+    {"arch": "arctic-480b", "layers": 2, "seq": 4096, "prefill": False, "capacity": None},
+    {"arch": "internvl2-26b", "layers": None, "seq": 4096, "prefill": True, "capacity": 1024},
+    {"arch": "whisper-large-v3", "layers": None, "seq": 448, "prefill": False,
+     "capacity": 448},
+    {"arch": "xlstm-350m", "layers": None, "seq": 4096, "prefill": False, "capacity": 1024},
+)
+FAMILY_SERVE = dict(n_requests=4, batch=4, prompt_len=16, max_new=16, seed=0)
+FAMILY_DECODE_STEPS = 16
+# the smoke configs card against cpu, in float32: a forward long enough for
+# flash attention (S = 1536, the VLM's prefix included), 4 decode steps, one
+# train step.  xlstm-350m reaches no kernel, so its forward gains nothing
+# from the length and runs at S = 256 (8 chunks): at S = 1536 its float32
+# logits move by 6.6e-5 between two MKL code paths on one x86 host alone
+# (MKL_CBWR=COMPATIBLE or not; torch 2.13 with MKL), two thirds of the limit
+FAMILY_SMOKE_SEQ, FAMILY_SMOKE_DECODE = 1536, 4
+FAMILY_SMOKE_SEQ_NO_KERNEL = 256
+KERNEL_NAMES = ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention",
+                "ssd_intra_chunk")
+
+
+def flash_gate(S: int, T: int) -> bool:
+    """The reference's gate for its flash kernel (``attention``)."""
+    return S > 1024 and S % 512 == 0 and T % 512 == 0
+
+
+def family_launches(cfg, path: str, seq: int = 0, calls: int = 0) -> dict:
+    """The model kernels ``path`` of ``cfg`` (with ``use_pallas``) launches.
+    ``forward`` at ``seq`` positions: for the transformer families RMSNorm
+    before attention and before the FFN in every layer and the final one,
+    flash attention once per layer where the gate passes; the enc-dec family
+    flash attention only where its encoder (at enc_seq frames), decoder or
+    cross attention passes the gate (whisper: none) and no RMSNorm
+    (LayerNorm); the xLSTM family nothing (every RMSNorm call site of the
+    reference passes no ``use_pallas``).  ``prefill``: RMSNorm as the
+    forward, never flash.  ``decode`` (``calls`` steps): decode attention
+    once per self-attention layer per step, no RMSNorm kernel (decode keeps
+    the plain formula)."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    L = cfg.n_layers
+    transformer = cfg.family in ("dense", "moe", "vlm")
+    if path == "forward":
+        if transformer:
+            out["rmsnorm"] = 2 * L + 1
+            out["flash_attention"] = L * flash_gate(seq, seq)
+        elif cfg.family == "encdec":
+            out["flash_attention"] = (cfg.n_enc_layers * flash_gate(cfg.enc_seq, cfg.enc_seq)
+                                      + L * flash_gate(seq, seq)
+                                      + L * flash_gate(seq, cfg.enc_seq))
+    elif path == "prefill":
+        out["rmsnorm"] = 2 * L + 1 if transformer else 0
+    elif path == "decode":
+        out["decode_attention"] = L * calls if cfg.family != "xlstm" else 0
+    else:
+        raise ValueError(path)
+    return out
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+
+
+def routing_oracle(torch, logits, k: int, C: int) -> tuple:
+    """(top ids (n, k), keep (n, k)) of router ``logits`` (n, E), computed
+    apart from the port's sorts: each expert's place in its token's
+    descending order is counted directly (a tie places the lower expert
+    first, as ``jax.lax.top_k``), and each (token, choice) pair's rank in its
+    expert is a running count over the pairs in token order (kept while
+    under the capacity ``C``)."""
+    import torch.nn.functional as F
+
+    n, E = logits.shape
+    idx = torch.arange(E, device=logits.device)
+    above = (logits[:, None, :] > logits[:, :, None]).sum(-1)
+    tied_lower = ((logits[:, None, :] == logits[:, :, None])
+                  & (idx[None, None, :] < idx[None, :, None])).sum(-1)
+    place = above + tied_lower                                    # (n, E)
+    ids = (place[:, None, :] == torch.arange(k, device=logits.device)[None, :, None]
+           ).int().argmax(-1)                                     # (n, k)
+    counts = F.one_hot(ids.reshape(-1), E).cumsum(0)
+    rank = counts.gather(1, ids.reshape(-1, 1))[:, 0] - 1
+    return ids, (rank < C).reshape(n, k)
+
+
+def check_moe_layer(torch, params, flat, cfg, r, y) -> dict:
+    """One MoE dispatch of the port (``moe._grouped_dispatch``: input
+    ``flat``, routing ``r``, output ``y``) against plain versions on the
+    same inputs: the top-k ids and the kept pairs ``==``
+    :func:`routing_oracle`'s, and the output within 2e-5 + 2^-6 of the sum
+    of its terms' magnitudes (each pair's expert output times its weight,
+    summed over the token's choices) of a plain MoE that runs each expert on
+    its kept tokens, each pair weighted by the softmax of the router logits
+    at the oracle's ids.  Returns the layer's record; its ``top_ids`` and
+    ``logits`` serve :func:`forced_routing`."""
+    import torch.nn.functional as F
+
+    E, k, d = cfg.n_experts, cfg.top_k, flat.shape[-1]
+    logits = r.logits.reshape(-1, E)
+    ids, keep = routing_oracle(torch, logits, k, r.capacity)
+    keep_pair = torch.empty_like(r.keep).scatter_(-1, r.order, r.keep).reshape(-1, k)
+    top_ids = r.top_ids.reshape(-1, k)
+    if not torch.equal(top_ids, ids):
+        fail(f"moe {cfg.arch_id}: top-k ids differ from the plain routing at "
+             f"{int((top_ids != ids).any(-1).sum())} tokens")
+    if not torch.equal(keep_pair, keep):
+        fail(f"moe {cfg.arch_id}: kept pairs differ from the plain routing at "
+             f"{int((keep_pair != keep).sum())} pairs")
+    x, dt = flat.reshape(-1, d), flat.dtype
+    w = torch.softmax(logits.gather(-1, ids), dim=-1).to(dt)
+    want = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    mag = torch.zeros_like(want)
+    for e in range(E):
+        t, j = ((ids == e) & keep).nonzero(as_tuple=True)
+        if t.numel() == 0:
+            continue
+        xe = x[t]
+        h = F.silu(xe @ params["wg"][e].to(dt)) * (xe @ params["wi"][e].to(dt))
+        o = ((h @ params["wo"][e].to(dt)) * w[t, j, None]).float()
+        want.index_add_(0, t, o)
+        mag.index_add_(0, t, o.abs())
+    diff = (y.reshape(-1, d).float() - want).abs()
+    lim = F32_TOL + BF16_RTOL * mag
+    if not bool((diff <= lim).all()):
+        fail(f"moe {cfg.arch_id}: output differs from the plain MoE by {float(diff.max())} "
+             f"(worst share of its limit {float((diff / lim).max()):.3g})")
+    return {"tokens": int(top_ids.shape[0]), "capacity": r.capacity,
+            "dropped_pairs": int((~keep).sum()), "out_max_err": float(diff.max()),
+            "top_ids": top_ids, "logits": logits}
+
+
+@contextlib.contextmanager
+def moe_checks(torch, moe):
+    """Within the block every MoE dispatch of the port's ``moe`` module is
+    held to :func:`check_moe_layer` as it runs; yields the list of the
+    layers' records."""
+    records, routes = [], []
+    real_route, real_dispatch = moe.route, moe._grouped_dispatch
+
+    def route(*args, **kw):
+        routes.append(real_route(*args, **kw))
+        return routes[-1]
+
+    def dispatch(params, flat, cfg):
+        y, aux = real_dispatch(params, flat, cfg)
+        records.append(check_moe_layer(torch, params, flat, cfg, routes.pop(), y))
+        return y, aux
+
+    moe.route, moe._grouped_dispatch = route, dispatch
+    try:
+        yield records
+    finally:
+        moe.route, moe._grouped_dispatch = real_route, real_dispatch
+
+
+def routing_flips(own, ids, logits, recorded, k: int) -> tuple:
+    """Tokens whose top-k ids ``own`` (n, k), chosen from ``logits`` (n, E),
+    differ from the ``ids`` another run chose from its ``recorded`` logits
+    of the same inputs up to rounding: each must be a near-tie, two
+    neighbours among its k + 1 largest ``logits`` within twice the largest
+    move of that token's logits between the runs.  Returns (the count of
+    such tokens, the worst gap over twice the move)."""
+    moved = (own != ids).any(-1)
+    if not bool(moved.any()):
+        return 0, 0.0
+    delta = (logits[moved] - recorded[moved]).abs().amax(-1)
+    top = logits[moved].sort(-1, descending=True).values[:, :k + 1]
+    ratio = (top[:, :-1] - top[:, 1:]).amin(-1) / (2 * delta)
+    if not bool((ratio <= 1).all()):
+        fail(f"moe routing: a token's choice moved without a near-tie (gap over twice the "
+             f"logits' move {float(ratio.max())})")
+    return int(moved.sum()), float(ratio.max())
+
+
+@contextlib.contextmanager
+def forced_routing(moe, records: list):
+    """Within the block the port's ``moe`` module routes each successive
+    dispatch to the top-k ids of the next of ``records`` (another run's
+    :func:`moe_checks` records, in its order), its weights the softmax of
+    this run's own logits at those ids: a route's forward replays another
+    route's choices, so the two differ by rounding alone.  Each dispatch's
+    own choice is held to the recorded one by :func:`routing_flips`, layer
+    by layer, so a flip cannot carry into later layers; yields the counts
+    (tokens, flipped tokens, the worst near-tie)."""
+    real, forced = moe.top_k, list(records)
+    stats = {"tokens": 0, "flipped_tokens": 0, "worst_gap_over_2delta": 0.0}
+
+    def top_k(x, k):
+        rec = forced.pop(0)
+        ids = rec["top_ids"].reshape(x.shape[:-1] + (k,)).to(x.device)
+        own = real(x, k)[1]
+        flips, worst = routing_flips(own.reshape(-1, k), ids.reshape(-1, k),
+                                     x.reshape(-1, x.shape[-1]), rec["logits"].to(x.device), k)
+        stats["tokens"] += rec["tokens"]
+        stats["flipped_tokens"] += flips
+        stats["worst_gap_over_2delta"] = max(stats["worst_gap_over_2delta"], worst)
+        return x.gather(-1, ids), ids
+
+    moe.top_k = top_k
+    try:
+        yield stats
+    finally:
+        moe.top_k = real
+    if forced:
+        fail(f"forced routing: {len(forced)} recorded dispatches left over")
+
+
+def _moe_summary(records: list) -> dict:
+    return {"layers": len(records), "dropped_pairs": sum(r["dropped_pairs"] for r in records),
+            "capacity": sorted({r["capacity"] for r in records}),
+            "out_max_err": max((r["out_max_err"] for r in records), default=0.0)}
+
+
+def family_cfg(run: dict, smoke: bool = False):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if smoke else get_config)(run["arch"]).replace(use_pallas=True)
+    return cfg.replace(n_layers=run["layers"]) if run["layers"] and not smoke else cfg
+
+
+def family_run(torch, counters, run: dict, device: str = "cuda", smoke: bool = False) -> dict:
+    """Phase 19 for one model of :data:`FAMILY_RUNS` on ``device``: init
+    (peak memory), the forward with kernels (exact launches, every flash
+    call on the bf16 route, the MoE layers held to their plain versions),
+    the plain forward replaying the kernel route's MoE routing (no launch,
+    logits within the bf16 limit, its own choices moved only at near-ties),
+    prefill against the forward, decode steps against plain decode
+    attention, and ``serve_pool``; the counters zeroed just before each run
+    and read just after.  With ``smoke`` the smoke config runs (the CPU
+    tests)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, get_model, moe, stub_inputs, transformer
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = family_cfg(run, smoke)
+    pcfg = cfg.replace(use_pallas=False)
+    api, plain = get_model(cfg), get_model(pcfg)
+    arch, seq = run["arch"], run["seq"]
+    out, launches = {"config": dict(run) | {"n_layers": cfg.n_layers}}, {}
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    def counted(path, fn):
+        sync()
+        zero_counters(counters)
+        t0 = time.time()
+        res = fn()
+        sync()
+        wall = time.time() - t0
+        launches[path] = {c.__name__: c.launches for c in counters}
+        return res, wall
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = api.init(FAMILY_SERVE["seed"], device)
+    sync()
+    out |= {"init_s": time.time() - t0, "init_peak_mem_bytes": peak(),
+            "param_bytes": sum(t.numel() * t.element_size() for t in _leaves(params))}
+    gen = torch.Generator(device=device).manual_seed(1)
+    text = seq - (cfg.n_vis_tokens if cfg.family == "vlm" else 0)
+    toks = torch.randint(1, cfg.vocab_size, (1, text), device=device, generator=gen)
+    batch = {"tokens": toks} | stub_inputs(cfg, 1, device, gen)
+
+    # the forward with kernels (each MoE layer held to its plain versions as
+    # it runs), again (timed warm), then the plain route with the MoE routed
+    # as the kernel route was (a routing that differs across the routes
+    # moves a token's logits by O(1), so the bf16 limit holds the routes to
+    # each other under one routing; each layer's own choice may move only at
+    # a near-tie)
+    with moe_checks(torch, moe) as kern_moe:
+        (logits, _), walls = counted("forward", lambda: api.forward(params, batch, cfg))
+    if on_card:
+        check_launches(f"{arch} forward", launches["forward"],
+                       family_launches(cfg, "forward", seq))
+        if launches["forward"]["flash_attention"]:
+            check_flash_routes(f"forward {arch}", launches["forward"], route_counts(counters))
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{arch} forward: logits not finite")
+    _, wall2 = counted("forward again", lambda: api.forward(params, batch, cfg))
+    del launches["forward again"]
+    out |= {"forward_s_first": walls, "forward_s": wall2, "forward_tokens_per_s": seq / wall2,
+            "forward_peak_mem_bytes": peak(), "logits_shape": list(logits.shape)}
+    with forced_routing(moe, kern_moe) as flips:
+        (want, _), plain_s = counted("plain forward",
+                                     lambda: plain.forward(params, batch, pcfg))
+    if cfg.family == "moe":
+        out["moe"] = _moe_summary(kern_moe) | {"across_routes": flips}
+    if any(launches["plain forward"].values()):
+        fail(f"{arch} plain forward launched {launches['plain forward']}")
+    close = _logits_close(logits, want, cfg.dtype)
+    if not close["ok"]:
+        fail(f"{arch} forward with kernels against the plain route: {close}"
+             + (f"; moe {out['moe']}" if "moe" in out else ""))
+    out |= {"plain_forward_s": plain_s, "vs_plain": close,
+            "plain_equal_bitwise": bool(torch.equal(logits, want))}
+    del want, kern_moe
+
+    # decode steps from one state, against plain decode attention
+    state = None
+    if run["prefill"]:
+        (plog, state), pre_s = counted("prefill", lambda: transformer.prefill(
+            params, toks, cfg, prefix_embeds=batch.get("patch_embeds")))
+        if on_card:
+            check_launches(f"{arch} prefill", launches["prefill"],
+                           family_launches(cfg, "prefill"))
+        pclose = _logits_close(plog, logits[:, -1:], cfg.dtype)
+        if not pclose["ok"]:
+            fail(f"{arch} prefill: last logits against the forward's: {pclose}")
+        out |= {"prefill_s": pre_s, "prefill_vs_forward": pclose,
+                "prefill_peak_mem_bytes": peak(), "cache_capacity": int(state.caches.k.shape[2])}
+        start = plog
+    elif cfg.family == "encdec":
+        with torch.inference_mode():
+            enc = encdec.encode(params, batch["frames"], cfg)
+        k, v = encdec.precompute_cross(params, enc, cfg)
+        state = api.init_decode_state(1, run["capacity"], device)._replace(cross_k=k,
+                                                                            cross_v=v)
+        start = logits[:, -1:]
+        del enc
+    if state is not None:
+        dec, worst = decode_after_prefill(torch, api, params, state, start, cfg, counters,
+                                          FAMILY_DECODE_STEPS, sync,
+                                          moe if cfg.family == "moe" else None)
+        if on_card:
+            check_launches(f"{arch} decode", dec,
+                           family_launches(cfg, "decode", calls=FAMILY_DECODE_STEPS))
+        launches["decode"] = dec
+        out["decode_vs_plain"] = worst
+        del state, start
+    del logits
+
+    # serving at B = 4: every request done, decode attention once per layer
+    # per decode call
+    if run["capacity"]:
+        serve_cfg = FAMILY_SERVE | {"capacity": run["capacity"]}
+        with config_cut(serve, cfg):
+            served, _ = counted("serve", lambda: serve.serve_pool(
+                arch=arch, smoke=smoke, device=device, params=params, **serve_cfg))
+        if not served["all_done"]:
+            fail(f"{arch} serve: not every request finished: {served}")
+        if on_card:
+            check_launches(f"{arch} serve", launches["serve"], family_launches(
+                cfg, "decode", calls=decode_calls(**serve_cfg)))
+        out["serve"] = served | {"config": serve_cfg, "decode_calls": decode_calls(**serve_cfg),
+                                 "peak_mem_bytes": peak()}
+    out["launches"] = launches
+    out["peak_mem_bytes"] = peak()
+    del params
+    return out
+
+
+FAMILY_SMOKE_TRAIN = dict(steps=1, batch=2, seq=64, base_lr=1e-3, warmup=1, total_steps=10)
+
+
+def family_smoke_inputs(torch, arch: str, seq: int = FAMILY_SMOKE_SEQ) -> dict:
+    """The smoke config of ``arch`` in float32 with kernels, its seeded
+    weights on the cpu, two rows of tokens (the forward reads the first,
+    ``seq`` positions with the VLM's prefix; xLSTM at most
+    :data:`FAMILY_SMOKE_SEQ_NO_KERNEL`) and the stub inputs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model, stub_inputs
+
+    cfg = get_smoke_config(arch).replace(dtype="float32", use_pallas=True)
+    params = get_model(cfg).init(7, "cpu")
+    gen = torch.Generator().manual_seed(8)
+    if cfg.family == "xlstm":
+        seq = min(seq, FAMILY_SMOKE_SEQ_NO_KERNEL)
+    text = seq - (cfg.n_vis_tokens if cfg.family == "vlm" else 0)
+    toks = torch.randint(1, cfg.vocab_size, (2, text), generator=gen)
+    return {"params": params, "toks": toks,
+            "batch": {"tokens": toks[:1]} | stub_inputs(cfg, 1, "cpu", gen)}
+
+
+def family_smoke_run(torch, arch: str, inputs: dict, device) -> dict:
+    """The smoke checks' runs of ``arch`` on ``device`` from ``inputs``
+    (:func:`family_smoke_inputs`' form): the forward's logits and each MoE
+    layer's top-k ids, the logits of 4 decode steps (a row for each row of
+    the tokens, capacity 16), one train step's loss (:func:`train_steps`,
+    from weights seeded alike)."""
+    from repro_torch.models import get_model, moe
+
+    cfg = family_cfg({"arch": arch, "layers": None}, smoke=True).replace(dtype="float32")
+    api = get_model(cfg)
+    params, toks = _to(inputs["params"], device), inputs["toks"].to(device)
+    with moe_checks(torch, moe) as routed:
+        logits, _ = api.forward(params, _to(inputs["batch"], device), cfg)
+    state, steps = api.init_decode_state(toks.shape[0], 16, device), []
+    for t in range(FAMILY_SMOKE_DECODE):
+        step, state = api.decode(params, state, toks[:, t:t + 1])
+        steps.append(step.cpu())
+    loss = train_steps(torch, cfg.replace(use_pallas=False), device, **FAMILY_SMOKE_TRAIN)[0][0]
+    return {"forward": logits.cpu(), "top_ids": [r["top_ids"].cpu() for r in routed],
+            "decode": steps, "loss": loss}
+
+
+def smoke_cpu_refs(torch, path_in, path_out) -> None:
+    """The child side of :func:`cpu_refs_in_child`: :func:`family_smoke_run`
+    on the cpu for each arch of the inputs saved at ``path_in``, saved at
+    ``path_out``."""
+    inputs = torch.load(path_in)
+    torch.save({arch: family_smoke_run(torch, arch, ins, "cpu") for arch, ins in inputs.items()},
+               path_out)
+
+
+def cpu_refs_in_child(torch, inputs: dict, work: pathlib.Path) -> dict:
+    """:func:`family_smoke_run` on the cpu for each arch of ``inputs`` (any
+    arch, in :func:`family_smoke_inputs`' form), in a child process whose
+    MKL keeps its conditional numerical reproducibility
+    (``MKL_CBWR=COMPATIBLE``, read when MKL starts): otherwise MKL's float32
+    products may round by the alignment of their buffers (ROADMAP.md
+    Queue 3).  ``work`` holds the exchanged files while the child runs."""
+    import os
+    import shutil
+
+    work.mkdir(parents=True, exist_ok=True)
+    path_in, path_out = work / "inputs.pt", work / "refs.pt"
+    torch.save(inputs, path_in)
+    env = dict(os.environ, MKL_CBWR="COMPATIBLE", PYTHONPATH=str(SRC))
+    child = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                            "--smoke-cpu-refs", str(path_in), str(path_out)],
+                           env=env, capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        fail(f"smoke cpu references: the child process failed: {child.stderr[-2000:]}")
+    refs = torch.load(path_out)
+    shutil.rmtree(work, ignore_errors=True)
+    return refs
+
+
+def family_smoke_phase(torch, archs, device: str = "cuda", seq: int = FAMILY_SMOKE_SEQ,
+                       work: pathlib.Path = REPO / "build" / "chip_smoke" / "smoke_refs") -> dict:
+    """Each smoke config of ``archs`` in float32 from the same seeded
+    weights on the cpu (plain versions, in a child process with
+    ``MKL_CBWR=COMPATIBLE``, :func:`cpu_refs_in_child`) and on ``device``
+    (kernels): the forward at ``seq`` positions within atol 1e-4 with every
+    MoE layer's routing ``==``, 4 decode steps within atol 1e-4, one train
+    step's loss within atol 1e-4 (``tests/test_torch_model.py``,
+    ``tests/test_torch_train.py``).
+    The same cpu forward in this process is reported beside it (not gated):
+    whether it parts from the child's, the lead of ROADMAP.md Queue 3."""
+    from repro_torch.models import get_model
+
+    inputs = {arch: family_smoke_inputs(torch, arch, seq) for arch in archs}
+    refs, out = cpu_refs_in_child(torch, inputs, work), {}
+    for arch in archs:
+        got, want = family_smoke_run(torch, arch, inputs[arch], device), refs[arch]
+        cfg = family_cfg({"arch": arch, "layers": None}, smoke=True).replace(dtype="float32")
+        res = {"forward": _logits_close(got["forward"], want["forward"], "float32")}
+        if not res["forward"]["ok"]:
+            api = get_model(cfg)
+            res["forward"]["diagnosis"] = diagnose_forward(
+                torch, api, cfg, inputs[arch]["params"], _to(inputs[arch]["params"], device),
+                inputs[arch]["toks"][:1], got["forward"], want["forward"],
+                extras={k: v for k, v in inputs[arch]["batch"].items() if k != "tokens"})
+        here, _ = get_model(cfg).forward(inputs[arch]["params"], inputs[arch]["batch"], cfg)
+        res["forward_in_process"] = {
+            "vs_card": _logits_close(got["forward"], here, "float32")["max_err"],
+            "vs_child": float((here - want["forward"]).abs().max())}
+        if len(got["top_ids"]) != len(want["top_ids"]) or not all(
+                torch.equal(a, b) for a, b in zip(got["top_ids"], want["top_ids"])):
+            fail(f"{arch} smoke cpu vs {device}: the MoE routing differs")
+        res["moe_layers_equal"] = len(want["top_ids"])
+        steps = [_logits_close(g, w, "float32") for g, w in zip(got["decode"], want["decode"])]
+        res["decode"] = {"max_err": max(x["max_err"] for x in steps),
+                         "ok": all(x["ok"] for x in steps)}
+        loss_err = abs(got["loss"] - want["loss"])
+        res["train"] = {"loss_err": loss_err, "ok": loss_err <= TRAIN_LOSS_TOL}
+        for part in ("forward", "decode", "train"):
+            if not res[part]["ok"]:
+                fail(f"{arch} smoke cpu vs {device} (float32): {part} {res[part]}")
+        out[arch] = res
+    return out
+
+
+def family_kernel_rows(torch, gen, kernels: list) -> None:
+    """The kernel shapes phase 19's models launch that no earlier phase
+    times, each against its plain version and the library call, added to the
+    kernel rows as sub-rows under the model's name: flash attention at head
+    dim 128 (mixtral-8x7b under its window at S = 8192, internvl2-26b G = 6,
+    arctic-480b G = 7), decode attention at the serve runs' live slots
+    (mixtral G = 4, internvl2 G = 6, whisper-large-v3 hd 64, G = 1), RMSNorm
+    at 4096 rows of mixtral's, internvl2's and arctic's widths."""
+    from repro_torch.configs import get_config
+
+    rows = {k["name"]: k for k in kernels}
+    last = FAMILY_SERVE["prompt_len"] + FAMILY_SERVE["max_new"] - 1
+    capacity = {run["arch"]: run["capacity"] for run in FAMILY_RUNS}
+    for arch, S in (("mixtral-8x7b", 8192), ("internvl2-26b", FWD_S), ("arctic-480b", FWD_S)):
+        c = get_config(arch)
+        row = check_flash(torch, gen, c.n_heads, c.n_kv_heads, c.head_dim, c.sliding_window, S)
+        rows["flash_attention"].setdefault("families", {})[arch] = _sub_row(row)
+        torch.cuda.empty_cache()
+    for arch in ("mixtral-8x7b", "internvl2-26b", "whisper-large-v3"):
+        c = get_config(arch)
+        row = check_decode(torch, gen, arch, c.n_heads, c.n_kv_heads, c.head_dim,
+                           c.sliding_window, C=capacity[arch], last_pos=last,
+                           kinds=("serve_live",))
+        rows["decode_attention"].setdefault("families", {})[arch] = _sub_row(row)
+        torch.cuda.empty_cache()
+    for arch in ("mixtral-8x7b", "internvl2-26b", "arctic-480b"):
+        c = get_config(arch)
+        d = c.d_model
+        xs = (torch.randn((cold_ring(2 * 2 * FWD_S * d), FWD_S, d), generator=gen,
+                          device="cuda") * 0.5).to(torch.bfloat16)
+        sc = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda") * 0.5
+        rows["rmsnorm"].setdefault("families", {})[arch] = _sub_row(
+            check_rmsnorm(torch, xs, sc, c.norm_eps))
+        del xs
+        torch.cuda.empty_cache()
+
+
+def families_phase(torch, counters, card, kernels=None, gen=None, device: str = "cuda",
+                   runs=FAMILY_RUNS, smoke: bool = False,
+                   smoke_seq: int = FAMILY_SMOKE_SEQ) -> dict:
+    """Phase 19 on ``device``: the new kernel shapes timed (``kernels``'s
+    sub-rows, on the card), each model of ``runs`` (:func:`family_run`),
+    freed before the next, then the smoke configs cpu against ``device``."""
+    import gc
+
+    on_card = torch.device(device).type == "cuda"
+    out, by_path = {"card": card, "models": {}}, {}
+    if kernels is not None:
+        t0 = time.time()
+        family_kernel_rows(torch, gen, kernels)
+        out["kernels_s"] = time.time() - t0
+        for k in kernels:
+            for arch, w in k.get("families", {}).items():
+                lib = "n/a" if w["library_ms"] is None else f"{w['library_ms']:.4f} ms"
+                say(f"phase families: {k['name']} {arch} {w['shape']}: {w['ms']:.4f} ms device "
+                    f"(host {w['host_us']:.1f} us), plain {w['plain_ms']:.4f} ms, bound "
+                    f"{w['bound_ms']:.4f} ms by {w['bound_by']}, library {lib}; max abs err "
+                    f"{w['max_abs_err']:.3g}; {card}")
+    for run in runs:
+        t0 = time.time()
+        res = family_run(torch, counters, run, device, smoke)
+        res["phase_s"] = time.time() - t0
+        out["models"][run["arch"]] = res
+        for path, counts in res["launches"].items():
+            by_path[f"{run['arch']} {path}"] = counts
+        served = res.get("serve", {})
+        say(f"phase families: {run['arch']} {res['config']['n_layers']} layers S={run['seq']}: "
+            f"init {res['init_s']:.1f} s (peak {res['init_peak_mem_bytes']} B, params "
+            f"{res['param_bytes']} B); forward {res['forward_s']:.3f} s "
+            f"({res['forward_tokens_per_s']:.0f} tokens/s; first {res['forward_s_first']:.3f} "
+            f"s), plain {res['plain_forward_s']:.3f} s, vs plain {res['vs_plain']}"
+            + (f"; moe {res['moe']}" if "moe" in res else "")
+            + (f"; prefill {res['prefill_s']:.3f} s vs forward {res['prefill_vs_forward']}"
+               if "prefill_s" in res else "")
+            + (f"; {FAMILY_DECODE_STEPS} decode steps vs plain {res['decode_vs_plain']}"
+               if "decode_vs_plain" in res else "")
+            + (f"; serve {served['tokens_generated']} tokens in {served['decode_steps']} steps, "
+               f"{served['wall_s']:.3f} s ({served['tokens_per_s']:.2f} tokens/s)" if served
+               else "")
+            + f"; peak {res['peak_mem_bytes']} B; launches "
+            f"{ {p: {k: n for k, n in c.items() if n} for p, c in res['launches'].items()} }; "
+            f"{card}")
+        del res
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    t0 = time.time()
+    out["smoke_cpu_vs_card"] = family_smoke_phase(torch, [r["arch"] for r in runs], device,
+                                                  smoke_seq)
+    out["smoke_cpu_vs_card_s"] = time.time() - t0
+    for arch, res in out["smoke_cpu_vs_card"].items():
+        say(f"phase families: {arch} smoke float32 cpu (a child with MKL_CBWR=COMPATIBLE) "
+            f"vs {device}: {res}")
+    out["by_path"] = by_path
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
                     help="also write every measured number to this file")
+    ap.add_argument("--smoke-cpu-refs", nargs=2, type=pathlib.Path, default=None,
+                    metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.smoke_cpu_refs is not None:     # phase 19's cpu side, in its own process
+        import torch
+
+        sys.path.insert(0, str(SRC))
+        smoke_cpu_refs(torch, *args.smoke_cpu_refs)
+        return
     try:
         import torch
     except ImportError:
@@ -2476,6 +3129,18 @@ def main() -> None:
     report["train"]["phase_s"] = time.time() - t0
     by_path[f"{ARCH} train"] = report["train"]["launches"]
     torch.cuda.empty_cache()
+
+    # 19. the MoE, VLM, enc-dec and xLSTM families at full width (depth cut
+    # where the weights would not fit): the new kernel shapes timed, then
+    # each model's forward with kernels against the plain route, prefill,
+    # decode against plain decode attention and serving, each run's counters
+    # zeroed just before and read just after; then the smoke configs cpu
+    # against the card
+    t0 = time.time()
+    report["families"] = families_phase(torch, counters, card, kernels, gen)
+    report["families"]["phase_s"] = time.time() - t0
+    by_path.update(report["families"].pop("by_path"))
+    say(f"phase families: {report['families']['phase_s']:.1f} s")
 
     launches = {}
     for counts in by_path.values():

@@ -2,8 +2,8 @@
 config modules (pure data).
 
 ``get_config(arch_id)`` / ``get_smoke_config(arch_id)`` return ModelConfigs
-for every arch id; :func:`repro_torch.models.get_model` builds only the
-families the port has.
+for every arch id, and :func:`repro_torch.models.get_model` builds each of
+them.
 """
 
 from __future__ import annotations

@@ -5,9 +5,11 @@ A request pool feeds a fixed-width decode batch; finished sequences free
 their slot for the next request.  A new request's prompt is fed token by
 token through full-batch decode steps (prefill-as-decode), exactly as the
 reference does, so the other slots' caches advance on those steps too.  The
-loop is model-agnostic: any family that :func:`repro_torch.models.get_model`
-takes runs through it (the dense qwen3-4b, and the hybrid zamba2-7b, whose
-decode state holds the Mamba states beside the KV caches).
+loop is model-agnostic: every family that :func:`repro_torch.models.get_model`
+takes runs through it (the decode state holds KV caches, Mamba states,
+xLSTM memories, or an enc-dec model's self caches beside its cross K/V).
+As in the reference, an enc-dec model is served without running its
+encoder: its cross K/V stay the decode state's zeros.
 
 With ``pods > 0`` the result carries the placement of the served model over
 that many pods (:func:`plan_serving`, the planner portfolio); with
@@ -119,8 +121,7 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
     digest.  Planning and replanning score splits on ``device``.  With
     ``params=None`` the parameters are drawn from a ``torch.Generator``
     seeded with ``seed``; otherwise ``params`` (e.g. from the
-    ``params_from_numpy`` of :mod:`repro_torch.models.transformer` or
-    :mod:`repro_torch.models.hybrid`) are used.  The
+    ``params_from_numpy`` of the family's module) are used.  The
     prompts come from ``np.random.default_rng(seed)`` as in the reference."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -246,7 +247,9 @@ def serve_pool(arch: str = "qwen3-4b", smoke: bool = True, n_requests: int = 16,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
-                    help="a ported family's arch id: qwen3-4b (dense) or zamba2-7b (hybrid)")
+                    help="any of the ten arch ids, e.g. qwen3-4b (dense), zamba2-7b "
+                         "(hybrid), mixtral-8x7b or arctic-480b (moe), internvl2-26b "
+                         "(vlm), whisper-large-v3 (encdec), xlstm-350m (xlstm)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)

@@ -1,16 +1,22 @@
 """Where the serving path's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve_profile [--arch ARCH] --out <file.json>
+    PYTHONPATH=src python -m repro_torch.launch.serve_profile [--arch ARCH] \
+        [--layers L] [--seq S] --out <file.json>
 
-One ported model at full width (``--arch``: qwen3-4b, the default, or
-zamba2-7b; random weights from seed 0), kernels on, the shapes of
-``chip_smoke.py``'s serving phases:
+One model at full width (``--arch``: any of the ten, qwen3-4b the default;
+``--layers`` cuts its depth where its weights would not fit the card,
+chip_smoke.py's phase 19 cuts being mixtral-8x7b 8 and arctic-480b 2;
+random weights from seed 0), kernels on, the shapes of ``chip_smoke.py``'s
+serving phases:
 
   1. decode: a batch of 4 against a cache of 1024 slots; 64 warm-up steps,
      then 32 steps timed by the host clock (each step as ``serve_pool`` runs
      it: ``decode`` and the logits copied to the host), then 8 steps under
      ``torch.profiler``;
-  2. forward: B = 1, S = 4096; one warm-up call, one timed, one profiled.
+  2. forward: B = 1 at ``--seq`` positions (4096; the VLM's patch
+     embeddings count, the enc-dec model's 1,500 frames do not), the stub
+     frontends' inputs ``normal * 0.02``; one warm-up call, one timed, one
+     profiled.
 
 For each profiled window: the wall time, the device time summed over every
 kernel (one stream, so no overlap) and its share of the wall, the kernels
@@ -32,7 +38,7 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_config
-from ..models import get_model
+from ..models import get_model, stub_inputs
 
 BATCH, CAPACITY, WARM_STEPS, TIMED_STEPS, PROFILED_STEPS = 4, 1024, 64, 32, 8
 FWD_S = 4096
@@ -67,20 +73,23 @@ def _breakdown(prof, wall: float) -> dict:
     }
 
 
-def profile(arch: str = "qwen3-4b") -> dict:
+def profile(arch: str = "qwen3-4b", layers: int = None, seq: int = FWD_S) -> dict:
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     cfg = get_config(arch).replace(use_pallas=True)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     api = get_model(cfg)
     params = api.init(0, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {"card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None,
            "torch": torch.__version__,
-           "config": {"arch": arch, "batch": BATCH, "capacity": CAPACITY,
-                      "warm_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
-                      "profiled_steps": PROFILED_STEPS, "forward_S": FWD_S}}
+           "config": {"arch": arch, "layers": cfg.n_layers, "batch": BATCH,
+                      "capacity": CAPACITY, "warm_steps": WARM_STEPS,
+                      "timed_steps": TIMED_STEPS, "profiled_steps": PROFILED_STEPS,
+                      "forward_S": seq}}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
     state = api.init_decode_state(BATCH, CAPACITY, dev)
@@ -109,8 +118,9 @@ def profile(arch: str = "qwen3-4b") -> dict:
     out["decode"] = _breakdown(prof, wall)
     del state
 
-    tokens = torch.randint(1, cfg.vocab_size, (1, FWD_S), device=dev, generator=gen)
-    batch = {"tokens": tokens}
+    text = seq - (cfg.n_vis_tokens if cfg.family == "vlm" else 0)
+    tokens = torch.randint(1, cfg.vocab_size, (1, text), device=dev, generator=gen)
+    batch = {"tokens": tokens} | stub_inputs(cfg, 1, dev, gen)
     for timed in (False, True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -129,11 +139,13 @@ def profile(arch: str = "qwen3-4b") -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b",
-                    help="a ported family's arch id: qwen3-4b (dense) or zamba2-7b (hybrid)")
+    ap.add_argument("--arch", default="qwen3-4b", help="any of the ten arch ids")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers (default: its full depth)")
+    ap.add_argument("--seq", type=int, default=FWD_S, help="forward positions")
     ap.add_argument("--out", type=pathlib.Path, required=True)
     args = ap.parse_args()
-    res = profile(args.arch)
+    res = profile(args.arch, args.layers, args.seq)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))
     print(json.dumps(res, indent=1))

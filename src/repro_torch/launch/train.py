@@ -11,7 +11,10 @@ reference's ``launch/train.py``).
 The model trains as the reference's does: float32 master weights, plain
 autograd through the plain versions of the kernels (``use_pallas`` off),
 each block recomputed in the backward pass (``cfg.remat``), blocked
-attention above S = 2048.
+attention above S = 2048, the MoE load-balance loss at weight 0.01, and
+``cfg.accum_steps`` microbatches per step.  The VLM family reads zero patch
+embeddings and the enc-dec family zero frames, as in the reference (both
+frontends are stubs).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from .. import resolve_device
 from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..data import SyntheticLMDataset
-from ..models import get_model
+from ..models import get_model, stub_inputs
 from ..models.train import init_optimizer, make_train_step
 
 __all__ = ["build", "main", "train_loop"]
@@ -74,6 +77,7 @@ def train_loop(arch: str = "qwen3-4b", smoke: bool = True, steps: int = 100,
     step_times = []
     for step in range(start_step, steps):
         batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
+        batch_dev |= stub_inputs(cfg, batch, dev)
         params, opt_state, metrics = train_step(params, opt_state, batch_dev)
         loss = float(metrics["loss"])
         losses.append(loss)

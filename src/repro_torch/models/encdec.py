@@ -1,0 +1,230 @@
+"""Whisper-style encoder-decoder backbone (the port of the reference's
+``models/encdec.py``).  The conv/audio frontend is a stub, as in the
+reference: the forward reads precomputed frame embeddings (B, enc_seq,
+d_model).
+
+Encoder: bidirectional self-attention blocks over the frames.  Decoder:
+causal self-attention, cross-attention to the encoder output, GELU MLP.
+LayerNorm with bias (:func:`.layers.layer_norm`) and GELU, as Whisper; the
+self-attention takes rotary positions, as the reference does (not Whisper's
+learned positions), and the cross-attention none.
+
+Parameters are nested dicts of tensors in the reference's layout, the
+encoder's and the decoder's blocks each stacked on a leading axis; matrices
+are cast to the compute dtype once at load for serving, or kept in the
+parameter dtype for training (``master=True``), as in
+:mod:`.transformer`.  No RMSNorm here, and neither attention reaches the
+flash kernel: the encoder's 1,500 frames are no whole number of 512-blocks
+and the decoder's 448 positions are too few (``attention``'s gate, as the
+reference's).  Decode takes the decode-attention kernel for the
+self-attention and plain attention over the state's static cross K/V.
+
+The reference's decode state starts with zero cross K/V and its serving
+loop never runs :func:`encode`, so a served request attends to zeros; the
+port mirrors that.  :func:`precompute_cross` gives a state's cross K/V from
+an encoder output.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import resolve_device
+from .attention import (KVCache, _out_proj, _proj, attention, decode_attention_step,
+                        init_attention, plain_attention)
+from .common import ModelConfig
+from . import layers
+from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp,
+                     layer_norm, mlp, unembed)
+from .transformer import _maybe_remat
+
+__all__ = ["EncDecState", "decode_step", "encode", "forward", "init_decode_state",
+           "init_params", "params_from_numpy", "precompute_cross", "train_forward"]
+
+_STACKED_AXES = {"enc": 1, "dec": 1}
+
+
+def _cast_matrices(tree, cfg: ModelConfig):
+    return cast_matrices(tree, cfg.torch_dtype, _STACKED_AXES)
+
+
+def _init_ln(d, pdt, dev, lead=()):
+    return {"scale": torch.ones(lead + (d,), dtype=pdt, device=dev),
+            "bias": torch.zeros(lead + (d,), dtype=pdt, device=dev)}
+
+
+def _ln(x, p, cfg):
+    return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _init_enc_block(gen, cfg: ModelConfig, lead: tuple) -> dict:
+    d, pdt, dev = cfg.d_model, cfg.torch_param_dtype, gen.device
+    return {
+        "ln1": _init_ln(d, pdt, dev, lead),
+        "attn": init_attention(gen, cfg, lead=lead),
+        "ln2": _init_ln(d, pdt, dev, lead),
+        "mlp": init_mlp(gen, cfg, lead=lead),
+    }
+
+
+def _init_dec_block(gen, cfg: ModelConfig, lead: tuple) -> dict:
+    d, pdt, dev = cfg.d_model, cfg.torch_param_dtype, gen.device
+    return {
+        "ln1": _init_ln(d, pdt, dev, lead),
+        "self_attn": init_attention(gen, cfg, lead=lead),
+        "ln2": _init_ln(d, pdt, dev, lead),
+        "cross_attn": init_attention(gen, cfg, lead=lead),
+        "ln3": _init_ln(d, pdt, dev, lead),
+        "mlp": init_mlp(gen, cfg, lead=lead),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, master: bool = False) -> dict:
+    """Random parameters with the reference's distributions, drawn from
+    ``gen`` on ``gen.device``, one block at a time, each cast before the
+    next is drawn; with ``master`` nothing is cast (training)."""
+    cast = (lambda tree: tree) if master else (lambda tree: _cast_matrices(tree, cfg))
+    d, pdt, dev = cfg.d_model, cfg.torch_param_dtype, gen.device
+    tree = cast({"embed": init_embed(gen, cfg), "ln_enc": _init_ln(d, pdt, dev),
+                 "ln_f": _init_ln(d, pdt, dev)})
+    for name, n, block in (("enc", cfg.n_enc_layers, _init_enc_block),
+                           ("dec", cfg.n_layers, _init_dec_block)):
+        tree[name] = draw_stacked(n, lambda: block(gen, cfg, (1,)),
+                                  lambda one: cast({name: one})[name])
+    return tree
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
+                      master: bool = False) -> dict:
+    """:func:`layers.params_from_numpy` with this family's cast."""
+    return layers.params_from_numpy(tree, cfg, _cast_matrices, device, master)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _enc_block(lp, x, cfg, positions):
+    h = _ln(x, lp["ln1"], cfg)
+    x = x + attention(lp["attn"], h, cfg, positions=positions, causal=False)
+    h = _ln(x, lp["ln2"], cfg)
+    return x + mlp(lp["mlp"], h, cfg)
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, enc_seq, d) stub embeddings -> encoder output."""
+    x = frames.to(cfg.torch_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    block = _maybe_remat(lambda lp, x: _enc_block(lp, x, cfg, positions), cfg)
+    for i in range(cfg.n_enc_layers):
+        x = block(index_tree(params["enc"], i), x)
+    return _ln(x, params["ln_enc"], cfg)
+
+
+def _dec_block(lp, x, enc_out, cfg, positions):
+    h = _ln(x, lp["ln1"], cfg)
+    x = x + attention(lp["self_attn"], h, cfg, positions=positions, causal=True)
+    h = _ln(x, lp["ln2"], cfg)
+    x = x + attention(lp["cross_attn"], h, cfg, positions=positions, causal=False,
+                      kv_x=enc_out, rope=False)
+    h = _ln(x, lp["ln3"], cfg)
+    return x + mlp(lp["mlp"], h, cfg)
+
+
+def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  frames: torch.Tensor = None) -> tuple:
+    """Returns (logits, aux_loss = 0), differentiable in ``params``.
+    tokens: (B, S) decoder tokens; frames: (B, enc_seq, d) stub embeddings."""
+    enc_out = encode(params, frames, cfg)
+    x = embed(params["embed"], tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    block = _maybe_remat(lambda lp, x, enc_out: _dec_block(lp, x, enc_out, cfg, positions),
+                         cfg)
+    for i in range(cfg.n_layers):
+        x = block(index_tree(params["dec"], i), x, enc_out)
+    x = _ln(x, params["ln_f"], cfg)
+    return (unembed(params["embed"], x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            frames: torch.Tensor = None) -> tuple:
+    """:func:`train_forward` under ``torch.inference_mode``."""
+    with torch.inference_mode():
+        return train_forward(params, tokens, cfg, frames)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+class EncDecState(NamedTuple):
+    self_caches: KVCache     # (L, B, C, K, hd)
+    cross_k: torch.Tensor    # (L, B, T, K, hd): static after encode
+    cross_v: torch.Tensor
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, capacity: int,
+                      device=None) -> EncDecState:
+    """Fresh decode state on ``device`` (``None`` means cuda): empty self
+    caches and zero cross K/V, as the reference's."""
+    dev = resolve_device(device)
+    L, K, hd, dt = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype
+    kv = (L, batch, capacity, K, hd)
+    cross = (L, batch, cfg.enc_seq, K, hd)
+    return EncDecState(
+        self_caches=KVCache(
+            k=torch.zeros(kv, dtype=dt, device=dev),
+            v=torch.zeros(kv, dtype=dt, device=dev),
+            pos=torch.zeros((L, batch), dtype=torch.int32, device=dev),
+            positions=torch.full((L, batch, capacity), -1, dtype=torch.int32, device=dev),
+        ),
+        cross_k=torch.zeros(cross, dtype=dt, device=dev),
+        cross_v=torch.zeros(cross, dtype=dt, device=dev),
+    )
+
+
+def precompute_cross(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """Per-layer cross K/V (L, B, T, K, hd) from the encoder output."""
+    with torch.inference_mode():
+        dt = enc_out.dtype
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            ca = params["dec"]["cross_attn"]
+            ks.append(_proj(enc_out, ca["wk"][i].to(dt)))
+            vs.append(_proj(enc_out, ca["wv"][i].to(dt)))
+        return torch.stack(ks), torch.stack(vs)
+
+
+def decode_step(params: dict, state: EncDecState, token: torch.Tensor,
+                cfg: ModelConfig) -> tuple:
+    """One decoding step: token (B, 1) -> (logits (B,1,V), state).  The self
+    caches are updated in place; the returned state holds the same tensors."""
+    c = state.self_caches
+    with torch.inference_mode():
+        x = embed(params["embed"], token, cfg)
+        for i in range(cfg.n_layers):
+            lp = index_tree(params["dec"], i)
+            h = _ln(x, lp["ln1"], cfg)
+            h, new = decode_attention_step(lp["self_attn"], h,
+                                           KVCache(c.k[i], c.v[i], c.pos[i], c.positions[i]),
+                                           cfg)
+            c.pos[i] = new.pos
+            x = x + h
+            h = _ln(x, lp["ln2"], cfg)
+            # cross attention against the static K/V
+            ca = lp["cross_attn"]
+            q = _proj(h, ca["wq"].to(h.dtype))
+            out = plain_attention(q, state.cross_k[i], state.cross_v[i], causal=False,
+                                  window=None)
+            x = x + _out_proj(out, ca["wo"].to(h.dtype))
+            h = _ln(x, lp["ln3"], cfg)
+            x = x + mlp(lp["mlp"], h, cfg)
+        x = _ln(x, params["ln_f"], cfg)
+        return unembed(params["embed"], x, cfg), state

@@ -39,8 +39,9 @@ import torch
 from .. import resolve_device
 from .attention import KVCache, attention, decode_attention_step, init_attention
 from .common import ModelConfig
-from .layers import (cast_matrices, embed, init_embed, init_mlp, mlp, rms_norm,
-                     tree_from_numpy, unembed)
+from . import layers
+from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp, mlp,
+                     rms_norm, unembed)
 from .ssm import (MambaState, init_mamba2, mamba2_decode_step, mamba2_forward,
                   ssm_dims)
 from .transformer import _maybe_remat
@@ -90,30 +91,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, master: bool = False) ->
         "ln_f": torch.ones((d,), dtype=pdt, device=dev),
     }
     tree = cast(tree)
-    mamba = None
-    for i in range(ng):
-        grp = cast({"mamba_groups": init_mamba2(gen, cfg, lead=(1, g))})["mamba_groups"]
-        if mamba is None:
-            mamba = {k: torch.empty((ng,) + v.shape[1:], dtype=v.dtype, device=dev)
-                     for k, v in grp.items()}
-        for k, v in grp.items():
-            mamba[k][i].copy_(v[0])
-        del grp
-    tree["mamba_groups"] = mamba
+    tree["mamba_groups"] = draw_stacked(
+        ng, lambda: init_mamba2(gen, cfg, lead=(1, g)),
+        lambda grp: cast({"mamba_groups": grp})["mamba_groups"])
     return tree
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
                       master: bool = False) -> dict:
-    """The port's parameters from the reference's parameter tree given as
-    nested dicts of numpy arrays, on ``device`` (``None`` means cuda); with
-    ``master`` the uncast tree in the parameter dtype (training)."""
-    tree = tree_from_numpy(tree, cfg.torch_param_dtype, resolve_device(device))
-    return tree if master else _cast_matrices(tree, cfg)
-
-
-def _layer(params: dict, i: int, j: int) -> dict:
-    return {k: v[i, j] for k, v in params["mamba_groups"].items()}
+    """:func:`layers.params_from_numpy` with this family's cast."""
+    return layers.params_from_numpy(tree, cfg, _cast_matrices, device, master)
 
 
 def _layer_mask(cfg: ModelConfig, device, dtype) -> torch.Tensor:
@@ -136,7 +123,7 @@ def _group_forward(shared, params, i, mask, x, cfg, positions):
     x = x + mlp(shared["mlp"], h, cfg)
     for j in range(mask.shape[1]):
         h = rms_norm(x, params["mamba_ln"][i, j], cfg.norm_eps)
-        h = mamba2_forward(_layer(params, i, j), h, cfg)
+        h = mamba2_forward(index_tree(params["mamba_groups"], i, j), h, cfg)
         x = x + mask[i, j] * h
     return x
 
@@ -216,7 +203,7 @@ def decode_step(params: dict, state: HybridState, token: torch.Tensor,
             x = x + mlp(shared["mlp"], h, cfg)
             for j in range(g):
                 h = rms_norm(x, params["mamba_ln"][i, j], cfg.norm_eps)
-                h, _ = mamba2_decode_step(_layer(params, i, j), h,
+                h, _ = mamba2_decode_step(index_tree(params["mamba_groups"], i, j), h,
                                           MambaState(ms.conv[i, j], ms.ssm[i, j]), cfg)
                 x = x + mask[i, j] * h
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)

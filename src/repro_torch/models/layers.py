@@ -12,11 +12,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
+from ..optim.tree import tree_leaves, tree_map
 from .common import ModelConfig
 
-__all__ = ["apply_rope", "cast_matrices", "dense_init", "embed", "embed_init",
-           "init_embed", "init_mlp", "mlp", "rms_norm", "rope_freqs", "tree_from_numpy",
-           "unembed"]
+__all__ = ["apply_rope", "cast_matrices", "dense_init", "draw_stacked", "embed",
+           "embed_init", "index_tree", "init_embed", "init_mlp", "layer_norm", "mlp",
+           "params_from_numpy", "rms_norm", "rope_freqs", "tree_from_numpy", "unembed"]
 
 
 # ---------------------------------------------------------------------------
@@ -52,12 +54,59 @@ def cast_matrices(tree, dtype, stacked_axes: dict, keep=frozenset()):
     return walk(tree, 0, "")
 
 
+def draw_stacked(n: int, draw, cast=lambda tree: tree):
+    """A tree of weights stacked on a leading axis of ``n`` (at least 1),
+    drawn one entry at a time: ``draw()`` returns one entry's tree, each
+    leaf with a leading axis of 1, and ``cast`` its stored form.  Each entry
+    is cast before the next is drawn, so the transient in the parameter
+    dtype is one entry's; the entries are then joined one weight at a time,
+    each weight's parts freed as soon as it is joined, so the peak is the
+    stored tree plus its largest stacked weight (a preallocated stack beside
+    a whole drawn entry would not fit arctic-480b's two layers of bf16
+    experts, 26.8 GB each, on one 80 GB card)."""
+    entries, skeleton = [], None
+    for _ in range(n):
+        one = cast(draw())
+        if skeleton is None:
+            skeleton = tree_map(lambda v: 0, one)
+        entries.append(tree_leaves(one))
+        del one
+    joined = []
+    for j in range(len(entries[0])):
+        joined.append(torch.cat([e[j] for e in entries], dim=0))
+        for e in entries:
+            e[j] = None
+    leaves = iter(joined)
+    return tree_map(lambda _: next(leaves), skeleton)
+
+
 def tree_from_numpy(tree, dtype, device):
     """Nested dicts of numpy arrays as tensors of ``dtype`` on ``device``."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
-    # a copy: the caller's arrays may be read-only views of its buffers
-    return torch.from_numpy(np.array(tree)).to(device=device, dtype=dtype)
+    # a copy: the caller's arrays may be read-only views of its buffers;
+    # numpy has no bfloat16 of its own (a JAX bf16 array converts to
+    # ml_dtypes' type, which torch does not read), and float32 holds it exactly
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, cast, device=None,
+                      master: bool = False) -> dict:
+    """A family's parameters from the reference's parameter tree given as
+    nested dicts of numpy arrays, on ``device`` (``None`` means cuda), cast
+    to their stored form by the family's ``cast(tree, cfg)``; with
+    ``master`` the uncast tree in the parameter dtype (training)."""
+    tree = tree_from_numpy(tree, cfg.torch_param_dtype, resolve_device(device))
+    return tree if master else cast(tree, cfg)
+
+
+def index_tree(tree: dict, *idx) -> dict:
+    """Every leaf of nested dicts indexed at ``idx`` on its leading axes
+    (one layer of a stacked tree)."""
+    return {k: index_tree(v, *idx) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -69,15 +118,30 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
     """Two formulas, as in the reference.  With ``use_pallas`` the fused
     kernel's: ``x * rsqrt(var + eps) * scale`` in float32, rounded once.
     Without: ``x * rsqrt(var + eps)`` rounded to x's type first, then
-    multiplied by the scale in x's type."""
+    multiplied by the scale in x's type.  The kernel takes a float32 scale;
+    a bfloat16 one (arctic-480b's parameters) is widened first, exactly, as
+    the TPU kernel widens it inside."""
     if use_pallas:
         from ..kernels import ops as kops
 
-        return kops.rmsnorm(x, scale, eps=eps)
+        return kops.rmsnorm(x, scale.float(), eps=eps)
     dt = x.dtype
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """The reference's formula: statistics in float32, the normalized value
+    rounded to x's type, then scale and bias applied in x's type (not
+    ``F.layer_norm``, which applies them in float32 and rounds once)."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * scale.to(dt) + bias.to(dt)
 
 
 # ---------------------------------------------------------------------------

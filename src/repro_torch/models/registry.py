@@ -8,10 +8,13 @@
   - decode(params, state, token) -> (logits, state)       [serve_step core]
   - workload(shape) -> repro_torch.core.Workload          [planner integration]
 
-The dense family goes to :mod:`.transformer`, the ``ssm`` and ``hybrid``
-families to :mod:`.hybrid` (as in the reference); the others are not ported
-yet and raise ``NotImplementedError``.  :func:`lm_workload` (layers as
-pipeline stages, analytic FLOPs) covers all ten architectures: it reads only
+As in the reference, the dense, MoE and VLM families go to
+:mod:`.transformer` (the VLM forward reads ``batch["patch_embeds"]`` as its
+prefix), ``ssm`` and ``hybrid`` to :mod:`.hybrid`, ``xlstm`` to
+:mod:`.xlstm` and ``encdec`` to :mod:`.encdec` (its forward reads
+``batch["frames"]``).  Each of those modules has its ``params_from_numpy``
+(the reference's parameter tree, as numpy arrays, to the port's).
+:func:`lm_workload` (layers as pipeline stages, analytic FLOPs) reads only
 the config.  The reference's ``input_specs`` (``jax.ShapeDtypeStruct``
 stand-ins for its dry run) waits for the dry run's port (ROADMAP.md Queue 1
 item 5).
@@ -27,10 +30,10 @@ import torch
 
 from .. import resolve_device
 from ..core.workload import Workload
-from . import hybrid, transformer
+from . import encdec, hybrid, transformer, xlstm
 from .common import ModelConfig, ShapeSpec
 
-__all__ = ["ModelAPI", "get_model", "layer_flops", "lm_workload"]
+__all__ = ["ModelAPI", "get_model", "layer_flops", "lm_workload", "stub_inputs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,21 +53,49 @@ def _init(module, cfg: ModelConfig, seed: int, device=None, master: bool = False
     return module.init_params(gen, cfg, master)
 
 
-_MODULES = {"dense": transformer, "ssm": hybrid, "hybrid": hybrid}
+def _no_extras(batch: dict) -> dict:
+    return {}
+
+
+def stub_inputs(cfg: ModelConfig, batch: int, device, gen: torch.Generator = None) -> dict:
+    """The stub frontends' inputs a family's forward reads besides its
+    tokens: the VLM's patch embeddings (B, n_vis_tokens, d), the enc-dec
+    model's frames (B, enc_seq, d); zeros (the reference's training loop),
+    or ``normal * 0.02`` drawn from ``gen`` (its smoke tests)."""
+    name, rows = {"vlm": ("patch_embeds", cfg.n_vis_tokens),
+                  "encdec": ("frames", cfg.enc_seq)}.get(cfg.family, (None, 0))
+    if name is None:
+        return {}
+    shape = (batch, rows, cfg.d_model)
+    if gen is None:
+        return {name: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+    x = torch.randn(shape, generator=gen, device=device) * 0.02
+    return {name: x.to(cfg.torch_dtype)}
+
+
+# family -> (module, the forward's keyword arguments read from the batch)
+_FAMILIES = {
+    "dense": (transformer, _no_extras),
+    "moe": (transformer, _no_extras),
+    "vlm": (transformer, lambda batch: {"prefix_embeds": batch["patch_embeds"]}),
+    "ssm": (hybrid, _no_extras),
+    "hybrid": (hybrid, _no_extras),
+    "xlstm": (xlstm, _no_extras),
+    "encdec": (encdec, lambda batch: {"frames": batch["frames"]}),
+}
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    module = _MODULES.get(cfg.family)
-    if module is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: {', '.join(sorted(_MODULES))}); "
-            "see ROADMAP.md Queue 1")
+    if cfg.family not in _FAMILIES:
+        raise KeyError(f"unknown family {cfg.family}")
+    module, extras = _FAMILIES[cfg.family]
     return ModelAPI(
         cfg=cfg,
         init=lambda seed, device=None, master=False: _init(module, cfg, seed, device, master),
-        forward=lambda params, batch, c: module.forward(params, batch["tokens"], c),
-        train_forward=lambda params, batch, c: module.train_forward(params, batch["tokens"],
-                                                                    c),
+        forward=lambda params, batch, c: module.forward(params, batch["tokens"], c,
+                                                        **extras(batch)),
+        train_forward=lambda params, batch, c: module.train_forward(
+            params, batch["tokens"], c, **extras(batch)),
         init_decode_state=lambda b, cap, device=None: module.init_decode_state(
             cfg, b, cap, device),
         decode=lambda p, st, tok: module.decode_step(p, st, tok, cfg),

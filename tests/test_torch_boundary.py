@@ -28,7 +28,7 @@ from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.launch import first_forward_probe, rounding_probe
 from repro_torch.launch.serve import plan_serving, serve_pool
 from repro_torch.launch.train import train_loop
-from repro_torch.models import get_model, hybrid, ssm, transformer
+from repro_torch.models import encdec, get_model, hybrid, ssm, transformer, xlstm
 from repro_torch.models.transformer import init_decode_state, params_from_numpy
 from repro_torch.pipeline import StragglerMonitor, elastic_replan, replan_stages
 from repro_torch.sim import (experiments, failure_thresholds, paper_sim, run_campaign,
@@ -36,6 +36,9 @@ from repro_torch.sim import (experiments, failure_thresholds, paper_sim, run_cam
 
 _QWEN = get_smoke_config("qwen3-4b")
 _ZAMBA = get_smoke_config("zamba2-7b")
+_MIXTRAL = get_smoke_config("mixtral-8x7b")
+_WHISPER = get_smoke_config("whisper-large-v3")
+_XLSTM = get_smoke_config("xlstm-350m")
 _WL = core.make_workload([3.0, 1.0, 4.0, 1.0, 5.0], [1.0, 2.0, 3.0, 2.0, 1.0, 1.0])
 _PF = core.make_platform([2.0, 5.0, 3.0], 10.0)
 _PLAN = core.StagePlan(core.Mapping(((1, 5),), (1,)), 1.0, 1.0, "single", (5,), 5, 0.0)
@@ -223,6 +226,24 @@ def _no_cuda(monkeypatch):
     lambda: train_loop(steps=1, batch=1, seq=8),
     lambda: train_loop(arch="zamba2-7b", steps=1, batch=1, seq=8),
     lambda: ShardedLoader(SyntheticLMDataset(16, 8, 1)),
+    lambda: get_model(_MIXTRAL).init(0),
+    lambda: get_model(get_smoke_config("internvl2-26b")).init(0),
+    lambda: get_model(_WHISPER).init(0),
+    lambda: get_model(_XLSTM).init(0, master=True),
+    lambda: init_decode_state(_MIXTRAL, 1, 4),
+    lambda: encdec.init_decode_state(_WHISPER, 1, 4),
+    lambda: xlstm.init_decode_state(_XLSTM, 1),
+    lambda: xlstm.init_mlstm_state(_XLSTM, 1),
+    lambda: xlstm.init_slstm_state(_XLSTM, 1),
+    lambda: params_from_numpy({"ln_f": np.ones(4)}, _MIXTRAL),
+    lambda: encdec.params_from_numpy({"ln_f": np.ones(4)}, _WHISPER),
+    lambda: xlstm.params_from_numpy({"ln_f": np.ones(4)}, _XLSTM, master=True),
+    lambda: serve_pool(arch="mixtral-8x7b", n_requests=1, batch=1, prompt_len=2, max_new=1),
+    lambda: serve_pool(arch="whisper-large-v3", n_requests=1, batch=1, prompt_len=2,
+                       max_new=1),
+    lambda: serve_pool(arch="xlstm-350m", n_requests=1, batch=1, prompt_len=2, max_new=1),
+    lambda: train_loop(arch="internvl2-26b", steps=1, batch=1, seq=8),
+    lambda: train_loop(arch="arctic-480b", steps=1, batch=1, seq=8),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -239,7 +260,11 @@ def _no_cuda(monkeypatch):
         "ReplanService", "ReplanService-fused", "subprocess_supervisor",
         "SubprocessWorker", "worker_main", "plan_serving", "serve_pool-replan", "prefill",
         "model_init-master", "params_from_numpy-master", "train_loop", "train_loop-hybrid",
-        "ShardedLoader"])
+        "ShardedLoader", "moe_init", "vlm_init", "encdec_init", "xlstm_init-master",
+        "moe_init_decode_state", "encdec_init_decode_state", "xlstm_init_decode_state",
+        "init_mlstm_state", "init_slstm_state", "moe_params_from_numpy",
+        "encdec_params_from_numpy", "xlstm_params_from_numpy-master", "serve_pool-moe",
+        "serve_pool-encdec", "serve_pool-xlstm", "train_loop-vlm", "train_loop-moe"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -365,7 +365,8 @@ def test_serve_pool_matches_reference(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What the slice did not take, and what the port still does not
+# What the slice did not take (every family is ported now:
+# tests/test_torch_families.py)
 # ---------------------------------------------------------------------------
 
 def test_blocked_attention_branch_is_not_ported():
@@ -382,12 +383,6 @@ def test_blocked_attention_branch_is_not_ported():
     got = attention(attn, torch.from_numpy(x), cfg)
     want = jax.jit(lambda p, x: j_attention(p, x, jcfg))(jattn, jnp.asarray(x))
     _close(got, want, _tol("float32"))
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m", "internvl2-26b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(get_smoke_config(arch))
 
 
 def test_serve_pool_pods_and_replan_raise():

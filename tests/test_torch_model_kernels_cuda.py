@@ -328,13 +328,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_smoke_model_on_card_matches_cpu(cuda_device, dtype):
+def test_smoke_model_on_card_matches_cpu(cuda_device, dtype, tmp_path):
     """The smoke qwen3-4b with kernels on the card against the same model
     with plain versions on the CPU: a forward that takes the flash kernel
     (S = 1536) and 6 decode steps.  float32 logits within 1e-4 (summation
     order only); bfloat16 within the reference's model criterion.
 
-    The float32 reference is the plain CPU forward.  Where
+    The float32 reference is the plain CPU forward, run in a child process
+    with ``MKL_CBWR=COMPATIBLE`` (``chip_smoke.cpu_refs_in_child``).  Where
     ``REPRO_TORCH_FORWARD_RECORD`` names a file, the CPU forward instead runs
     twice with every op recorded (``first_forward_probe.recorded_cpu_forwards``),
     in this process after the tests before it: the first is held to the
@@ -354,6 +355,13 @@ def test_smoke_model_on_card_matches_cpu(cuda_device, dtype):
         want, _, rec = first_forward_probe.recorded_cpu_forwards(api, params, toks, cfg, got)
         with open(record, "a") as f:
             f.write(json.dumps(rec) + "\n")
+    elif dtype == "float32":
+        sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+        import chip_smoke
+
+        inputs = {"params": params, "toks": toks, "batch": {"tokens": toks}}
+        want = chip_smoke.cpu_refs_in_child(torch, {"qwen3-4b": inputs}, tmp_path)
+        want, rec = want["qwen3-4b"]["forward"], None
     else:
         want, _ = api.forward(params, {"tokens": toks}, cfg)
         rec = None
@@ -632,3 +640,24 @@ def _update_rel_err(got, want, init) -> float:
     if isinstance(got, dict):
         return max(_update_rel_err(got[k], want[k], init[k]) for k in got)
     return float((got.double() - want.double()).norm() / (want.double() - init.double()).norm())
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "arctic-480b", "internvl2-26b",
+                                  "whisper-large-v3", "xlstm-350m"])
+def test_smoke_family_on_card_matches_cpu(cuda_device, arch, tmp_path):
+    """The smoke config of each family ported last in float32, the same
+    weights on the cpu (plain versions, in a child process with
+    ``MKL_CBWR=COMPATIBLE``) and the card (kernels): a forward at S = 1536
+    within atol 1e-4 with every MoE layer's routing ``==`` (and held to
+    chip_smoke's plain routing and plain MoE on each device), 4 decode steps
+    within atol 1e-4, one train step's loss within atol 1e-4 (chip_smoke.py
+    phase 19's last check)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    try:
+        res = chip_smoke.family_smoke_phase(torch, [arch], str(cuda_device),
+                                            work=tmp_path / "refs")[arch]
+    except SystemExit:
+        pytest.fail(f"{arch}: the smoke config parts card from cpu (stderr has the reading)")
+    assert res["forward"]["ok"] and res["decode"]["ok"] and res["train"]["ok"]
