@@ -6,9 +6,9 @@
 Drives the port's paths on the card and checks them: the Section-5
 campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
 full width, the planner API and its reliability extensions, the fleet
-replanning service, serving's planner hooks with prefill, training, and the
-MoE, VLM, enc-dec and xLSTM families (``repro_torch``), in nineteen phases;
-any failure exits non-zero:
+replanning service, serving's planner hooks with prefill, training, the
+MoE, VLM, enc-dec and xLSTM families, and the planner's stage plan run as a
+pipeline (``repro_torch``), in twenty phases; any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -209,9 +209,27 @@ any failure exits non-zero:
               config in float32, cpu against cuda: forward at S = 1536
               (routing ``==``), 4 decode steps, one train step's loss, within
               atol 1e-4.
+ 20. pipeline — ``plan`` of qwen3-4b at full width (36 layers, B = 4, S =
+              2048) over 4 pods, pod 2 twice as fast (``tpu_pod_platform(4,
+              degraded={2: 0.5})``), by the auto portfolio on cuda with the
+              split-score counters zeroed just before and read just after:
+              (15, 7, 7, 7) on pods (2, 0, 1, 3), the reference's plan; the
+              serving-loaded bf16 weights packed into the pods' stacks
+              (``make_stage_params``), every pod on the one card through a
+              mesh naming it four times; ``sequential_loss_fn``'s loss and
+              gradients, then ``pipelined_loss_fn``'s with M = 4 microbatches
+              of 1 (cold, warm; no kernel launch): loss within 2e-3, every
+              real layer's slot, the embedding and the final norm within 1e-2
+              by relative norm, every masked slot's gradient 0; the kernel
+              pass under ``inference_mode`` with kernels: exactly 288 RMSNorm
+              and 144 flash launches (bf16 route), its loss within 1e-2 of
+              the plain pass's; wall times, peak memory and each pod's summed
+              stage device time (CUDA events); then the smoke config in
+              float32 (B = 4, S = 256, M = 4), cpu in a child process against
+              cuda: the plan equal, loss and every gradient within atol 1e-4.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-19;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-20;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -555,7 +573,8 @@ SSD_ATOL, SSD_RTOL = 2e-5, 1e-4
 
 def _within(torch, got, want):
     """(every element within the tolerance of its dtype, max abs error)."""
-    torch.cuda.synchronize()
+    if got.is_cuda:
+        torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"shape/dtype {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
     diff = (got.float() - want.float()).abs()
@@ -2625,9 +2644,12 @@ def smoke_cpu_refs(torch, path_in, path_out) -> None:
                path_out)
 
 
-def cpu_refs_in_child(torch, inputs: dict, work: pathlib.Path) -> dict:
+def cpu_refs_in_child(torch, inputs: dict, work: pathlib.Path,
+                      option: str = "--smoke-cpu-refs") -> dict:
     """:func:`family_smoke_run` on the cpu for each arch of ``inputs`` (any
-    arch, in :func:`family_smoke_inputs`' form), in a child process whose
+    arch, in :func:`family_smoke_inputs`' form), or with ``option``
+    ``--pipeline-cpu-ref`` :func:`pipeline_smoke_run` of the inputs of
+    :func:`pipeline_smoke_inputs`, in a child process whose
     MKL keeps its conditional numerical reproducibility
     (``MKL_CBWR=COMPATIBLE``, read when MKL starts): otherwise MKL's float32
     products may round by the alignment of their buffers (ROADMAP.md
@@ -2640,7 +2662,7 @@ def cpu_refs_in_child(torch, inputs: dict, work: pathlib.Path) -> dict:
     torch.save(inputs, path_in)
     env = dict(os.environ, MKL_CBWR="COMPATIBLE", PYTHONPATH=str(SRC))
     child = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
-                            "--smoke-cpu-refs", str(path_in), str(path_out)],
+                            option, str(path_in), str(path_out)],
                            env=env, capture_output=True, text=True, timeout=600)
     if child.returncode != 0:
         fail(f"smoke cpu references: the child process failed: {child.stderr[-2000:]}")
@@ -2791,18 +2813,444 @@ def families_phase(torch, counters, card, kernels=None, gen=None, device: str = 
     return out
 
 
+# phase 20: the planner's stage plan run as a pipeline.  qwen3-4b at full
+# width, all 36 layers, bf16 weights loaded as serving loads them (the phase
+# takes gradients but runs no optimizer step), B = 4 sequences of 2,048 in
+# M = 4 microbatches of 1.  The plan: the auto portfolio over the pod
+# platform of 4 pods with pod 2 twice as fast (``tpu_pod_platform(4,
+# degraded={2: 0.5})``), which the reference plans as (15, 7, 7, 7) on pods
+# (2, 0, 1, 3); every pod on the one card (a mesh of 4 stage slots naming it)
+PIPELINE = {"arch": "qwen3-4b", "smoke": False, "batch": 4, "seq": 2048, "microbatches": 4,
+            "pods": 4, "degraded": {2: 0.5}, "seed": 7}
+PIPELINE_PLAN = ((15, 7, 7, 7), (2, 0, 1, 3))
+# the pipelined loss against the sequential one: the reference's bound
+# (tests/test_pipeline_runtime.py:86); gradients of each layer's slot, of the
+# embedding and of the final norm by relative norm (a microbatch's bf16
+# products round apart from the whole batch's in the last bits); the kernel
+# pass's loss against the plain pass's (besides, each microbatch's logits by
+# :func:`_logits_close` and every kernel call against its plain version on
+# its own inputs by :func:`_within`)
+PIPELINE_LOSS_TOL, PIPELINE_GRAD_RTOL, PIPELINE_KERNEL_TOL = 2e-3, 1e-2, 1e-2
+# the smoke config in float32, cpu against the card: the loss and every
+# gradient within atol 1e-4
+PIPELINE_SMOKE = {"batch": 4, "seq": 256, "microbatches": 4}
+PIPELINE_SMOKE_TOL = 1e-4
+
+
+def pipeline_plan(core, cfg, run: dict, device):
+    """The auto portfolio's period plan of ``cfg`` at the run's batch and
+    length over its pod platform, scored on ``device``."""
+    from repro_torch.models import lm_workload
+    from repro_torch.models.common import ShapeSpec
+
+    wl = lm_workload(cfg, ShapeSpec("pipeline", "train", run["seq"], run["batch"]))
+    pf = core.tpu_pod_platform(run["pods"], degraded=run["degraded"])
+    return core.plan(wl, pf, core.Objective("period"), mode="auto", device=device)
+
+
+def check_pipeline_plan(pl, want) -> None:
+    got = (tuple(pl.stage_sizes), tuple(pl.mapping.alloc))
+    if got != (tuple(want[0]), tuple(want[1])):
+        fail(f"pipeline plan: stages {got[0]} on pods {got[1]}, expected {tuple(want[0])} on "
+             f"pods {tuple(want[1])}")
+
+
+def pipeline_launches(cfg, microbatches: int, seq: int) -> dict:
+    """The kernels the pipeline's kernel pass launches: in every live layer
+    step RMSNorm before attention and before the FFN, and flash attention
+    where its gate passes; the final norm keeps the plain formula, as the
+    reference's (``repro/pipeline/runtime.py:140``) does."""
+    steps = cfg.n_layers * microbatches
+    return dict.fromkeys(KERNEL_NAMES, 0) | {
+        "rmsnorm": 2 * steps, "flash_attention": steps if flash_gate(seq, seq) else 0}
+
+
+def _paths(tree, prefix: str = "") -> dict:
+    """The leaves of nested dicts by '/'-joined key path."""
+    if isinstance(tree, dict):
+        return {k: v for name in sorted(tree)
+                for k, v in _paths(tree[name], f"{prefix}{name}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def pipeline_grads(torch, loss_fn, params, batch) -> tuple:
+    """(loss, {path: gradient}) of ``loss_fn(params, batch)`` with respect
+    to every leaf of ``params`` (zeros where a leaf does not reach it)."""
+    flat = _paths(params)
+    leaves = list(flat.values())
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss.detach()), dict(zip(flat, grads))
+
+
+def _rel(torch, got: list, want: list) -> float:
+    num = sum(float(((g.float() - w.float()) ** 2).sum()) for g, w in zip(got, want))
+    den = sum(float((w.float() ** 2).sum()) for w in want)
+    return math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf)
+
+
+def check_pipeline_grads(torch, loss, grads, seq_loss, seq_grads, pl, mask) -> dict:
+    """The pipelined loss and gradients against the sequential ones: the
+    loss within :data:`PIPELINE_LOSS_TOL`; each real layer's slot (its
+    leaves together), the embedding and the final norm within
+    :data:`PIPELINE_GRAD_RTOL` by relative norm; every masked slot's
+    gradient (the padding, an unenrolled pod's whole stack) exactly 0."""
+    names = sorted(k.removeprefix("stages/") for k in grads if k.startswith("stages/"))
+    starts = [0]
+    for size in pl.stage_sizes[:-1]:
+        starts.append(starts[-1] + size)
+    slots = {}
+    for j, (start, size) in enumerate(zip(starts, pl.stage_sizes)):
+        pod = pl.mapping.alloc[j]
+        for k in range(size):
+            slots[f"layer {start + k} (pod {pod} slot {k})"] = _rel(
+                torch, [grads[f"stages/{n}"][pod, k] for n in names],
+                [seq_grads[f"layers/{n}"][start + k] for n in names])
+    head = {k: _rel(torch, [grads[k]], [seq_grads[k]]) for k in grads
+            if not k.startswith("stages/")}
+    dead = ~mask
+    nonzero = [n for n in names if grads[f"stages/{n}"][dead.to(grads[f"stages/{n}"].device)].any()]
+    out = {"loss": loss, "seq_loss": seq_loss, "loss_err": abs(loss - seq_loss),
+           "worst_slot": max(slots.items(), key=lambda kv: kv[1]), "head": head,
+           "masked_slots": int(dead.sum()), "masked_nonzero": nonzero}
+    if out["loss_err"] > PIPELINE_LOSS_TOL:
+        fail(f"pipeline: loss {loss} against the sequential {seq_loss} (limit "
+             f"{PIPELINE_LOSS_TOL})")
+    if out["worst_slot"][1] > PIPELINE_GRAD_RTOL or max(head.values()) > PIPELINE_GRAD_RTOL:
+        fail(f"pipeline: gradients against the sequential ones: worst slot "
+             f"{out['worst_slot']}, head {head} (limit {PIPELINE_GRAD_RTOL})")
+    if nonzero:
+        fail(f"pipeline: masked slots carry a gradient in {nonzero}")
+    return out
+
+
+def pipeline_smoke_inputs(torch, arch: str, smoke: dict = PIPELINE_SMOKE) -> dict:
+    """The smoke config of ``arch`` in float32: seeded master weights on the
+    cpu and a batch of ``smoke``'s shape."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    gen = torch.Generator().manual_seed(9)
+    B, S = smoke["batch"], smoke["seq"]
+    return {"arch": arch, "params": get_model(cfg).init(7, "cpu", master=True),
+            "tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen),
+            "labels": torch.randint(0, cfg.vocab_size, (B, S), generator=gen)} | smoke
+
+
+def pipeline_smoke_run(torch, inputs: dict, device) -> dict:
+    """The smoke pipeline of ``inputs`` (:func:`pipeline_smoke_inputs`) on
+    ``device``: its plan (scored on ``device``), loss and gradients."""
+    from repro_torch import core
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.pipeline import runtime
+
+    cfg = get_smoke_config(inputs["arch"]).replace(dtype="float32")
+    run = dict(PIPELINE, batch=inputs["batch"], seq=inputs["seq"])
+    pl = pipeline_plan(core, cfg, run, device)
+    params = _to(inputs["params"], device, copy=True)
+    stages, mask = runtime.make_stage_params(params["layers"], pl, run["pods"])
+    lf = runtime.pipelined_loss_fn(cfg, pl, inputs["microbatches"], mask)
+    loss, grads = pipeline_grads(
+        torch, lf, {"embed": params["embed"], "stages": stages, "ln_f": params["ln_f"]},
+        {k: inputs[k].to(device) for k in ("tokens", "labels")})
+    return {"plan": [list(pl.stage_sizes), list(pl.mapping.alloc)], "loss": loss,
+            "grads": {k: g.cpu() for k, g in grads.items()}}
+
+
+def pipeline_cpu_ref(torch, path_in, path_out) -> None:
+    """The child side of the smoke comparison: :func:`pipeline_smoke_run` on
+    the cpu for the inputs saved at ``path_in``, saved at ``path_out``."""
+    torch.save(pipeline_smoke_run(torch, torch.load(path_in), "cpu"), path_out)
+
+
+def pipeline_order(pl, microbatches: int) -> list:
+    """The pod of each live stage step in the executor's order (tick, then
+    chain position): at tick ``t`` the pod at chain position ``j`` runs
+    microbatch ``t - j``."""
+    from repro_torch.pipeline.schedule import gpipe_ticks
+
+    m = pl.num_stages
+    return [pl.mapping.alloc[j] for t in range(gpipe_ticks(m, microbatches)) for j in range(m)
+            if 0 <= t - j < microbatches]
+
+
+@contextlib.contextmanager
+def pipeline_recording(torch, events=None, logits=None, kernel_calls=None):
+    """Watches the pipelined loss from outside the runtime while open: a
+    (start, end) CUDA event pair around each stage body
+    (``runtime._stage_fn``) appended to ``events``; each microbatch's logits
+    (``runtime.unembed``) appended to ``logits``; every flash attention and
+    RMSNorm call held to its plain version on the same inputs
+    (:func:`_within`), (name, max abs err, within) appended to
+    ``kernel_calls``."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pipeline import runtime
+
+    stage, head, flash, rms = runtime._stage_fn, runtime.unembed, ops.flash_attention, ops.rmsnorm
+
+    def stage_rec(*a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = stage(*a)
+        end.record()
+        events.append((start, end))
+        return y
+
+    def head_rec(*a):
+        y = head(*a)
+        logits.append(y)
+        return y
+
+    def check(name, got, want):
+        ok, err = _within(torch, got, want)
+        kernel_calls.append((name, err, ok))
+        return got
+
+    def flash_rec(q, k, v, **kw):
+        return check("flash_attention", flash(q, k, v, **kw),
+                     ref.flash_attention_ref(q, k, v, **kw))
+
+    def rms_rec(x, scale, *, eps):
+        return check("rmsnorm", rms(x, scale, eps=eps), ref.rmsnorm_ref(x, scale, eps=eps))
+
+    if events is not None:
+        runtime._stage_fn = stage_rec
+    if logits is not None:
+        runtime.unembed = head_rec
+    if kernel_calls is not None:
+        ops.flash_attention, ops.rmsnorm = flash_rec, rms_rec
+    try:
+        yield
+    finally:
+        runtime._stage_fn, runtime.unembed = stage, head
+        ops.flash_attention, ops.rmsnorm = flash, rms
+
+
+def pipeline_kernel_pass(torch, counters, cfg, pl, M: int, mask, mesh, params, batch,
+                         device) -> dict:
+    """The pipelined loss under ``inference_mode`` three times: with
+    ``use_pallas`` (counters zeroed just before and read just after: on the
+    card :func:`pipeline_launches` exactly, every flash call on the bf16
+    route); again with every flash attention and RMSNorm call held to its
+    plain version on its own inputs (as many calls of each as
+    :func:`pipeline_launches` counts); then with the plain versions: each
+    microbatch's logits held to the kernel pass's by :func:`_logits_close`'s
+    criterion and the loss within :data:`PIPELINE_KERNEL_TOL`.  On the card
+    each pod's stage bodies are timed by CUDA events in the first and the
+    last pass."""
+    from repro_torch.pipeline import runtime
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    kcfg = cfg.replace(use_pallas=True)
+    want = pipeline_launches(cfg, M, batch["tokens"].shape[1])
+    order = pipeline_order(pl, M)
+    out = {}
+
+    def timed(c, name, logits, counted=False):
+        events = [] if on_card else None
+        with pipeline_recording(torch, events=events, logits=logits):
+            sync()
+            if counted:
+                zero_counters(counters)
+            t0 = time.time()
+            loss = float(runtime.pipelined_loss_fn(c, pl, M, mask, mesh=mesh)(params, batch))
+            sync()
+            wall = time.time() - t0
+        ms = None
+        if on_card:
+            ms = dict.fromkeys(sorted(set(order)), 0.0)
+            for pod, (start, end) in zip(order, events):
+                ms[pod] += start.elapsed_time(end)
+        out[name] = {"loss": loss, "wall_s": wall, "stage_ms": ms}
+
+    with torch.inference_mode():
+        klogits, plogits, calls = [], [], []
+        timed(kcfg, "kernel", klogits, counted=True)
+        klaunches = {c.__name__: c.launches for c in counters}
+        routes = route_counts(counters)
+        with pipeline_recording(torch, kernel_calls=calls):
+            runtime.pipelined_loss_fn(kcfg, pl, M, mask, mesh=mesh)(params, batch)
+        timed(cfg, "plain", plogits)
+        close = [_logits_close(k, p, cfg.dtype) for k, p in zip(klogits, plogits)]
+        del klogits, plogits
+    if on_card:
+        check_launches("pipeline kernel pass", klaunches, want)
+        check_flash_routes("pipeline kernel pass", klaunches, routes)
+    checked = {name: [c for c in calls if c[0] == name] for name in ("flash_attention", "rmsnorm")}
+    out |= {"launches": klaunches, "routes": routes, "logits": close,
+            "checked_calls": {n: len(c) for n, c in checked.items()},
+            "kernel_vs_plain_max_err": {n: max((c[1] for c in cs), default=None)
+                                        for n, cs in checked.items()}}
+    if {n: len(c) for n, c in checked.items()} != {n: want[n] for n in checked}:
+        fail(f"pipeline kernel pass: kernel calls {out['checked_calls']}, expected "
+             f"{ {n: want[n] for n in checked} }")
+    bad = [c for c in calls if not c[2]]
+    if bad:
+        fail(f"pipeline kernel pass: {len(bad)} kernel calls differ from their plain versions "
+             f"on their own inputs, first {bad[:4]}")
+    if len(close) != M or not all(c["ok"] for c in close):
+        fail(f"pipeline kernel pass: logits against the plain pass's per microbatch {close}")
+    err = abs(out["kernel"]["loss"] - out["plain"]["loss"])
+    if not err <= PIPELINE_KERNEL_TOL:
+        fail(f"pipeline kernel pass: loss {out['kernel']['loss']} against the plain pass's "
+             f"{out['plain']['loss']} (limit {PIPELINE_KERNEL_TOL})")
+    return out
+
+
+def pipeline_phase(torch, counters, card, device: str = "cuda", run: dict = PIPELINE,
+                   want_plan=PIPELINE_PLAN, score_counters=(), smoke: dict = PIPELINE_SMOKE,
+                   work: pathlib.Path = REPO / "build" / "chip_smoke" / "pipeline_ref") -> dict:
+    """Phase 20 on ``device``: the plan of ``run``'s model over its pods
+    (``score_counters`` zeroed just before and read just after), ``==``
+    ``want_plan``; serving-loaded weights packed into the pods' stacks, all
+    pods on ``device`` through a mesh naming it once per pod; the
+    sequential loss and gradients, then the pipelined ones twice (cold,
+    warm; the model counters zeroed just before and read just after: no
+    launch), held to the sequential ones (:func:`check_pipeline_grads`);
+    the kernel pass (:func:`pipeline_kernel_pass`); then the
+    smoke config in float32, the cpu side in a child process with
+    ``MKL_CBWR=COMPATIBLE``: the plan ``==``, loss and gradients within
+    :data:`PIPELINE_SMOKE_TOL`."""
+    from repro_torch import core
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.pipeline import runtime
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = (get_smoke_config if run["smoke"] else get_config)(run["arch"])
+    M, B, S, P = run["microbatches"], run["batch"], run["seq"], run["pods"]
+    out, by_path = {"card": card, "config": dict(run)}, {}
+
+    # the plan, scored on the device
+    sync()
+    zero_counters(score_counters)
+    t0 = time.time()
+    pl = pipeline_plan(core, cfg, run, device)
+    sync()
+    by_path["pipeline plan"] = {SCORE_ROWS[c.__name__]: c.launches for c in score_counters}
+    out["plan"] = {"stage_sizes": list(pl.stage_sizes), "pods": list(pl.mapping.alloc),
+                   "planner": pl.planner, "period": pl.period, "latency": pl.latency,
+                   "max_stage_size": pl.max_stage_size,
+                   "padding_overhead": pl.padding_overhead, "wall_s": time.time() - t0,
+                   "launches": by_path["pipeline plan"]}
+    say(f"phase pipeline: {cfg.arch_id} {cfg.n_layers} layers B={B} S={S} over {P} pods "
+        f"(degraded {run['degraded']}): plan {pl.planner} stages {pl.stage_sizes} on pods "
+        f"{pl.mapping.alloc}, period {pl.period!r}, latency {pl.latency!r}, padding "
+        f"{pl.padding_overhead:.3f}; launches {by_path['pipeline plan']}; {card}")
+    check_pipeline_plan(pl, want_plan)
+
+    # serving's weights, packed; a mesh of P stage slots on the one device
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = get_model(cfg).init(run["seed"], device)
+    stages, mask = runtime.make_stage_params(params["layers"], pl, P)
+    gen = torch.Generator(device=device).manual_seed(run["seed"] + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), device=device, generator=gen)
+             for k in ("tokens", "labels")}
+    mesh = make_mesh((P,), ("stage",), devices=[device] * P)
+
+    # the sequential reference first; then the unpacked layers go
+    sync()
+    t0 = time.time()
+    seq_loss, seq_grads = pipeline_grads(torch, runtime.sequential_loss_fn(cfg), params, batch)
+    sync()
+    out["sequential_s"] = time.time() - t0
+    pipe_params = {"embed": params["embed"], "stages": stages, "ln_f": params["ln_f"]}
+    del params
+    lf = runtime.pipelined_loss_fn(cfg, pl, M, mask, mesh=mesh)
+    walls, grads = [], None
+    zero_counters(counters)
+    for _ in range(2):          # cold, then warm
+        grads = None
+        sync()
+        t0 = time.time()
+        loss, grads = pipeline_grads(torch, lf, pipe_params, batch)
+        sync()
+        walls.append(time.time() - t0)
+    launches = {c.__name__: c.launches for c in counters}
+    by_path["pipeline train"] = launches
+    if any(launches.values()):
+        fail(f"pipeline: the gradient pass launched {launches}; it runs the plain versions")
+    out["grad"] = check_pipeline_grads(torch, loss, grads, seq_loss, seq_grads, pl, mask)
+    out["grad"] |= {"wall_s_cold": walls[0], "wall_s_warm": walls[1],
+                    "tokens_per_s_warm": B * S / walls[1],
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                    "launches": launches}
+    del grads, seq_grads
+    g = out["grad"]
+    say(f"phase pipeline: gradient pass M={M}: loss {g['loss']!r} vs sequential "
+        f"{g['seq_loss']!r} (err {g['loss_err']:.3g}, limit {PIPELINE_LOSS_TOL}); worst slot "
+        f"{g['worst_slot'][0]} rel {g['worst_slot'][1]:.3g}, embed/ln_f "
+        f"{ {k: round(v, 6) for k, v in g['head'].items()} } (limit {PIPELINE_GRAD_RTOL}); "
+        f"{g['masked_slots']} masked slots all 0; wall cold {walls[0]:.3f} s, warm "
+        f"{walls[1]:.3f} s ({g['tokens_per_s_warm']:.0f} tokens/s), sequential "
+        f"{out['sequential_s']:.3f} s; peak {g['peak_mem_bytes']} B; launches {launches}; "
+        f"{card}")
+
+    # the kernel pass, checked call by call and against the plain pass
+    kp = out["kernel_pass"] = pipeline_kernel_pass(torch, counters, cfg, pl, M, mask, mesh,
+                                                   pipe_params, batch, device)
+    by_path["pipeline kernel pass"] = kp["launches"]
+    worst = {k: max(c[k] for c in kp["logits"]) for k in ("max_err", "mean_rel_err")}
+    say(f"phase pipeline: kernel pass loss {kp['kernel']['loss']!r}, plain pass "
+        f"{kp['plain']['loss']!r} (err {abs(kp['kernel']['loss'] - kp['plain']['loss']):.3g}, "
+        f"limit {PIPELINE_KERNEL_TOL}); logits per microbatch worst {worst} (bf16 limits 0.35, "
+        f"0.05); {kp['checked_calls']} kernel calls each within its plain version on its own "
+        f"inputs (worst {kp['kernel_vs_plain_max_err']}); wall {kp['kernel']['wall_s']:.3f} s, "
+        f"plain {kp['plain']['wall_s']:.3f} s; forward stage ms per pod {kp['kernel']['stage_ms']}"
+        f", plain {kp['plain']['stage_ms']}; launches {kp['launches']}; {card}")
+    del pipe_params, stages
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the smoke config in float32, cpu (a child process) against the device
+    inputs = pipeline_smoke_inputs(torch, run["arch"], smoke)
+    want = cpu_refs_in_child(torch, inputs, work, "--pipeline-cpu-ref")
+    got = pipeline_smoke_run(torch, inputs, device)
+    if got["plan"] != want["plan"]:
+        fail(f"pipeline smoke: plan {got['plan']} on {device} against {want['plan']} on cpu")
+    errs = {k: float((g - want["grads"][k]).abs().max()) for k, g in got["grads"].items()}
+    res = {"plan": got["plan"], "loss": got["loss"], "cpu_loss": want["loss"],
+           "loss_err": abs(got["loss"] - want["loss"]), "grad_err": max(errs.values())}
+    if res["loss_err"] > PIPELINE_SMOKE_TOL or res["grad_err"] > PIPELINE_SMOKE_TOL:
+        fail(f"pipeline smoke cpu vs {device} (float32): {res}, per leaf {errs} (limit "
+             f"{PIPELINE_SMOKE_TOL})")
+    out["smoke_cpu_vs_card"] = res
+    say(f"phase pipeline: smoke float32 B={smoke['batch']} S={smoke['seq']} M="
+        f"{smoke['microbatches']}, plan {got['plan']}: cpu (a child with MKL_CBWR=COMPATIBLE) "
+        f"vs {device}: loss err {res['loss_err']:.3g}, worst gradient err "
+        f"{res['grad_err']:.3g} (limit {PIPELINE_SMOKE_TOL})")
+    out["by_path"] = by_path
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
                     help="also write every measured number to this file")
     ap.add_argument("--smoke-cpu-refs", nargs=2, type=pathlib.Path, default=None,
                     metavar=("IN", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--pipeline-cpu-ref", nargs=2, type=pathlib.Path, default=None,
+                    metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.smoke_cpu_refs is not None:     # phase 19's cpu side, in its own process
-        import torch
+    if args.smoke_cpu_refs is not None or args.pipeline_cpu_ref is not None:
+        import torch        # phases 19 and 20's cpu sides, each in its own process
 
         sys.path.insert(0, str(SRC))
-        smoke_cpu_refs(torch, *args.smoke_cpu_refs)
+        if args.smoke_cpu_refs is not None:
+            smoke_cpu_refs(torch, *args.smoke_cpu_refs)
+        else:
+            pipeline_cpu_ref(torch, *args.pipeline_cpu_ref)
         return
     try:
         import torch
@@ -3141,6 +3589,18 @@ def main() -> None:
     report["families"]["phase_s"] = time.time() - t0
     by_path.update(report["families"].pop("by_path"))
     say(f"phase families: {report['families']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 20. the planner's stage plan run as a pipeline: qwen3-4b's plan over 4
+    # pods (the split-score counters zeroed just before and read just after),
+    # the packed stacks on one card, the gradient pass against the sequential
+    # loss, the kernel pass (the model counters zeroed just before and read
+    # just after); then the smoke config cpu against the card
+    t0 = time.time()
+    report["pipeline"] = pipeline_phase(torch, counters, card, score_counters=score_counters)
+    report["pipeline"]["phase_s"] = time.time() - t0
+    by_path.update(report["pipeline"].pop("by_path"))
+    say(f"phase pipeline: {report['pipeline']['phase_s']:.1f} s")
 
     launches = {}
     for counts in by_path.values():

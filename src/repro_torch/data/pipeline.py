@@ -6,8 +6,9 @@ restart from a checkpoint reproduces the exact token stream without
 persisting cursor state beyond the step counter, and its batches are the
 reference's for any (seed, step).  A background prefetch thread keeps
 ``prefetch`` batches ahead of the consumer, already on the device.  The
-reference's ``make_batch_sharding`` needs a mesh and waits for the mesh's
-port (ROADMAP.md Queue 1 item 5).
+reference's ``make_batch_sharding`` is ported beside the batch spec, in
+:mod:`repro_torch.models.sharding`; the loader does not split batches over
+a mesh yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations

@@ -26,6 +26,7 @@ from repro_torch.core.batched import ProblemBatch, batched_min_period, stack_ins
 from repro_torch.fleet import worker_main
 from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.launch import first_forward_probe, rounding_probe
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import plan_serving, serve_pool
 from repro_torch.launch.train import train_loop
 from repro_torch.models import encdec, get_model, hybrid, ssm, transformer, xlstm
@@ -244,6 +245,8 @@ def _no_cuda(monkeypatch):
     lambda: serve_pool(arch="xlstm-350m", n_requests=1, batch=1, prompt_len=2, max_new=1),
     lambda: train_loop(arch="internvl2-26b", steps=1, batch=1, seq=8),
     lambda: train_loop(arch="arctic-480b", steps=1, batch=1, seq=8),
+    lambda: make_mesh((4,), ("stage",)),
+    lambda: make_mesh((2, 2), ("stage", "data"), devices=["cuda"] * 4),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -264,7 +267,8 @@ def _no_cuda(monkeypatch):
         "moe_init_decode_state", "encdec_init_decode_state", "xlstm_init_decode_state",
         "init_mlstm_state", "init_slstm_state", "moe_params_from_numpy",
         "encdec_params_from_numpy", "xlstm_params_from_numpy-master", "serve_pool-moe",
-        "serve_pool-encdec", "serve_pool-xlstm", "train_loop-vlm", "train_loop-moe"])
+        "serve_pool-encdec", "serve_pool-xlstm", "train_loop-vlm", "train_loop-moe",
+        "make_mesh", "make_mesh-named-card"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):

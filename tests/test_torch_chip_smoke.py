@@ -689,3 +689,137 @@ def test_train_phase_passes_on_cpu_and_refuses_a_resume_that_restarts(tmp_path, 
         chip_smoke.train_phase(torch, _model_counters(), "cpu", device="cpu",
                                train=dict(chip_smoke.TRAIN, smoke=True, seq=64, batch=2),
                                n_layers=2, ckpt_dir=tmp_path / "ckpt")
+
+
+_SMOKE_PIPELINE = dict(chip_smoke.PIPELINE, smoke=True, seq=64)
+_SMOKE_PLAN = ((1, 2), (0, 2))       # pods 1 and 3 idle; pod 0 pads one slot
+
+
+def _score_counters():
+    from repro_torch.kernels import split_score
+
+    return (split_score.score_2way_cuda, split_score.score_3way_cuda)
+
+
+def test_pipeline_phase_passes_on_cpu_and_refuses_a_plan_that_differs(tmp_path):
+    """Phase 20 at the smoke config on the CPU (B = 4, S = 64, M = 4): the
+    plan (1, 2) on pods (0, 2), the pipelined loss and gradients within their
+    limits of the sequential ones, the 5 masked slots 0, the kernel pass
+    within its limit of the plain pass, the smoke config cpu against itself
+    in a child; a phase told to expect another plan stops there."""
+    out = chip_smoke.pipeline_phase(torch, _model_counters(), "cpu", device="cpu",
+                                    run=_SMOKE_PIPELINE, want_plan=_SMOKE_PLAN,
+                                    score_counters=_score_counters(), work=tmp_path / "ref")
+    assert (out["plan"]["stage_sizes"], out["plan"]["pods"]) == ([1, 2], [0, 2])
+    assert out["plan"]["planner"].startswith("auto(")
+    grad = out["grad"]
+    assert grad["loss_err"] <= chip_smoke.PIPELINE_LOSS_TOL
+    assert grad["worst_slot"][1] <= chip_smoke.PIPELINE_GRAD_RTOL
+    assert grad["masked_slots"] == 5 and grad["masked_nonzero"] == []
+    kp = out["kernel_pass"]
+    assert abs(kp["kernel"]["loss"] - kp["plain"]["loss"]) <= chip_smoke.PIPELINE_KERNEL_TOL
+    # 3 layers in 4 microbatches: 2 RMSNorms each, no flash at S = 64
+    assert kp["checked_calls"] == {"flash_attention": 0, "rmsnorm": 24}
+    assert len(kp["logits"]) == 4 and all(c["ok"] for c in kp["logits"])
+    smoke = out["smoke_cpu_vs_card"]
+    assert smoke["plan"] == [[1, 2], [0, 2]] and smoke["loss_err"] == 0.0
+    assert smoke["grad_err"] <= chip_smoke.PIPELINE_SMOKE_TOL
+    assert sorted(out["by_path"]) == ["pipeline kernel pass", "pipeline plan", "pipeline train"]
+    assert not (tmp_path / "ref").exists()
+    with pytest.raises(SystemExit):
+        chip_smoke.pipeline_phase(torch, _model_counters(), "cpu", device="cpu",
+                                  run=_SMOKE_PIPELINE, want_plan=((2, 1), (0, 2)),
+                                  work=tmp_path / "ref")
+
+
+def test_pipeline_gradient_check_refuses_a_masked_slot_that_learns():
+    """The gradient gate at the smoke config in float32 (S = 32): the
+    pipelined gradients pass against the sequential ones; a gradient in a
+    slot of an unenrolled pod, or in a padding slot, is refused."""
+    from repro_torch import core
+    from repro_torch.pipeline import runtime
+
+    inputs = chip_smoke.pipeline_smoke_inputs(torch, "qwen3-4b",
+                                              {"batch": 4, "seq": 32, "microbatches": 4})
+    cfg = get_smoke_config("qwen3-4b").replace(dtype="float32")
+    pl = chip_smoke.pipeline_plan(core, cfg, dict(chip_smoke.PIPELINE, seq=32), "cpu")
+    params = inputs["params"]
+    batch = {k: inputs[k] for k in ("tokens", "labels")}
+    stages, mask = runtime.make_stage_params(params["layers"], pl, 4)
+    loss, grads = chip_smoke.pipeline_grads(
+        torch, runtime.pipelined_loss_fn(cfg, pl, 4, mask),
+        {"embed": params["embed"], "stages": stages, "ln_f": params["ln_f"]}, batch)
+    seq_loss, seq_grads = chip_smoke.pipeline_grads(torch, runtime.sequential_loss_fn(cfg),
+                                                    params, batch)
+    res = chip_smoke.check_pipeline_grads(torch, loss, grads, seq_loss, seq_grads, pl, mask)
+    assert res["loss_err"] <= 1e-5 and res["worst_slot"][1] <= 1e-5
+    for pod, slot in ((1, 0), (0, 1)):       # an idle pod; pod 0's padding slot
+        assert not mask[pod, slot]
+        planted = dict(grads)
+        planted["stages/mlp/wi"] = grads["stages/mlp/wi"].clone()
+        planted["stages/mlp/wi"][pod, slot, 0, 0] = 1e-3
+        with pytest.raises(SystemExit):
+            chip_smoke.check_pipeline_grads(torch, loss, planted, seq_loss, seq_grads, pl, mask)
+
+
+def _pipeline_kernel_inputs(seq: int = 1536, batch: int = 2):
+    """The smoke qwen3-4b's pipeline over 4 pods at a length that takes the
+    flash kernel: (cfg, plan, mask, mesh, packed params, batch)."""
+    from repro_torch import core
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.pipeline import runtime
+
+    cfg = get_smoke_config("qwen3-4b")
+    pl = chip_smoke.pipeline_plan(core, cfg, dict(chip_smoke.PIPELINE, seq=seq, batch=batch),
+                                  "cpu")
+    params = get_model(cfg).init(7, "cpu")
+    stages, mask = runtime.make_stage_params(params["layers"], pl, 4)
+    gen = torch.Generator().manual_seed(8)
+    data = {k: torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+            for k in ("tokens", "labels")}
+    return (cfg, pl, mask, make_mesh((4,), ("stage",), devices=["cpu"] * 4),
+            {"embed": params["embed"], "stages": stages, "ln_f": params["ln_f"]}, data)
+
+
+@pytest.mark.parametrize("fault", [None, "causality dropped", "output scaled by 1.05"])
+def test_pipeline_kernel_pass_checks_every_call_and_refuses_a_wrong_flash(fault, monkeypatch):
+    """The kernel pass at S = 1536 in 2 microbatches holds each of its 6
+    flash and 12 RMSNorm calls to the plain version on its own inputs and
+    each microbatch's logits to the plain pass's; a flash kernel that drops
+    causality, or scales its output by 1.05, is refused."""
+    from repro_torch.kernels import ops, ref
+
+    cfg, pl, mask, mesh, params, data = _pipeline_kernel_inputs()
+    args = (torch, _model_counters(), cfg, pl, 2, mask, mesh, params, data, "cpu")
+    if fault is None:
+        out = chip_smoke.pipeline_kernel_pass(*args)
+        assert out["checked_calls"] == {"flash_attention": 6, "rmsnorm": 12}
+        assert len(out["logits"]) == 2 and all(c["ok"] for c in out["logits"])
+        assert abs(out["kernel"]["loss"] - out["plain"]["loss"]) <= \
+            chip_smoke.PIPELINE_KERNEL_TOL
+        return
+    flash = ops.flash_attention
+    wrong = {"causality dropped": lambda q, k, v, **kw: ref.flash_attention_ref(
+                 q, k, v, causal=False, window=kw.get("window")),
+             "output scaled by 1.05": lambda q, k, v, **kw: flash(q, k, v, **kw) * 1.05}
+    monkeypatch.setattr(ops, "flash_attention", wrong[fault])
+    with pytest.raises(SystemExit):
+        chip_smoke.pipeline_kernel_pass(*args)
+
+
+def test_pipeline_kernel_pass_launches_and_a_flash_count_one_off():
+    """The kernel pass of qwen3-4b's 36 layers at S = 2048 in 4 microbatches
+    launches 2 RMSNorms and one flash attention per live layer step (none
+    for the final norm); a flash count one off is refused."""
+    from repro_torch.configs import get_config
+
+    want = chip_smoke.pipeline_launches(get_config("qwen3-4b"), 4, 2048)
+    assert want == {"rmsnorm": 288, "rmsnorm_residual": 0, "flash_attention": 144,
+                    "decode_attention": 0, "ssd_intra_chunk": 0}
+    assert chip_smoke.pipeline_launches(get_smoke_config("qwen3-4b"), 4, 64)[
+        "flash_attention"] == 0
+    chip_smoke.check_launches("pipeline kernel pass", dict(want), want)
+    with pytest.raises(SystemExit):
+        chip_smoke.check_launches("pipeline kernel pass",
+                                  dict(want, flash_attention=143), want)
