@@ -7,8 +7,9 @@ Drives the port's paths on the card and checks them: the Section-5
 campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
 full width, the planner API and its reliability extensions, the fleet
 replanning service, serving's planner hooks with prefill, training, the
-MoE, VLM, enc-dec and xLSTM families, and the planner's stage plan run as a
-pipeline (``repro_torch``), in twenty phases; any failure exits non-zero:
+MoE, VLM, enc-dec and xLSTM families, the planner's stage plan run as a
+pipeline, and the mesh's data and model axes in execution (``repro_torch``),
+in twenty-one phases; any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -227,9 +228,31 @@ pipeline (``repro_torch``), in twenty phases; any failure exits non-zero:
               stage device time (CUDA events); then the smoke config in
               float32 (B = 4, S = 256, M = 4), cpu in a child process against
               cuda: the plan equal, loss and every gradient within atol 1e-4.
+ 21. mesh   — every slot of each mesh on the one card (``use_mesh``): (a)
+              ``prefill`` of qwen2.5-14b whole (48 layers, 40 / 8 heads),
+              B = 2, S = 4096, with kernels on a (2, 16) data x model mesh:
+              40 heads on the 16-way axis take sequence-parallel attention;
+              exactly 2 x 97 RMSNorm launches (97 per data slot), no flash;
+              logits within phase 12's bf16 limit of the single-device
+              prefill's from the same weights, the caches ``==`` in layout;
+              a second pass with every RMSNorm call held to its plain
+              version and every sequence-parallel call to one-device
+              ``blocked_attention`` on its own inputs; (b) the forward of
+              mixtral-8x7b cut to 8 layers, B = 4, S = 2048, on (4, 2): one
+              MoE dispatch group per data slot, 4 x 17 RMSNorm and 4 x 8
+              flash launches (bf16 route), each MoE call held to the single
+              G = 4 dispatch on its inputs (kept pairs ``==``, outputs within
+              the bf16 limit, a routing that differs only at a near-tie) and
+              every kernel call to its plain version; (c) one FSDP train step
+              of qwen3-4b cut to 4 layers (``fsdp_params``, 2 microbatches),
+              B = 4, S = 1024, on (2, 4), state placed by ``zero1_specs``,
+              against one unsharded step from the same state and batch: loss
+              and every parameter within 5e-3, grad norm and first moments
+              within 1e-2 by relative norm; wall and step times, peak memory,
+              the bytes one slot holds.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-20;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-21;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -2322,6 +2345,34 @@ def routing_oracle(torch, logits, k: int, C: int) -> tuple:
     return ids, (rank < C).reshape(n, k)
 
 
+def plain_moe(torch, params, x, ids, keep, w, inner: bool = False) -> tuple:
+    """(output, the sum of its terms' magnitudes), both float32, of a plain
+    MoE over tokens ``x`` (N, d): each expert runs on its kept tokens
+    (``ids``, ``keep``: (N, k)), each pair's output weighted by ``w`` (N, k)
+    in x's type.  A term is a pair's output, or with ``inner`` each product
+    of the down projection (``|w| |h| @ |wo|``), the scale of the rounding
+    of two computations whose bf16 hidden activations round apart."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    want = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    mag = torch.zeros_like(want)
+    for e in range(params["wi"].shape[0]):
+        t, j = ((ids == e) & keep).nonzero(as_tuple=True)
+        if t.numel() == 0:
+            continue
+        xe = x[t]
+        h = F.silu(xe @ params["wg"][e].to(dt)) * (xe @ params["wi"][e].to(dt))
+        o = ((h @ params["wo"][e].to(dt)) * w[t, j, None]).float()
+        want.index_add_(0, t, o)
+        if inner:
+            mag.index_add_(0, t, (h.float().abs() @ params["wo"][e].float().abs())
+                           * w[t, j, None].float().abs())
+        else:
+            mag.index_add_(0, t, o.abs())
+    return want, mag
+
+
 def check_moe_layer(torch, params, flat, cfg, r, y) -> dict:
     """One MoE dispatch of the port (``moe._grouped_dispatch``: input
     ``flat``, routing ``r``, output ``y``) against plain versions on the
@@ -2332,8 +2383,6 @@ def check_moe_layer(torch, params, flat, cfg, r, y) -> dict:
     its kept tokens, each pair weighted by the softmax of the router logits
     at the oracle's ids.  Returns the layer's record; its ``top_ids`` and
     ``logits`` serve :func:`forced_routing`."""
-    import torch.nn.functional as F
-
     E, k, d = cfg.n_experts, cfg.top_k, flat.shape[-1]
     logits = r.logits.reshape(-1, E)
     ids, keep = routing_oracle(torch, logits, k, r.capacity)
@@ -2347,17 +2396,7 @@ def check_moe_layer(torch, params, flat, cfg, r, y) -> dict:
              f"{int((keep_pair != keep).sum())} pairs")
     x, dt = flat.reshape(-1, d), flat.dtype
     w = torch.softmax(logits.gather(-1, ids), dim=-1).to(dt)
-    want = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    mag = torch.zeros_like(want)
-    for e in range(E):
-        t, j = ((ids == e) & keep).nonzero(as_tuple=True)
-        if t.numel() == 0:
-            continue
-        xe = x[t]
-        h = F.silu(xe @ params["wg"][e].to(dt)) * (xe @ params["wi"][e].to(dt))
-        o = ((h @ params["wo"][e].to(dt)) * w[t, j, None]).float()
-        want.index_add_(0, t, o)
-        mag.index_add_(0, t, o.abs())
+    want, mag = plain_moe(torch, params, x, ids, keep, w)
     diff = (y.reshape(-1, d).float() - want).abs()
     lim = F32_TOL + BF16_RTOL * mag
     if not bool((diff <= lim).all()):
@@ -3234,6 +3273,430 @@ def pipeline_phase(torch, counters, card, device: str = "cuda", run: dict = PIPE
     return out
 
 
+# phase 21: the mesh's data and model axes in execution, every slot of each
+# mesh on the one card (``devices=[device] * n``).  (a) qwen2.5-14b whole
+# (48 layers, 40 / 8 heads of 128), B = 2, S = 4096, prefill on the
+# production mesh's (2, 16) shape: 40 heads on a 16-way model axis take
+# sequence-parallel attention (256 queries a slot); (b) mixtral-8x7b cut to
+# 8 of 32 layers, as phase 19, B = 4, S = 2048, the forward on (4, 2): one
+# MoE dispatch group per data slot; (c) qwen3-4b cut to 4 of 36 layers, as
+# phase 18, ``fsdp_params`` and 2 microbatches as the reference's test,
+# B = 4, S = 1024, one train step on (2, 4)
+MESH_RUNS = {
+    "prefill": {"arch": "qwen2.5-14b", "layers": None, "batch": 2, "seq": 4096,
+                "mesh": (2, 16), "seed": 21, "dtype": None},
+    "moe": {"arch": "mixtral-8x7b", "layers": 8, "batch": 4, "seq": 2048, "mesh": (4, 2),
+            "seed": 22, "dtype": None},
+    "train": {"arch": "qwen3-4b", "layers": 4, "batch": 4, "seq": 1024, "mesh": (2, 4),
+              "seed": 23, "dtype": None, "accum": 2, "base_lr": 1e-3},
+}
+# the train step under the mesh against the unsharded one: the reference's
+# bound for the loss and every parameter (tests/test_distributed_numerics.py);
+# besides, the grad norm and the first moments (one step from zero moments:
+# (1 - b1) times the reduced gradient) by relative norm over the whole tree,
+# which a reduction that drops a slot moves by O(1) while AdamW's normalized
+# update may not.  Each leaf's first moment is reported, not gated: a small
+# leaf (a norm scale) sums bf16-rounded terms over every token, and the
+# slots' rows round apart (1.3e-2 on qwen3-4b's worst leaf, PERF.md)
+MESH_TRAIN_TOL, MESH_GRAD_RTOL = 5e-3, 1e-2
+
+
+def mesh_cfg(run: dict, smoke: bool = False, **kw):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if smoke else get_config)(run["arch"])
+    if run["layers"]:
+        cfg = cfg.replace(n_layers=run["layers"])
+    if run["dtype"]:
+        cfg = cfg.replace(dtype=run["dtype"])
+    return cfg.replace(**kw)
+
+
+def _mesh_of(run: dict, device):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(run["mesh"], ("data", "model"), devices=[device] * math.prod(run["mesh"]))
+
+
+def mesh_launches(cfg, path: str, dsize: int, seq: int) -> dict:
+    """The kernels a mesh run launches: per data slot, RMSNorm before
+    attention and before the FFN in every layer and the final one; the
+    forward adds flash attention once per layer where the gate passes;
+    prefill never takes flash (as the reference)."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    out["rmsnorm"] = dsize * (2 * cfg.n_layers + 1)
+    if path == "forward":
+        out["flash_attention"] = dsize * cfg.n_layers * flash_gate(seq, seq)
+    return out
+
+
+@contextlib.contextmanager
+def mesh_recording(torch, calls: list, moe_records=None):
+    """Within the block every RMSNorm and flash-attention call is held to
+    its plain version on its own inputs, every sequence-parallel attention
+    call to ``blocked_attention`` on one device on its own inputs, and
+    (with ``moe_records``) every MoE call over the data slots to
+    :func:`check_mesh_moe`; each call's (name, max abs err, within) is
+    appended to ``calls``."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import attention, transformer
+
+    flash, rms = ops.flash_attention, ops.rmsnorm
+    seqpar, moe_slots = attention.seq_parallel_attention, transformer.moe_ffn_slots
+
+    def check(name, got, want):
+        ok, err = _within(torch, got, want)
+        calls.append((name, err, ok))
+        return got
+
+    def seqpar_rec(q, k, v, *, causal, window, block_q, block_k):
+        got = seqpar(q, k, v, causal=causal, window=window, block_q=block_q, block_k=block_k)
+        with use_mesh(None):
+            want = attention.blocked_attention(q, k, v, causal=causal, window=window,
+                                               block_k=block_k)
+        return check("seq_parallel_attention", got, want)
+
+    def moe_rec(params_slots, xs, cfg):
+        ys, aux = moe_slots(params_slots, xs, cfg)
+        moe_records.append(check_mesh_moe(torch, params_slots[0], xs, ys, cfg))
+        calls.append(("moe", moe_records[-1]["out_max_err"], True))
+        return ys, aux
+
+    ops.flash_attention = lambda q, k, v, **kw: check(
+        "flash_attention", flash(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw))
+    ops.rmsnorm = lambda x, scale, *, eps: check(
+        "rmsnorm", rms(x, scale, eps=eps), ref.rmsnorm_ref(x, scale, eps=eps))
+    attention.seq_parallel_attention = seqpar_rec
+    if moe_records is not None:
+        transformer.moe_ffn_slots = moe_rec
+    try:
+        yield calls
+    finally:
+        ops.flash_attention, ops.rmsnorm = flash, rms
+        attention.seq_parallel_attention, transformer.moe_ffn_slots = seqpar, moe_slots
+
+
+def check_mesh_moe(torch, params, xs, ys, cfg) -> dict:
+    """One MoE call over the data slots (inputs ``xs``, outputs ``ys``, one
+    dispatch group per slot) against the single-call dispatch of all the
+    groups on one device (``moe._grouped_dispatch`` of the gathered rows in
+    G = len(xs) groups): each group's top-k ids ``==`` the single call's but
+    at a near-tie (:func:`routing_flips`), its kept pairs ``==`` where no
+    token flipped, its outputs at every token whose routing agrees within
+    the bf16 limit of the single call's: 2e-5 + 2^-6 of the sum of the
+    magnitudes of the down projection's products (:func:`plain_moe` with
+    ``inner`` on the slot's routing): the two calls' expert products have
+    other shapes, so their bf16 hidden activations round apart, and a
+    token's output may cancel below them."""
+    from repro_torch.models import moe
+
+    G = len(xs)
+    S, d = xs[0].shape[1:]
+    flat = torch.cat([x.reshape(1, -1, d).to(xs[0].device) for x in xs])
+    r_all = moe.route(flat, params["router"], cfg)
+    want, _ = moe._grouped_dispatch(params, flat, cfg)
+    out = {"groups": G, "tokens": flat.shape[0] * flat.shape[1], "dropped_pairs": 0,
+           "flipped_tokens": 0, "out_max_err": 0.0, "worst_share_of_limit": 0.0}
+    k = cfg.top_k
+    for g, (x, y) in enumerate(zip(xs, ys)):
+        r = moe.route(x.reshape(1, -1, d), params["router"], cfg)
+        own = r.top_ids.reshape(-1, k)
+        ids = r_all.top_ids[g].reshape(-1, k).to(own.device)
+        flips, _ = routing_flips(own, ids, r.logits.reshape(-1, r.logits.shape[-1]),
+                                 r_all.logits[g].to(own.device), k)
+        out["flipped_tokens"] += flips
+        keep, keep_all = r.keep[0], r_all.keep[g].to(r.keep.device)
+        out["dropped_pairs"] += int((~keep).sum())
+        if flips == 0 and not torch.equal(keep, keep_all):
+            fail(f"mesh moe: data slot {g} keeps {int(keep.sum())} pairs, the single G={G} "
+                 f"dispatch {int(keep_all.sum())} (differing at {int((keep != keep_all).sum())})")
+        same = ~(own != ids).any(-1)
+        keep_pair = torch.empty_like(r.keep).scatter_(-1, r.order, r.keep).reshape(-1, k)
+        w = r.weights.reshape(-1, k)
+        _, mag = plain_moe(torch, params, x.reshape(-1, d), own, keep_pair, w, inner=True)
+        diff = (y.reshape(-1, d).float() - want[g].to(y.device).float()).abs()[same]
+        lim = F32_TOL + BF16_RTOL * mag[same]
+        if not bool((diff <= lim).all()):
+            fail(f"mesh moe: data slot {g}'s output differs from the single G={G} dispatch by "
+                 f"{float(diff.max())} (worst share of its limit {float((diff / lim).max()):.3g})")
+        out["out_max_err"] = max(out["out_max_err"], float(diff.max()))
+        out["worst_share_of_limit"] = max(out["worst_share_of_limit"],
+                                          float((diff / lim).max()))
+    return out
+
+
+def _check_calls(what: str, calls: list, want: dict) -> dict:
+    counts = {n: sum(1 for c in calls if c[0] == n) for n in want}
+    if counts != want:
+        fail(f"{what}: checked calls {counts}, expected {want}")
+    bad = [c for c in calls if not c[2]]
+    if bad:
+        fail(f"{what}: {len(bad)} calls differ from their plain versions on their own inputs, "
+             f"first {bad[:4]}")
+    return {n: max((c[1] for c in calls if c[0] == n), default=None) for n in want}
+
+
+def mesh_prefill_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
+    """(a) prefill under the mesh, the counters zeroed just before and read
+    just after (:func:`mesh_launches`); a second mesh prefill with every
+    kernel and sequence-parallel call checked; then the single-device
+    prefill from the same weights: the mesh's logits within
+    :func:`_logits_close`'s limit of its, the caches ``==`` in layout."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import prefill
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = mesh_cfg(run, smoke, use_pallas=True)
+    mesh = _mesh_of(run, device)
+    dsize, msize = run["mesh"]
+    B, S = run["batch"], run["seq"]
+    t0 = time.time()
+    params = get_model(cfg).init(run["seed"], device)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=device,
+                         generator=torch.Generator(device=device).manual_seed(run["seed"]))
+    sync()
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "init_s": time.time() - t0}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    collectives.TRAFFIC.clear()
+    t0 = time.time()
+    with use_mesh(mesh):
+        logits, state = prefill(params, toks, cfg)
+    sync()
+    out["mesh_wall_s"] = time.time() - t0
+    out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    want = mesh_launches(cfg, "prefill", dsize, S)
+    if on_card:
+        check_launches("mesh prefill", out["launches"], want)
+    seqpar = cfg.n_heads % msize != 0 and S % msize == 0 and (S // msize) % 128 == 0 \
+        and S > 2048 and S % 512 == 0
+    calls = []
+    with mesh_recording(torch, calls), use_mesh(mesh):
+        prefill(params, toks, cfg)
+    out["kernel_vs_plain_max_err"] = _check_calls(
+        "mesh prefill", calls, {"rmsnorm": want["rmsnorm"],
+                                "seq_parallel_attention": dsize * cfg.n_layers * seqpar})
+    if seqpar == 0:
+        fail(f"mesh prefill: {cfg.n_heads} heads on a {msize}-way model axis at S={S} do not "
+             f"take sequence-parallel attention")
+    sync()
+    t0 = time.time()
+    ref_logits, ref_state = prefill(params, toks, cfg)
+    sync()
+    out["single_wall_s"] = time.time() - t0
+    out["logits"] = _logits_close(logits, ref_logits, cfg.dtype)
+    if not out["logits"]["ok"]:
+        fail(f"mesh prefill: logits against the single-device prefill's {out['logits']}")
+    got, ref = state.caches, ref_state.caches
+    for f in ("k", "v", "pos", "positions"):
+        a, b = getattr(got, f), getattr(ref, f)
+        if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+            fail(f"mesh prefill: cache {f} {tuple(a.shape)} {a.dtype} {a.device}, single device "
+                 f"{tuple(b.shape)} {b.dtype} {b.device}")
+    if not (torch.equal(got.pos, ref.pos) and torch.equal(got.positions, ref.positions)):
+        fail("mesh prefill: cache positions differ from the single-device prefill's")
+    out["cache_max_err"] = {f: float((getattr(got, f).float() - getattr(ref, f).float()).abs()
+                                     .max()) for f in ("k", "v")}
+    return out
+
+
+def mesh_moe_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
+    """(b) the MoE model's forward under the mesh: the counters zeroed just
+    before and read just after (:func:`mesh_launches`); a second forward
+    with every kernel call checked and every MoE call held to the single
+    G-group dispatch (:func:`check_mesh_moe`); logits finite."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = mesh_cfg(run, smoke, use_pallas=True)
+    api = get_model(cfg)
+    mesh = _mesh_of(run, device)
+    dsize = run["mesh"][0]
+    B, S = run["batch"], run["seq"]
+    t0 = time.time()
+    params = api.init(run["seed"], device)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=device,
+                         generator=torch.Generator(device=device).manual_seed(run["seed"]))
+    sync()
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "init_s": time.time() - t0}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    collectives.TRAFFIC.clear()
+    t0 = time.time()
+    with use_mesh(mesh):
+        logits, _ = api.forward(params, {"tokens": toks}, cfg)
+    sync()
+    out["mesh_wall_s"] = time.time() - t0
+    out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["routes"] = route_counts(counters)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    want = mesh_launches(cfg, "forward", dsize, S)
+    if on_card:
+        check_launches("mesh moe forward", out["launches"], want)
+        check_flash_routes("mesh moe forward", out["launches"], out["routes"])
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or not bool(logits.isfinite().all()):
+        fail(f"mesh moe forward: logits {tuple(logits.shape)}, finite "
+             f"{bool(logits.isfinite().all())}")
+    calls, records = [], []
+    with mesh_recording(torch, calls, records), use_mesh(mesh):
+        api.forward(params, {"tokens": toks}, cfg)
+    out["kernel_vs_plain_max_err"] = _check_calls(
+        "mesh moe forward", calls, {"rmsnorm": want["rmsnorm"],
+                                    "flash_attention": want["flash_attention"],
+                                    "moe": cfg.n_layers})
+    if any(r["groups"] != dsize for r in records):
+        fail(f"mesh moe forward: dispatch groups {[r['groups'] for r in records]}, one per data "
+             f"slot expected ({dsize})")
+    out["moe"] = {"layers": len(records), "groups": dsize,
+                  "dropped_pairs": sum(r["dropped_pairs"] for r in records),
+                  "flipped_tokens": sum(r["flipped_tokens"] for r in records),
+                  "out_max_err": max(r["out_max_err"] for r in records),
+                  "worst_share_of_limit": max(r["worst_share_of_limit"] for r in records)}
+    return out
+
+
+def _rel_norm(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
+
+
+def mesh_train_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
+    """(c) one train step under the mesh (state placed by ``zero1_specs``)
+    against one unsharded step from the same state and batch: the loss and
+    every parameter within :data:`MESH_TRAIN_TOL`, the grad norm and the
+    first moments within :data:`MESH_GRAD_RTOL` by relative norm (each
+    leaf's reported); step times; the bytes one slot holds under the
+    placement against the unsharded tree's."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, sharding
+    from repro_torch.models.train import (init_optimizer, make_loss_fn, make_train_step,
+                                          place_train_state, value_and_grad)
+    from repro_torch.optim.tree import tree_leaves
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = mesh_cfg(run, smoke, fsdp_params=True, accum_steps=run["accum"])
+    api = get_model(cfg)
+    mesh = _mesh_of(run, device)
+    B, S = run["batch"], run["seq"]
+    params = api.init(run["seed"], device, master=True)
+    opt = init_optimizer(params)
+    gen = torch.Generator(device=device).manual_seed(run["seed"])
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), device=device, generator=gen)
+             for k in ("tokens", "labels")}
+    placed, popt = place_train_state(params, opt, cfg, mesh)
+    specs = sharding.zero1_specs(params, cfg, mesh)
+    state = (params, opt.m, opt.v)
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers,
+           "bytes_unsharded": sum(x.numel() * x.element_size()
+                                  for t in state for x in tree_leaves(t)),
+           "bytes_per_slot": sum(sharding.slot_bytes(t, specs, mesh) for t in state)}
+    step = make_train_step(api.train_forward, cfg, base_lr=run["base_lr"], warmup=0)
+    zero_counters(counters)
+    # a throwaway forward and backward first, so that neither step is timed
+    # with the process's first autograd pass
+    value_and_grad(make_loss_fn(api.train_forward, cfg), params,
+                   {k: v[:B // run["accum"]] for k, v in batch.items()})
+    sync()
+    t0 = time.time()
+    params, opt, m_ref = step(params, opt, batch)
+    sync()
+    out["single_step_s"] = time.time() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    collectives.TRAFFIC.clear()
+    t0 = time.time()
+    with use_mesh(mesh):
+        placed, popt, m_mesh = step(placed, popt, batch)
+    sync()
+    out["mesh_step_s"] = time.time() - t0
+    out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    if any(out["launches"].values()):
+        fail(f"mesh train: the steps launched {out['launches']}; training runs the plain versions")
+    out["loss"], out["single_loss"] = float(m_mesh["loss"]), float(m_ref["loss"])
+    out["loss_err"] = abs(out["loss"] - out["single_loss"])
+    out["grad_norm_rel_err"] = abs(float(m_mesh["grad_norm"]) - float(m_ref["grad_norm"])) \
+        / float(m_ref["grad_norm"])
+    errs, rel, diff2, norm2 = [], [], 0.0, 0.0
+    for st, want, sm, wm in zip(tree_leaves(placed), tree_leaves(params), tree_leaves(popt.m),
+                                tree_leaves(opt.m)):
+        errs.append(float((sharding.gather(st, want.device) - want).abs().max()))
+        got_m = sharding.gather(sm, wm.device)
+        rel.append(_rel_norm(torch, got_m, wm))
+        diff2 += float(torch.sum(torch.square((got_m - wm).double())))
+        norm2 += float(torch.sum(torch.square(wm.double())))
+    out["param_max_err"], out["moment_leaf_max_rel_err"] = max(errs), max(rel)
+    out["moment_rel_err"] = math.sqrt(diff2 / max(norm2, 1e-300))
+    if out["loss_err"] > MESH_TRAIN_TOL or out["param_max_err"] > MESH_TRAIN_TOL \
+            or out["grad_norm_rel_err"] > MESH_GRAD_RTOL or out["moment_rel_err"] > MESH_GRAD_RTOL:
+        fail(f"mesh train: loss err {out['loss_err']}, worst parameter err "
+             f"{out['param_max_err']} (limit {MESH_TRAIN_TOL}); grad norm rel err "
+             f"{out['grad_norm_rel_err']}, first moments rel err {out['moment_rel_err']} (limit "
+             f"{MESH_GRAD_RTOL}; worst leaf {out['moment_leaf_max_rel_err']})")
+    return out
+
+
+def mesh_phase(torch, counters, card, device: str = "cuda", runs: dict = MESH_RUNS,
+               smoke: bool = False) -> dict:
+    """Phase 21 on ``device``: (a) :func:`mesh_prefill_run`, (b)
+    :func:`mesh_moe_run`, (c) :func:`mesh_train_run`, each from its own
+    seeded weights, freed before the next."""
+    on_card = torch.device(device).type == "cuda"
+    out, by_path = {"card": card}, {}
+    for name, fn in (("prefill", mesh_prefill_run), ("moe", mesh_moe_run),
+                     ("train", mesh_train_run)):
+        t0 = time.time()
+        res = out[name] = fn(torch, counters, runs[name], device, smoke)
+        res["part_s"] = time.time() - t0
+        by_path[f"mesh {name}"] = res["launches"]
+        say_mesh_part(name, res, runs[name], card)
+        if on_card:
+            torch.cuda.empty_cache()
+    out["by_path"] = by_path
+    return out
+
+
+def say_mesh_part(name: str, r: dict, run: dict, card) -> None:
+    """The line phase 21 prints for part ``name`` as it ends."""
+    head = (f"phase mesh: {r['config']} {r['layers']} layers B={run['batch']} S={run['seq']} "
+            f"on a {run['mesh']} mesh:")
+    if name == "prefill":
+        say(f"{head} (a) prefill, sequence-parallel attention, in {r['mesh_wall_s']:.3f} s, one "
+            f"device {r['single_wall_s']:.3f} s; peak {r['peak_mem_bytes']} B; logits "
+            f"{r['logits']}; caches == in layout (k/v max err {r['cache_max_err']}); every call "
+            f"within its plain version (worst {r['kernel_vs_plain_max_err']}); collectives "
+            f"{r['collectives']}; launches {r['launches']}; part {r['part_s']:.1f} s; {card}")
+    elif name == "moe":
+        say(f"{head} (b) forward in {r['mesh_wall_s']:.3f} s; peak {r['peak_mem_bytes']} B; MoE "
+            f"{r['moe']}; every call within its plain version (worst "
+            f"{r['kernel_vs_plain_max_err']}); collectives {r['collectives']}; launches "
+            f"{r['launches']}; part {r['part_s']:.1f} s; {card}")
+    else:
+        say(f"{head} (c) FSDP step in {r['mesh_step_s']:.3f} s, unsharded "
+            f"{r['single_step_s']:.3f} s; loss {r['loss']!r} vs {r['single_loss']!r} (err "
+            f"{r['loss_err']:.3g}), worst parameter err {r['param_max_err']:.3g} (limit "
+            f"{MESH_TRAIN_TOL}), grad norm rel err {r['grad_norm_rel_err']:.3g}, first moments "
+            f"rel err {r['moment_rel_err']:.3g} (limit {MESH_GRAD_RTOL}; worst leaf "
+            f"{r['moment_leaf_max_rel_err']:.3g}); collectives {r['collectives']}; per slot "
+            f"{r['bytes_per_slot']} B of state against {r['bytes_unsharded']} B unsharded; peak "
+            f"{r['peak_mem_bytes']} B; part {r['part_s']:.1f} s; {card}")
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -3601,6 +4064,16 @@ def main() -> None:
     report["pipeline"]["phase_s"] = time.time() - t0
     by_path.update(report["pipeline"].pop("by_path"))
     say(f"phase pipeline: {report['pipeline']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 21. the mesh's data and model axes in execution on the one card:
+    # sequence-parallel prefill, per-slot MoE dispatch and the FSDP train
+    # step, each run's counters zeroed just before and read just after
+    t0 = time.time()
+    report["mesh"] = mesh_phase(torch, counters, card)
+    report["mesh"]["phase_s"] = time.time() - t0
+    by_path.update(report["mesh"].pop("by_path"))
+    say(f"phase mesh: {report['mesh']['phase_s']:.1f} s")
 
     launches = {}
     for counts in by_path.values():

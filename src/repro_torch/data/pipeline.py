@@ -5,10 +5,10 @@ The dataset is a deterministic function of (seed, step), numpy only, so a
 restart from a checkpoint reproduces the exact token stream without
 persisting cursor state beyond the step counter, and its batches are the
 reference's for any (seed, step).  A background prefetch thread keeps
-``prefetch`` batches ahead of the consumer, already on the device.  The
-reference's ``make_batch_sharding`` is ported beside the batch spec, in
-:mod:`repro_torch.models.sharding`; the loader does not split batches over
-a mesh yet (ROADMAP.md Queue 1).
+``prefetch`` batches ahead of the consumer, already on the device.  Given a
+mesh, the loader splits each batch by ``make_batch_sharding``
+(:mod:`repro_torch.models.sharding`): each data slot's rows on its device,
+or the whole batch on every slot where the data slots do not divide it.
 """
 
 from __future__ import annotations
@@ -56,23 +56,38 @@ class SyntheticLMDataset:
 
 class ShardedLoader:
     """Prefetching loader that moves each batch to ``device`` (``None``
-    means cuda) on its own thread; yields (step, batch of tensors)."""
+    means cuda) on its own thread; yields (step, batch of tensors).  With
+    ``mesh`` (a concrete mesh; ``device`` is then not read) each batch comes
+    placed on the mesh's slots, a
+    :class:`~repro_torch.models.sharding.ShardedTensor` per key."""
 
     def __init__(self, dataset: SyntheticLMDataset, device=None,
-                 start_step: int = 0, prefetch: int = 2):
+                 start_step: int = 0, prefetch: int = 2, mesh=None):
         self.dataset = dataset
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # every device resolved here, where a missing card raises, and not
+        # on the prefetch thread
+        self.device = resolve_device(device) if mesh is None else \
+            [resolve_device(d) for d in mesh.devices][0]
         self.step = start_step
         self.prefetch = prefetch
         self._q: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
+    def _load(self, step: int) -> dict:
+        batch = {k: torch.from_numpy(v) for k, v in self.dataset.batch(step).items()}
+        if self.mesh is None:
+            return {k: v.to(self.device) for k, v in batch.items()}
+        from ..models import sharding
+
+        spec = sharding.make_batch_sharding(self.mesh, self.dataset.global_batch)
+        return sharding.place(batch, {k: spec for k in batch}, self.mesh)
+
     def _produce(self):
         step = self.step
         while not self._stop.is_set():
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.dataset.batch(step).items()}
+            batch = self._load(step)
             self._q.put((step, batch))
             step += 1
 

@@ -6,10 +6,21 @@ places its pods along one axis of a concrete mesh; the sharding rules
 (:mod:`repro_torch.models.sharding`) read only the axes and their sizes, so
 an abstract mesh (no devices) serves them, as the production meshes of 256
 and 512 cards do.
+
+:func:`use_mesh` makes a concrete mesh ambient (the reference's
+``jax.set_mesh``): inside the block the model code splits its rows over the
+mesh's data slots (the ``pod`` and ``data`` axes, row-major), runs
+sequence-parallel attention over the ``model`` slots of each, dispatches the
+MoE per data slot, and the train step takes placed state
+(:func:`repro_torch.models.sharding.place`).  One process drives every slot,
+and a slot may name a device that other slots name too (``devices=["cuda"] *
+32`` is a (2, 16) mesh on one card); the traffic between slots goes through
+:mod:`repro_torch.launch.collectives`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -18,7 +29,10 @@ import torch
 
 from .. import resolve_device
 
-__all__ = ["Mesh", "data_axis_size", "make_mesh", "make_production_mesh", "model_axis_size"]
+__all__ = ["Mesh", "data_axis_size", "data_slot_scope", "make_mesh", "make_production_mesh",
+           "model_axis_size", "use_mesh"]
+
+DATA_AXES = ("pod", "data")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +79,64 @@ class Mesh:
         return tuple(d for k, d in enumerate(self.devices)
                      if (k // stride) % self.axis_sizes[a] == index)
 
+    def coords(self, slot: int) -> dict:
+        """Axis name -> index of the row-major mesh slot ``slot``."""
+        out = {}
+        for name, size in zip(reversed(self.axis_names), reversed(self.axis_sizes)):
+            slot, out[name] = divmod(slot, size)
+        return {a: out[a] for a in self.axis_names}
+
+    def slot(self, **index) -> int:
+        """The row-major slot at ``index`` (axis name -> index; an axis not
+        named is at 0)."""
+        flat = 0
+        for name, size in zip(self.axis_names, self.axis_sizes):
+            i = index.get(name, 0)
+            if not 0 <= i < size:
+                raise IndexError(f"{name} index {i} outside 0..{size - 1}")
+            flat = flat * size + i
+        return flat
+
+    def data_coords(self, j: int) -> dict:
+        """Data slot ``j`` (row-major over the ``pod`` and ``data`` axes) as
+        axis indices."""
+        out = {}
+        for a in reversed([a for a in DATA_AXES if a in self.axis_names]):
+            j, out[a] = divmod(j, self.shape[a])
+        return out
+
+    def data_index(self, slot: int) -> int:
+        """The data slot (row-major over ``pod`` and ``data``) of the mesh
+        slot ``slot``."""
+        c, j = self.coords(slot), 0
+        for a in DATA_AXES:
+            if a in self.axis_names:
+                j = j * self.shape[a] + c[a]
+        return j
+
+    def data_devices(self) -> tuple:
+        """The device of each data slot: its slot at ``model`` index 0 (and
+        every other axis at 0)."""
+        if self.devices is None:
+            raise ValueError("an abstract mesh has no devices")
+        return tuple(self.devices[self.slot(**self.data_coords(j))]
+                     for j in range(data_axis_size(self)))
+
+    def row_devices(self, rows: int) -> tuple:
+        """The devices ``rows`` rows of a batch split over: every data
+        slot's where their count divides the rows, else data slot 0's alone
+        (the reference replicates such a batch)."""
+        devices = self.data_devices()
+        return devices if rows % len(devices) == 0 else devices[:1]
+
+    def model_devices(self, data_slot: int = 0) -> tuple:
+        """The devices of data slot ``data_slot``'s ``model`` slots, in order."""
+        if self.devices is None:
+            raise ValueError("an abstract mesh has no devices")
+        base = self.data_coords(data_slot)
+        return tuple(self.devices[self.slot(**base, model=m)]
+                     for m in range(model_axis_size(self)))
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16x16 = 256 cards per pod; multi_pod adds a leading 2-pod axis (512).
@@ -105,3 +177,33 @@ def data_axis_size(mesh) -> int:
 
 def model_axis_size(mesh) -> int:
     return mesh.shape["model"] if "model" in mesh.axis_names else 1
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Within the block ``mesh`` is the ambient mesh
+    (:func:`repro_torch.models.common.abstract_mesh`), the reference's
+    ``jax.set_mesh``; ``None`` clears it.  The mesh must be concrete."""
+    from ..models import common
+
+    if mesh is not None and mesh.devices is None:
+        raise ValueError("use_mesh needs a concrete mesh (make_mesh), not an abstract one")
+    prev = dict(common._AMBIENT)
+    common._AMBIENT.update(mesh=mesh, data_slot=0)
+    try:
+        yield mesh
+    finally:
+        common._AMBIENT.update(prev)
+
+
+@contextlib.contextmanager
+def data_slot_scope(j: int):
+    """Within the block the model code computes data slot ``j``'s rows."""
+    from ..models import common
+
+    prev = common._AMBIENT["data_slot"]
+    common._AMBIENT["data_slot"] = j
+    try:
+        yield j
+    finally:
+        common._AMBIENT["data_slot"] = prev

@@ -7,11 +7,14 @@ the reference does, and otherwise (long sequences without kernels: training,
 and prefill at any setting) the reference's blocked attention: an online
 softmax per query block over the static list of key blocks in its causal /
 sliding-window band, in plain PyTorch (the reference computes it outside any
-Pallas kernel).  The reference's sequence-parallel variant runs only over a
-mesh axis ``model`` of size > 1, which one card does not have; it waits for
-the mesh's port (ROADMAP.md Queue 1 item 5).  Decode runs one token against
-a ring-buffered KV cache, which :func:`cache_from_prefill` builds from a
-prefill's keys and values.
+Pallas kernel).  Under an ambient mesh whose ``model`` axis the head count
+does not divide, blocked attention goes sequence-parallel, as the
+reference's does (:func:`seq_parallel_attention`): each ``model`` slot of the
+data slot being computed owns a contiguous query chunk, K and V are
+all-gathered once in float32, and each slot scans its rectangle of block
+pairs on its device.  Decode runs one token against a ring-buffered KV
+cache, which :func:`cache_from_prefill` builds from a prefill's keys and
+values.
 """
 
 from __future__ import annotations
@@ -21,11 +24,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .common import ModelConfig
+from ..launch import collectives
+from .common import ModelConfig, abstract_mesh, data_slot
 from .layers import apply_rope, dense_init, rms_norm
 
 __all__ = ["KVCache", "attention", "blocked_attention", "cache_from_prefill",
-           "decode_attention_step", "init_attention", "init_cache", "plain_attention"]
+           "decode_attention_step", "init_attention", "init_cache", "plain_attention",
+           "seq_parallel_attention"]
 
 NEG_INF = -1e30
 
@@ -132,6 +137,82 @@ def _block_pairs(nq: int, nk: int, bq: int, bk: int, causal: bool,
     return pairs
 
 
+def _mesh_model_size() -> int:
+    mesh = abstract_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def _slot_attention(q_l, kf, vf, q_off: int, *, causal: bool, window: Optional[int],
+                    block_q: int, block_k: int) -> torch.Tensor:
+    """One ``model`` slot's part of :func:`seq_parallel_attention`: queries
+    ``q_l`` (B,K,G,S_loc,hd) at absolute offset ``q_off`` against the whole
+    float32 ``kf``/``vf`` (B,T,K,hd), every (query block, key block) pair in
+    order (the rectangle: the schedule is not pruned per slot), masked by
+    absolute position; returns (B,K,G,S_loc,hd) in q's dtype."""
+    B, K, G, S_loc, hd = q_l.shape
+    T = kf.shape[1]
+    dev = q_l.device
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qs in range(0, S_loc, block_q):
+        qb = q_l[:, :, :, qs:qs + block_q].float()
+        m = torch.full((B, K, G, block_q), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, K, G, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, K, G, block_q, hd), dtype=torch.float32, device=dev)
+        pq = q_off + qs + torch.arange(block_q, device=dev)
+        for ks in range(0, T, block_k):
+            s_blk = torch.einsum("bkgqh,btkh->bkgqt", qb, kf[:, ks:ks + block_k]) * scale
+            pk = ks + torch.arange(block_k, device=dev)
+            mask = torch.ones((block_q, block_k), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= pq[:, None] >= pk[None, :]
+            if window is not None:
+                mask &= pq[:, None] - pk[None, :] < window
+            s_blk = torch.where(mask, s_blk, NEG_INF)
+            m_blk = s_blk.amax(dim=-1)
+            p_blk = torch.exp(s_blk - m_blk[..., None])
+            l_blk = p_blk.sum(dim=-1)
+            a_blk = torch.einsum("bkgqt,btkh->bkgqh", p_blk, vf[:, ks:ks + block_k])
+            m_new = torch.maximum(m, m_blk)
+            alpha = torch.exp(m - m_new)
+            beta = torch.exp(m_blk - m_new)
+            l = alpha * l + beta * l_blk
+            acc = alpha[..., None] * acc + beta[..., None] * a_blk
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        outs.append(acc / l[..., None])
+    return torch.cat(outs, dim=3).to(q_l.dtype)
+
+
+def seq_parallel_attention(q, k, v, *, causal: bool, window: Optional[int],
+                           block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Sequence-parallel blocked attention over the ambient mesh's ``model``
+    axis (the reference's ``shard_map`` over 'model'), for head counts that
+    do not divide that axis (56, 40, 20 heads on a 16-way axis).  Model
+    slot ``m`` of the data slot being computed owns the queries
+    ``[m * S_loc, (m + 1) * S_loc)``; K and V go through float32 and are
+    all-gathered once; each slot scans its rectangle ``S_loc x T`` of block
+    pairs (twice the causal triangle's work) on its device; the slots'
+    outputs are gathered back onto q's device.  Plain PyTorch and
+    differentiable."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    mesh = abstract_mesh()
+    devices = mesh.model_devices(data_slot()) if mesh is not None else (q.device,)
+    S_loc = S // len(devices)
+    q5 = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)        # (B,K,G,S,hd)
+    q_parts = collectives.scatter(q5, 3, devices)
+    kf = collectives.all_gather(collectives.scatter(k.float(), 1, devices), 1)
+    vf = collectives.all_gather(collectives.scatter(v.float(), 1, devices), 1)
+    outs = [_slot_attention(q_parts[m], kf[m], vf[m], m * S_loc, causal=causal, window=window,
+                            block_q=block_q, block_k=block_k) for m in range(len(devices))]
+    out = collectives.gather_to(outs, 3, q.device)                # (B,K,G,S,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
 def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
                       block_q: int = 512, block_k: int = 512) -> torch.Tensor:
     """Flash-style attention in plain PyTorch: each query block runs an
@@ -139,12 +220,20 @@ def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
     blocks, so memory stays one (block_q x block_k) score block per step and
     causal / sliding-window pruning is exact.  Differentiable (training runs
     it under autograd).  Falls back to :func:`plain_attention` when the
-    sequence lengths are not whole blocks, as the reference does."""
+    sequence lengths are not whole blocks, as the reference does; under an
+    ambient mesh whose ``model`` axis the head count does not divide, goes
+    sequence-parallel under the reference's condition."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     if S % block_q or T % block_k:
         return plain_attention(q, k, v, causal=causal, window=window)
+    msize = _mesh_model_size()
+    if msize > 1 and H % msize != 0 and S == T and S % msize == 0 \
+            and (S // msize) % 128 == 0:
+        # head count does not divide the model axis: go sequence-parallel
+        return seq_parallel_attention(q, k, v, causal=causal, window=window,
+                                      block_q=min(block_q, S // msize), block_k=block_k)
     pairs_by_q: dict = {}
     for qi, ki in _block_pairs(S // block_q, T // block_k, block_q, block_k, causal,
                                window):

@@ -1,6 +1,7 @@
 """Shared model configuration covering all ten assigned architectures (the
 port's own copy of the reference's ``models/common.py``: the same fields, names
-and defaults, with torch dtypes in place of JAX's)."""
+and defaults, with torch dtypes in place of JAX's), and the ambient mesh
+(:func:`abstract_mesh`), which ``repro_torch.launch.mesh.use_mesh`` sets."""
 
 from __future__ import annotations
 
@@ -8,6 +9,24 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+# the ambient mesh and the data slot being computed, set by
+# ``repro_torch.launch.mesh.use_mesh`` / ``data_slot_scope``
+_AMBIENT = {"mesh": None, "data_slot": 0}
+
+
+def abstract_mesh():
+    """The mesh of the innermost ``use_mesh`` block (the reference's
+    ``jax.sharding.get_abstract_mesh()``); ``None`` outside any, where every
+    call site keeps its single-device path."""
+    return _AMBIENT["mesh"]
+
+
+def data_slot() -> int:
+    """The data slot (row-major over the mesh's ``pod`` and ``data`` axes)
+    whose rows the model code is computing: its ``model`` slots run the
+    sequence-parallel attention."""
+    return _AMBIENT["data_slot"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,9 @@
-"""Building blocks shared by the architectures: initializers, norms, rotary
-embeddings, MLPs, embedding and unembedding (the port of the reference's
-``models/layers.py``; its sharding constraints are no-ops on one card and are
-left out)."""
+"""Building blocks shared by the architectures: the logical sharding rules,
+initializers, norms, rotary embeddings, MLPs, embedding and unembedding (the
+port of the reference's ``models/layers.py``).  The reference's sharding
+constraints inside the model code change no value; the port resolves them
+(:func:`shard_spec`) where a caller asks, and places tensors on a mesh's
+slots with :func:`repro_torch.models.sharding.place`."""
 
 from __future__ import annotations
 
@@ -14,11 +16,91 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..optim.tree import tree_leaves, tree_map
-from .common import ModelConfig
+from .common import ModelConfig, abstract_mesh
+from .sharding import PartitionSpec
 
-__all__ = ["apply_rope", "cast_matrices", "dense_init", "draw_stacked", "embed",
-           "embed_init", "index_tree", "init_embed", "init_mlp", "layer_norm", "mlp",
-           "params_from_numpy", "rms_norm", "rope_freqs", "tree_from_numpy", "unembed"]
+__all__ = ["LOGICAL_RULES", "apply_rope", "cast_matrices", "dense_init", "draw_stacked",
+           "embed", "embed_init", "index_tree", "init_embed", "init_mlp", "layer_norm",
+           "logical_sharding", "mlp", "params_from_numpy", "rms_norm", "rope_freqs", "shard",
+           "shard_spec", "tree_from_numpy", "unembed"]
+
+
+# ---------------------------------------------------------------------------
+# Logical sharding (the reference's rules, verbatim): the one place where
+# logical axis names bind to mesh axes.  'batch' spreads over the data axes
+# ('pod', 'data'); 'model' carries tensor parallelism.
+# ---------------------------------------------------------------------------
+
+LOGICAL_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,                # sequences are replicated except for long-context decode
+    "seq_sp": ("model",),       # megatron-style sequence parallelism at block edges
+    "seq_kv": ("data",),        # KV-cache sequence dim for B=1 long-context decode
+    "d_model": None,
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "ff": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "moe_cap": ("data",),       # MoE capacity dim: shard expert token-slots over data
+    "stage": ("pod",),          # pipeline stage axis (paper technique)
+}
+
+
+def _resolve(axis, mesh_axes):
+    if axis is None:
+        return None
+    rule = LOGICAL_RULES.get(axis, None)
+    if rule is None:
+        return None
+    picked = tuple(a for a in rule if a in mesh_axes)
+    if not picked:
+        return None
+    return picked if len(picked) > 1 else picked[0]
+
+
+def shard_spec(shape, *logical_axes, mesh=None, manual=()):
+    """The spec the reference's ``shard(x, *logical_axes)`` constrains an
+    array of ``shape`` to under ``mesh`` (the ambient mesh by default;
+    ``None`` without one): axes in ``manual`` (a ``shard_map``'s) are not
+    used, a mesh axis appears at most once, and an axis whose size does not
+    divide its dimension is dropped."""
+    mesh = abstract_mesh() if mesh is None else mesh
+    if mesh is None:
+        return None
+    mesh_axes = set(mesh.axis_names) - set(manual)
+    entries, used = [], set()
+    for dim, a in enumerate(logical_axes):
+        r = _resolve(a, mesh_axes)
+        if r is not None:
+            axes = r if isinstance(r, tuple) else (r,)
+            if used & set(axes):
+                r = None  # a mesh axis can appear at most once per spec
+            elif shape[dim] % math.prod(mesh.shape[ax] for ax in axes):
+                r = None
+            else:
+                used |= set(axes)
+        entries.append(r)
+    return PartitionSpec(*entries)
+
+
+def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """``x`` itself: the reference's constraint changes no value, and the
+    port computes a mesh's slots explicitly (:func:`shard_spec` gives the
+    spec)."""
+    return x
+
+
+def logical_sharding(logical_axes, mesh) -> PartitionSpec:
+    """The placement spec of a parameter or batch from logical axis names
+    (the spec of the reference's ``NamedSharding``, which refuses a mesh
+    axis named twice)."""
+    mesh_axes = set(mesh.axis_names)
+    spec = PartitionSpec(*(_resolve(a, mesh_axes) for a in logical_axes))
+    used = [ax for e in spec if e is not None for ax in (e if isinstance(e, tuple) else (e,))]
+    if len(used) != len(set(used)):
+        raise ValueError(f"{spec} names a mesh axis twice")
+    return spec
 
 
 # ---------------------------------------------------------------------------

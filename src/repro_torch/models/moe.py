@@ -20,9 +20,13 @@ Routing is the reference's to the bit where the router products are:
     expert, where a kept pair may sit, so the buffer fill accumulates
     (``index_add_``) instead of overwriting.
 
-The reference splits the tokens into one dispatch group per data shard of
-its mesh (``_moe_groups``); one card has one shard, so the port dispatches
-one group (the mesh is ROADMAP.md Queue 1 item 5).
+The tokens split into one dispatch group per data slot of the ambient mesh
+where that divides the batch (``_moe_groups``; one group without a mesh).
+With ``cfg.moe_shard_map`` each data slot dispatches its own groups on its
+device (the reference's ``shard_map`` branch), else one dispatch runs over
+all the groups with the rows gathered (its GSPMD branch).  Dropping is per
+group, so at a low capacity factor the drops of G groups differ from one
+group's.
 """
 
 from __future__ import annotations
@@ -33,11 +37,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig
+from ..launch import collectives
+from ..launch.mesh import data_axis_size
+from .common import ModelConfig, abstract_mesh
 from .layers import dense_init, init_mlp, mlp
 
-__all__ = ["KEEP_FLOAT32", "Routing", "init_moe", "moe_ffn", "moe_ffn_tokens", "route",
-           "top_k"]
+__all__ = ["KEEP_FLOAT32", "Routing", "init_moe", "moe_ffn", "moe_ffn_slots", "moe_ffn_tokens",
+           "route", "top_k"]
 
 # weights a serving load keeps in float32: the reference casts the router to
 # float32 at each use, which a bf16 copy could not give back
@@ -146,15 +152,84 @@ def _grouped_dispatch(params: dict, flat: torch.Tensor, cfg: ModelConfig) -> tup
     return y, r.aux
 
 
+def _moe_groups(N: int, E: int, B: int) -> int:
+    """Number of dispatch groups: one per data slot of the ambient mesh
+    when that divides the batch, halved while a group would feed an expert
+    fewer than 2 tokens on average (the reference's rule)."""
+    mesh = abstract_mesh()
+    G = 1 if mesh is None else data_axis_size(mesh)
+    while G > 1 and (B % G or (N // G) < 2 * E):
+        G //= 2
+    return max(G, 1)
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple:
-    """x: (B, S, d) -> (y, aux_loss)."""
+    """x: (B, S, d) -> (y, aux_loss).  Under an ambient mesh the rows split
+    over its data slots where their count divides the batch
+    (:func:`moe_ffn_slots`), and the output is gathered back onto x's
+    device."""
     B, S, d = x.shape
-    # one dispatch group per data shard of the mesh: one card is one shard
-    y, aux = _grouped_dispatch(params, x.reshape(1, B * S, d), cfg)
-    y = y.reshape(B, S, d)
+    mesh = abstract_mesh()
+    if mesh is None:
+        y, aux = _grouped_dispatch(params, x.reshape(1, B * S, d), cfg)
+        y = y.reshape(B, S, d)
+        if cfg.dense_residual:
+            y = y + mlp(params["dense"], x, cfg)
+        return y, aux
+    devices = mesh.row_devices(B)
+    ys, aux = moe_ffn_slots(collectives.broadcast_tree(params, devices),
+                            collectives.scatter(x, 0, devices), cfg)
+    return collectives.gather_to(ys, 0, x.device), aux.to(x.device)
+
+
+def _staged(w: torch.Tensor, done: dict) -> torch.Tensor:
+    """A bf16 expert weight widened to float32 once per tensor (the
+    reference stages them so that its boundary gradient sum runs in
+    float32); others as they are."""
+    if w.dtype != torch.bfloat16:
+        return w
+    if id(w) not in done:
+        done[id(w)] = w.float()
+    return done[id(w)]
+
+
+def moe_ffn_slots(params_slots: list, xs: list, cfg: ModelConfig) -> tuple:
+    """The MoE under the ambient mesh over rows held per data slot:
+    ``xs[j]`` (B_j, S, d) on data slot ``j``'s device with its parameter
+    tree ``params_slots[j]`` (each slot's own copy in the mesh train step).
+    Returns (each slot's output, the aux loss on the first slot's device).
+
+    With ``cfg.moe_shard_map``, the rows over every data slot and the group
+    count a multiple of the slots', each slot dispatches its own groups on
+    its device with its weights staged through float32, and the aux loss is
+    the slots' summed in order over their count (the reference's
+    ``shard_map`` branch; under ``fsdp_params`` the trees are the weights
+    gathered at use).  Otherwise the rows are gathered onto the first slot
+    and dispatched there in all G groups with its tree, and each slot gets
+    its rows back."""
+    mesh = abstract_mesh()
+    S, d = xs[0].shape[1:]
+    B = sum(x.shape[0] for x in xs)
+    N, E = B * S, cfg.n_experts
+    G = _moe_groups(N, E, B)
+    n = N // G
+    dsize = data_axis_size(mesh)
+    devices = [x.device for x in xs]
+    if cfg.moe_shard_map and dsize > 1 and G % dsize == 0 and len(xs) == dsize:
+        done, ys, auxes = {}, [], []
+        for p, x in zip(params_slots, xs):
+            cap = {kk: _staged(p[kk], done) for kk in ("router", "wi", "wg", "wo")}
+            y, a = _grouped_dispatch(cap, x.reshape(G // dsize, n, d), cfg)
+            ys.append(y.reshape(x.shape))
+            auxes.append(a)
+        aux = collectives.psum(auxes, devices[0]) / dsize
+    else:
+        flat = collectives.gather_to(xs, 0, devices[0]).reshape(G, n, d)
+        y, aux = _grouped_dispatch(params_slots[0], flat, cfg)
+        ys = collectives.scatter(y.reshape(B, S, d), 0, devices)
     if cfg.dense_residual:
-        y = y + mlp(params["dense"], x, cfg)
-    return y, aux
+        ys = [y + mlp(p["dense"], x, cfg) for y, p, x in zip(ys, params_slots, xs)]
+    return ys, aux
 
 
 def moe_ffn_tokens(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

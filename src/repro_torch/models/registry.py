@@ -17,7 +17,7 @@ prefix), ``ssm`` and ``hybrid`` to :mod:`.hybrid`, ``xlstm`` to
 :func:`lm_workload` (layers as pipeline stages, analytic FLOPs) reads only
 the config.  The reference's ``input_specs`` (``jax.ShapeDtypeStruct``
 stand-ins for its dry run) waits for the dry run's port (ROADMAP.md Queue 1
-item 5).
+item 9).
 """
 
 from __future__ import annotations
@@ -85,6 +85,25 @@ _FAMILIES = {
 }
 
 
+def _train_forward(module, extras) -> Callable:
+    """The family's ``train_forward`` over a batch dict.  Where the family
+    runs under a mesh (``module.train_forward_slots``), its ``slots``
+    attribute is the same over per-data-slot parameter trees and batches,
+    (params_slots, batch_slots, cfg) -> (logits_slots, aux), which the mesh
+    train step calls."""
+    def fn(params, batch, c):
+        return module.train_forward(params, batch["tokens"], c, **extras(batch))
+
+    slots = getattr(module, "train_forward_slots", None)
+    if slots is not None:
+        def fn_slots(params_slots, batch_slots, c):
+            kw = [extras(b) for b in batch_slots]
+            prefix = [k["prefix_embeds"] for k in kw] if kw[0] else None
+            return slots(params_slots, [b["tokens"] for b in batch_slots], c, prefix)
+        fn.slots = fn_slots
+    return fn
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")
@@ -94,8 +113,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         init=lambda seed, device=None, master=False: _init(module, cfg, seed, device, master),
         forward=lambda params, batch, c: module.forward(params, batch["tokens"], c,
                                                         **extras(batch)),
-        train_forward=lambda params, batch, c: module.train_forward(
-            params, batch["tokens"], c, **extras(batch)),
+        train_forward=_train_forward(module, extras),
         init_decode_state=lambda b, cap, device=None: module.init_decode_state(
             cfg, b, cap, device),
         decode=lambda p, st, tok: module.decode_step(p, st, tok, cfg),

@@ -15,15 +15,28 @@ reference's ``jax.sharding.PartitionSpec``.  Trees are nested dicts,
 NamedTuples, tuples and lists; a leaf is anything with a ``shape`` (a
 tensor, a ``meta`` tensor).  :func:`named` turns specs into
 ``torch.distributed.tensor`` placements, one per mesh axis; no process group
-is needed for that.  The specs are not yet applied to tensors: the data and
-model axes in execution wait for a later slice (ROADMAP.md Queue 1).
+is needed for that.
+
+:func:`place` applies specs to tensors: each global tensor becomes a
+:class:`ShardedTensor`, one block per mesh slot on the slot's device,
+following :func:`named`'s placements; :func:`gather` joins the blocks back
+into global tensors, and :func:`reduce_to_placement` sums per-data-slot
+gradients into a placement's blocks.  Their traffic goes through
+:mod:`repro_torch.launch.collectives`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import torch
+
+from .. import resolve_device
 from .common import ModelConfig
 
-__all__ = ["PartitionSpec", "batch_spec", "make_batch_sharding", "named", "param_specs",
+__all__ = ["PartitionSpec", "ShardedTensor", "batch_spec", "gather", "make_batch_sharding",
+           "named", "param_specs", "place", "reduce_to_placement", "slot_bytes",
            "state_specs", "zero1_specs"]
 
 ATTN_PARENTS = {"attn", "self_attn", "cross_attn", "shared_attn"}
@@ -246,3 +259,184 @@ def state_specs(state, cfg: ModelConfig, mesh, batch: int) -> dict:
         return P(*entries)
 
     return _map_with_path(one, state)
+
+
+# ---------------------------------------------------------------------------
+# Placement: specs applied to tensors on a mesh's slots
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedTensor:
+    """A global tensor of ``shape`` placed on ``mesh`` by ``spec``:
+    ``shards[s]`` is the block that row-major mesh slot ``s`` holds, on the
+    slot's device.  Slots that hold the same block on the same device share
+    one tensor, so a replicated weight on one card is held once."""
+
+    shape: tuple
+    spec: PartitionSpec
+    mesh: object
+    shards: tuple
+
+    def counts(self) -> tuple:
+        """Blocks per tensor dim."""
+        return _counts(self.spec, self.mesh, len(self.shape))
+
+    def block(self, slot: int) -> tuple:
+        """Slot ``slot``'s block index per tensor dim."""
+        return _block(self.spec, self.mesh, len(self.shape), slot)
+
+    def region(self, slot: int) -> tuple:
+        """Slot ``slot``'s block as slices of the global tensor."""
+        return _region(self.shape, self.counts(), self.block(slot))
+
+    def unique(self) -> list:
+        """(first slot, tensor) of each distinct shard tensor, in slot order."""
+        seen, out = set(), []
+        for s, t in enumerate(self.shards):
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append((s, t))
+        return out
+
+
+def _placements(spec, mesh) -> tuple:
+    return named(spec, mesh)
+
+
+def _counts(spec, mesh, nd: int) -> tuple:
+    counts = [1] * nd
+    for axis, pl in zip(mesh.axis_names, _placements(spec, mesh)):
+        if hasattr(pl, "dim"):
+            counts[pl.dim] *= mesh.shape[axis]
+    return tuple(counts)
+
+
+def _block(spec, mesh, nd: int, slot: int) -> tuple:
+    """Block index per dim: over the axes that shard a dim, in mesh order,
+    row-major (``Shard(d)`` on several axes splits ``d`` by the first one
+    first, as ``torch.distributed.tensor`` and ``jax`` both do)."""
+    coords = mesh.coords(slot)
+    idx = [0] * nd
+    for axis, pl in zip(mesh.axis_names, _placements(spec, mesh)):
+        if hasattr(pl, "dim"):
+            idx[pl.dim] = idx[pl.dim] * mesh.shape[axis] + coords[axis]
+    return tuple(idx)
+
+
+def _region(shape, counts, block) -> tuple:
+    out = []
+    for n, c, b in zip(shape, counts, block):
+        if n % c:
+            raise ValueError(f"a dim of {n} does not split into {c} blocks")
+        step = n // c
+        out.append(slice(b * step, (b + 1) * step))
+    return tuple(out)
+
+
+def _place_one(spec, leaf: torch.Tensor, mesh) -> ShardedTensor:
+    devs = {d: resolve_device(d) for d in dict.fromkeys(mesh.devices)}
+    shape, nd = tuple(leaf.shape), leaf.dim()
+    spec = P(*(tuple(spec) + (None,) * (nd - len(spec))))
+    counts = _counts(spec, mesh, nd)
+    made, shards = {}, []
+    with torch.no_grad():
+        for s, dev in enumerate(mesh.devices):
+            key = (_block(spec, mesh, nd, s), dev)
+            if key not in made:
+                made[key] = leaf.detach()[_region(shape, counts, key[0])].to(
+                    devs[dev], copy=True).contiguous()
+            shards.append(made[key])
+    return ShardedTensor(shape, spec, mesh, tuple(shards))
+
+
+def place(tree, specs, mesh):
+    """Each tensor of ``tree`` placed on ``mesh``'s slots by its spec in
+    ``specs`` (a spec tree of ``tree``'s structure, as :func:`param_specs`
+    returns, or one spec for a single tensor): a :class:`ShardedTensor` of
+    copies, one per distinct (block, device).  A CUDA slot without a card
+    raises."""
+    if mesh.devices is None:
+        raise ValueError("place needs a concrete mesh (make_mesh)")
+    if isinstance(tree, torch.Tensor):
+        return _place_one(specs, tree, mesh)
+    return _map2(lambda spec, leaf: _place_one(spec, leaf, mesh), specs, tree)
+
+
+def _gather_one(st: ShardedTensor, device) -> torch.Tensor:
+    from ..launch import collectives
+
+    counts = st.counts()
+    blocks = {}
+    for s, t in enumerate(st.shards):
+        blocks.setdefault(st.block(s), t)
+    split = [d for d, c in enumerate(counts) if c > 1]
+
+    def join(prefix: dict, dims: list) -> torch.Tensor:
+        if not dims:
+            return blocks[tuple(prefix.get(d, 0) for d in range(len(counts)))].to(device)
+        d = dims[0]
+        return collectives.gather_to([join(prefix | {d: i}, dims[1:]) for i in range(counts[d])],
+                                     d, device)
+
+    if not split:
+        return collectives.gather_to([blocks[(0,) * len(counts)]], 0, device) \
+            if counts else st.shards[0].to(device, copy=True)
+    return join({}, split)
+
+
+def gather(tree, device=None):
+    """Each :class:`ShardedTensor` of ``tree`` joined into its global tensor
+    (a new tensor) on ``device`` (the first slot's device by default); other
+    leaves as they are."""
+    def one(x):
+        if not isinstance(x, ShardedTensor):
+            return x
+        dev = resolve_device(x.shards[0].device if device is None else device)
+        return _gather_one(x, dev)
+    return _map_leaves(one, tree)
+
+
+def reduce_to_placement(slot_grads: list, like: ShardedTensor) -> ShardedTensor:
+    """Per-data-slot gradients of a global tensor (``slot_grads[j]`` data
+    slot ``j``'s, global shape) summed in float32, in data-slot order, into
+    the blocks of ``like``'s placement: each slot's block of the sum on the
+    slot's device (a reduce-scatter over the data axes; an all-reduce for a
+    block that every data slot holds)."""
+    from ..launch import collectives
+
+    made, shards = {}, []
+    for s, dev in enumerate(like.mesh.devices):
+        key = (like.block(s), dev)
+        if key not in made:
+            region = like.region(s)
+            made[key] = collectives.psum([g[region].float() for g in slot_grads], dev)
+        shards.append(made[key])
+    return ShardedTensor(like.shape, like.spec, like.mesh, tuple(shards))
+
+
+def slot_bytes(tree, specs, mesh) -> int:
+    """The bytes one slot of ``mesh`` holds of ``tree`` placed by ``specs``
+    (every slot holds as many), computed from the specs: no tensor is
+    placed, so ``tree`` may hold ``meta`` tensors."""
+    total = []
+
+    def one(spec, leaf):
+        counts = _counts(spec, mesh, leaf.dim())
+        total.append(math.prod(n // c for n, c in zip(leaf.shape, counts))
+                     * leaf.element_size())
+    _map2(one, specs, tree)
+    return sum(total)
+
+
+def _map_leaves(fn, tree):
+    """``fn`` over the leaves of nested dicts, NamedTuples, tuples and lists
+    (a :class:`ShardedTensor` is a leaf)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)

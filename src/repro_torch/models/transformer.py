@@ -27,6 +27,17 @@ reference's ``jax.checkpoint``).  Prefill takes the RMSNorm kernel with
 ``use_pallas`` but, as in the reference, never flash attention: plain
 attention up to S = 2048, blocked attention above.  Decode gives the MoE a
 capacity factor of at least 8, as the reference does for its small batches.
+
+Under an ambient mesh (:func:`repro_torch.launch.mesh.use_mesh`) the
+forward, ``train_forward`` and prefill split the rows over the mesh's data
+slots where their count divides the batch (else data slot 0 takes them
+all), and run the layers one at a time over the slots, each slot on its
+device (:func:`train_forward_slots`): the RMSNorm kernel and flash
+attention per slot where the reference takes them, blocked attention
+sequence-parallel over the slot's ``model`` slots where the head count does
+not divide that axis, and the MoE per data slot (:func:`.moe.moe_ffn_slots`).
+The outputs (and prefill's caches) are gathered back onto the tokens'
+device.
 """
 
 from __future__ import annotations
@@ -37,18 +48,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..launch import collectives
+from ..launch.mesh import data_slot_scope
 from .attention import (KVCache, _out_proj, _project_qkv, attention, blocked_attention,
                         cache_from_prefill, decode_attention_step, init_attention,
                         plain_attention)
-from .common import ModelConfig
+from .common import ModelConfig, abstract_mesh
 from . import layers
 from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp, mlp,
                      rms_norm, unembed)
-from .moe import KEEP_FLOAT32, init_moe, moe_ffn
+from .moe import KEEP_FLOAT32, init_moe, moe_ffn, moe_ffn_slots
 
 __all__ = ["DecodeState", "block_forward", "check_family", "decode_step", "forward",
            "init_decode_state", "init_params", "params_from_numpy", "prefill",
-           "train_forward"]
+           "train_forward", "train_forward_slots"]
 
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -114,17 +127,46 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
 # Forward
 # ---------------------------------------------------------------------------
 
-def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions) -> tuple:
+def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, positions) -> torch.Tensor:
+    """A block's first half: x plus its attention."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps, cfg.use_pallas)
     h = attention(p["attn"], h, cfg, positions=positions, causal=True,
                   window=cfg.sliding_window)
-    x = x + h
+    return x + h
+
+
+def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions) -> tuple:
+    x = _attend(p, x, cfg, positions)
     h = rms_norm(x, p["ln2"], cfg.norm_eps, cfg.use_pallas)
     if cfg.family == "moe":
         h, aux = moe_ffn(p["moe"], h, cfg)
     else:
         h, aux = mlp(p["mlp"], h, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, aux
+
+
+def _slots_block(lps: list, xs: list, cfg: ModelConfig, positions: list,
+                 prefill: bool = False) -> tuple:
+    """One layer over the data slots' rows (``xs[j]`` with its parameters
+    ``lps[j]`` on slot ``j``'s device): each slot's attention half, then the
+    FFN (the MoE across the slots).  Returns (the slots' outputs, the aux
+    loss, each slot's (k, v) when ``prefill``)."""
+    xs2, hs, kvs = [], [], []
+    for j, (p, x) in enumerate(zip(lps, xs)):
+        with data_slot_scope(j):
+            if prefill:
+                x, kv = _attend_prefill(p, x, cfg, positions[j])
+                kvs.append(kv)
+            else:
+                x = _attend(p, x, cfg, positions[j])
+        xs2.append(x)
+        hs.append(rms_norm(x, p["ln2"], cfg.norm_eps, cfg.use_pallas))
+    if cfg.family == "moe":
+        ys, aux = moe_ffn_slots([p["moe"] for p in lps], hs, cfg)
+    else:
+        ys = [mlp(p["mlp"], h, cfg) for p, h in zip(lps, hs)]
+        aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    return [x + y for x, y in zip(xs2, ys)], aux, kvs
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
@@ -142,13 +184,59 @@ def _embed_with_prefix(params, tokens, cfg, prefix_embeds):
     return x
 
 
+def _slots_forward(params_slots: list, tokens_slots: list, cfg: ModelConfig,
+                   prefix_slots=None, prefill: bool = False) -> tuple:
+    """The layers over the data slots' rows: (each slot's final hidden
+    state, the aux loss on the first slot's device, per layer each slot's
+    (k, v) when ``prefill``)."""
+    prefix_slots = prefix_slots or [None] * len(tokens_slots)
+    xs = [_embed_with_prefix(p, t, cfg, pe)
+          for p, t, pe in zip(params_slots, tokens_slots, prefix_slots)]
+    positions = [torch.arange(x.shape[1], device=x.device)[None, :] for x in xs]
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    block = _maybe_remat(lambda lps, xs: _slots_block(lps, xs, cfg, positions, prefill), cfg)
+    kvs = []
+    for i in range(cfg.n_layers):
+        xs, a, kv = block([index_tree(p["layers"], i) for p in params_slots], xs)
+        kvs.append(kv)
+        aux = aux + a
+    return [rms_norm(x, p["ln_f"], cfg.norm_eps, cfg.use_pallas)
+            for p, x in zip(params_slots, xs)], aux, kvs
+
+
+def train_forward_slots(params_slots: list, tokens_slots: list, cfg: ModelConfig,
+                        prefix_slots=None) -> tuple:
+    """:func:`train_forward` over rows held per data slot of the ambient
+    mesh: ``tokens_slots[j]`` on slot ``j``'s device with its parameter tree
+    ``params_slots[j]`` (the mesh train step gives each slot its own copy).
+    Returns (each slot's logits, the aux loss on the first slot's device)."""
+    check_family(cfg)
+    hs, aux, _ = _slots_forward(params_slots, tokens_slots, cfg, prefix_slots)
+    logits = [unembed(p["embed"], h, cfg) for p, h in zip(params_slots, hs)]
+    if prefix_slots is not None:
+        logits = [lg[:, pe.shape[1]:] for lg, pe in zip(logits, prefix_slots)]
+    return logits, aux
+
+
+def _mesh_train_forward(params, tokens, cfg, prefix_embeds) -> tuple:
+    devices = abstract_mesh().row_devices(tokens.shape[0])
+    prefix = None if prefix_embeds is None else collectives.scatter(prefix_embeds, 0, devices)
+    logits, aux = train_forward_slots(collectives.broadcast_tree(params, devices),
+                                      collectives.scatter(tokens, 0, devices), cfg, prefix)
+    return collectives.gather_to(logits, 0, tokens.device), aux.to(tokens.device)
+
+
 def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   prefix_embeds: Optional[torch.Tensor] = None) -> tuple:
     """Returns (logits, aux_loss), differentiable in ``params``; aux sums
     the MoE layers' load-balance losses.  tokens: (B, S_text) on the
     parameters' device; prefix_embeds (VLM): (B, S_vis, d) prepended before
-    the text tokens, the logits then those of the text positions."""
+    the text tokens, the logits then those of the text positions.  Under an
+    ambient mesh the rows split over its data slots
+    (:func:`train_forward_slots`)."""
     check_family(cfg)
+    if abstract_mesh() is not None:
+        return _mesh_train_forward(params, tokens, cfg, prefix_embeds)
     x = _embed_with_prefix(params, tokens, cfg, prefix_embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
@@ -179,8 +267,8 @@ class DecodeState(NamedTuple):
     caches: KVCache      # stacked over layers: fields (L, B, C, K, hd)
 
 
-def _block_prefill(p, x, cfg: ModelConfig, positions):
-    """Like block_forward but also returns this layer's (k, v) for the cache."""
+def _attend_prefill(p, x, cfg: ModelConfig, positions) -> tuple:
+    """A block's first half in prefill: (x plus its attention, (k, v))."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps, cfg.use_pallas)
     S = h.shape[1]
     q, k, v = _project_qkv(p["attn"], h, h, cfg, positions, positions)
@@ -188,7 +276,12 @@ def _block_prefill(p, x, cfg: ModelConfig, positions):
         out = plain_attention(q, k, v, causal=True, window=cfg.sliding_window)
     else:
         out = blocked_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + _out_proj(out, p["attn"]["wo"].to(h.dtype))
+    return x + _out_proj(out, p["attn"]["wo"].to(h.dtype)), (k, v)
+
+
+def _block_prefill(p, x, cfg: ModelConfig, positions):
+    """Like block_forward but also returns this layer's (k, v) for the cache."""
+    x, (k, v) = _attend_prefill(p, x, cfg, positions)
     h = rms_norm(x, p["ln2"], cfg.norm_eps, cfg.use_pallas)
     h = moe_ffn(p["moe"], h, cfg)[0] if cfg.family == "moe" else mlp(p["mlp"], h, cfg)
     return x + h, (k, v)
@@ -205,6 +298,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     window), so the first decode step after a prefill without a window
     writes ring slot ``S % S = 0`` and evicts position 0."""
     check_family(cfg)
+    if abstract_mesh() is not None:
+        return _mesh_prefill(params, tokens, cfg, prefix_embeds)
     with torch.inference_mode():
         x = _embed_with_prefix(params, tokens, cfg, prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -215,6 +310,26 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         x = rms_norm(x, params["ln_f"], cfg.norm_eps, cfg.use_pallas)
         logits = unembed(params["embed"], x[:, -1:], cfg)
         return logits, DecodeState(KVCache(*(torch.stack(f) for f in zip(*caches))))
+
+
+def _mesh_prefill(params, tokens, cfg: ModelConfig, prefix_embeds) -> tuple:
+    """:func:`prefill` with the rows split over the ambient mesh's data
+    slots; the last logits and the caches gathered onto the tokens'
+    device."""
+    with torch.inference_mode():
+        devices = abstract_mesh().row_devices(tokens.shape[0])
+        prefix = None if prefix_embeds is None else collectives.scatter(prefix_embeds, 0, devices)
+        params_slots = collectives.broadcast_tree(params, devices)
+        hs, _, kvs = _slots_forward(params_slots, collectives.scatter(tokens, 0, devices), cfg,
+                                    prefix, prefill=True)
+        logits = [unembed(p["embed"], h[:, -1:], cfg) for p, h in zip(params_slots, hs)]
+        caches = [cache_from_prefill(cfg, collectives.gather_to([kv[0] for kv in layer], 0,
+                                                                tokens.device),
+                                     collectives.gather_to([kv[1] for kv in layer], 0,
+                                                           tokens.device), cfg.sliding_window)
+                  for layer in kvs]
+        return (collectives.gather_to(logits, 0, tokens.device),
+                DecodeState(KVCache(*(torch.stack(f) for f in zip(*caches)))))
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, capacity: int,

@@ -142,8 +142,9 @@ def pipelined_loss_fn(cfg: ModelConfig, plan: StagePlan, num_microbatches: int,
     another device than its pod's is moved there at each call: a packed
     stack (place the stacks once with ``make_stage_params(..., devices=)``),
     the embedding (first pod) and the head (last pod).  The mesh's other
-    axes change no value: rows are not split over them yet (ROADMAP.md
-    Queue 1).
+    axes change no value here: the pipeline does not split rows over them
+    (the data and model axes execute under ``launch.mesh.use_mesh``, in the
+    models' own forward).
 
     Kernels: under autograd the loss raises when ``cfg.use_pallas`` is set
     (the kernels' outputs carry no gradient, as in ``models/train.py``);

@@ -26,7 +26,10 @@ from repro_torch.core.batched import ProblemBatch, batched_min_period, stack_ins
 from repro_torch.fleet import worker_main
 from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.launch import first_forward_probe, rounding_probe
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch import collectives
+from repro_torch.launch.mesh import Mesh, make_mesh, use_mesh
+from repro_torch.models import moe, sharding
+from repro_torch.models.train import init_optimizer, place_train_state
 from repro_torch.launch.serve import plan_serving, serve_pool
 from repro_torch.launch.train import train_loop
 from repro_torch.models import encdec, get_model, hybrid, ssm, transformer, xlstm
@@ -43,6 +46,25 @@ _XLSTM = get_smoke_config("xlstm-350m")
 _WL = core.make_workload([3.0, 1.0, 4.0, 1.0, 5.0], [1.0, 2.0, 3.0, 2.0, 1.0, 1.0])
 _PF = core.make_platform([2.0, 5.0, 3.0], 10.0)
 _PLAN = core.StagePlan(core.Mapping(((1, 5),), (1,)), 1.0, 1.0, "single", (5,), 5, 0.0)
+
+
+# a mesh whose slots name the card, built without checking for one (as a
+# caller on another host could): every entry point that places or moves a
+# tensor onto its slots must raise here
+_CARD_MESH = Mesh(("data", "model"), (2, 2), ("cuda",) * 4)
+_X = torch.ones((2, 4))
+
+
+def _under_card_mesh(fn):
+    def run():
+        with use_mesh(_CARD_MESH):
+            return fn()
+    return run
+
+
+def _card_mesh_train_step():
+    params = get_model(_QWEN).init(0, "cpu", master=True)
+    return place_train_state(params, init_optimizer(params), _QWEN, _CARD_MESH)
 
 
 def _card_batch():
@@ -139,6 +161,10 @@ def test_import_and_campaign_load_no_jax_or_reference():
         "cfg = get_smoke_config('qwen3-4b')\n"
         "logits, _ = prefill(get_model(cfg).init(0, 'cpu'), torch.ones((1, 8), dtype=torch.int32), cfg)\n"
         "assert logits.shape == (1, 1, cfg.vocab_size)\n"
+        "from repro_torch.launch.mesh import make_mesh, use_mesh\n"
+        "with use_mesh(make_mesh((2, 2), ('data', 'model'), devices=['cpu'] * 4)):\n"
+        "    logits, _ = prefill(get_model(cfg).init(0, 'cpu'), torch.ones((2, 8), dtype=torch.int32), cfg)\n"
+        "assert logits.shape == (2, 1, cfg.vocab_size)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
@@ -247,6 +273,23 @@ def _no_cuda(monkeypatch):
     lambda: train_loop(arch="arctic-480b", steps=1, batch=1, seq=8),
     lambda: make_mesh((4,), ("stage",)),
     lambda: make_mesh((2, 2), ("stage", "data"), devices=["cuda"] * 4),
+    lambda: make_mesh((2, 4), ("data", "model")),
+    lambda: sharding.place({"w": _X}, {"w": sharding.P("data", None)}, _CARD_MESH),
+    lambda: collectives.gather_to([_X, _X], 0, "cuda"),
+    lambda: collectives.all_gather([_X, _X], 0, ["cuda"] * 2),
+    lambda: collectives.scatter(_X, 0, ["cuda"] * 2),
+    lambda: collectives.broadcast(_X, ["cuda"] * 2),
+    lambda: collectives.psum([_X, _X], "cuda"),
+    lambda: collectives.reduce_scatter([_X, _X], 0, ["cuda"] * 2),
+    lambda: ShardedLoader(SyntheticLMDataset(16, 8, 2), mesh=_CARD_MESH),
+    _card_mesh_train_step,
+    _under_card_mesh(lambda: transformer.prefill(get_model(_QWEN).init(0, "cpu"),
+                                                 torch.ones((2, 4), dtype=torch.int32), _QWEN)),
+    _under_card_mesh(lambda: get_model(_MIXTRAL).forward(
+        get_model(_MIXTRAL).init(0, "cpu"), {"tokens": torch.ones((2, 4), dtype=torch.int32)},
+        _MIXTRAL)),
+    _under_card_mesh(lambda: moe.moe_ffn(get_model(_MIXTRAL).init(0, "cpu")["layers"]["moe"],
+                                         torch.ones((2, 4, _MIXTRAL.d_model)), _MIXTRAL)),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -268,7 +311,11 @@ def _no_cuda(monkeypatch):
         "init_mlstm_state", "init_slstm_state", "moe_params_from_numpy",
         "encdec_params_from_numpy", "xlstm_params_from_numpy-master", "serve_pool-moe",
         "serve_pool-encdec", "serve_pool-xlstm", "train_loop-vlm", "train_loop-moe",
-        "make_mesh", "make_mesh-named-card"])
+        "make_mesh", "make_mesh-named-card", "make_mesh-data-model", "place",
+        "collectives.gather_to", "collectives.all_gather", "collectives.scatter",
+        "collectives.broadcast", "collectives.psum", "collectives.reduce_scatter",
+        "ShardedLoader-mesh", "place_train_state", "prefill-mesh", "forward-mesh",
+        "moe_ffn-mesh"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
