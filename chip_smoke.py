@@ -8,8 +8,9 @@ campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
 full width, the planner API and its reliability extensions, the fleet
 replanning service, serving's planner hooks with prefill, training, the
 MoE, VLM, enc-dec and xLSTM families, the planner's stage plan run as a
-pipeline, and the mesh's data and model axes in execution (``repro_torch``),
-in twenty-one phases; any failure exits non-zero:
+pipeline, the mesh's data and model axes in execution, and the dry run held
+against a real run (``repro_torch``), in twenty-two phases; any failure
+exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -175,12 +176,14 @@ in twenty-one phases; any failure exits non-zero:
               within atol 1e-4;
  18. train  — ``train_loop`` of qwen3-4b at full width cut to 4 of its 36
               layers, B = 1, S = 4096 (blocked attention under autograd, each
-              block recomputed), 3 steps on cuda; again with a checkpoint
-              after step 1 and ``fail_at_step=1``; then resumed from that
-              checkpoint: every loss finite, the resumed step-2 loss equal to
-              the uninterrupted run's, no hand-written kernel launched (the
-              reference trains through the plain versions); step time and
-              peak memory; then the smoke config in float32, 3 steps on cpu
+              block recomputed), 3 steps on cuda: step time and peak memory;
+              then ``train_loop`` of the smoke config, B = 2, S = 128, 3
+              steps, again with a checkpoint after step 1 and
+              ``fail_at_step=1``, then resumed from that checkpoint: every
+              loss finite, the resumed step-2 loss equal to the uninterrupted
+              run's, no hand-written kernel launched in any of these runs
+              (the reference trains through the plain versions); then the
+              smoke config in float32, 3 steps on cpu
               and cuda from the same weights: losses within atol 1e-4,
               parameters within the sum of the steps' learning rates.
  19. families — the new kernel shapes first: flash attention at head dim
@@ -250,9 +253,27 @@ in twenty-one phases; any failure exits non-zero:
               and every parameter within 5e-3, grad norm and first moments
               within 1e-2 by relative norm; wall and step times, peak memory,
               the bytes one slot holds.
+ 22. dryrun — the dry run (``repro_torch.launch.dryrun.run_cell``) held
+              against the card: (a) qwen3-4b prefill at full width, B = 1,
+              S = 4096, ``use_pallas``, on a one-slot mesh (the reference's
+              prefill cell: the forward's logits), run on the card and on
+              meta under the op analysis: dot flops, bytes, bytes by kind
+              and launches ``==`` (73 RMSNorm and 36 flash, as phase 8's
+              forward, and the wrappers' counters the same); the predicted
+              per-slot peak (arguments + temp) within 1 % of
+              ``torch.cuda.max_memory_allocated`` less what the process held
+              before the cell; the step time against
+              max(compute, memory) at the card's peaks, reported; (b) phase
+              21(c)'s FSDP step on its (2, 4) mesh, card and meta: the
+              collectives (bytes and calls per kind) ``==``; (c) on meta,
+              after every phase that times the host, in three child
+              processes at once: qwen3-4b ``train_4k`` on pod16x16 and
+              ``run_pipeline_cell`` at straggler 1.0 and 2.0, each plan
+              covering every layer, each record's per-slot memory,
+              ``fits``, dot TFLOP, collective GB and plan printed.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-21;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-22;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -644,6 +665,7 @@ def check_rmsnorm(torch, xs, sc, eps) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cost
 
     x = xs[0]
     n, d = x.shape
@@ -657,7 +679,7 @@ def check_rmsnorm(torch, xs, sc, eps) -> dict:
         "rmsnorm", ("rmsnorm", 17), err,
         device_time(torch, [lambda x=x: ops.rmsnorm(x, sc, eps=eps) for x in xs]),
         device_time(torch, [lambda x=x: ref.rmsnorm_ref(x, sc, eps=eps) for x in xs]),
-        4 * n * d + 4 * d, 4 * n * d, FP32_FLOPS_PER_S,
+        *rmsnorm_cost(n, d, x.element_size()), FP32_FLOPS_PER_S,
         device_time(torch, [lambda x=x: F.rms_norm(x, (d,), sc16, eps) for x in xs]),
         {"n": n, "d": d, "dtype": "bfloat16", "cold_buffers": len(xs)}) | {
         "f32_max_abs_err": f32_err}
@@ -668,6 +690,7 @@ def check_model_kernels(torch, cfg, gen) -> list:
     in float32 and in bfloat16 (timed); the attention kernels also show that
     the tolerance rejects the answer with the window or mask ignored."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_residual_cost
 
     dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -702,7 +725,7 @@ def check_model_kernels(torch, cfg, gen) -> list:
                             for x, y in pairs]),
         device_time(torch, [lambda x=x, y=y: ref.rmsnorm_residual_ref(x, y, sc, eps=eps)
                             for x, y in pairs]),
-        8 * n_el + 4 * d, 5 * n_el, FP32_FLOPS_PER_S, None,
+        *rmsnorm_residual_cost(FWD_S, d, x.element_size()), FP32_FLOPS_PER_S, None,
         {"n": FWD_S, "d": d, "dtype": "bfloat16", "cold_buffers": ring})
         | {"f32_max_abs_err": f32_err})
     del x, res, xs, ress, pairs
@@ -734,6 +757,7 @@ def check_flash(torch, gen, H, K, hd, window, S=FWD_S) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import band_pairs, flash_cost
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 0.5).to(bf16)
@@ -753,7 +777,7 @@ def check_flash(torch, gen, H, K, hd, window, S=FWD_S) -> dict:
     del want
     torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = sum(min(i + 1, window or S) for i in range(S))
+    pairs = band_pairs(S, S, True, window)
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                      enable_gqa=True)
@@ -767,7 +791,7 @@ def check_flash(torch, gen, H, K, hd, window, S=FWD_S) -> dict:
         "flash_attention", ("flash_attention", 27), err, kern,
         device_time(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True,
                                                            window=window)),
-        2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
+        *flash_cost(1, S, S, H, K, hd, q.element_size(), True, window),
         BF16_TENSOR_FLOPS_PER_S, device_time(torch, lib),
         {"B": 1, "S": S, "T": S, "H": H, "K": K, "hd": hd, "causal": True,
          "window": window, "pairs": pairs}) | {
@@ -789,21 +813,15 @@ def check_flash(torch, gen, H, K, hd, window, S=FWD_S) -> dict:
 DECODE_INPUTS = ("mixed", "serve_live", "full")
 
 
-def decode_bytes(B, H, K, hd, live, C, itemsize=2) -> int:
-    """Bytes decode attention must move: q read and out written, K and V of
-    the live slots only (a masked slot's K/V never reach the output), the
-    mask.  ``live`` counts live slots over all batch rows."""
-    return itemsize * (2 * B * H * hd + 2 * live * K * hd) + B * C
-
-
 def decode_plan(torch, kind, H, K, hd, window, gen, device, C=SERVE["capacity"],
                 last_pos=SERVE["prompt_len"] + SERVE["max_new"] - 1) -> dict:
     """Input ``kind`` of :data:`DECODE_INPUTS` (``window``: the model's, or
     None) at B rows of C slots (``serve_live``: the serve run's last
     position ``last_pos``): cache positions, current positions, the window
-    it takes, the slot mask, its live count, the bytes of the bound, and the
-    cold ring."""
+    it takes, the slot mask, its live count, the bytes and operations of
+    the bound (the live slots only: ``decode_cost``), and the cold ring."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_cost
 
     B = SERVE["batch"]
     slots = torch.arange(C, device=device, dtype=torch.int32)[None, :]
@@ -820,10 +838,10 @@ def decode_plan(torch, kind, H, K, hd, window, gen, device, C=SERVE["capacity"],
         positions[:, 3::7] = -1
     mask = ops.decode_mask(positions, pos, window)
     live = int(mask.sum())
-    nbytes = decode_bytes(B, H, K, hd, live, C)
+    nbytes, flops = decode_cost(B, H, K, hd, C, 2, live)
     return {"kind": kind, "B": B, "C": C, "positions": positions, "written": written,
             "pos": pos, "window": window, "mask": mask, "live": live, "bytes": nbytes,
-            "ring": cold_ring(nbytes)}
+            "flops": flops, "ring": cold_ring(nbytes)}
 
 
 def check_decode(torch, gen, arch, H, K, hd, window, C=SERVE["capacity"],
@@ -894,7 +912,7 @@ def check_decode(torch, gen, arch, H, K, hd, window, C=SERVE["capacity"],
         torch.cuda.empty_cache()
         inputs[kind] = _kernel_row(
             "decode_attention", ("decode_attention", 24), err, kern, plain, plan["bytes"],
-            4 * hd * H * plan["live"], BF16_TENSOR_FLOPS_PER_S, lib,
+            plan["flops"], BF16_TENSOR_FLOPS_PER_S, lib,
             {"B": B, "C": C, "H": H, "K": K, "hd": hd, "window": win,
              "live_slots": plan["live"], "cold_buffers": n, "timed_calls": calls,
              "split_slots": split}) | res | {
@@ -939,6 +957,7 @@ def check_ssd_kernel(torch, cfg, gen) -> dict:
     (B = 1, S = 4096 in chunks of Q), float32, against its plain version;
     the limit must reject the two wrong answers of :func:`ssd_wrong`."""
     from repro_torch.kernels import mamba2_ssd, ref
+    from repro_torch.kernels.mamba2_ssd import ssd_cost
     from repro_torch.models.ssm import ssm_dims
 
     dev = torch.device("cuda")
@@ -967,7 +986,6 @@ def check_ssd_kernel(torch, cfg, gen) -> dict:
             fail(f"ssd_intra_chunk ({label}): the limit does not reject a wrong answer")
         wrong[label] = max(e for _, e in res)
     torch.cuda.empty_cache()
-    pairs = Q * (Q + 1) // 2
     # The bound is the same work whatever implements it: multiply-adds count
     # 2, the causal pairs' C.B scores once per chunk (they do not depend on
     # the head), then per head the pairs' w x and the state (11,371,012,608
@@ -975,10 +993,8 @@ def check_ssd_kernel(torch, cfg, gen) -> dict:
     # written once (268,180,928 B).  The fastest rate that keeps the products
     # float32-accurate is three TF32 tensor-core products per product (495 / 3
     # = 165 TFLOP/s): 0.069 ms; the bytes take 0.080 ms at 3.35 TB/s, so the
-    # bound is 0.080 ms, by bytes.
-    flops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * N * P))
-    nbytes = 4 * (2 * B * nc * Q * H * P + B * nc * H * N * P + 2 * B * nc * Q * N
-                  + B * nc * Q * H + B * nc * H + H)
+    # bound is 0.080 ms, by bytes (``ssd_cost``).
+    nbytes, flops = ssd_cost(B, nc, Q, H, P, N)
     row = _kernel_row(
         "ssd_intra_chunk", ("mamba2_ssd", 23), err,
         device_time(torch, lambda: mamba2_ssd.ssd_intra_chunk(*ins)),
@@ -1848,10 +1864,12 @@ REPLAN_SERVE = dict(n_requests=4, batch=4, prompt_len=16, max_new=32, capacity=1
 PREFILL_DECODE_STEPS = 16
 # training: qwen3-4b at full width cut to 4 of its 36 layers (float32
 # master weights, gradients and two AdamW moments of 36 layers take ~60 GB
-# before activations), one sequence of the train_4k length; a checkpoint
-# after step 1, a crash there, and a resume
+# before activations), one sequence of the train_4k length, for step time
+# and memory; a checkpoint after step 1, a crash there, and a resume on the
+# smoke config (at full width its checkpoints took 70-90 s of host I/O)
 TRAIN_LAYERS = 4
 TRAIN = dict(arch=ARCH, smoke=False, steps=3, batch=1, seq=FWD_S, seed=0, log_every=1)
+TRAIN_RESUME = dict(arch=ARCH, smoke=True, steps=3, batch=2, seq=128, seed=0, log_every=1)
 # the CPU parity tests' tolerances (tests/test_torch_train.py): losses atol
 # 1e-4, parameters within the sum of the steps' learning rates
 TRAIN_LOSS_TOL = 1e-4
@@ -2176,13 +2194,16 @@ def train_phase(torch, counters, card, device: str = "cuda", train: dict = TRAIN
                 n_layers: int = TRAIN_LAYERS, smoke_cfg=None,
                 ckpt_dir: pathlib.Path = REPO / "build" / "chip_smoke" / "train_ckpt") -> dict:
     """Phase 18 on ``device``: ``train_loop`` of ``train['arch']`` cut to
-    ``n_layers`` layers, uninterrupted, then with a checkpoint after step 1
-    and a crash there, then resumed from it: every loss finite, the resumed
-    step's loss ``==`` the uninterrupted run's, no hand-written kernel
-    launched (training runs the plain versions, as the reference does);
-    then ``smoke_cfg`` trained on the cpu and on ``device``, losses and
+    ``n_layers`` layers (step time and memory); then ``train_loop`` of
+    :data:`TRAIN_RESUME` uninterrupted, with a checkpoint after step 1 and a crash
+    there, and resumed from it: every loss finite, the resumed step's loss
+    ``==`` the uninterrupted run's, no hand-written kernel launched in any
+    run (training runs the plain versions, as the reference does); then
+    ``smoke_cfg`` trained on the cpu and on ``device``, losses and
     parameters within the CPU parity tests' tolerances."""
     import shutil
+
+    resume = TRAIN_RESUME
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch import train as tr
@@ -2190,47 +2211,51 @@ def train_phase(torch, counters, card, device: str = "cuda", train: dict = TRAIN
     on_card = torch.device(device).type == "cuda"
     base = get_smoke_config(train["arch"]) if train["smoke"] else get_config(train["arch"])
     cfg = base.replace(n_layers=n_layers)
-    out = {"card": card, "config": train | {"n_layers": n_layers}}
+    out = {"card": card, "config": train | {"n_layers": n_layers}, "resume_config": resume}
+    zero_counters(counters)
     with config_cut(tr, cfg):
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        zero_counters(counters)
         t0 = time.time()
         ref = tr.train_loop(ckpt_dir=None, device=device, **train)
         out["wall_s"] = time.time() - t0
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
-        launches = {c.__name__: c.launches for c in counters}
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        t0 = time.time()
-        try:
-            tr.train_loop(ckpt_dir=str(ckpt_dir), ckpt_every=1, fail_at_step=1, device=device,
-                          **train)
-        except RuntimeError as e:
-            if "simulated failure" not in str(e):
-                raise
-        else:
-            fail("train: the run with fail_at_step=1 did not stop")
-        out["crash_run_s"] = time.time() - t0
-        t0 = time.time()
-        resumed = tr.train_loop(ckpt_dir=str(ckpt_dir), ckpt_every=1, device=device, **train)
-        out["resume_run_s"] = time.time() - t0
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    losses = ref["losses"] + resumed["losses"]
+    whole = tr.train_loop(ckpt_dir=None, device=device, **resume)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.time()
+    try:
+        tr.train_loop(ckpt_dir=str(ckpt_dir), ckpt_every=1, fail_at_step=1, device=device,
+                      **resume)
+    except RuntimeError as e:
+        if "simulated failure" not in str(e):
+            raise
+    else:
+        fail("train: the run with fail_at_step=1 did not stop")
+    out["crash_run_s"] = time.time() - t0
+    t0 = time.time()
+    resumed = tr.train_loop(ckpt_dir=str(ckpt_dir), ckpt_every=1, device=device, **resume)
+    out["resume_run_s"] = time.time() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = {c.__name__: c.launches for c in counters}
+    losses = ref["losses"] + whole["losses"] + resumed["losses"]
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train: a loss is not finite: {ref['losses']}, resumed {resumed['losses']}")
-    if resumed["start_step"] != 2 or resumed["losses"] != ref["losses"][2:]:
+        fail(f"train: a loss is not finite: {ref['losses']}, {whole['losses']}, resumed "
+             f"{resumed['losses']}")
+    if resumed["start_step"] != 2 or resumed["losses"] != whole["losses"][2:]:
         fail(f"train: resumed at {resumed['start_step']} with losses {resumed['losses']}, "
-             f"uninterrupted {ref['losses']}")
+             f"uninterrupted {whole['losses']}")
     if any(launches.values()):
         fail(f"train: launched {launches}; training runs no hand-written kernel")
-    out |= {"losses": ref["losses"], "resumed_losses": resumed["losses"],
-            "step_s": ref["step_s"], "launches": launches}
+    out |= {"losses": ref["losses"], "resume_losses": whole["losses"],
+            "resumed_losses": resumed["losses"], "step_s": ref["step_s"], "launches": launches}
     say(f"phase train: {cfg.arch_id} {n_layers} layers B={train['batch']} S={train['seq']} "
         f"on {device}: losses {ref['losses']}, step s {[round(t, 3) for t in ref['step_s']]}, "
-        f"peak {out['peak_mem_bytes']} B; checkpoint at step 1, crash, resume at step 2: loss "
-        f"{resumed['losses']} == uninterrupted (crash run {out['crash_run_s']:.1f} s, resume "
-        f"{out['resume_run_s']:.1f} s); launches {launches}; {card}")
+        f"peak {out['peak_mem_bytes']} B; {resume['arch']} smoke={resume['smoke']} "
+        f"B={resume['batch']} S={resume['seq']}: checkpoint at step 1, crash, resume at step 2: "
+        f"loss {resumed['losses']} == uninterrupted {whole['losses'][2:]} (crash run "
+        f"{out['crash_run_s']:.1f} s, resume {out['resume_run_s']:.1f} s); launches "
+        f"{launches}; {card}")
 
     if smoke_cfg is not None:
         got = train_steps(torch, smoke_cfg, device, **TRAIN_SMOKE)
@@ -3697,6 +3722,258 @@ def say_mesh_part(name: str, r: dict, run: dict, card) -> None:
             f"{r['bytes_per_slot']} B of state against {r['bytes_unsharded']} B unsharded; peak "
             f"{r['peak_mem_bytes']} B; part {r['part_s']:.1f} s; {card}")
 
+# ---------------------------------------------------------------------------
+# 22. the dry run held against the card
+# ---------------------------------------------------------------------------
+
+# (a) one slot: qwen3-4b prefill at full width with kernels; (b) phase 21(c)'s
+# FSDP step on its (2, 4) mesh; (c) production dry runs on meta
+DRYRUN_RUNS = {
+    "validate": {"arch": ARCH, "kind": "prefill", "batch": 1, "seq": FWD_S, "mesh": (1, 1),
+                 "overrides": {"use_pallas": True}, "seed": 31},
+    "mesh": {"arch": MESH_RUNS["train"]["arch"], "kind": "train",
+             "batch": MESH_RUNS["train"]["batch"], "seq": MESH_RUNS["train"]["seq"],
+             "mesh": MESH_RUNS["train"]["mesh"], "seed": 32,
+             "overrides": {"n_layers": MESH_RUNS["train"]["layers"], "fsdp_params": True,
+                           "accum_steps": MESH_RUNS["train"]["accum"]}},
+    "production": {"arch": ARCH, "shape": "train_4k", "stragglers": (1.0, 2.0),
+                   "pipeline_shape": None},
+}
+# the analysis a dry run on meta must match on the card: (a) every count,
+# (b) the traffic between slots
+DRYRUN_EXACT = ("dot_flops", "bytes_accessed", "bytes_by_kind", "launches")
+DRYRUN_COLLECTIVES = ("collectives", "collective_counts")
+# the dry run's per-slot peak (arguments + temp) against max_memory_allocated
+# less the process's holdings before the cell: it read 0.19 % and 0.014 %
+# apart on the card (two runs); 1 % keeps the largest tensor the model could
+# leave out under 0.19 GB of (a)'s 18.7 GB (its logits are 1.24 GB)
+DRYRUN_PEAK_RTOL = 0.01
+# (c)'s children together: 173-196 s for the longest on the card's host
+DRYRUN_CHILD_TIMEOUT = 900
+
+
+def dryrun_diffs(real: dict, meta: dict, keys) -> dict:
+    """key -> what differs between two op analyses at ``keys``: the entries
+    of a dict that differ, else the two values."""
+    out = {}
+    for key in keys:
+        a, b = real.get(key), meta.get(key)
+        if a == b:
+            continue
+        if isinstance(a, dict) and isinstance(b, dict):
+            out[key] = {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+                        if a.get(k) != b.get(k)}
+        else:
+            out[key] = (a, b)
+    return out
+
+
+def dryrun_pair(torch, counters, run: dict, device, smoke: bool = False) -> tuple:
+    """``run_cell`` of ``run`` on ``device`` (the counters zeroed just before
+    and read just after), then on meta: (real record, meta record, the
+    counters' launches)."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.common import ShapeSpec
+
+    shape = ShapeSpec(f"{run['kind']}_{run['seq']}_b{run['batch']}", run["kind"], run["seq"],
+                      run["batch"])
+    kw = dict(shape=shape, mesh=(run["mesh"], ("data", "model")), overrides=run["overrides"],
+              seed=run["seed"], smoke=smoke)
+    zero_counters(counters)
+    real = run_cell(run["arch"], shape.name, device=device, **kw)
+    launches = {c.__name__: c.launches for c in counters}
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    meta = run_cell(run["arch"], shape.name, device="meta", **kw)
+    return real, meta, launches
+
+
+def dryrun_validate(torch, counters, run: dict, device, smoke: bool = False) -> dict:
+    """(a) the cell on one slot for real and on meta: the op analyses ``==``
+    (:data:`DRYRUN_EXACT`), the launches those of a ``use_pallas`` forward
+    (and, on the card, the wrappers' counters the same), the predicted
+    per-slot peak within :data:`DRYRUN_PEAK_RTOL` of the card's; the
+    measured step time against max(compute, memory) of the analysis over
+    one H100's peaks (reported, not gated)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    real, meta, counted = dryrun_pair(torch, counters, run, device, smoke)
+    diffs = dryrun_diffs(real["hlo"], meta["hlo"], DRYRUN_EXACT)
+    if diffs:
+        fail(f"dry run (a): the meta analysis differs from the {device} run's: {diffs}")
+    cfg = (get_smoke_config if smoke else get_config)(run["arch"])
+    # the dry run's prefill cell is the reference's: the forward's logits,
+    # so RMSNorm 2L + 1 and flash once a layer where its gate passes
+    want = {k: v for k, v in mesh_launches(cfg, "forward", 1, run["seq"]).items() if v}
+    if real["hlo"]["launches"] != want:
+        fail(f"dry run (a): the analysis counted launches {real['hlo']['launches']}, a "
+             f"use_pallas forward launches {want}")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and {k: v for k, v in counted.items() if v} != want:
+        fail(f"dry run (a): the wrappers counted {counted}, the analysis {want}")
+    mem = meta["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = real.get("measured_peak_bytes")
+    out = {"config": run["arch"], "hlo_equal": True, "launches": counted,
+           "analysis_launches": real["hlo"]["launches"], "dot_flops": meta["hlo"]["dot_flops"],
+           "bytes_accessed": meta["hlo"]["bytes_accessed"], "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": measured, "wall_s": real["step_s"],
+           "meta_step_s": meta["step_s"]}
+    if measured is not None:
+        out["peak_rel_err"] = abs(predicted - measured) / measured
+        if out["peak_rel_err"] > DRYRUN_PEAK_RTOL:
+            fail(f"dry run (a): predicted peak {predicted} B, the card's {measured} B "
+                 f"({out['peak_rel_err']:.1%} apart, limit {DRYRUN_PEAK_RTOL:.0%})")
+    terms = {"compute": meta["hlo"]["dot_flops"] / BF16_TENSOR_FLOPS_PER_S,
+             "memory": meta["hlo"]["bytes_accessed"] / HBM_BYTES_PER_S}
+    out["terms_s"] = terms
+    out["wall_over_roofline"] = real["step_s"] / max(terms.values())
+    return out
+
+
+def dryrun_mesh(torch, counters, run: dict, device, smoke: bool = False) -> dict:
+    """(b) the FSDP step on its mesh for real and on meta: the traffic
+    between slots ``==`` (:data:`DRYRUN_COLLECTIVES`); the other counts'
+    differences reported."""
+    real, meta, counted = dryrun_pair(torch, counters, run, device, smoke)
+    diffs = dryrun_diffs(real["hlo"], meta["hlo"], DRYRUN_COLLECTIVES)
+    if diffs:
+        fail(f"dry run (b): the meta run's collectives differ from the {device} run's: {diffs}")
+    if any(counted.values()):
+        fail(f"dry run (b): the train step launched {counted}; training runs the plain versions")
+    return {"config": run["arch"], "launches": counted, "collectives": meta["hlo"]["collectives"],
+            "collective_counts": meta["hlo"]["collective_counts"],
+            "other_diffs": dryrun_diffs(real["hlo"], meta["hlo"], DRYRUN_EXACT),
+            "memory": meta["memory"], "wall_s": real["step_s"], "meta_step_s": meta["step_s"],
+            "measured_peak_bytes": real.get("measured_peak_bytes")}
+
+
+def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
+    """One of (c)'s dry runs on meta, on the host: ``"cell"`` is ``run_cell``
+    of the production cell on pod16x16, ``"pipeline <straggler>"``
+    ``run_pipeline_cell`` at that straggler (its plan covering every layer);
+    the record's per-slot memory, ``fits``, dot TFLOP, collective GB and
+    plan."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.dryrun import run_cell, run_pipeline_cell
+
+    t0 = time.time()
+    if what == "cell":
+        rec = run_cell(run["arch"], run["shape"], device="meta", smoke=smoke, detail=False)
+    else:
+        st = float(what.split()[1])
+        shape = None
+        if run["pipeline_shape"]:
+            from repro_torch.models.common import ShapeSpec
+
+            shape = ShapeSpec(*run["pipeline_shape"])
+        rec = run_pipeline_cell(run["arch"], straggler=st, device="meta", smoke=smoke,
+                                shape=shape, detail=False)
+        layers = (get_smoke_config if smoke else get_config)(run["arch"]).n_layers
+        if sum(rec["plan"]["stage_sizes"]) != layers:
+            fail(f"dry run (c): the plan at straggler {st} ({rec['plan']['stage_sizes']}) does "
+                 f"not cover the {layers} layers")
+    mem = rec["memory"]
+    out = {"arch": run["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+           "argument_bytes": mem["argument_size_in_bytes"],
+           "temp_bytes": mem["temp_size_in_bytes"], "fits": mem["fits"],
+           "dot_tflop": rec["hlo"]["dot_flops"] / 1e12,
+           "collective_gb": {k: v / 1e9 for k, v in rec["hlo"]["collectives"].items()},
+           "step_s": rec["step_s"], "s": time.time() - t0}
+    if "plan" in rec:
+        out["plan"] = rec["plan"]
+    return out
+
+
+def dryrun_production_whats(run: dict) -> list:
+    return ["cell"] + [f"pipeline {st}" for st in run["stragglers"]]
+
+
+def dryrun_production_children(run: dict, smoke: bool = False) -> dict:
+    """(c)'s dry runs (:func:`dryrun_production_record`), each in a child
+    process, all started at once (host work on meta tensors, after every
+    phase that times the host): what -> record.  A child that fails, or
+    runs past :data:`DRYRUN_CHILD_TIMEOUT`, fails the phase; every child has
+    ended or been stopped when this returns."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    children = {}
+    work = tempfile.TemporaryDirectory()
+    try:
+        for what in dryrun_production_whats(run):
+            out = pathlib.Path(work.name) / (what.replace(" ", "_") + ".json")
+            children[what] = (subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()), "--dryrun-production",
+                 what, str(out), json.dumps({"run": run, "smoke": smoke})], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+        recs, t_end = {}, time.time() + DRYRUN_CHILD_TIMEOUT
+        for what, (child, path) in children.items():
+            try:
+                _, err = child.communicate(timeout=max(t_end - time.time(), 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"dry run (c): {what} did not end within {DRYRUN_CHILD_TIMEOUT} s")
+            if child.returncode != 0 or not path.exists():
+                fail(f"dry run (c): {what} failed: {err[-2000:]}")
+            recs[what] = json.loads(path.read_text())
+        return recs
+    finally:
+        for child, _ in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        work.cleanup()
+
+
+def dryrun_phase(torch, counters, card, device: str = "cuda", runs: dict = DRYRUN_RUNS,
+                 smoke: bool = False) -> dict:
+    """Phase 22 on ``device``: (a) :func:`dryrun_validate`, (b)
+    :func:`dryrun_mesh`, then (c) the production dry runs on meta in child
+    processes at once (:func:`dryrun_production_children`)."""
+    out = {"card": card}
+    t0 = time.time()
+    a = out["validate"] = dryrun_validate(torch, counters, runs["validate"], device, smoke)
+    a["part_s"] = time.time() - t0
+    say(f"phase dryrun: (a) {a['config']} prefill (forward) B={runs['validate']['batch']} "
+        f"S={runs['validate']['seq']} with kernels on one slot: meta analysis == the card "
+        f"run's (dot {a['dot_flops']:.6g} flop, {a['bytes_accessed']:.6g} B, launches "
+        f"{a['analysis_launches']}); peak predicted {a['predicted_peak_bytes']} B, measured "
+        f"{a['measured_peak_bytes']} B (rel err {a.get('peak_rel_err')}); step "
+        f"{a['wall_s']:.3f} s (under the analysis) = {a['wall_over_roofline']:.2f} x "
+        f"max(compute {a['terms_s']['compute']:.4f} s, memory {a['terms_s']['memory']:.4f} s) "
+        f"at 989 TFLOP/s and 3.35 TB/s; meta step {a['meta_step_s']:.1f} s; part "
+        f"{a['part_s']:.1f} s; {card}")
+    t0 = time.time()
+    b = out["mesh"] = dryrun_mesh(torch, counters, runs["mesh"], device, smoke)
+    b["part_s"] = time.time() - t0
+    say(f"phase dryrun: (b) {b['config']} FSDP step on {runs['mesh']['mesh']}: collectives "
+        f"== ({b['collectives']}, calls {b['collective_counts']}); other counts' differences "
+        f"{b['other_diffs'] or 'none'}; per slot {b['memory']['argument_size_in_bytes']} B "
+        f"arguments + {b['memory']['temp_size_in_bytes']} B temp; step {b['wall_s']:.3f} s, "
+        f"peak {b['measured_peak_bytes']} B; part {b['part_s']:.1f} s; {card}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    c = dryrun_production_children(runs["production"], smoke)
+    out["production"] = c
+    out["production_s"] = time.time() - t0
+    for what, rec in c.items():
+        plan = ""
+        if "plan" in rec:
+            plan = (f"plan {rec['plan']['stage_sizes']} on pods {rec['plan']['alloc']} "
+                    f"({rec['plan']['planner']}, period {rec['plan']['period_s']:.6g} s); ")
+        say(f"phase dryrun: (c) meta {rec['arch']} {what} {rec['shape']} on {rec['mesh']}: "
+            f"{plan}per slot {rec['argument_bytes'] / 1e9:.2f} GB arguments + "
+            f"{rec['temp_bytes'] / 1e9:.2f} GB temp, fits {rec['fits']}, "
+            f"{rec['dot_tflop']:.1f} dot TFLOP, collectives "
+            f"{ {k: round(v, 2) for k, v in rec['collective_gb'].items()} } GB; "
+            f"{rec['s']:.1f} s in its process")
+    out["by_path"] = {"dryrun validate": a["launches"], "dryrun mesh": b["launches"]}
+    return out
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -3705,7 +3982,19 @@ def main() -> None:
                     metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--pipeline-cpu-ref", nargs=2, type=pathlib.Path, default=None,
                     metavar=("IN", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-production", nargs=3, default=None,
+                    metavar=("WHAT", "OUT", "RUN"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dryrun_production is not None:
+        import torch        # phase 22(c)'s dry runs, each in its own process
+
+        sys.path.insert(0, str(SRC))
+        torch.set_num_threads(1)
+        what, path, run = args.dryrun_production
+        run = json.loads(run)
+        rec = dryrun_production_record(what, run["run"], run["smoke"])
+        pathlib.Path(path).write_text(json.dumps(rec, default=str))
+        return
     if args.smoke_cpu_refs is not None or args.pipeline_cpu_ref is not None:
         import torch        # phases 19 and 20's cpu sides, each in its own process
 
@@ -4074,6 +4363,18 @@ def main() -> None:
     report["mesh"]["phase_s"] = time.time() - t0
     by_path.update(report["mesh"].pop("by_path"))
     say(f"phase mesh: {report['mesh']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 22. the dry run held against the card: the op analysis on meta against
+    # a real run on one slot and on phase 21(c)'s mesh, then production dry
+    # runs on meta in three child processes, started here, after every phase
+    # that times the host; the real runs' counters zeroed just before and
+    # read just after
+    t0 = time.time()
+    report["dryrun"] = dryrun_phase(torch, counters, card)
+    report["dryrun"]["phase_s"] = time.time() - t0
+    by_path.update(report["dryrun"].pop("by_path"))
+    say(f"phase dryrun: {report['dryrun']['phase_s']:.1f} s")
 
     launches = {}
     for counts in by_path.values():

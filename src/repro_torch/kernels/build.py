@@ -14,6 +14,13 @@ an edited source is rebuilt and a current one is reused.  ``-fmad=false``
 into one FMA, which those kernels' bit-identity to numpy needs; the model
 kernels are held to a tolerance and keep the FMA.  A failed build raises;
 nothing falls back.  Nothing here runs when the module is imported.
+
+:func:`note_launch` tells the listeners in :data:`LAUNCH_LISTENERS` (the op
+analysis, :mod:`repro_torch.launch.hlo_analysis`) of one launch of a model
+kernel, with the bytes it moves and the operations it does; a wrapper calls
+it where it launches on the card and where it stands in for a launch on a
+``meta`` tensor, only while a listener is there (a launch with none costs
+one test of the list).
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ SOURCE_FLAGS = {"split_score": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+# fn(kernel name, bytes, operations) for each model kernel launch
+LAUNCH_LISTENERS: list = []
 
 
 class KernelBuildError(RuntimeError):
@@ -139,6 +148,15 @@ def launch(name: str, fn: str, argtypes: list, *args) -> None:
     err = f(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed with cudaError_t {err}")
+
+
+def note_launch(name: str, nbytes: int, flops: int) -> None:
+    """One launch of model kernel ``name``: ``nbytes`` moved (each input read
+    once, each output written once) and ``flops`` done, by the wrapper's
+    ``*_cost`` function, which ``chip_smoke.py``'s bound of its row calls
+    too."""
+    for fn in LAUNCH_LISTENERS:
+        fn(name, nbytes, flops)
 
 
 def check_tensor(name, t, shape, dtype, device) -> None:

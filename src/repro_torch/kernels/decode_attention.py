@@ -18,6 +18,12 @@ The wrapper picks what the kernel cannot see: the split of the cache, sized
 from the card's SMs and occupancy (:func:`split_slots`, :func:`card_shape`);
 16-byte or 2-byte K/V loads, by head dim and alignment; and the scratch for
 the splits' partial results, allocated per call.
+
+A ``meta`` tensor (the dry run) gets the result as a meta tensor, allocated
+as on the card (the split's scratch, which depends on the card, is left
+out); nothing runs.  Both routes tell :func:`~.build.note_launch` of the
+launch (:func:`decode_cost`), counting every cache slot live: the analysis
+does not read the mask.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from . import build
 from .ref import decode_attention_ref
 from .rmsnorm import DTYPE_CODES
 
-__all__ = ["decode_attention"]
+__all__ = ["decode_attention", "decode_cost"]
 
 MAX_HEAD_DIM = 256
 TILE = 64  # cache slots per tile (kTile in the source)
@@ -73,12 +79,23 @@ def card_shape(dev, hd: int, code: int) -> tuple:
     return _CARD[key]
 
 
+def decode_cost(B: int, H: int, K: int, hd: int, C: int, itemsize: int,
+                live: int = None) -> tuple:
+    """(bytes, operations) of :func:`decode_attention` over ``live`` live
+    slots in all (every slot, ``B * C``, by default): q read and out
+    written, the live slots' K and V read (a masked slot's never reach the
+    output), the mask read; q.K and p.V at 2 hd each.  The bound of the
+    row in ``chip_smoke.py``."""
+    live = B * C if live is None else live
+    return itemsize * (2 * B * H * hd + 2 * live * K * hd) + B * C, 4 * hd * H * live
+
+
 def decode_attention(q, k, v, mask) -> torch.Tensor:
     """Softmax attention of each single-token query over its cache slots."""
     dev = q.device
     if dev.type == "cpu":
         return decode_attention_ref(q, k, v, mask)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention runs on cuda or cpu, not {dev}")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -88,6 +105,16 @@ def decode_attention(q, k, v, mask) -> torch.Tensor:
         raise ValueError(f"{H} query heads are not a multiple of {K} KV heads")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
+    if dev.type == "meta":
+        for name, t, shape, dt in (("q", q, (B, H, hd), q.dtype),
+                                   ("k", k, (B, C, K, hd), q.dtype),
+                                   ("v", v, (B, C, K, hd), q.dtype),
+                                   ("mask", mask, (B, C), torch.bool)):
+            build.check_tensor(name, t, shape, dt, dev)
+        out = torch.empty_like(q)
+        if build.LAUNCH_LISTENERS:
+            build.note_launch("decode_attention", *decode_cost(B, H, K, hd, C, q.element_size()))
+        return out
     G = H // K
     split = split_slots(B, K, G, C, *card_shape(dev, hd, DTYPE_CODES[q.dtype]))
     n_split = -(-C // split)
@@ -109,6 +136,8 @@ def decode_attention(q, k, v, mask) -> torch.Tensor:
                  part_ml.data_ptr(), part_acc.data_ptr(), B, C, K, G, hd, split,
                  1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], vec)
     decode_attention.launches += 1
+    if build.LAUNCH_LISTENERS:
+        build.note_launch("decode_attention", *decode_cost(B, H, K, hd, C, q.element_size()))
     return out
 
 

@@ -14,7 +14,10 @@ A CUDA tensor launches the kernel on the current stream and adds one to
 a CUDA input the kernel does not take raises.  The kernel is two launches
 (the chunk's C.B^T scores once, then the heads on the tensor cores); the
 wrapper allocates their scratch and sizes the heads' groups from the card's
-SMs (:func:`head_group`).
+SMs (:func:`head_group`).  A ``meta`` tensor (the dry run) gets the three
+results as meta tensors, allocated as on the card (the scratch left out);
+nothing runs.  Both routes tell :func:`~.build.note_launch` of the launch
+(:func:`ssd_cost`).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from . import build
 from .ref import ssd_intra_chunk_ref
 
-__all__ = ["head_group", "scratch_floats", "ssd_chunked_kernel", "ssd_intra_chunk"]
+__all__ = ["head_group", "scratch_floats", "ssd_chunked_kernel", "ssd_cost", "ssd_intra_chunk"]
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 64
 # x, dt, A, B, C, scores, B^T, y, state, decay, B, nc, Q, H, P, N, G, vec
@@ -54,6 +57,18 @@ def scratch_floats(B: int, nc: int, Q: int, N: int) -> tuple:
     return B * nc * mq * (mq + 1) * 128, B * nc * -(-N // 16) * 2 * mq * 128
 
 
+def ssd_cost(B: int, nc: int, Q: int, H: int, P: int, N: int) -> tuple:
+    """(bytes, operations) of :func:`ssd_intra_chunk` (chip_smoke.py's bound
+    for the row): each float32 input read and each output written once; the
+    causal pairs' C.B scores once per chunk, then per head the pairs' w x
+    and the chunk state, multiply-adds counting 2."""
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * N * P))
+    nbytes = 4 * (2 * B * nc * Q * H * P + B * nc * H * N * P + 2 * B * nc * Q * N
+                  + B * nc * Q * H + B * nc * H + H)
+    return nbytes, flops
+
+
 def ssd_intra_chunk(x, dt, A, Bmat, Cmat) -> tuple:
     """x: (B,nc,Q,H,P); dt: (B,nc,Q,H); A: (H,); Bmat/Cmat: (B,nc,Q,N), all
     float32.  Returns (y (B,nc,Q,H,P), chunk state (B,nc,H,N,P), chunk decay
@@ -61,7 +76,7 @@ def ssd_intra_chunk(x, dt, A, Bmat, Cmat) -> tuple:
     dev = x.device
     if dev.type == "cpu":
         return ssd_intra_chunk_ref(x, dt, A, Bmat, Cmat)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not {dev}")
     f32 = torch.float32
     B, nc, Q, H, P = x.shape
@@ -76,6 +91,12 @@ def ssd_intra_chunk(x, dt, A, Bmat, Cmat) -> tuple:
     build.check_tensor("A", A, (H,), f32, dev)
     build.check_tensor("Bmat", Bmat, (B, nc, Q, N), f32, dev)
     build.check_tensor("Cmat", Cmat, (B, nc, Q, N), f32, dev)
+    if dev.type == "meta":
+        out = (torch.empty_like(x), torch.empty((B, nc, H, N, P), dtype=f32, device=dev),
+               torch.empty((B, nc, H), dtype=f32, device=dev))
+        if build.LAUNCH_LISTENERS:
+            build.note_launch("ssd_intra_chunk", *ssd_cost(B, nc, Q, H, P, N))
+        return out
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     G = head_group(B, nc, H, torch.cuda.get_device_properties(idx).multi_processor_count)
     y = torch.empty_like(x)
@@ -89,6 +110,8 @@ def ssd_intra_chunk(x, dt, A, Bmat, Cmat) -> tuple:
                  A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), sc.data_ptr(), bt.data_ptr(),
                  y.data_ptr(), st.data_ptr(), dec.data_ptr(), B, nc, Q, H, P, N, G, vec)
     ssd_intra_chunk.launches += 1
+    if build.LAUNCH_LISTENERS:
+        build.note_launch("ssd_intra_chunk", *ssd_cost(B, nc, Q, H, P, N))
     return y, st, dec
 
 

@@ -14,7 +14,10 @@ The port's counterpart of the reference's Pallas ``kernels/rmsnorm.py``:
 (:func:`rmsnorm_route`); both count as one launch.  A CUDA
 tensor launches the kernel on the current stream and adds one to the
 wrapper's ``launches``; a CPU tensor runs the plain version.  Nothing falls
-back: a CUDA input the kernel does not take raises.
+back: a CUDA input the kernel does not take raises.  A ``meta`` tensor (the
+dry run) gets the kernel's result as a meta tensor, allocated as on the
+card; nothing runs.  Both routes tell :func:`~.build.note_launch` of the
+launch, with :func:`rmsnorm_cost` / :func:`rmsnorm_residual_cost`.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 from . import build
 from .ref import rmsnorm_ref, rmsnorm_residual_ref
 
-__all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_route"]
+__all__ = ["rmsnorm", "rmsnorm_cost", "rmsnorm_residual", "rmsnorm_residual_cost",
+           "rmsnorm_route"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WARP_MAX_VECTORS = 32  # 16-byte vectors per lane of the warp kernel (kMaxVec)
@@ -39,10 +43,23 @@ _ARGTYPES = {
 }
 
 
+def rmsnorm_cost(n: int, d: int, itemsize: int) -> tuple:
+    """(bytes, operations) of :func:`rmsnorm` over ``n`` rows of ``d``: x
+    read and out written, the float32 scale read; 4 operations an element
+    (chip_smoke.py's bound for the row)."""
+    return 2 * itemsize * n * d + 4 * d, 4 * n * d
+
+
+def rmsnorm_residual_cost(n: int, d: int, itemsize: int) -> tuple:
+    """(bytes, operations) of :func:`rmsnorm_residual`: x and the residual
+    read, both outputs written, the scale read; 5 operations an element."""
+    return 4 * itemsize * n * d + 4 * d, 5 * n * d
+
+
 def _rows(x, scale, others=()) -> tuple:
     """Check the kernel's inputs; returns ``(rows, d, dtype code)``."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"the RMSNorm kernels run on cuda or cpu, not {dev}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -76,10 +93,13 @@ def rmsnorm(x, scale, *, eps: float = 1e-5) -> torch.Tensor:
         return rmsnorm_ref(x, scale, eps=eps)
     n, d, code = _rows(x, scale)
     out = torch.empty_like(x)
-    build.launch("rmsnorm", "rmsnorm", _ARGTYPES["rmsnorm"], x.data_ptr(),
-                 scale.data_ptr(), out.data_ptr(), n, d, float(eps), code,
-                 int(rmsnorm_route(x, scale) == "warp"))
-    rmsnorm.launches += 1
+    if x.device.type == "cuda":
+        build.launch("rmsnorm", "rmsnorm", _ARGTYPES["rmsnorm"], x.data_ptr(),
+                     scale.data_ptr(), out.data_ptr(), n, d, float(eps), code,
+                     int(rmsnorm_route(x, scale) == "warp"))
+        rmsnorm.launches += 1
+    if build.LAUNCH_LISTENERS:
+        build.note_launch("rmsnorm", *rmsnorm_cost(n, d, x.element_size()))
     return out
 
 
@@ -89,10 +109,13 @@ def rmsnorm_residual(x, residual, scale, *, eps: float = 1e-5) -> tuple:
         return rmsnorm_residual_ref(x, residual, scale, eps=eps)
     n, d, code = _rows(x, scale, (("residual", residual),))
     out, r_out = torch.empty_like(x), torch.empty_like(x)
-    build.launch("rmsnorm", "rmsnorm_residual", _ARGTYPES["rmsnorm_residual"],
-                 x.data_ptr(), residual.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                 r_out.data_ptr(), n, d, float(eps), code)
-    rmsnorm_residual.launches += 1
+    if x.device.type == "cuda":
+        build.launch("rmsnorm", "rmsnorm_residual", _ARGTYPES["rmsnorm_residual"],
+                     x.data_ptr(), residual.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                     r_out.data_ptr(), n, d, float(eps), code)
+        rmsnorm_residual.launches += 1
+    if build.LAUNCH_LISTENERS:
+        build.note_launch("rmsnorm_residual", *rmsnorm_residual_cost(n, d, x.element_size()))
     return out, r_out
 
 

@@ -99,7 +99,11 @@ def route(flat: torch.Tensor, router: torch.Tensor, cfg: ModelConfig) -> Routing
 
     # Load-balance aux loss (Switch): E * sum_e f_e * P_e
     me = torch.mean(probs_full, dim=(0, 1))
-    ce = torch.mean(F.one_hot(top_ids[..., 0], E).float(), dim=(0, 1))
+    # one-hot by comparison: F.one_hot reads its input on the CPU (a min/max
+    # check) and takes another formula on meta tensors, so the op analysis
+    # of a dry run would differ from a real run's
+    first = top_ids[..., 0, None] == torch.arange(E, device=top_ids.device)
+    ce = torch.mean(first.float(), dim=(0, 1))
     aux = E * torch.sum(me * ce)
 
     eids = top_ids.reshape(G, nk)

@@ -6,6 +6,7 @@
   - train_forward(params, batch, cfg) -> (logits, aux)    [autograd, training]
   - init_decode_state(batch, capacity, device=None) -> state
   - decode(params, state, token) -> (logits, state)       [serve_step core]
+  - input_specs(shape) -> dict of TensorSpec              [dry-run stand-ins]
   - workload(shape) -> repro_torch.core.Workload          [planner integration]
 
 As in the reference, the dense, MoE and VLM families go to
@@ -15,9 +16,12 @@ prefix), ``ssm`` and ``hybrid`` to :mod:`.hybrid`, ``xlstm`` to
 ``batch["frames"]``).  Each of those modules has its ``params_from_numpy``
 (the reference's parameter tree, as numpy arrays, to the port's).
 :func:`lm_workload` (layers as pipeline stages, analytic FLOPs) reads only
-the config.  The reference's ``input_specs`` (``jax.ShapeDtypeStruct``
-stand-ins for its dry run) waits for the dry run's port (ROADMAP.md Queue 1
-item 9).
+the config.  ``input_specs`` gives the dry run (:mod:`repro_torch.launch.dryrun`)
+the inputs of a cell as :class:`TensorSpec` (the reference's
+``jax.ShapeDtypeStruct`` stand-ins), and :func:`spec_tensors` makes ``meta``
+tensors of them.  ``init(seed, device="meta")`` and
+``init_decode_state(..., device="meta")`` build the trees as ``meta``
+tensors of the shapes and dtypes a real init gives, drawing no numbers.
 """
 
 from __future__ import annotations
@@ -33,7 +37,50 @@ from ..core.workload import Workload
 from . import encdec, hybrid, transformer, xlstm
 from .common import ModelConfig, ShapeSpec
 
-__all__ = ["ModelAPI", "get_model", "layer_flops", "lm_workload", "stub_inputs"]
+__all__ = ["ModelAPI", "TensorSpec", "get_model", "layer_flops", "lm_workload", "spec_tensors",
+           "stub_inputs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one input (``jax.ShapeDtypeStruct``'s
+    counterpart)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def spec_tensors(specs: dict, device="meta") -> dict:
+    """Uninitialized tensors of ``specs`` (name -> :class:`TensorSpec`) on
+    ``device``: ``meta`` tensors by default, which hold no data."""
+    return {k: torch.empty(s.shape, dtype=s.dtype, device=device) for k, s in specs.items()}
+
+
+def _stub_input(cfg: ModelConfig) -> tuple:
+    """(name, rows) of the stub frontend's input a family's forward reads
+    besides its tokens, or (None, 0)."""
+    return {"vlm": ("patch_embeds", cfg.n_vis_tokens),
+            "encdec": ("frames", cfg.enc_seq)}.get(cfg.family, (None, 0))
+
+
+def _input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """A cell's inputs, as the reference's ``_tok_specs`` and its families
+    give them: tokens and labels (B, S) int32 for training, tokens for
+    prefill, one token (B, 1) for decode; outside decode, the VLM's patch
+    embeddings (B, n_vis_tokens, d) or the enc-dec model's frames (B,
+    enc_seq, d) in the compute dtype."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        specs = {"tokens": TensorSpec((B, S), i32), "labels": TensorSpec((B, S), i32)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": TensorSpec((B, S), i32)}
+    else:
+        specs = {"token": TensorSpec((B, 1), i32)}
+    name, rows = _stub_input(cfg)
+    if name is not None and shape.kind != "decode":
+        specs[name] = TensorSpec((B, rows, cfg.d_model), cfg.torch_dtype)
+    return specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +91,22 @@ class ModelAPI:
     train_forward: Callable      # (params, batch, cfg) -> (logits, aux), autograd
     init_decode_state: Callable  # (batch, capacity, device=None) -> state
     decode: Callable             # (params, state, token) -> (logits, state)
+    input_specs: Callable        # (ShapeSpec) -> dict of TensorSpec
     workload: Callable           # (ShapeSpec) -> Workload
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator that names the ``meta`` device: the init functions draw
+    with ``device=gen.device``, and a draw on ``meta`` makes a tensor of its
+    shape and dtype without drawing a number (this generator's state never
+    moves)."""
+
+    device = torch.device("meta")
+
+
 def _init(module, cfg: ModelConfig, seed: int, device=None, master: bool = False) -> dict:
-    gen = torch.Generator(device=resolve_device(device))
+    dev = resolve_device(device)
+    gen = _MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev)
     gen.manual_seed(seed)
     return module.init_params(gen, cfg, master)
 
@@ -62,8 +120,7 @@ def stub_inputs(cfg: ModelConfig, batch: int, device, gen: torch.Generator = Non
     tokens: the VLM's patch embeddings (B, n_vis_tokens, d), the enc-dec
     model's frames (B, enc_seq, d); zeros (the reference's training loop),
     or ``normal * 0.02`` drawn from ``gen`` (its smoke tests)."""
-    name, rows = {"vlm": ("patch_embeds", cfg.n_vis_tokens),
-                  "encdec": ("frames", cfg.enc_seq)}.get(cfg.family, (None, 0))
+    name, rows = _stub_input(cfg)
     if name is None:
         return {}
     shape = (batch, rows, cfg.d_model)
@@ -117,6 +174,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         init_decode_state=lambda b, cap, device=None: module.init_decode_state(
             cfg, b, cap, device),
         decode=lambda p, st, tok: module.decode_step(p, st, tok, cfg),
+        input_specs=lambda shape: _input_specs(cfg, shape),
         workload=lambda shape: lm_workload(cfg, shape),
     )
 

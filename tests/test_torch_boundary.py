@@ -4,7 +4,11 @@
 package ``repro`` (it keeps its own copies of the host modules it needs).
 Its entry points run on CUDA unless the caller passes ``device="cpu"``;
 without a CUDA device the default raises instead of running on the host.
+The dry run (``launch.dryrun.run_cell``, ``run_pipeline_cell`` and
+``launch.perf_probe.probe`` on it) is the one exception: its default is
+``device="meta"``, because a dry run allocates nothing.
 """
+import inspect
 
 import dataclasses
 import os
@@ -20,13 +24,13 @@ import torch
 
 import repro_torch
 from repro_torch import core, fleet
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import SHAPES, get_smoke_config
 from repro_torch.core import sharded
 from repro_torch.core.batched import ProblemBatch, batched_min_period, stack_instances
 from repro_torch.fleet import worker_main
 from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.launch import first_forward_probe, rounding_probe
-from repro_torch.launch import collectives
+from repro_torch.launch import collectives, dryrun, perf_probe
 from repro_torch.launch.mesh import Mesh, make_mesh, use_mesh
 from repro_torch.models import moe, sharding
 from repro_torch.models.train import init_optimizer, place_train_state
@@ -165,6 +169,9 @@ def test_import_and_campaign_load_no_jax_or_reference():
         "with use_mesh(make_mesh((2, 2), ('data', 'model'), devices=['cpu'] * 4)):\n"
         "    logits, _ = prefill(get_model(cfg).init(0, 'cpu'), torch.ones((2, 8), dtype=torch.int32), cfg)\n"
         "assert logits.shape == (2, 1, cfg.vocab_size)\n"
+        "from repro_torch.launch import dryrun, hlo_analysis, perf_probe\n"
+        "rec = dryrun.run_cell('qwen3-4b', 'decode_32k', smoke=True)\n"
+        "assert rec['ok'] and rec['device'] == 'meta'\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
@@ -290,6 +297,11 @@ def _no_cuda(monkeypatch):
         _MIXTRAL)),
     _under_card_mesh(lambda: moe.moe_ffn(get_model(_MIXTRAL).init(0, "cpu")["layers"]["moe"],
                                          torch.ones((2, 4, _MIXTRAL.d_model)), _MIXTRAL)),
+    lambda: dryrun.run_cell("qwen3-4b", "decode_32k", device="cuda", smoke=True),
+    lambda: dryrun.run_pipeline_cell("qwen3-4b", device="cuda", smoke=True),
+    lambda: perf_probe.probe("qwen3-4b", "decode_32k", device="cuda"),
+    lambda: dryrun.make_inputs({}, None, 8),
+    lambda: dryrun.pipeline_plan(_QWEN, SHAPES["train_4k"], 2.0),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -315,11 +327,25 @@ def _no_cuda(monkeypatch):
         "collectives.gather_to", "collectives.all_gather", "collectives.scatter",
         "collectives.broadcast", "collectives.psum", "collectives.reduce_scatter",
         "ShardedLoader-mesh", "place_train_state", "prefill-mesh", "forward-mesh",
-        "moe_ffn-mesh"])
+        "moe_ffn-mesh", "run_cell-cuda", "run_pipeline_cell-cuda", "probe-cuda",
+        "make_inputs", "pipeline_plan"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+
+
+@pytest.mark.parametrize("entry", [dryrun.run_cell, dryrun.run_pipeline_cell, perf_probe.probe])
+def test_dry_run_defaults_to_meta(entry):
+    """The one default that is not ``device=None``: a dry run builds every
+    tensor on ``meta`` and allocates nothing, so it needs no card."""
+    assert inspect.signature(entry).parameters["device"].default == "meta"
+
+
+def test_dry_run_runs_without_a_card(monkeypatch):
+    _no_cuda(monkeypatch)
+    rec = dryrun.run_cell("qwen3-4b", "decode_32k", smoke=True)
+    assert rec["ok"] and rec["device"] == "meta" and rec["hlo"]["dot_flops"] > 0
 
 
 def test_checkpointed_training_default_device_without_cuda_raises(tmp_path, monkeypatch):

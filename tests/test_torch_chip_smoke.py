@@ -654,15 +654,16 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO(
         smoke_cfg=get_smoke_config("qwen3-4b").replace(dtype="float32"),
         ckpt_dir=pathlib.Path(d) / "ckpt")
     left = (pathlib.Path(d) / "ckpt").exists()
-print(json.dumps({k: out[k] for k in ("losses", "resumed_losses", "launches", "cpu_vs_card")}
+print(json.dumps({k: out[k] for k in ("losses", "resume_losses", "resumed_losses", "launches",
+                                        "cpu_vs_card")}
                  | {"left": left}))
 """
 
 
 def test_train_phase_passes_on_cpu_and_refuses_a_resume_that_restarts(tmp_path, monkeypatch):
-    """Phase 18 at the smoke config cut to 2 layers on the CPU: the crash
-    and resume give the uninterrupted losses bit for bit, no kernel
-    launched, the checkpoints removed, cpu against itself within the
+    """Phase 18 at the smoke config cut to 2 layers on the CPU, then the
+    crash and resume of the smoke config: they give its uninterrupted
+    losses bit for bit, no kernel launched, the checkpoints removed, cpu against itself within the
     limits (in a process with ``MKL_CBWR=COMPATIBLE``, as
     ``tests/test_torch_train.py``'s crash-and-resume test: MKL's float32
     products otherwise depend on buffer alignment); a resume that finds no
@@ -679,7 +680,8 @@ def test_train_phase_passes_on_cpu_and_refuses_a_resume_that_restarts(tmp_path, 
                          capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stderr
     out = json.loads(run.stdout.strip().splitlines()[-1])
-    assert out["resumed_losses"] == out["losses"][2:] and len(out["losses"]) == 3
+    assert out["resumed_losses"] == out["resume_losses"][2:] and len(out["losses"]) == 3
+    assert len(out["resume_losses"]) == 3
     assert out["cpu_vs_card"]["loss_err"] <= chip_smoke.TRAIN_LOSS_TOL
     assert out["cpu_vs_card"]["param_err"] <= out["cpu_vs_card"]["lr_sum"]
     assert out["cpu_vs_card"]["update_rel_err"] == 0.0      # cpu against itself
