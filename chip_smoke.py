@@ -8,9 +8,9 @@ campaign planner, serving qwen3-4b at full width, the hybrid zamba2-7b at
 full width, the planner API and its reliability extensions, the fleet
 replanning service, serving's planner hooks with prefill, training, the
 MoE, VLM, enc-dec and xLSTM families, the planner's stage plan run as a
-pipeline, the mesh's data and model axes in execution, and the dry run held
-against a real run (``repro_torch``), in twenty-two phases; any failure
-exits non-zero:
+pipeline, the mesh's data and model axes in execution, the dry run held
+against a real run, and tensor parallelism over the model axis
+(``repro_torch``), in twenty-three phases; any failure exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -231,28 +231,43 @@ exits non-zero:
               stage device time (CUDA events); then the smoke config in
               float32 (B = 4, S = 256, M = 4), cpu in a child process against
               cuda: the plan equal, loss and every gradient within atol 1e-4.
- 21. mesh   — every slot of each mesh on the one card (``use_mesh``): (a)
+ 21. mesh   — every slot of each mesh on the one card (``use_mesh``), each
+              data slot tensor-parallel over its model slots: (a)
               ``prefill`` of qwen2.5-14b whole (48 layers, 40 / 8 heads),
               B = 2, S = 4096, with kernels on a (2, 16) data x model mesh:
-              40 heads on the 16-way axis take sequence-parallel attention;
-              exactly 2 x 97 RMSNorm launches (97 per data slot), no flash;
-              logits within phase 12's bf16 limit of the single-device
-              prefill's from the same weights, the caches ``==`` in layout;
-              a second pass with every RMSNorm call held to its plain
-              version and every sequence-parallel call to one-device
-              ``blocked_attention`` on its own inputs; (b) the forward of
-              mixtral-8x7b cut to 8 layers, B = 4, S = 2048, on (4, 2): one
-              MoE dispatch group per data slot, 4 x 17 RMSNorm and 4 x 8
-              flash launches (bf16 route), each MoE call held to the single
-              G = 4 dispatch on its inputs (kept pairs ``==``, outputs within
-              the bf16 limit, a routing that differs only at a near-tie) and
-              every kernel call to its plain version; (c) one FSDP train step
-              of qwen3-4b cut to 4 layers (``fsdp_params``, 2 microbatches),
-              B = 4, S = 1024, on (2, 4), state placed by ``zero1_specs``,
-              against one unsharded step from the same state and batch: loss
-              and every parameter within 5e-3, grad norm and first moments
-              within 1e-2 by relative norm; wall and step times, peak memory,
-              the bytes one slot holds.
+              40 heads on the 16-way axis: model slot 0 takes each layer's
+              projections whole and runs sequence-parallel attention, the
+              FFN and the vocabulary split over the 16 slots; exactly
+              2 x (48 + 16 x 49) RMSNorm launches (model slot 0 before the
+              attention, every model slot before its FFN block and at the
+              end), no flash; the collective calls per kind exactly those
+              derived from ``param_specs`` (``mesh_collective_calls``: 2 x
+              12 + 1 scatters of the views and tokens plus 3 a layer per
+              data slot for sequence-parallel attention, ...); logits
+              within phase 12's bf16 limit of the
+              single-device prefill's from the same weights, the caches
+              ``==`` in layout; a second pass with every RMSNorm call held
+              to its plain version and every sequence-parallel call to
+              one-device ``blocked_attention`` on its own inputs; (b) the
+              forward of mixtral-8x7b cut to 8 layers, B = 4, S = 2048, on
+              (4, 2): one MoE dispatch group per data slot, 4 experts per
+              model slot, 4 x 2 x 17 RMSNorm and 4 x 2 x 8 flash launches
+              (bf16 route, 16 / 4 heads each), the collective calls
+              exactly derived, each MoE call held to the
+              single G = 4 dispatch on its inputs with the layer's weights
+              whole (kept pairs ``==``, outputs within the bf16 limit, a
+              routing that differs only at a near-tie) and every kernel call
+              to its plain version; (c) one FSDP train step of qwen3-4b cut
+              to 4 layers (``fsdp_params``, 2 microbatches), B = 4, S =
+              1024, on (2, 4), state placed by ``zero1_specs``, against one
+              unsharded step from the same state and batch: loss and every
+              parameter within 5e-3 (the reference's check, in bf16); from
+              the same seeded state in float32 those and the grad norm and
+              first moments within 1e-2 by relative norm, each leaf the
+              model axis replicates within 0.1 (in bf16 the model slots'
+              partial sums round apart, and this model's gradient
+              amplifies any such reordering); wall and step times, peak
+              memory, the bytes one slot holds.
  22. dryrun — the dry run (``repro_torch.launch.dryrun.run_cell``) held
               against the card: (a) qwen3-4b prefill at full width, B = 1,
               S = 4096, ``use_pallas``, on a one-slot mesh (the reference's
@@ -270,10 +285,35 @@ exits non-zero:
               processes at once: qwen3-4b ``train_4k`` on pod16x16 and
               ``run_pipeline_cell`` at straggler 1.0 and 2.0, each plan
               covering every layer, each record's per-slot memory,
-              ``fits``, dot TFLOP, collective GB and plan printed.
+              ``fits``, dot TFLOP, collective GB and plan printed.  The
+              mesh cells take the symmetric data-slot shortcut (data slot
+              0's model slots, counted once per data slot), card and meta
+              alike.
+ 23. tp     — tensor parallelism over the model axis, every slot on the one
+              card: (a) qwen3-4b whole (36 layers, 32 / 8 heads), B = 2,
+              S = 4096, with kernels on (2, 16): ``prefill`` and the
+              forward, each with the counters zeroed just before and read
+              just after: exactly 2 x 16 x 73 RMSNorm launches each and
+              2 x 16 x 36 flash in the forward (bf16 route), every flash
+              call at one model slot's 2 query heads and the one K/V head
+              they read (8 K/V heads on 16 slots: their head_dim split, each
+              slot's head all-gathered: 2 x 8 all-gathers a layer per data
+              slot), every collective call count exactly derived; a second
+              forward with every kernel
+              call held to its plain version, no op reading more than one
+              model slot's block of a split weight nor making a whole one
+              (``param_guard``); logits of both within phase 12's bf16
+              limit of the single-device prefill's and forward's, the caches
+              ``==`` in layout; (b) phase 21(b)'s checks on mixtral-8x7b cut
+              to 8 layers, B = 2, S = 2048, on (1, 16): 8 experts on 16
+              slots, each expert's ff split (896 of 14,336 columns a slot),
+              16 x 17 RMSNorm and 16 x 8 flash (2 / 1 heads); (c) phase
+              21(c)'s step under the op analysis: the same bounds, one
+              slot's bytes of state and of weights gathered over ``data``,
+              and its peak charged as the dry run charges it.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-22;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-23;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -3324,6 +3364,12 @@ MESH_RUNS = {
 # leaf (a norm scale) sums bf16-rounded terms over every token, and the
 # slots' rows round apart (1.3e-2 on qwen3-4b's worst leaf, PERF.md)
 MESH_TRAIN_TOL, MESH_GRAD_RTOL = 5e-3, 1e-2
+# each leaf that the model axis replicates (norm scales, the router, biases):
+# its first moment by relative norm.  Every model slot's view of it meets a
+# part of the rows' gradient, and the step sums them; a sum that takes one
+# slot's part M times moves such a leaf by O(1), which the whole tree's
+# norm hides
+MESH_REPLICATED_RTOL = 0.1
 
 
 def mesh_cfg(run: dict, smoke: bool = False, **kw):
@@ -3343,32 +3389,162 @@ def _mesh_of(run: dict, device):
     return make_mesh(run["mesh"], ("data", "model"), devices=[device] * math.prod(run["mesh"]))
 
 
-def mesh_launches(cfg, path: str, dsize: int, seq: int) -> dict:
-    """The kernels a mesh run launches: per data slot, RMSNorm before
-    attention and before the FFN in every layer and the final one; the
-    forward adds flash attention once per layer where the gate passes;
-    prefill never takes flash (as the reference)."""
+def mesh_launches(cfg, path: str, dsize: int, seq: int, msize: int = 1) -> dict:
+    """The kernels a mesh run over ``dsize`` data slots of ``msize`` model
+    slots launches, tensor-parallel.  Where the heads divide the model axis
+    every model slot normalizes its own copy of the rows: RMSNorm before
+    attention and before the FFN in every layer and the final one, msize x
+    (2L + 1) per data slot, and the forward adds flash attention once per
+    layer per model slot (at H / msize query heads) where the gate passes.
+    Where they do not, model slot 0 alone normalizes before the attention,
+    which it runs whole: L + msize x (L + 1) per data slot, flash L.
+    Prefill never takes flash (as the reference)."""
+    from repro_torch.models.attention import heads_parallel
+
     out = dict.fromkeys(KERNEL_NAMES, 0)
-    out["rmsnorm"] = dsize * (2 * cfg.n_layers + 1)
+    L, per_layer = cfg.n_layers, (msize if heads_parallel(cfg, msize) else 1)
+    out["rmsnorm"] = dsize * (per_layer * L + msize * (L + 1))
     if path == "forward":
-        out["flash_attention"] = dsize * cfg.n_layers * flash_gate(seq, seq)
+        out["flash_attention"] = dsize * per_layer * L * flash_gate(seq, seq)
     return out
 
 
+def mesh_collective_calls(cfg, path: str, dsize: int, msize: int, seq: int,
+                          batch: int) -> dict:
+    """The collective calls of ``path`` (``forward`` or ``prefill``) of the
+    transformer families from a whole tree under a (dsize, msize) mesh,
+    tensor-parallel, from ``param_specs``'s split of each leaf:
+
+    - the views: per data slot that takes rows (D), one ``scatter`` per
+      leaf split over ``model``, one ``broadcast`` per replicated leaf; the
+      tokens (and a VLM's prefix) ``scatter`` over the data slots once;
+    - with M > 1 model slots, per data slot: the tokens (and prefix)
+      ``broadcast`` to its model slots, the embedding ``psum`` (vocabulary
+      split) or ``all_gather`` (``d_model`` split);
+    - per layer per data slot, where the heads divide the axis: an
+      ``all_gather`` per K/V head for each K/V weight split over
+      ``head_dim`` (one where split otherwise), the output's ``psum``;
+      where they do not: a ``gather`` per split attention leaf onto model
+      slot 0, sequence-parallel attention's 3 ``scatter`` + 2 ``all_gather``
+      + 1 ``gather`` where its condition holds, a ``broadcast`` of the
+      output; the FFN's ``psum`` where its inner dim (the experts or their
+      ff) is split, else a ``gather`` per split leaf and a ``broadcast``;
+      an MoE whose dispatch gathers the data slots' rows adds a ``gather``
+      and a ``scatter`` per dispatching model slot;
+    - the head: the forward's unembedding ``reduce_scatter`` (``d_model``
+      split; a ``psum`` where M does not divide the positions), one
+      ``gather`` of each data slot's logits and the aux loss's ``psum``;
+      prefill's ``psum`` of the last position's partial logits where
+      ``d_model`` is split, the logits' ``gather`` and two cache
+      ``gather`` per layer per data slot."""
+    import collections
+
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.models import attention, get_model, moe, sharding
+
+    M = msize
+    params = get_model(cfg).init(0, "meta")
+    named = {}
+    sharding._map_with_path(lambda pth, x: named.__setitem__(
+        "/".join(pth), sharding.model_split_dim(list(pth), tuple(x.shape), M)), params)
+    layer = {k[len("layers/"):]: (None if d is None else "owner" if d == 0 else d - 1)
+             for k, d in named.items() if k.startswith("layers/")}
+    D = dsize if batch % dsize == 0 else 1
+    L, vlm = cfg.n_layers, cfg.family == "vlm"
+    calls, per, once = collections.Counter(), collections.Counter(), collections.Counter()
+    split = sum(d is not None for d in named.values())
+    calls["scatter"] += D * split + 1 + vlm
+    calls["broadcast"] += D * (len(named) - split)
+    if M > 1:
+        calls["broadcast"] += D * (1 + vlm)
+        if named["embed/tok"] is not None:
+            calls["psum" if named["embed/tok"] == 0 else "all_gather"] += D
+        S = seq + (cfg.n_vis_tokens if vlm else 0)
+        if attention.heads_parallel(cfg, M):
+            for n in ("wk", "wv", "bk", "bv"):
+                d, axis = layer.get(f"attn/{n}"), 1 if n[0] == "w" else 0
+                if d is None or d == axis:
+                    continue
+                per["all_gather" if d != "owner" else "broadcast"] += \
+                    cfg.n_kv_heads if d == axis + 1 else 1
+            per["psum"] += 1
+        else:
+            per["gather"] += sum(d is not None for k, d in layer.items() if k.startswith("attn/"))
+            blocked = S > 2048 and S % 512 == 0 and not (path == "forward" and cfg.use_pallas)
+            if blocked and S % M == 0 and (S // M) % 128 == 0:
+                per.update({"scatter": 3, "all_gather": 2, "gather": 1})
+            per["broadcast"] += 1
+    ffn = [("mlp", layer.get("mlp/wi"))]
+    if cfg.family == "moe":
+        with use_mesh(make_mesh((dsize, msize), ("data", "model"), devices=["meta"] * (dsize * M))):
+            own = moe._per_data_slot(cfg, batch, seq, D)[1]
+        inner = M > 1 and layer["moe/wi"] in (0, 2)
+        experts = sum(layer[f"moe/{k}"] is not None for k in ("router", "wi", "wg", "wo"))
+        (per if own else once)["gather"] += 0 if inner else experts
+        if not own:
+            once.update({"gather": M if inner else 1, "scatter": M if inner else 1})
+        if inner:
+            per["psum"] += 1
+        elif M > 1:
+            per["broadcast"] += 1
+        ffn = [("moe/dense", layer.get("moe/dense/wi"))] if cfg.dense_residual else []
+    for pre, d in ffn:
+        if M == 1:
+            continue
+        if d == 1:
+            per["psum"] += 1
+        else:
+            per["gather"] += sum(v is not None for k, v in layer.items() if k.startswith(pre + "/"))
+            per["broadcast"] += 1
+    for k, v in per.items():
+        calls[k] += v * L * D
+    for k, v in once.items():
+        calls[k] += v * L
+    head = named["embed/tok"] if cfg.tie_embeddings else named["embed/unembed"]
+    d_split = M > 1 and head == (1 if cfg.tie_embeddings else 0)
+    if path == "forward":
+        if d_split:
+            calls["reduce_scatter" if seq % M == 0 else "psum"] += D
+        calls["gather"] += D
+        calls["psum"] += 1
+    else:
+        calls["psum"] += D * d_split
+        calls["gather"] += D + 2 * L * D
+    return {k: v for k, v in sorted(calls.items()) if v}
+
+
+def check_collective_calls(what: str, traffic: dict, want: dict) -> None:
+    got = {op: v[0] for op, v in sorted(traffic.items()) if v[0]}
+    if got != want:
+        fail(f"{what}: collective calls {got}, expected {want}")
+
+
+def flash_heads(cfg, msize: int) -> tuple:
+    """(query heads, K/V heads) of each flash call on a model slot."""
+    from repro_torch.models.attention import heads_parallel, kv_heads
+
+    if msize == 1 or not heads_parallel(cfg, msize):
+        return cfg.n_heads, cfg.n_kv_heads
+    return cfg.n_heads // msize, len(kv_heads(0, cfg.n_heads, cfg.n_kv_heads, msize))
+
+
 @contextlib.contextmanager
-def mesh_recording(torch, calls: list, moe_records=None):
+def mesh_recording(torch, calls: list, moe_records=None, flash_heads_seen=None):
     """Within the block every RMSNorm and flash-attention call is held to
-    its plain version on its own inputs, every sequence-parallel attention
-    call to ``blocked_attention`` on one device on its own inputs, and
-    (with ``moe_records``) every MoE call over the data slots to
-    :func:`check_mesh_moe`; each call's (name, max abs err, within) is
-    appended to ``calls``."""
+    its plain version on its own inputs (with ``flash_heads_seen``, each
+    flash call's (query heads, K/V heads) appended to it), every
+    sequence-parallel attention call to ``blocked_attention`` on one device
+    on its own inputs, and (with ``moe_records``) every MoE call over the
+    grid to :func:`check_mesh_moe`, on each data slot's rows and output at
+    its model slot 0 with the layer's MoE weights gathered whole for the
+    check; each call's (name, max abs err, within) is appended to
+    ``calls``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.mesh import use_mesh
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention, layers, moe
 
     flash, rms = ops.flash_attention, ops.rmsnorm
-    seqpar, moe_slots = attention.seq_parallel_attention, transformer.moe_ffn_slots
+    seqpar, moe_grid = attention.seq_parallel_attention, moe.moe_ffn_grid
 
     def check(name, got, want):
         ok, err = _within(torch, got, want)
@@ -3382,37 +3558,46 @@ def mesh_recording(torch, calls: list, moe_records=None):
                                                block_k=block_k)
         return check("seq_parallel_attention", got, want)
 
-    def moe_rec(params_slots, xs, cfg):
-        ys, aux = moe_slots(params_slots, xs, cfg)
-        moe_records.append(check_mesh_moe(torch, params_slots[0], xs, ys, cfg))
-        calls.append(("moe", moe_records[-1]["out_max_err"], True))
-        return ys, aux
+    def flash_rec(q, k, v, **kw):
+        if flash_heads_seen is not None:
+            flash_heads_seen.append((q.shape[2], k.shape[2]))
+        return check("flash_attention", flash(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw))
 
-    ops.flash_attention = lambda q, k, v, **kw: check(
-        "flash_attention", flash(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw))
+    def moe_rec(ps, dims, hs, cfg, n_data, data_slots):
+        ys, auxes = moe_grid(ps, dims, hs, cfg, n_data, data_slots)
+        dev = hs[0][0].device
+        whole = {k: layers.whole_on([p[k] for p in ps[0]], dims[k], dev)
+                 for k in ("router", "wi", "wg", "wo")}
+        moe_records.append(check_mesh_moe(torch, whole, [h[0] for h in hs], [y[0] for y in ys],
+                                          cfg))
+        calls.append(("moe", moe_records[-1]["out_max_err"], True))
+        return ys, auxes
+
+    ops.flash_attention = flash_rec
     ops.rmsnorm = lambda x, scale, *, eps: check(
         "rmsnorm", rms(x, scale, eps=eps), ref.rmsnorm_ref(x, scale, eps=eps))
     attention.seq_parallel_attention = seqpar_rec
     if moe_records is not None:
-        transformer.moe_ffn_slots = moe_rec
+        moe.moe_ffn_grid = moe_rec
     try:
         yield calls
     finally:
         ops.flash_attention, ops.rmsnorm = flash, rms
-        attention.seq_parallel_attention, transformer.moe_ffn_slots = seqpar, moe_slots
+        attention.seq_parallel_attention, moe.moe_ffn_grid = seqpar, moe_grid
 
 
 def check_mesh_moe(torch, params, xs, ys, cfg) -> dict:
     """One MoE call over the data slots (inputs ``xs``, outputs ``ys``, one
     dispatch group per slot) against the single-call dispatch of all the
     groups on one device (``moe._grouped_dispatch`` of the gathered rows in
-    G = len(xs) groups): each group's top-k ids ``==`` the single call's but
-    at a near-tie (:func:`routing_flips`), its kept pairs ``==`` where no
-    token flipped, its outputs at every token whose routing agrees within
-    the bf16 limit of the single call's: 2e-5 + 2^-6 of the sum of the
-    magnitudes of the down projection's products (:func:`plain_moe` with
-    ``inner`` on the slot's routing): the two calls' expert products have
-    other shapes, so their bf16 hidden activations round apart, and a
+    G = len(xs) groups, with the layer's weights whole): each group's top-k
+    ids ``==`` the single call's but at a near-tie (:func:`routing_flips`),
+    its kept pairs ``==`` where no token flipped, its outputs at every token
+    whose routing agrees within the bf16 limit of the single call's: 2e-5 +
+    2^-6 of the sum of the magnitudes of the down projection's products
+    (:func:`plain_moe` with ``inner`` on the slot's routing): the two calls'
+    expert products have other shapes (and the model slots' partial sums
+    round apart), so their bf16 hidden activations round apart, and a
     token's output may cancel below them."""
     from repro_torch.models import moe
 
@@ -3464,7 +3649,8 @@ def _check_calls(what: str, calls: list, want: dict) -> dict:
 
 def mesh_prefill_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
     """(a) prefill under the mesh, the counters zeroed just before and read
-    just after (:func:`mesh_launches`); a second mesh prefill with every
+    just after (:func:`mesh_launches`), its collective calls exactly
+    :func:`mesh_collective_calls`'s; a second mesh prefill with every
     kernel and sequence-parallel call checked; then the single-device
     prefill from the same weights: the mesh's logits within
     :func:`_logits_close`'s limit of its, the caches ``==`` in layout."""
@@ -3497,9 +3683,11 @@ def mesh_prefill_run(torch, counters, run: dict, device, smoke: bool = False) ->
     out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
     out["launches"] = {c.__name__: c.launches for c in counters}
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
-    want = mesh_launches(cfg, "prefill", dsize, S)
+    want = mesh_launches(cfg, "prefill", dsize, S, msize)
     if on_card:
         check_launches("mesh prefill", out["launches"], want)
+    check_collective_calls("mesh prefill", out["collectives"],
+                           mesh_collective_calls(cfg, "prefill", dsize, msize, S, B))
     seqpar = cfg.n_heads % msize != 0 and S % msize == 0 and (S // msize) % 128 == 0 \
         and S > 2048 and S % 512 == 0
     calls = []
@@ -3534,7 +3722,8 @@ def mesh_prefill_run(torch, counters, run: dict, device, smoke: bool = False) ->
 
 def mesh_moe_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
     """(b) the MoE model's forward under the mesh: the counters zeroed just
-    before and read just after (:func:`mesh_launches`); a second forward
+    before and read just after (:func:`mesh_launches`), its collective
+    calls exactly :func:`mesh_collective_calls`'s; a second forward
     with every kernel call checked and every MoE call held to the single
     G-group dispatch (:func:`check_mesh_moe`); logits finite."""
     from repro_torch.launch import collectives
@@ -3546,7 +3735,7 @@ def mesh_moe_run(torch, counters, run: dict, device, smoke: bool = False) -> dic
     cfg = mesh_cfg(run, smoke, use_pallas=True)
     api = get_model(cfg)
     mesh = _mesh_of(run, device)
-    dsize = run["mesh"][0]
+    dsize, msize = run["mesh"]
     B, S = run["batch"], run["seq"]
     t0 = time.time()
     params = api.init(run["seed"], device)
@@ -3567,24 +3756,31 @@ def mesh_moe_run(torch, counters, run: dict, device, smoke: bool = False) -> dic
     out["launches"] = {c.__name__: c.launches for c in counters}
     out["routes"] = route_counts(counters)
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
-    want = mesh_launches(cfg, "forward", dsize, S)
+    want = mesh_launches(cfg, "forward", dsize, S, msize)
     if on_card:
         check_launches("mesh moe forward", out["launches"], want)
         check_flash_routes("mesh moe forward", out["launches"], out["routes"])
+    check_collective_calls("mesh moe forward", out["collectives"],
+                           mesh_collective_calls(cfg, "forward", dsize, msize, S, B))
     if tuple(logits.shape) != (B, S, cfg.vocab_size) or not bool(logits.isfinite().all()):
         fail(f"mesh moe forward: logits {tuple(logits.shape)}, finite "
              f"{bool(logits.isfinite().all())}")
-    calls, records = [], []
-    with mesh_recording(torch, calls, records), use_mesh(mesh):
+    calls, records, heads = [], [], []
+    with mesh_recording(torch, calls, records, heads), use_mesh(mesh):
         api.forward(params, {"tokens": toks}, cfg)
     out["kernel_vs_plain_max_err"] = _check_calls(
         "mesh moe forward", calls, {"rmsnorm": want["rmsnorm"],
                                     "flash_attention": want["flash_attention"],
                                     "moe": cfg.n_layers})
+    out["flash_heads"] = sorted(set(heads))
+    if out["flash_heads"] != [flash_heads(cfg, msize)]:
+        fail(f"mesh moe forward: flash calls at (query, K/V) heads {out['flash_heads']}, "
+             f"expected {flash_heads(cfg, msize)} on each of {msize} model slots")
     if any(r["groups"] != dsize for r in records):
         fail(f"mesh moe forward: dispatch groups {[r['groups'] for r in records]}, one per data "
              f"slot expected ({dsize})")
-    out["moe"] = {"layers": len(records), "groups": dsize,
+    out["moe"] = {"layers": len(records), "groups": dsize, "model_slots": msize,
+                  "split": moe_split(cfg, msize),
                   "dropped_pairs": sum(r["dropped_pairs"] for r in records),
                   "flipped_tokens": sum(r["flipped_tokens"] for r in records),
                   "out_max_err": max(r["out_max_err"] for r in records),
@@ -3592,19 +3788,28 @@ def mesh_moe_run(torch, counters, run: dict, device, smoke: bool = False) -> dic
     return out
 
 
+def moe_split(cfg, msize: int) -> str:
+    """How ``param_specs`` splits the experts over ``msize`` model slots."""
+    from repro_torch.models.sharding import model_split_dim
+
+    dim = model_split_dim(["layers", "moe", "wi"], (cfg.n_layers, cfg.n_experts, cfg.d_model,
+                                                   cfg.expert_d_ff), msize)
+    return {1: "experts", 3: "expert ff"}.get(dim, "none")
+
+
 def _rel_norm(torch, a, b) -> float:
     return float(torch.linalg.vector_norm((a - b).double())
                  / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
 
 
-def mesh_train_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
-    """(c) one train step under the mesh (state placed by ``zero1_specs``)
-    against one unsharded step from the same state and batch: the loss and
-    every parameter within :data:`MESH_TRAIN_TOL`, the grad norm and the
-    first moments within :data:`MESH_GRAD_RTOL` by relative norm (each
-    leaf's reported); step times; the bytes one slot holds under the
-    placement against the unsharded tree's."""
-    from repro_torch.launch import collectives
+def _train_pair(torch, counters, cfg, run: dict, device, analysis: bool) -> dict:
+    """One train step of ``cfg`` under ``run``'s mesh (state placed by
+    ``zero1_specs``) and one unsharded step from the same seeded state and
+    batch: their errors (loss, worst parameter, grad norm, first moments
+    over the tree, per leaf and per leaf the model axis replicates), step
+    times, the mesh step's collectives, launches and peak; with
+    ``analysis``, one slot's peak as the dry run charges it."""
+    from repro_torch.launch import collectives, dryrun, hlo_analysis
     from repro_torch.launch.mesh import use_mesh
     from repro_torch.models import get_model, sharding
     from repro_torch.models.train import (init_optimizer, make_loss_fn, make_train_step,
@@ -3613,7 +3818,6 @@ def mesh_train_run(torch, counters, run: dict, device, smoke: bool = False) -> d
 
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    cfg = mesh_cfg(run, smoke, fsdp_params=True, accum_steps=run["accum"])
     api = get_model(cfg)
     mesh = _mesh_of(run, device)
     B, S = run["batch"], run["seq"]
@@ -3625,7 +3829,7 @@ def mesh_train_run(torch, counters, run: dict, device, smoke: bool = False) -> d
     placed, popt = place_train_state(params, opt, cfg, mesh)
     specs = sharding.zero1_specs(params, cfg, mesh)
     state = (params, opt.m, opt.v)
-    out = {"config": cfg.arch_id, "layers": cfg.n_layers,
+    out = {"dtype": cfg.dtype,
            "bytes_unsharded": sum(x.numel() * x.element_size()
                                   for t in state for x in tree_leaves(t)),
            "bytes_per_slot": sum(sharding.slot_bytes(t, specs, mesh) for t in state)}
@@ -3646,34 +3850,82 @@ def mesh_train_run(torch, counters, run: dict, device, smoke: bool = False) -> d
     collectives.TRAFFIC.clear()
     t0 = time.time()
     with use_mesh(mesh):
-        placed, popt, m_mesh = step(placed, popt, batch)
+        if analysis:
+            (placed, popt, m_mesh), an = hlo_analysis.analyze(
+                lambda: step(placed, popt, batch), devices=mesh.size, detail=False)
+        else:
+            placed, popt, m_mesh = step(placed, popt, batch)
     sync()
     out["mesh_step_s"] = time.time() - t0
+    if analysis:
+        dsize, msize = run["mesh"]
+        shared = dryrun._gathered_bytes(params, specs, mesh)
+        out["slot_view_bytes"] = shared // msize
+        out["slot_peak_bytes"] = int((an["peak_bytes"] - shared) / (dsize * msize)
+                                     + shared / msize)
     out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
     out["launches"] = {c.__name__: c.launches for c in counters}
-    if any(out["launches"].values()):
-        fail(f"mesh train: the steps launched {out['launches']}; training runs the plain versions")
     out["loss"], out["single_loss"] = float(m_mesh["loss"]), float(m_ref["loss"])
     out["loss_err"] = abs(out["loss"] - out["single_loss"])
     out["grad_norm_rel_err"] = abs(float(m_mesh["grad_norm"]) - float(m_ref["grad_norm"])) \
         / float(m_ref["grad_norm"])
-    errs, rel, diff2, norm2 = [], [], 0.0, 0.0
+    errs, rel, diff2, norm2, repl = [], [], 0.0, 0.0, []
     for st, want, sm, wm in zip(tree_leaves(placed), tree_leaves(params), tree_leaves(popt.m),
                                 tree_leaves(opt.m)):
         errs.append(float((sharding.gather(st, want.device) - want).abs().max()))
         got_m = sharding.gather(sm, wm.device)
         rel.append(_rel_norm(torch, got_m, wm))
+        if sharding.model_dim(st.spec) is None:
+            repl.append(rel[-1])
         diff2 += float(torch.sum(torch.square((got_m - wm).double())))
         norm2 += float(torch.sum(torch.square(wm.double())))
     out["param_max_err"], out["moment_leaf_max_rel_err"] = max(errs), max(rel)
+    out["replicated_moment_max_rel_err"] = max(repl, default=0.0)
     out["moment_rel_err"] = math.sqrt(diff2 / max(norm2, 1e-300))
-    if out["loss_err"] > MESH_TRAIN_TOL or out["param_max_err"] > MESH_TRAIN_TOL \
-            or out["grad_norm_rel_err"] > MESH_GRAD_RTOL or out["moment_rel_err"] > MESH_GRAD_RTOL:
-        fail(f"mesh train: loss err {out['loss_err']}, worst parameter err "
-             f"{out['param_max_err']} (limit {MESH_TRAIN_TOL}); grad norm rel err "
-             f"{out['grad_norm_rel_err']}, first moments rel err {out['moment_rel_err']} (limit "
-             f"{MESH_GRAD_RTOL}; worst leaf {out['moment_leaf_max_rel_err']})")
+    return out
+
+
+def mesh_train_run(torch, counters, run: dict, device, smoke: bool = False,
+                   analysis: bool = False) -> dict:
+    """(c) one train step under the mesh, tensor-parallel (state placed by
+    ``zero1_specs``), against one unsharded step from the same state and
+    batch (:func:`_train_pair`): in the run's dtype the loss and every
+    parameter within :data:`MESH_TRAIN_TOL` (the reference's own check, in
+    its bf16); then, from the same seeded state in float32, those and the
+    grad norm and the first moments within :data:`MESH_GRAD_RTOL` by
+    relative norm, each leaf the model axis replicates within
+    :data:`MESH_REPLICATED_RTOL`.  In bf16 the model slots' partial sums
+    round apart from one product over the whole contraction, and this
+    model's gradient amplifies that: splitting one MLP contraction in two
+    on one device moves its bf16 first moments by 1.1 % (PERF.md), so the
+    moments are gated where only a wrong sum can move them.  Step times;
+    the bytes one slot holds under the placement against the unsharded
+    tree's; with ``analysis``, the run's mesh step under the op analysis
+    and one slot's peak charged as the dry run charges it."""
+    cfg = mesh_cfg(run, smoke, fsdp_params=True, accum_steps=run["accum"])
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers}
+    out.update(_train_pair(torch, counters, cfg, run, device, analysis))
+    if any(out["launches"].values()):
+        fail(f"mesh train: the steps launched {out['launches']}; training runs the plain versions")
+    if out["loss_err"] > MESH_TRAIN_TOL or out["param_max_err"] > MESH_TRAIN_TOL:
+        fail(f"mesh train ({cfg.dtype}): loss err {out['loss_err']}, worst parameter err "
+             f"{out['param_max_err']} (limit {MESH_TRAIN_TOL})")
+    f32 = out if cfg.dtype == "float32" else _train_pair(
+        torch, counters, cfg.replace(dtype="float32"), run, device, False)
+    out["float32"] = {k: f32[k] for k in ("loss_err", "param_max_err", "grad_norm_rel_err",
+                                          "moment_rel_err", "moment_leaf_max_rel_err",
+                                          "replicated_moment_max_rel_err", "mesh_step_s",
+                                          "single_step_s")}
+    if f32["loss_err"] > MESH_TRAIN_TOL or f32["param_max_err"] > MESH_TRAIN_TOL \
+            or f32["grad_norm_rel_err"] > MESH_GRAD_RTOL or f32["moment_rel_err"] > MESH_GRAD_RTOL \
+            or f32["replicated_moment_max_rel_err"] > MESH_REPLICATED_RTOL:
+        fail(f"mesh train (float32): loss err {f32['loss_err']}, worst parameter err "
+             f"{f32['param_max_err']} (limit {MESH_TRAIN_TOL}); grad norm rel err "
+             f"{f32['grad_norm_rel_err']}, first moments rel err {f32['moment_rel_err']} (limit "
+             f"{MESH_GRAD_RTOL}; worst leaf {f32['moment_leaf_max_rel_err']}), worst leaf "
+             f"replicated over the model axis {f32['replicated_moment_max_rel_err']} (limit "
+             f"{MESH_REPLICATED_RTOL})")
     return out
 
 
@@ -3713,14 +3965,277 @@ def say_mesh_part(name: str, r: dict, run: dict, card) -> None:
             f"{r['kernel_vs_plain_max_err']}); collectives {r['collectives']}; launches "
             f"{r['launches']}; part {r['part_s']:.1f} s; {card}")
     else:
+        f32 = r["float32"]
         say(f"{head} (c) FSDP step in {r['mesh_step_s']:.3f} s, unsharded "
             f"{r['single_step_s']:.3f} s; loss {r['loss']!r} vs {r['single_loss']!r} (err "
             f"{r['loss_err']:.3g}), worst parameter err {r['param_max_err']:.3g} (limit "
             f"{MESH_TRAIN_TOL}), grad norm rel err {r['grad_norm_rel_err']:.3g}, first moments "
-            f"rel err {r['moment_rel_err']:.3g} (limit {MESH_GRAD_RTOL}; worst leaf "
-            f"{r['moment_leaf_max_rel_err']:.3g}); collectives {r['collectives']}; per slot "
+            f"rel err {r['moment_rel_err']:.3g} (worst leaf {r['moment_leaf_max_rel_err']:.3g}, "
+            f"replicated over model {r['replicated_moment_max_rel_err']:.3g}); float32: loss "
+            f"err {f32['loss_err']:.3g}, parameter err {f32['param_max_err']:.3g}, grad norm "
+            f"rel err {f32['grad_norm_rel_err']:.3g}, first moments rel err "
+            f"{f32['moment_rel_err']:.3g} (limit {MESH_GRAD_RTOL}), replicated leaves "
+            f"{f32['replicated_moment_max_rel_err']:.3g} (limit {MESH_REPLICATED_RTOL}); "
+            f"collectives {r['collectives']}; per slot "
             f"{r['bytes_per_slot']} B of state against {r['bytes_unsharded']} B unsharded; peak "
             f"{r['peak_mem_bytes']} B; part {r['part_s']:.1f} s; {card}")
+
+# ---------------------------------------------------------------------------
+# 23. tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+# every slot on the one card.  (a) qwen3-4b whole (36 layers, 32 / 8 heads of
+# 80), B = 2, S = 4096, prefill and forward with kernels on (2, 16): each
+# model slot takes 2 query heads and the one K/V head they read (8 K/V heads
+# on 16 slots: param_specs splits their head_dim, and each slot all-gathers
+# its head's columns); (b) mixtral-8x7b cut to 8 layers, B = 2, S = 2048,
+# the forward on (1, 16): 8 experts on 16 slots, each expert's ff split (896
+# of 14,336 columns a slot); (c) phase 21(c)'s FSDP step on (2, 4) under the
+# op analysis, one slot's peak and bytes beside phase 21(c)'s
+TP_RUNS = {
+    "prefill": {"arch": "qwen3-4b", "layers": None, "batch": 2, "seq": 4096, "mesh": (2, 16),
+                "seed": 41, "dtype": None},
+    "moe": {"arch": "mixtral-8x7b", "layers": 8, "batch": 2, "seq": 2048, "mesh": (1, 16),
+            "seed": 42, "dtype": None},
+    "train": dict(MESH_RUNS["train"], seed=43),
+}
+
+
+@contextlib.contextmanager
+def param_guard(torch, params, cfg, mesh):
+    """Within the block (a run from the whole tree ``params`` under
+    ``mesh``), every op that reads a tensor in the memory of a leaf that
+    ``param_specs`` splits over ``model`` must read at most one model
+    slot's block of it, and no op may make a tensor of such a leaf's whole
+    shape or of one layer's whole shape (a view reads nothing).  Yields a
+    dict: the most elements any op read of a parameter, that of each split
+    leaf against its block, and the shapes made."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.models import sharding
+
+    msize = mesh.shape["model"]
+    specs = sharding.param_specs(params, cfg, mesh)
+    spans, whole = [], set()
+
+    def leaf(path, x):
+        split = sharding.model_dim(specs_at[path]) is not None
+        spans.append((x.data_ptr(), x.data_ptr() + x.numel() * x.element_size(), x.numel(),
+                      x.numel() // msize if split else x.numel(), "/".join(path)))
+        if split:
+            whole.add(tuple(x.shape))
+            if "layers" in path:
+                whole.add(tuple(x.shape[1:]))
+        return x
+
+    specs_at = {}
+    sharding._map_with_path(lambda pth, sp: specs_at.__setitem__(pth, sp), specs)
+    sharding._map_with_path(leaf, params)
+    report = {"max_read": 0, "over_block": [], "whole_made": [], "reads": {}}
+
+    def tensors(xs):
+        for x in xs:
+            if isinstance(x, torch.Tensor):
+                yield x
+            elif isinstance(x, (list, tuple)):
+                yield from tensors(x)
+
+    class Guard(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if hlo_analysis._plan(func)[0] == "composite":
+                with self:      # count the ops it is made of, as the analysis does
+                    out = func.decompose(*args, **kwargs)
+                if out is not NotImplemented:
+                    return out
+            out = func(*args, **kwargs)
+            made = list(tensors([out]))
+            ins = list(tensors(list(args) + list(kwargs.values())))
+            held = {t.untyped_storage().data_ptr() for t in ins if t.device.type != "meta"}
+            if made and all(t.device.type != "meta" and t.untyped_storage().data_ptr() in held
+                            for t in made):
+                return out      # a view: it reads nothing
+            for t in ins:
+                if t.device.type == "meta":
+                    continue
+                ptr = t.data_ptr()
+                for lo, hi, n, block, name in spans:
+                    if lo <= ptr < hi:
+                        report["max_read"] = max(report["max_read"], t.numel())
+                        report["reads"][name] = max(report["reads"].get(name, 0), t.numel())
+                        if t.numel() > block:
+                            report["over_block"].append((func.overloadpacket.__name__, name,
+                                                         t.numel(), block))
+                        break
+            for t in made:
+                if tuple(t.shape) in whole:
+                    report["whole_made"].append((func.overloadpacket.__name__, tuple(t.shape)))
+            return out
+
+    with Guard():
+        yield report
+
+
+def check_param_guard(what: str, report: dict) -> None:
+    if report["over_block"] or report["whole_made"]:
+        fail(f"{what}: a slot read more than its block of a split weight "
+             f"{report['over_block'][:4]} or made a whole one {report['whole_made'][:4]}")
+
+
+def tp_prefill_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
+    """(a) prefill and the forward of a dense model under the mesh,
+    tensor-parallel, each with the counters zeroed just before and read
+    just after (:func:`mesh_launches`), the collective calls exactly
+    :func:`mesh_collective_calls`'s; a second forward with every kernel
+    call held to its plain version on its own inputs, every flash call at
+    one model slot's heads (:func:`flash_heads`), under
+    :func:`param_guard`; then the single-device prefill and forward from
+    the same weights: logits within :func:`_logits_close`'s limit, the
+    caches ``==`` in layout."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import prefill
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = mesh_cfg(run, smoke, use_pallas=True)
+    api = get_model(cfg)
+    mesh = _mesh_of(run, device)
+    dsize, msize = run["mesh"]
+    B, S = run["batch"], run["seq"]
+    t0 = time.time()
+    params = api.init(run["seed"], device)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=device,
+                         generator=torch.Generator(device=device).manual_seed(run["seed"]))
+    sync()
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "init_s": time.time() - t0,
+           "launches": {}, "collectives": {}, "wall_s": {}}
+    got = {}
+    for path in ("prefill", "forward"):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counters(counters)
+        collectives.TRAFFIC.clear()
+        t0 = time.time()
+        with use_mesh(mesh):
+            got[path] = prefill(params, toks, cfg) if path == "prefill" else \
+                api.forward(params, {"tokens": toks}, cfg)
+        sync()
+        out["wall_s"][path] = time.time() - t0
+        out["collectives"][path] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+        out["launches"][path] = {c.__name__: c.launches for c in counters}
+        out[f"{path}_peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+        if on_card:
+            check_launches(f"tp {path}", out["launches"][path],
+                           mesh_launches(cfg, path, dsize, S, msize))
+        check_collective_calls(f"tp {path}", out["collectives"][path],
+                               mesh_collective_calls(cfg, path, dsize, msize, S, B))
+    if on_card:
+        check_flash_routes("tp forward", out["launches"]["forward"], route_counts(counters))
+    want = mesh_launches(cfg, "forward", dsize, S, msize)
+    calls, heads = [], []
+    with mesh_recording(torch, calls, flash_heads_seen=heads), \
+            param_guard(torch, params, cfg, mesh) as guard, use_mesh(mesh):
+        api.forward(params, {"tokens": toks}, cfg)
+    out["kernel_vs_plain_max_err"] = _check_calls(
+        "tp forward", calls, {"rmsnorm": want["rmsnorm"],
+                              "flash_attention": want["flash_attention"]})
+    out["flash_heads"] = sorted(set(heads))
+    if want["flash_attention"] and out["flash_heads"] != [flash_heads(cfg, msize)]:
+        fail(f"tp forward: flash calls at (query, K/V) heads {out['flash_heads']}, expected "
+             f"{flash_heads(cfg, msize)}")
+    check_param_guard("tp forward", guard)
+    out["largest_param_read"] = guard["max_read"]
+    out["one_layer_projection"] = cfg.d_model * cfg.n_heads * cfg.head_dim
+    sync()
+    t0 = time.time()
+    ref = {"prefill": prefill(params, toks, cfg), "forward": api.forward(params, {"tokens": toks},
+                                                                          cfg)}
+    sync()
+    out["single_wall_s"] = time.time() - t0
+    for path in ("prefill", "forward"):
+        out[f"{path}_logits"] = _logits_close(got[path][0], ref[path][0], cfg.dtype)
+        if not out[f"{path}_logits"]["ok"]:
+            fail(f"tp {path}: logits against the single-device {path}'s "
+                 f"{out[f'{path}_logits']}")
+    a, b = got["prefill"][1].caches, ref["prefill"][1].caches
+    for f in ("k", "v", "pos", "positions"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.shape != y.shape or x.dtype != y.dtype or x.device != y.device:
+            fail(f"tp prefill: cache {f} {tuple(x.shape)} {x.dtype} {x.device}, single device "
+                 f"{tuple(y.shape)} {y.dtype} {y.device}")
+    if not (torch.equal(a.pos, b.pos) and torch.equal(a.positions, b.positions)):
+        fail("tp prefill: cache positions differ from the single-device prefill's")
+    out["cache_max_err"] = {f: float((getattr(a, f).float() - getattr(b, f).float()).abs().max())
+                            for f in ("k", "v")}
+    return out
+
+
+def tp_phase(torch, counters, card, device: str = "cuda", runs: dict = TP_RUNS,
+             smoke: bool = False) -> dict:
+    """Phase 23 on ``device``: (a) :func:`tp_prefill_run`, (b)
+    :func:`mesh_moe_run` on (1, 16) (the experts' ff split), (c)
+    :func:`mesh_train_run` under the op analysis, each from its own seeded
+    weights, freed before the next."""
+    on_card = torch.device(device).type == "cuda"
+    out, by_path = {"card": card}, {}
+    for name in ("prefill", "moe", "train"):
+        t0 = time.time()
+        if name == "prefill":
+            res = tp_prefill_run(torch, counters, runs[name], device, smoke)
+            by_path.update({f"tp {p}": res["launches"][p] for p in ("prefill", "forward")})
+        elif name == "moe":
+            res = mesh_moe_run(torch, counters, runs[name], device, smoke)
+            by_path["tp moe"] = res["launches"]
+        else:
+            res = mesh_train_run(torch, counters, runs[name], device, smoke, analysis=True)
+            by_path["tp train"] = res["launches"]
+        res["part_s"] = time.time() - t0
+        out[name] = res
+        say_tp_part(name, res, runs[name], card)
+        if on_card:
+            torch.cuda.empty_cache()
+    out["by_path"] = by_path
+    return out
+
+
+def say_tp_part(name: str, r: dict, run: dict, card) -> None:
+    """The line phase 23 prints for part ``name`` as it ends."""
+    head = (f"phase tp: {r['config']} {r['layers']} layers B={run['batch']} S={run['seq']} on a "
+            f"{run['mesh']} mesh:")
+    if name == "prefill":
+        say(f"{head} (a) prefill {r['wall_s']['prefill']:.3f} s and forward "
+            f"{r['wall_s']['forward']:.3f} s tensor-parallel, both one device "
+            f"{r['single_wall_s']:.3f} s; peaks {r['prefill_peak_mem_bytes']} / "
+            f"{r['forward_peak_mem_bytes']} B; logits {r['prefill_logits']} / "
+            f"{r['forward_logits']}; caches == in layout (k/v max err {r['cache_max_err']}); "
+            f"flash at (query, K/V) heads {r['flash_heads']}; every call within its plain "
+            f"version (worst {r['kernel_vs_plain_max_err']}); largest parameter block read "
+            f"{r['largest_param_read']} elements (one layer's wq {r['one_layer_projection']}), no "
+            f"whole split weight; collectives {r['collectives']}; launches {r['launches']}; part "
+            f"{r['part_s']:.1f} s; {card}")
+    elif name == "moe":
+        say(f"{head} (b) forward in {r['mesh_wall_s']:.3f} s; peak {r['peak_mem_bytes']} B; MoE "
+            f"{r['moe']}; flash at {r['flash_heads']}; every call within its plain version "
+            f"(worst {r['kernel_vs_plain_max_err']}); collectives {r['collectives']}; launches "
+            f"{r['launches']}; part {r['part_s']:.1f} s; {card}")
+    else:
+        f32 = r["float32"]
+        say(f"{head} (c) FSDP step under the op analysis in {r['mesh_step_s']:.3f} s, unsharded "
+            f"{r['single_step_s']:.3f} s; loss err {r['loss_err']:.3g}, worst parameter err "
+            f"{r['param_max_err']:.3g} (limit {MESH_TRAIN_TOL}), grad norm rel err "
+            f"{r['grad_norm_rel_err']:.3g}, first moments rel err {r['moment_rel_err']:.3g}; "
+            f"float32: grad norm rel err {f32['grad_norm_rel_err']:.3g}, first moments rel err "
+            f"{f32['moment_rel_err']:.3g} (limit {MESH_GRAD_RTOL}), replicated leaves "
+            f"{f32['replicated_moment_max_rel_err']:.3g} (limit {MESH_REPLICATED_RTOL}); per "
+            f"slot {r['bytes_per_slot']} B of state + "
+            f"{r['slot_view_bytes']} B of data-gathered weights held, peak "
+            f"{r['slot_peak_bytes']} B charged (card peak over every slot "
+            f"{r['peak_mem_bytes']} B); collectives {r['collectives']}; part "
+            f"{r['part_s']:.1f} s; {card}")
+
 
 # ---------------------------------------------------------------------------
 # 22. the dry run held against the card
@@ -4375,6 +4890,17 @@ def main() -> None:
     report["dryrun"]["phase_s"] = time.time() - t0
     by_path.update(report["dryrun"].pop("by_path"))
     say(f"phase dryrun: {report['dryrun']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 23. tensor parallelism over the model axis on the one card: a dense
+    # prefill and forward on (2, 16), the MoE's expert-column split on
+    # (1, 16), the FSDP step under the op analysis; each run's counters
+    # zeroed just before and read just after
+    t0 = time.time()
+    report["tp"] = tp_phase(torch, counters, card)
+    report["tp"]["phase_s"] = time.time() - t0
+    by_path.update(report["tp"].pop("by_path"))
+    say(f"phase tp: {report['tp']['phase_s']:.1f} s")
 
     launches = {}
     for counts in by_path.values():

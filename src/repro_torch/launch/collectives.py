@@ -16,25 +16,52 @@ code, :func:`repro_torch.models.sharding.place` / ``gather`` and the mesh
 train step call nothing else to move a tensor between slots), so a process
 group can stand behind these functions later.  :data:`TRAFFIC` counts the
 calls and the bytes each kind of operation reads.
+
+A block under :func:`counted_as` stands for ``n`` slots that do the same
+work (the dry run computes one data slot of a mesh whose data slots are
+symmetric): every call inside it counts ``n`` times, and an op analysis
+(:mod:`repro_torch.launch.hlo_analysis`) reads :func:`count_scale` to count
+its ops and launches the same way.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from .. import resolve_device
 
-__all__ = ["TRAFFIC", "all_gather", "axis_index", "broadcast", "broadcast_tree", "gather_to",
-           "psum", "reduce_scatter", "scatter"]
+__all__ = ["TRAFFIC", "all_gather", "axis_index", "broadcast", "broadcast_tree", "count_scale",
+           "counted_as", "gather_to", "psum", "reduce_scatter", "scatter"]
 
 # operation -> [calls, bytes read]
 TRAFFIC: dict = {}
+# how many slots' identical work the code being run stands for
+_SCALE = [1]
 
 
 def _count(op: str, xs) -> None:
+    n = _SCALE[-1]
     calls = TRAFFIC.setdefault(op, [0, 0])
-    calls[0] += 1
-    calls[1] += sum(x.numel() * x.element_size() for x in xs)
+    calls[0] += n
+    calls[1] += n * sum(x.numel() * x.element_size() for x in xs)
+
+
+def count_scale() -> int:
+    """How many times a call made now counts (1 outside :func:`counted_as`)."""
+    return _SCALE[-1]
+
+
+@contextlib.contextmanager
+def counted_as(n: int):
+    """Within the block every call counts ``n`` times: the block computes
+    one of ``n`` slots whose work is the same, in shapes and in calls."""
+    _SCALE.append(_SCALE[-1] * int(n))
+    try:
+        yield n
+    finally:
+        _SCALE.pop()
 
 
 def _unique(devices) -> dict:
@@ -94,14 +121,59 @@ def broadcast_tree(tree, devices) -> list:
     return broadcast(tree, devices)
 
 
-def psum(xs: list, device) -> torch.Tensor:
-    """The slots' tensors summed in slot order on ``device``."""
-    dev = resolve_device(device)
-    _count("psum", xs)
+def _sum(xs: list, dev: torch.device) -> torch.Tensor:
     out = xs[0].to(dev)
     for x in xs[1:]:
         out = out + x.to(dev)
     return out
+
+
+def _sum32(xs: list, dev: torch.device) -> torch.Tensor:
+    out = xs[0].to(dev, torch.float32)
+    for x in xs[1:]:
+        out = out + x.to(dev, torch.float32)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """Each receiver's own copy of the inputs' sum, accumulated in float32
+    in slot order and rounded once to the inputs' dtype; the gradient of
+    each input is the receivers' gradients summed the same way."""
+
+    @staticmethod
+    def forward(ctx, devices, *xs):
+        ctx.sources = [(x.device, x.dtype) for x in xs]
+        sums = {}
+        for d in devices:
+            if d not in sums:
+                sums[d] = _sum32(xs, d).to(xs[0].dtype)
+        first = {}
+        return tuple(sums[d] if first.setdefault(d, i) == i else sums[d].clone()
+                     for i, d in enumerate(devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [g for g in grads if g is not None]
+        out = {}
+        for dev, dt in ctx.sources:
+            if dev not in out:
+                out[dev] = _sum32(live, dev).to(dt)
+        return (None, *(out[dev] for dev, _ in ctx.sources))
+
+
+def psum(xs: list, device):
+    """The slots' tensors summed in slot order on ``device``.  Given a list
+    of devices (one per receiving slot), every receiver gets its own copy
+    of the sum on its device (an all-reduce), accumulated in float32 and
+    rounded once, as one product over the whole contraction would be; its
+    gradient sums the receivers' the same way."""
+    if isinstance(device, (list, tuple)):
+        devices = [resolve_device(d) for d in device]
+        _count("psum", xs)
+        return list(_AllReduce.apply(devices, *xs))
+    dev = resolve_device(device)
+    _count("psum", xs)
+    return _sum(xs, dev)
 
 
 def reduce_scatter(xs: list, dim: int, devices) -> list:

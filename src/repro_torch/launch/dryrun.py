@@ -20,18 +20,33 @@ A cell's step, as in the reference:
     trains under a mesh (the dense, MoE and VLM families), the state is
     placed by ``zero1_specs`` (``cfg.fsdp_params``) or ``param_specs``
     (:func:`repro_torch.models.train.place_train_state`) and the batch by
-    ``batch_spec``, and the step runs under the mesh.  The other families
-    train on one device (the port has no mesh form for them): their state
-    and batch sit whole on data slot 0 (``placement: "one device"``).
-  - ``prefill``: the forward, returning the logits.
-  - ``decode``: one decode step against a decode state of ``seq_len`` slots.
+    ``batch_spec``, and the step runs under the mesh, tensor-parallel:
+    every model slot of each data slot computes from its own block of the
+    weights.  The other families train on one device (the port has no mesh
+    form for them): their state and batch sit whole on data slot 0
+    (``placement: "one device"``).
+  - ``prefill``: the forward, returning the logits.  For the mesh families
+    the parameters are placed by their specs and the batch by
+    ``batch_spec``, and the forward runs on the placed state over the grid
+    (``train_forward.slots``), returning each data slot's logits split over
+    its model slots, with nothing gathered to one slot.  The other families
+    gather the placed state onto data slot 0's device and run there.
+  - ``decode``: one decode step against a decode state of ``seq_len``
+    slots, placed by ``state_specs``; the step gathers the parameters, the
+    batch and the state onto data slot 0's device (a decode step runs on
+    one device), through :mod:`repro_torch.launch.collectives`.
 
-For prefill and decode the parameters are placed by their specs, the batch
-by ``batch_spec`` and the decode state by ``state_specs``, as the
-reference's in-shardings put them; the step first gathers them onto data
-slot 0's device (the port computes with whole weights: the forward splits
-rows over the data slots, a decode step runs on one device), through
-:mod:`repro_torch.launch.collectives`.
+The data slots of a mesh step are symmetric: the same shapes on other rows.
+Where they compute independently (every dense and VLM step; an MoE whose
+dispatch is per data slot), the step runs data slot 0's model slots alone,
+under :func:`repro_torch.launch.mesh.symmetric_data_slots` (``symmetric``,
+on by default on every device): each op, launch and collective of that data
+slot counts once per data slot, and its results stand in for the others'
+in the step's sums over the data slots.  The additive figures (flops,
+bytes by kind, collectives, launches) are then those of the whole step
+(``tests/test_torch_tp.py`` holds them ``==`` on a (2, 4) mesh); the peak
+is that of one data slot's model slots.  ``symmetric=False`` simulates
+every data slot.
 
 The record keeps the reference's keys: ``arch``, ``shape``, ``kind``,
 ``mesh``, ``devices``, ``seq_len``, ``global_batch``, ``memory``, ``hlo``
@@ -47,15 +62,15 @@ is per slot:
     slot.
   - ``temp_size_in_bytes``: the peak of live bytes the step allocated,
     per computing slot.  One process runs every slot, and here every slot
-    names one device, so the data slots' live sets add up in that peak: the
-    computing slots are the data slots that took rows (one for a step that
-    runs on one device), each with an equal share of the rows, and one slot
-    is charged ``(peak - shared) / k + shared`` for ``k`` of them, where
-    ``shared`` is what the step broadcast to their devices (the forward's
-    weights), which slots on one device share and slots on their own cards
-    each hold.  The ``model`` slots of a data slot hold their parameter
-    shards; the data slot's compute runs on its first one, which this
-    charges.
+    names one device, so the simulated slots' live sets add up in that
+    peak: the computing slots are every model slot of each data slot that
+    took rows (one for a step that runs on one device; the model slots of
+    data slot 0 alone under the symmetric shortcut), each with an equal
+    share, and one slot is charged ``(peak - shared) / k + shared / M``
+    for ``k`` simulated slots, where ``shared`` is what the data slots
+    share on the device: the ``zero1_specs`` blocks all-gathered over the
+    data axes, one tensor per model slot (``M`` of them) that slots on
+    their own cards each hold.
   - ``fits``: whether argument plus temp bytes fit one H100's 80 GB.
 
 :func:`run_pipeline_cell` runs the paper's technique at production scale:
@@ -73,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import gc
 import json
 import math
 import pathlib
@@ -186,14 +202,35 @@ def _storages(*trees) -> set:
     return out
 
 
-def _memory(peak: int, args_bytes: int, out_bytes: int, k: int, shared: float) -> dict:
-    temp = (peak - shared) / k + shared if k > 1 else peak
+def _memory(peak: int, args_bytes: int, out_bytes: int, k: int, shared: float,
+            msize: int = 1, computing: int = None) -> dict:
+    """The per-slot memory record of a step whose peak holds ``k``
+    simulated slots' live sets (of ``computing`` that compute)."""
+    temp = (peak - shared) / k + shared / msize if k > 1 else peak
     return {"argument_size_in_bytes": int(args_bytes),
             "output_size_in_bytes": int(out_bytes / k),
             "temp_size_in_bytes": int(temp),
-            "computing_slots": k,
+            "computing_slots": computing or k,
+            "simulated_slots": k,
             "shared_bytes": int(shared),
             "fits": bool(args_bytes + temp <= H100_HBM_BYTES)}
+
+
+def _gathered_bytes(params, specs, mesh) -> int:
+    """The bytes the data slots share on one device of the blocks that the
+    specs split over the data axes, all-gathered over them: one whole-over-
+    data block per model slot."""
+    from ..models import sharding
+
+    msize = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    total = []
+
+    def one(spec, leaf):
+        if sharding._data_dim(spec) is not None:
+            split = sharding.model_dim(spec) is not None
+            total.append(leaf.numel() * leaf.element_size() * (1 if split else msize))
+    sharding._map2(one, specs, params)
+    return sum(total)
 
 
 def _run_step(step, dev, mesh_devices: int, computing: int, detail: bool,
@@ -221,7 +258,7 @@ def _run_step(step, dev, mesh_devices: int, computing: int, detail: bool,
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="meta",
              shape=None, mesh=None, overrides: dict = None, seed: int = 0,
-             smoke: bool = False, detail: bool = True) -> dict:
+             smoke: bool = False, detail: bool = True, symmetric: bool = True) -> dict:
     """One step of the cell (``arch``, ``shape_name``) on the production
     mesh (``multi_pod``: 2x16x16, else 16x16), every slot naming ``device``,
     under the op analysis; returns the record (module docstring).
@@ -229,15 +266,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
     ``shape`` (a ShapeSpec) replaces ``SHAPES[shape_name]``, ``mesh`` (a
     pair of axis sizes and names) the production mesh, and ``overrides``
     are applied with ``cfg.replace`` (to the smoke config with ``smoke``).
-    On a real device the inputs and weights are drawn from ``seed``, and on
-    the card the record adds ``max_memory_allocated``."""
+    ``symmetric`` takes the symmetric data-slot shortcut where the step
+    allows it.  On a real device the inputs and weights are drawn from
+    ``seed``, and on the card the record adds ``max_memory_allocated``."""
     from ..configs import SHAPES, get_config, get_smoke_config
     from ..models import get_model, make_train_step, sharding
     from ..models.train import init_optimizer, place_train_state
-    from .mesh import data_axis_size, make_mesh, use_mesh
+    from . import collectives
+    from .mesh import data_axis_size, make_mesh, model_axis_size, symmetric_data_slots, use_mesh
 
     dev = resolve_device(device)
     t_start = time.perf_counter()
+    if dev.type == "cuda":
+        gc.collect()    # what the process holds before the cell: its live tensors only
     base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
     cfg = (get_smoke_config if smoke else get_config)(arch)
     if overrides:
@@ -253,9 +294,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
            "devices": m.size, "seq_len": S, "global_batch": B, "device": str(dev)}
     if overrides:
         rec["overrides"] = {k: repr(v) for k, v in overrides.items()}
-    dsize = data_axis_size(m)
+    dsize, msize = data_axis_size(m), model_axis_size(m)
     dev0 = m.devices[0]
-    mesh_family = getattr(api.train_forward, "slots", None) is not None
+    slots_fn = getattr(api.train_forward, "slots", None)
+    mesh_family = slots_fn is not None
     bspec = sharding.batch_spec(m)
     inputs = make_inputs(api.input_specs(shape), dev, cfg.vocab_size, seed)
     in_specs = {k: sharding.P(bspec[0] if v.shape[0] % dsize == 0 else None)
@@ -264,7 +306,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
     params = api.init(seed, dev, master=master)
     pspecs = (sharding.zero1_specs if cfg.fsdp_params else sharding.param_specs)(
         params, cfg, m)
-    k_rows = len(m.row_devices(B)) if mesh_family else 1
+    shared, k, k_sim, sym = 0, 1, 1, False
+    if mesh_family and shape.kind != "decode":
+        rows = B // max(cfg.accum_steps, 1) if shape.kind == "train" else B
+        n_data = len(m.row_devices(rows))
+        with use_mesh(m):
+            sym = symmetric and n_data > 1 and api.train_forward.independent(
+                cfg, rows, S + (cfg.n_vis_tokens if cfg.family == "vlm" else 0))
+        k = n_data * msize
+        k_sim = msize if sym else k
+        shared = _gathered_bytes(params, pspecs, m) if n_data > 1 else 0
+        rec["symmetric_data_slots"] = sym
 
     if shape.kind == "train" and mesh_family:
         opt = init_optimizer(params)
@@ -274,18 +326,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
         batch = sharding.place(inputs, in_specs, m)
         del params, opt, inputs
         train_step = make_train_step(api.train_forward, cfg)
-        k = k_rows
         rec["placement"] = "mesh"
 
         def step():
-            with use_mesh(m):
+            with use_mesh(m), symmetric_data_slots(sym):
                 return train_step(placed, popt, batch)
         args = (placed, popt, batch)
     elif shape.kind == "train":
         opt = init_optimizer(params)
         args_bytes = _tree_bytes((params, opt.m, opt.v)) + 4 + _tree_bytes(inputs)
         train_step = make_train_step(api.train_forward, cfg)
-        k = 1
         rec["placement"] = "one device"
         state = (params, opt, inputs)
         del params, opt, inputs
@@ -299,9 +349,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
         args_bytes = sharding.slot_bytes(params, pspecs, m) + sharding.slot_bytes(
             inputs, in_specs, m)
         del params, inputs
-        k = k_rows if shape.kind == "prefill" else 1
         rec["placement"] = "mesh"
-        if shape.kind == "prefill":
+        if shape.kind == "prefill" and mesh_family:
+            def step():
+                rows = [{kk: v.shards[m.slot(**m.data_coords(j))] for kk, v in batch.items()}
+                        for j in range(n_data)]
+                out = []
+                with use_mesh(m), torch.inference_mode():
+                    views = api.train_forward.slot_views(placed, cfg, range(1 if sym else n_data))
+                    for jj in range(1 if sym else n_data):
+                        with collectives.counted_as(n_data if sym else 1):
+                            out.append(slots_fn(views.subset([jj]), [rows[jj]], cfg, n_data))
+                return out
+            args = (placed, batch)
+        elif shape.kind == "prefill":
             def step():
                 p, b = sharding.gather(placed, dev0), sharding.gather(batch, dev0)
                 with use_mesh(m):
@@ -323,8 +384,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
 
     t_setup = time.perf_counter()
     an, out_bytes, wall, card_peak = _run_step(step, dev, m.size, k, detail, args)
-    shared = an["collectives"].get("broadcast", 0.0) if k > 1 else 0.0
-    rec["memory"] = _memory(an["peak_bytes"], args_bytes, out_bytes, k, shared)
+    rec["memory"] = _memory(an["peak_bytes"], args_bytes, out_bytes, k_sim, shared, msize, k)
     rec["hlo"] = an
     rec["model_flops"], rec["model_flops_6nd"] = model_flops(cfg, api, shape)
     rec["setup_s"] = t_setup - t_start

@@ -44,17 +44,19 @@ What :meth:`OpAnalysis.result` reports, in the reference's keys:
   the contractions, by operations.
 - ``launches``: hand-written kernel launches by kernel name, on the card
   and stood in for on ``meta`` alike.
+- Inside :func:`repro_torch.launch.collectives.counted_as` (a block that
+  computes one of ``n`` symmetric slots) every op, launch and collective
+  counts ``n`` times; the live bytes (``peak_bytes``) are those the block
+  really allocated.
 - ``unknown_loops`` is always empty and ``n_computations`` counts the
   distinct aten ops dispatched (the reference's HLO computations).
 - ``per_device``: ``dot_flops``, ``bytes_accessed`` and ``collective_bytes``
-  divided by ``computing_devices``, the slots that compute (the data slots
-  that took rows; one for a step that runs on one device), the
-  counterpart of the reference's per-device numbers: one process runs
-  every slot's work, and the quotient is that work spread evenly over the
-  slots that do it.  The port gathers the model shards for compute, so a
-  slot of the ``model`` axis beside its data slot's first computes
-  nothing; dividing by the whole mesh (``devices``) would understate one
-  computing card's work by the model axis's size.
+  divided by ``computing_devices``, the slots that compute (every model
+  slot of each data slot that took rows for the transformer families'
+  train and prefill steps, tensor-parallel; one for a step that runs on
+  one device), the counterpart of the reference's per-device numbers: one
+  process runs every slot's work, and the quotient is that work spread
+  evenly over the slots that do it.
   :func:`repro_torch.launch.perf_probe.probe_to_workload` multiplies them
   back by ``computing_devices``.
 
@@ -341,6 +343,8 @@ class OpAnalysis(TorchDispatchMode):
                 writes += _bytes_of(args[indexed])
             cost = reads + writes
             flops = 0
+        n = collectives.count_scale()
+        cost, flops = cost * n, flops * n
         self.bytes_by_kind[name] += cost
         if flops:
             self.dot_flops += flops
@@ -349,28 +353,30 @@ class OpAnalysis(TorchDispatchMode):
             if cost:
                 row = self.rows[(name, issuer)]
                 row[0] += cost
-                row[1] += 1
+                row[1] += n
             if flops:
                 row = self.dot_rows[(name, issuer)]
                 row[0] += flops
-                row[1] += 1
+                row[1] += n
         return out
 
     # -- kernels ----------------------------------------------------------
     def _launch(self, name: str, nbytes: int, flops: int) -> None:
-        self.launches[name] += 1
+        n = collectives.count_scale()
+        nbytes, flops = nbytes * n, flops * n
+        self.launches[name] += n
         self.bytes_by_kind[name] += nbytes
         issuer = _issuer() if self.detail else ""
         if self.detail:
             row = self.rows[(name, issuer)]
             row[0] += nbytes
-            row[1] += 1
+            row[1] += n
         if name in KERNEL_CONTRACTIONS:
             self.dot_flops += flops
             if self.detail:
                 row = self.dot_rows[(name, issuer)]
                 row[0] += flops
-                row[1] += 1
+                row[1] += n
 
     # -- memory -----------------------------------------------------------
     def _track(self, out) -> None:

@@ -9,10 +9,11 @@ and 512 cards do.
 
 :func:`use_mesh` makes a concrete mesh ambient (the reference's
 ``jax.set_mesh``): inside the block the model code splits its rows over the
-mesh's data slots (the ``pod`` and ``data`` axes, row-major), runs
-sequence-parallel attention over the ``model`` slots of each, dispatches the
-MoE per data slot, and the train step takes placed state
-(:func:`repro_torch.models.sharding.place`).  One process drives every slot,
+mesh's data slots (the ``pod`` and ``data`` axes, row-major), computes each
+data slot tensor-parallel over its ``model`` slots from their blocks of the
+weights (sequence-parallel attention where the heads do not divide that
+axis), dispatches the MoE per data slot, and the train step takes placed
+state (:func:`repro_torch.models.sharding.place`).  One process drives every slot,
 and a slot may name a device that other slots name too (``devices=["cuda"] *
 32`` is a (2, 16) mesh on one card); the traffic between slots goes through
 :mod:`repro_torch.launch.collectives`.
@@ -30,7 +31,7 @@ import torch
 from .. import resolve_device
 
 __all__ = ["Mesh", "data_axis_size", "data_slot_scope", "make_mesh", "make_production_mesh",
-           "model_axis_size", "use_mesh"]
+           "model_axis_size", "symmetric_data_slots", "use_mesh"]
 
 DATA_AXES = ("pod", "data")
 
@@ -189,7 +190,7 @@ def use_mesh(mesh: Optional[Mesh]):
     if mesh is not None and mesh.devices is None:
         raise ValueError("use_mesh needs a concrete mesh (make_mesh), not an abstract one")
     prev = dict(common._AMBIENT)
-    common._AMBIENT.update(mesh=mesh, data_slot=0)
+    common._AMBIENT.update(mesh=mesh, data_slot=0, symmetric=False)
     try:
         yield mesh
     finally:
@@ -207,3 +208,21 @@ def data_slot_scope(j: int):
         yield j
     finally:
         common._AMBIENT["data_slot"] = prev
+
+
+@contextlib.contextmanager
+def symmetric_data_slots(on: bool = True):
+    """Within the block (inside :func:`use_mesh`) a step whose data slots
+    compute independently and alike may compute data slot 0 alone and
+    stand its results in for the others', every op and collective of that
+    slot counted once per data slot (:func:`repro_torch.launch.collectives.counted_as`):
+    the dry run's shortcut.  The data slots' rows must be equal in number;
+    the numbers of the other slots are not computed."""
+    from ..models import common
+
+    prev = common._AMBIENT["symmetric"]
+    common._AMBIENT["symmetric"] = bool(on)
+    try:
+        yield on
+    finally:
+        common._AMBIENT["symmetric"] = prev

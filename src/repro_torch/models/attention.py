@@ -15,6 +15,17 @@ all-gathered once in float32, and each slot scans its rectangle of block
 pairs on its device.  Decode runs one token against a ring-buffered KV
 cache, which :func:`cache_from_prefill` builds from a prefill's keys and
 values.
+
+:func:`attention_row` is the attention of one data slot over its model
+slots, tensor-parallel where the head count divides the model axis: slot
+``m`` takes query heads ``[m H/M, (m+1) H/M)`` and the K/V heads they read
+(its own block where ``param_specs`` splits the K/V heads; where it splits
+their ``head_dim`` instead, the slot all-gathers over ``model`` only the
+columns of the heads it reads, :func:`kv_heads`), and its ``wo`` block gives
+a partial sum, all-reduced in model-slot order.  Where the heads do not
+divide the axis, model slot 0 takes the layer's projections whole (one
+layer's, freed after it) and runs :func:`attention`, sequence-parallel over
+the model slots under the reference's condition, and broadcasts.
 """
 
 from __future__ import annotations
@@ -26,11 +37,11 @@ import torch
 
 from ..launch import collectives
 from .common import ModelConfig, abstract_mesh, data_slot
-from .layers import apply_rope, dense_init, rms_norm
+from .layers import _whole_tree, apply_rope, dense_init, rms_norm
 
-__all__ = ["KVCache", "attention", "blocked_attention", "cache_from_prefill",
-           "decode_attention_step", "init_attention", "init_cache", "plain_attention",
-           "seq_parallel_attention"]
+__all__ = ["KVCache", "attention", "attention_row", "blocked_attention", "cache_from_prefill",
+           "core_attention", "decode_attention_step", "heads_parallel", "init_attention", "init_cache",
+           "kv_heads", "plain_attention", "prefill_cache_kv", "seq_parallel_attention"]
 
 NEG_INF = -1e30
 
@@ -214,7 +225,8 @@ def seq_parallel_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 
 def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
-                      block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+                      block_q: int = 512, block_k: int = 512,
+                      sequence_parallel: bool = True) -> torch.Tensor:
     """Flash-style attention in plain PyTorch: each query block runs an
     online softmax with a block-sized float32 carry over its own in-band key
     blocks, so memory stays one (block_q x block_k) score block per step and
@@ -222,13 +234,14 @@ def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
     it under autograd).  Falls back to :func:`plain_attention` when the
     sequence lengths are not whole blocks, as the reference does; under an
     ambient mesh whose ``model`` axis the head count does not divide, goes
-    sequence-parallel under the reference's condition."""
+    sequence-parallel under the reference's condition (not where the caller
+    already holds one model slot's heads, ``sequence_parallel=False``)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     if S % block_q or T % block_k:
         return plain_attention(q, k, v, causal=causal, window=window)
-    msize = _mesh_model_size()
+    msize = _mesh_model_size() if sequence_parallel else 1
     if msize > 1 and H % msize != 0 and S == T and S % msize == 0 \
             and (S // msize) % 128 == 0:
         # head count does not divide the model axis: go sequence-parallel
@@ -283,6 +296,29 @@ def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
 # Full-sequence attention entry point (train / prefill)
 # ---------------------------------------------------------------------------
 
+def core_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True, window=None,
+                   prefill: bool = False, sequence_parallel: bool = True):
+    """The route of :func:`attention` (the flash kernel where its gate
+    passes under ``use_pallas``, plain attention up to S = 2048, blocked
+    above) or, with ``prefill``, of a prefill (plain up to S = 2048,
+    blocked above; never flash, as in the reference)."""
+    S, T = q.shape[1], k.shape[1]
+    if prefill:
+        if S <= 2048 or S % 512:
+            return plain_attention(q, k, v, causal=causal, window=window)
+        return blocked_attention(q, k, v, causal=causal, window=window,
+                                 sequence_parallel=sequence_parallel)
+    if cfg.use_pallas and S > 1024 and S % 512 == 0 and T % 512 == 0:
+        from ..kernels import ops as kops
+
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
+    if S <= 2048 or S % 512 or T % 512:
+        return plain_attention(q, k, v, causal=causal, window=window)
+    return blocked_attention(q, k, v, causal=causal, window=window,
+                             block_q=min(cfg.attn_chunk, 512), block_k=min(cfg.attn_chunk, 512),
+                             sequence_parallel=sequence_parallel)
+
+
 def attention(params, x, cfg: ModelConfig, *, positions=None, causal=True,
               window: Optional[int] = None, kv_x=None, rope=True) -> torch.Tensor:
     B, S, _ = x.shape
@@ -292,17 +328,119 @@ def attention(params, x, cfg: ModelConfig, *, positions=None, causal=True,
         positions = torch.arange(S, device=x.device)[None, :]
     kv_positions = positions if kv_x is x else torch.arange(T, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, kv_x, cfg, positions, kv_positions, rope=rope)
-    if cfg.use_pallas and S > 1024 and S % 512 == 0 and T % 512 == 0:
-        from ..kernels import ops as kops
-
-        out = kops.flash_attention(q, k, v, causal=causal, window=window)
-    elif S <= 2048 or S % 512 or T % 512:
-        out = plain_attention(q, k, v, causal=causal, window=window)
-    else:
-        out = blocked_attention(q, k, v, causal=causal, window=window,
-                                block_q=min(cfg.attn_chunk, 512),
-                                block_k=min(cfg.attn_chunk, 512))
+    out = core_attention(q, k, v, cfg, causal=causal, window=window)
     return _out_proj(out, params["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Per model slot (tensor parallelism over a data slot's model slots)
+# ---------------------------------------------------------------------------
+
+def heads_parallel(cfg: ModelConfig, msize: int) -> bool:
+    """Whether a data slot's model slots split the attention by heads (the
+    head count divides the axis), each slot normalizing its own copy of the
+    rows; else model slot 0 runs the layer's attention whole."""
+    return msize == 1 or cfg.n_heads % msize == 0
+
+
+def kv_heads(m: int, H: int, K: int, M: int) -> list:
+    """The K/V heads model slot ``m`` of ``M`` reads for its query heads
+    ``[m H/M, (m+1) H/M)``, one per local K/V head: each distinct head once
+    where they serve equal runs of the slot's query heads, else one per
+    query head."""
+    h, G = H // M, H // K
+    ids = [(m * h + i) // G for i in range(h)]
+    uniq = sorted(set(ids))
+    if h % len(uniq) == 0 and ids == [u for u in uniq for _ in range(h // len(uniq))]:
+        return uniq
+    return ids
+
+
+def _take(x: torch.Tensor, axis: int, ids: list) -> torch.Tensor:
+    if ids == list(range(ids[0], ids[0] + len(ids))):
+        return x.narrow(axis, ids[0], len(ids))
+    return torch.index_select(x, axis, torch.tensor(ids, device=x.device))
+
+
+def _kv_row(leaves: list, dim, axis: int, heads: list, devs) -> list:
+    """Each model slot's K or V weight (``axis`` its head axis: 1 for
+    ``wk``/``wv``, 0 for the biases) for the heads ``heads[m]`` it reads:
+    its own block where the heads are split; where ``head_dim`` is split,
+    each head's columns all-gathered over ``model`` to the slots that read
+    it; else the layer's weight whole (all-gathered where split otherwise)
+    and the slot's heads taken from it."""
+    M = len(devs)
+    if dim == axis:
+        return leaves
+    if dim == axis + 1:
+        cols = {}
+        for g in range(leaves[0].shape[axis]):
+            readers = [m for m in range(M) if g in heads[m]]
+            if readers:
+                got = collectives.all_gather([x.narrow(axis, g, 1) for x in leaves], dim,
+                                             [devs[m] for m in readers])
+                cols.update({(m, g): t for m, t in zip(readers, got)})
+        return [torch.cat([cols[(m, g)] for g in heads[m]], dim=axis) for m in range(M)]
+    if dim is None:
+        full = leaves
+    elif dim == "owner":
+        full = collectives.broadcast(next(x for x in leaves if x is not None), devs)
+    else:
+        full = collectives.all_gather(leaves, dim, devs)
+    return [_take(x, axis, heads[m]) for m, x in enumerate(full)]
+
+
+def attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, positions, devs,
+                  prefill: bool = False) -> tuple:
+    """Causal self-attention of one data slot over its model slots:
+    ``hs[m]`` model slot ``m``'s copy of the normalized rows (only
+    ``hs[0]`` is read where the heads do not divide the axis), ``ps[m]``
+    its block of the layer's attention weights.  Returns (each slot's
+    output, each slot's (k, v) over its K/V heads, :func:`kv_heads` of the
+    slots or ``None`` where slot 0 holds every head)."""
+    M = len(devs)
+    if M > 1 and heads_parallel(cfg, M):
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        heads = [kv_heads(m, H, K, M) for m in range(M)]
+        names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+        kv = {n: _kv_row([p[n] for p in ps], dims[n], 1 if n[0] == "w" else 0, heads, devs)
+              for n in names}
+        outs, kvs = [], []
+        for m, (p, h) in enumerate(zip(ps, hs)):
+            p = dict(p, **{n: kv[n][m] for n in names})
+            q, k, v = _project_qkv(p, h, h, cfg, positions, positions)
+            out = core_attention(q, k, v, cfg, window=cfg.sliding_window, prefill=prefill,
+                                 sequence_parallel=False)
+            outs.append(_out_proj(out, p["wo"].to(h.dtype)))
+            kvs.append((k, v))
+        return collectives.psum(outs, list(devs)), kvs, heads
+    w = _whole_tree(ps, dims, devs[0])
+    h = hs[0]
+    q, k, v = _project_qkv(w, h, h, cfg, positions, positions)
+    out = _out_proj(core_attention(q, k, v, cfg, window=cfg.sliding_window, prefill=prefill),
+                    w["wo"].to(h.dtype))
+    outs = [out] if M == 1 else collectives.broadcast(out, devs)
+    return outs, [(k, v)], None
+
+
+def prefill_cache_kv(kvs: list, heads, n_kv: int, device) -> tuple:
+    """A data slot's prefill (k, v) over all ``n_kv`` K/V heads on
+    ``device``, from :func:`attention_row`'s per-slot (k, v) and heads:
+    each head taken from the first model slot that computed it, the runs
+    of heads from one slot gathered together."""
+    if heads is None:
+        runs = [(0, 0, n_kv)]
+    else:
+        runs = []
+        for g in range(n_kv):
+            m = next(m for m, hs in enumerate(heads) if g in hs)
+            i = heads[m].index(g)
+            if runs and runs[-1][0] == m and runs[-1][1] + runs[-1][2] == i:
+                runs[-1] = (m, runs[-1][1], runs[-1][2] + 1)
+            else:
+                runs.append((m, i, 1))
+    return tuple(collectives.gather_to([kvs[m][f].narrow(2, i, n) for m, i, n in runs], 2, device)
+                 for f in (0, 1))
 
 
 # ---------------------------------------------------------------------------

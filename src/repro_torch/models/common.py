@@ -10,9 +10,10 @@ from typing import Optional
 
 import torch
 
-# the ambient mesh and the data slot being computed, set by
-# ``repro_torch.launch.mesh.use_mesh`` / ``data_slot_scope``
-_AMBIENT = {"mesh": None, "data_slot": 0}
+# the ambient mesh, the data slot being computed, and whether the data slots
+# may be taken as symmetric, set by ``repro_torch.launch.mesh.use_mesh`` /
+# ``data_slot_scope`` / ``symmetric_data_slots``
+_AMBIENT = {"mesh": None, "data_slot": 0, "symmetric": False}
 
 
 def abstract_mesh():
@@ -24,9 +25,15 @@ def abstract_mesh():
 
 def data_slot() -> int:
     """The data slot (row-major over the mesh's ``pod`` and ``data`` axes)
-    whose rows the model code is computing: its ``model`` slots run the
-    sequence-parallel attention."""
+    whose rows the model code is computing (its ``model`` slots compute
+    them, tensor-parallel)."""
     return _AMBIENT["data_slot"]
+
+
+def symmetric_data() -> bool:
+    """Whether a step may compute one data slot for all of them
+    (:func:`repro_torch.launch.mesh.symmetric_data_slots`)."""
+    return _AMBIENT["symmetric"]
 
 
 @dataclasses.dataclass(frozen=True)

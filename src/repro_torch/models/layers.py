@@ -3,12 +3,22 @@ initializers, norms, rotary embeddings, MLPs, embedding and unembedding (the
 port of the reference's ``models/layers.py``).  The reference's sharding
 constraints inside the model code change no value; the port resolves them
 (:func:`shard_spec`) where a caller asks, and places tensors on a mesh's
-slots with :func:`repro_torch.models.sharding.place`."""
+slots with :func:`repro_torch.models.sharding.place`.
+
+Under a mesh the MLP, the embedding and the unembedding run per model slot
+of a data slot (``*_row``: ``ps[m]`` the slot's block of the weights, as
+:class:`repro_torch.models.sharding.SlotViews` gives it, ``dims`` the dims
+split over ``model``, ``devs`` the data slot's model devices), the
+reference's Megatron layout: a weight split along its output dim gives each
+slot a slice of the activations, one split along its input dim a partial
+sum, reduced with ``collectives.psum`` in model-slot order.  A layout that
+splits neither way takes the layer's weight whole onto model slot 0
+(:func:`whole_on`), computes there and broadcasts."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -19,10 +29,11 @@ from ..optim.tree import tree_leaves, tree_map
 from .common import ModelConfig, abstract_mesh
 from .sharding import PartitionSpec
 
-__all__ = ["LOGICAL_RULES", "apply_rope", "cast_matrices", "dense_init", "draw_stacked",
-           "embed", "embed_init", "index_tree", "init_embed", "init_mlp", "layer_norm",
-           "logical_sharding", "mlp", "params_from_numpy", "rms_norm", "rope_freqs", "shard",
-           "shard_spec", "tree_from_numpy", "unembed"]
+__all__ = ["LOGICAL_RULES", "SlotLogits", "apply_rope", "cast_matrices", "dense_init",
+           "draw_stacked", "embed", "embed_init", "embed_row", "gather_logits", "index_tree",
+           "init_embed", "init_mlp", "layer_norm", "logical_sharding", "mlp", "mlp_row",
+           "params_from_numpy", "rms_norm", "rope_freqs", "shard", "shard_spec",
+           "tree_from_numpy", "unembed", "unembed_row", "vocab_offset", "whole_on"]
 
 
 # ---------------------------------------------------------------------------
@@ -298,3 +309,140 @@ def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         w = params["unembed"].to(x.dtype)
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Per model slot (tensor parallelism over a data slot's model slots)
+# ---------------------------------------------------------------------------
+
+def whole_on(leaves: list, dim, device) -> torch.Tensor:
+    """One layer's weight whole on ``device`` (model slot 0's) from its model
+    slots' blocks ``leaves``: slot 0's own where the weight is replicated
+    (``dim`` None), else gathered over the model slots (split on ``dim``;
+    ``"owner"``: the one slot that holds the layer).  A gathered weight is
+    one layer's, for a route that needs it whole, and is freed with it."""
+    from ..launch import collectives
+
+    if dim is None:
+        return leaves[0]
+    if dim == "owner":
+        return collectives.gather_to([x for x in leaves if x is not None], 0, device)
+    return collectives.gather_to(leaves, dim, device)
+
+
+def _whole_tree(ps: list, dims, device):
+    if isinstance(ps[0], dict) or isinstance(dims, dict):
+        keys = next(p for p in ps if p is not None).keys()
+        return {k: _whole_tree([p[k] for p in ps], dims[k], device) for k in keys}
+    return whole_on(ps, dims, device)
+
+
+def mlp_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, devs) -> list:
+    """:func:`mlp` over one data slot's model slots (``hs[m]`` slot ``m``'s
+    copy of the rows): with the inner dim split (``wi``/``wg`` by column,
+    ``wo`` by row) each slot's product is a partial sum, all-reduced in
+    model-slot order; otherwise model slot 0 computes with the layer's
+    weights whole and broadcasts.  Returns each slot's output."""
+    from ..launch import collectives
+
+    if len(devs) == 1:
+        return [mlp(ps[0], hs[0], cfg)]
+    if dims["wi"] == 1:
+        return collectives.psum([mlp(p, h, cfg) for p, h in zip(ps, hs)], list(devs))
+    w = _whole_tree(ps, dims, devs[0])
+    return collectives.broadcast(mlp(w, hs[0], cfg), devs)
+
+
+def vocab_offset(m: int, block: int) -> int:
+    """The first vocabulary row of model slot ``m``'s block of ``block`` rows."""
+    return m * block
+
+
+def embed_row(ps: list, dims: dict, tokens: torch.Tensor, cfg: ModelConfig, devs,
+              prefix: Optional[torch.Tensor] = None) -> list:
+    """:func:`embed` (and a VLM's ``prefix`` before it) on every model slot
+    of a data slot, each slot's copy of the rows: a table split over the
+    vocabulary looks up the tokens in each slot's range, the others zeroed,
+    and all-reduces; a table split over ``d_model`` (a vocabulary the model
+    axis does not divide) looks up its columns and all-gathers them; a
+    replicated table is read on each slot."""
+    from ..launch import collectives
+
+    dt = cfg.torch_dtype
+    if len(devs) == 1:
+        x = embed(ps[0]["embed"], tokens, cfg)
+        xs = [x]
+        pes = [prefix]
+    else:
+        toks = collectives.broadcast(tokens, devs)
+        pes = collectives.broadcast(prefix, devs) if prefix is not None else [None] * len(devs)
+        dim = dims["embed"]["tok"]
+        tabs = [p["embed"]["tok"].to(dt) for p in ps]
+        if dim == 0:
+            rows = tabs[0].shape[0]
+            parts = []
+            for m, (tab, t) in enumerate(zip(tabs, toks)):
+                local = t.long() - vocab_offset(m, rows)
+                inside = (local >= 0) & (local < rows)
+                e = tab[local.clamp(0, rows - 1)]
+                parts.append(torch.where(inside[..., None], e, torch.zeros((), dtype=dt,
+                                                                            device=e.device)))
+            xs = collectives.psum(parts, list(devs))
+        elif dim == 1:
+            xs = collectives.all_gather([tab[t.long()] for tab, t in zip(tabs, toks)], -1, devs)
+        else:
+            xs = [tab[t.long()] for tab, t in zip(tabs, toks)]
+    if pes[0] is None:
+        return xs
+    return [torch.cat([pe.to(x.dtype), x], dim=1) for pe, x in zip(pes, xs)]
+
+
+class SlotLogits(NamedTuple):
+    """One data slot's logits over its model slots.  ``kind`` ``"vocab"``:
+    ``parts[m]`` holds the columns of model slot ``m``'s vocabulary block
+    (:func:`vocab_offset`); ``"seq"``: ``parts[m]`` the whole vocabulary at
+    model slot ``m``'s block of positions; ``"one"``: ``parts[0]`` whole, on
+    model slot 0."""
+    kind: str
+    parts: list
+
+
+def unembed_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, devs) -> SlotLogits:
+    """:func:`unembed` over a data slot's model slots (``hs[m]`` slot ``m``'s
+    copy of the final hidden rows): a weight split over the vocabulary
+    leaves each slot its columns of the logits, so no slot holds a full
+    row; one split over ``d_model`` gives partial logits, reduce-scattered
+    over the positions (summed onto model slot 0 where the model axis does
+    not divide them); a replicated one is applied on model slot 0."""
+    from ..launch import collectives
+
+    if len(devs) == 1:
+        return SlotLogits("one", [unembed(ps[0]["embed"], hs[0], cfg)])
+    dt = hs[0].dtype
+    if cfg.tie_embeddings:
+        ws = [p["embed"]["tok"].to(dt).T for p in ps]
+        dim = dims["embed"]["tok"]
+        dim = None if dim is None else 1 - dim
+    else:
+        ws = [p["embed"]["unembed"].to(dt) for p in ps]
+        dim = dims["embed"]["unembed"]
+    M = len(devs)
+    if dim == 1:
+        return SlotLogits("vocab", [h @ w for h, w in zip(hs, ws)])
+    if dim == 0:
+        partial = [torch.chunk(h, M, dim=-1)[m] @ w for m, (h, w) in enumerate(zip(hs, ws))]
+        if hs[0].shape[1] % M == 0:
+            return SlotLogits("seq", collectives.reduce_scatter(partial, 1, devs))
+        return SlotLogits("one", [collectives.psum(partial, devs[0])])
+    return SlotLogits("one", [hs[0] @ ws[0]])
+
+
+def gather_logits(lg: SlotLogits, device) -> torch.Tensor:
+    """A data slot's logits whole on ``device``."""
+    from ..launch import collectives
+
+    if lg.kind == "vocab":
+        return collectives.gather_to(lg.parts, -1, device)
+    if lg.kind == "seq":
+        return collectives.gather_to(lg.parts, 1, device)
+    return collectives.gather_to(lg.parts, 0, device)

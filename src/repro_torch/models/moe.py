@@ -27,6 +27,14 @@ device (the reference's ``shard_map`` branch), else one dispatch runs over
 all the groups with the rows gathered (its GSPMD branch).  Dropping is per
 group, so at a low capacity factor the drops of G groups differ from one
 group's.
+
+:func:`moe_ffn_grid` adds the ``model`` axis (the transformer's mesh
+forward and train step): where the experts divide it, each model slot
+dispatches the data slot's groups to its own experts; else ``param_specs``
+splits each expert's ``ff`` and each model slot runs every expert on its
+columns.  Either way a slot's combine is a partial sum, all-reduced over
+the model slots in order.  The router is replicated, so every model slot
+routes alike; the aux loss is taken from model slot 0.
 """
 
 from __future__ import annotations
@@ -40,10 +48,10 @@ import torch.nn.functional as F
 from ..launch import collectives
 from ..launch.mesh import data_axis_size
 from .common import ModelConfig, abstract_mesh
-from .layers import dense_init, init_mlp, mlp
+from .layers import _whole_tree, dense_init, init_mlp, mlp, mlp_row
 
-__all__ = ["KEEP_FLOAT32", "Routing", "init_moe", "moe_ffn", "moe_ffn_slots", "moe_ffn_tokens",
-           "route", "top_k"]
+__all__ = ["KEEP_FLOAT32", "Routing", "init_moe", "moe_ffn", "moe_ffn_grid", "moe_ffn_slots",
+           "moe_ffn_tokens", "route", "top_k"]
 
 # weights a serving load keeps in float32: the reference casts the router to
 # float32 at each use, which a bf16 copy could not give back
@@ -118,8 +126,12 @@ def route(flat: torch.Tensor, router: torch.Tensor, cfg: ModelConfig) -> Routing
                    torch.clamp(rank, max=C - 1), C)
 
 
-def _grouped_dispatch(params: dict, flat: torch.Tensor, cfg: ModelConfig) -> tuple:
-    """Dispatch + expert compute for (G, n, d) token groups -> (y, aux)."""
+def _grouped_dispatch(params: dict, flat: torch.Tensor, cfg: ModelConfig,
+                      expert0=None) -> tuple:
+    """Dispatch + expert compute for (G, n, d) token groups -> (y, aux).
+    With ``expert0`` the expert weights are the ``E_loc`` experts from
+    ``expert0`` on (one model slot's): pairs routed elsewhere are dropped
+    from this slot's buffers and combine, so ``y`` is the slot's part."""
     G, n, d = flat.shape
     E, k = cfg.n_experts, cfg.top_k
     dt = flat.dtype
@@ -129,9 +141,14 @@ def _grouped_dispatch(params: dict, flat: torch.Tensor, cfg: ModelConfig) -> tup
     token_of = torch.arange(n, device=flat.device).repeat_interleave(k).expand(G, nk)
     e_sorted = torch.gather(r.top_ids.reshape(G, nk), -1, r.order)
     tok_sorted = torch.gather(token_of, -1, r.order)
+    keep = r.keep
+    if expert0 is not None:
+        E = params["wi"].shape[0]
+        keep = keep & (e_sorted >= expert0) & (e_sorted < expert0 + E)
+        e_sorted = (e_sorted - expert0).clamp(0, E - 1)
 
     gathered = torch.gather(flat, 1, tok_sorted[..., None].expand(G, nk, d))
-    gathered = gathered * r.keep[..., None].to(dt)                  # (G, nk, d)
+    gathered = gathered * keep[..., None].to(dt)                    # (G, nk, d)
 
     # one scatter, group-major; a dropped pair adds its zeros on slot C - 1
     loc_sorted = e_sorted * C + r.r_idx                              # (G, nk)
@@ -149,7 +166,7 @@ def _grouped_dispatch(params: dict, flat: torch.Tensor, cfg: ModelConfig) -> tup
     # scatter-free combine: inverse-permutation gathers
     inv_order = torch.argsort(r.order, dim=-1)                       # (G, nk)
     loc = torch.gather(loc_sorted, -1, inv_order)                    # pair order
-    keep_pair = torch.gather(r.keep, -1, inv_order)
+    keep_pair = torch.gather(keep, -1, inv_order)
     back = torch.gather(out.reshape(G, E * C, d), 1, loc[..., None].expand(G, nk, d))
     back = back * (r.weights.reshape(G, nk) * keep_pair.to(dt))[..., None]
     y = back.reshape(G, n, k, d).sum(dim=2)                          # (G, n, d)
@@ -189,28 +206,31 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple:
 def _staged(w: torch.Tensor, done: dict) -> torch.Tensor:
     """A bf16 expert weight widened to float32 once per tensor (the
     reference stages them so that its boundary gradient sum runs in
-    float32); others as they are."""
+    float32); others as they are.  Without autograd, views of the same
+    memory (data slots sharing a card) share one widened copy."""
     if w.dtype != torch.bfloat16:
         return w
-    if id(w) not in done:
-        done[id(w)] = w.float()
-    return done[id(w)]
+    key = id(w) if w.is_meta or torch.is_grad_enabled() else \
+        (w.device, w.data_ptr(), w.storage_offset(), tuple(w.shape), w.stride())
+    if key not in done:
+        done[key] = w.float()
+    return done[key]
 
 
 def moe_ffn_slots(params_slots: list, xs: list, cfg: ModelConfig) -> tuple:
     """The MoE under the ambient mesh over rows held per data slot:
-    ``xs[j]`` (B_j, S, d) on data slot ``j``'s device with its parameter
-    tree ``params_slots[j]`` (each slot's own copy in the mesh train step).
+    ``xs[j]`` (B_j, S, d) on data slot ``j``'s device with a whole
+    parameter tree ``params_slots[j]`` (:func:`moe_ffn` broadcasts its
+    caller's; the transformer's mesh paths take :func:`moe_ffn_grid`).
     Returns (each slot's output, the aux loss on the first slot's device).
 
     With ``cfg.moe_shard_map``, the rows over every data slot and the group
     count a multiple of the slots', each slot dispatches its own groups on
     its device with its weights staged through float32, and the aux loss is
     the slots' summed in order over their count (the reference's
-    ``shard_map`` branch; under ``fsdp_params`` the trees are the weights
-    gathered at use).  Otherwise the rows are gathered onto the first slot
-    and dispatched there in all G groups with its tree, and each slot gets
-    its rows back."""
+    ``shard_map`` branch).  Otherwise the rows are gathered onto the first
+    slot and dispatched there in all G groups with its tree, and each slot
+    gets its rows back."""
     mesh = abstract_mesh()
     S, d = xs[0].shape[1:]
     B = sum(x.shape[0] for x in xs)
@@ -234,6 +254,95 @@ def moe_ffn_slots(params_slots: list, xs: list, cfg: ModelConfig) -> tuple:
     if cfg.dense_residual:
         ys = [y + mlp(p["dense"], x, cfg) for y, p, x in zip(ys, params_slots, xs)]
     return ys, aux
+
+
+def _per_data_slot(cfg: ModelConfig, rows: int, seq: int, n_data: int) -> tuple:
+    """(groups G, whether each data slot dispatches its own G / dsize) for a
+    batch of ``rows`` x ``seq`` tokens over ``n_data`` computing data slots
+    of the ambient mesh (the branch :func:`moe_ffn_slots` takes)."""
+    dsize = data_axis_size(abstract_mesh())
+    G = _moe_groups(rows * seq, cfg.n_experts, rows)
+    return G, bool(cfg.moe_shard_map and dsize > 1 and G % dsize == 0 and n_data == dsize)
+
+
+def per_data_slot(cfg: ModelConfig, rows: int, seq: int) -> bool:
+    """Whether, under the ambient mesh, every data slot that takes rows
+    dispatches its own (so the data slots compute independently): the
+    ``shard_map`` branch, or rows on one data slot only."""
+    n = len(abstract_mesh().row_devices(rows))
+    return n == 1 or _per_data_slot(cfg, rows, seq, n)[1]
+
+
+def moe_ffn_grid(ps: list, dims: dict, hs: list, cfg: ModelConfig, n_data: int,
+                 data_slots: list) -> tuple:
+    """The MoE of the transformer's mesh forward over the grid of computing
+    data slots ``data_slots`` (of ``n_data`` that take rows) and their model
+    slots: ``hs[jj][m]`` model slot ``m``'s copy of data slot
+    ``data_slots[jj]``'s rows, ``ps[jj][m]`` its block of the layer's MoE
+    weights, ``dims`` the dims split over ``model``.  Returns (each slot's
+    output, each data slot's aux loss on its first model slot's device).
+
+    The groups follow :func:`moe_ffn_slots`: with its ``shard_map`` branch
+    each data slot dispatches its own G / dsize groups and its aux is its
+    own over dsize; otherwise every data slot's rows are gathered per model
+    slot onto the first data slot, dispatched in all G groups there and
+    scattered back, and the aux is data slot 0's.  Per model slot: where
+    ``param_specs`` splits the experts, slot ``m`` dispatches to its block
+    of them; where it splits each expert's ``ff``, to every expert on its
+    columns; the slots' combines are partial sums, all-reduced in model-slot
+    order.  A layout that splits neither runs whole on model slot 0.  bf16
+    expert weights are staged through float32, as :func:`moe_ffn_slots`
+    stages them.  Arctic's dense residual is :func:`layers.mlp_row`."""
+    mesh = abstract_mesh()
+    M = len(ps[0])
+    rows, S, d = hs[0][0].shape
+    G, own = _per_data_slot(cfg, rows * n_data, S, n_data)
+    dsize = data_axis_size(mesh)
+    devs = [mesh.model_devices(j) for j in data_slots]
+    split = M > 1 and dims["wi"] in (0, 2)
+    keys = ("router", "wi", "wg", "wo")
+    done = {}
+
+    def experts(prow, dev) -> list:
+        """The expert trees each model slot dispatches with: its own
+        blocks, or the layer's whole on model slot 0."""
+        if split:
+            return prow
+        return [_whole_tree([{k: q[k] for k in keys} for q in prow],
+                            {k: dims[k] for k in keys}, dev)]
+
+    def dispatch(p, x, m, groups) -> tuple:
+        cap = {k: _staged(p[k], done) for k in keys}
+        e0 = m * cap["wi"].shape[0] if split and dims["wi"] == 0 else None
+        y, a = _grouped_dispatch(cap, x.reshape(groups, -1, d), cfg, e0)
+        return y.reshape(x.shape), a
+
+    def reduce(parts, dv) -> list:
+        if split:
+            return collectives.psum(parts, list(dv))
+        return parts if M == 1 else collectives.broadcast(parts[0], dv)
+
+    if own:
+        ys, auxes = [], []
+        for prow, hrow, dv in zip(ps, hs, devs):
+            outs = [dispatch(p, h, m, G // dsize)
+                    for m, (p, h) in enumerate(zip(experts(prow, dv[0]), hrow))]
+            ys.append(reduce([y for y, _ in outs], dv))
+            auxes.append(outs[0][1] / dsize)
+    else:
+        scattered, aux = [], None
+        for m, p in enumerate(experts(ps[0], devs[0][0])):
+            flat = collectives.gather_to([hrow[m] for hrow in hs], 0, devs[0][m])
+            y, a = dispatch(p, flat, m, G)
+            scattered.append(collectives.scatter(y, 0, [dv[m] for dv in devs]))
+            aux = a if aux is None else aux
+        ys = [reduce([part[jj] for part in scattered], dv) for jj, dv in enumerate(devs)]
+        auxes = [aux] + [torch.zeros((), dtype=torch.float32, device=dv[0]) for dv in devs[1:]]
+    if cfg.dense_residual:
+        ys = [[y + r for y, r in zip(yrow, mlp_row([p["dense"] for p in prow], dims["dense"],
+                                                   hrow, cfg, dv))]
+              for yrow, prow, hrow, dv in zip(ys, ps, hs, devs)]
+    return ys, auxes
 
 
 def moe_ffn_tokens(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

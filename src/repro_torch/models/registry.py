@@ -145,19 +145,24 @@ _FAMILIES = {
 def _train_forward(module, extras) -> Callable:
     """The family's ``train_forward`` over a batch dict.  Where the family
     runs under a mesh (``module.train_forward_slots``), its ``slots``
-    attribute is the same over per-data-slot parameter trees and batches,
-    (params_slots, batch_slots, cfg) -> (logits_slots, aux), which the mesh
-    train step calls."""
+    attribute is the same over the mesh's grid, (views, batch_slots, cfg,
+    n_data) -> (each data slot's logits over its model slots, each data
+    slot's aux), ``views`` the weights' ``SlotViews``
+    (``module.slot_views``), and ``independent(cfg, rows, seq)`` says
+    whether each data slot's part may run on its own; the mesh train step
+    and the dry run call them."""
     def fn(params, batch, c):
         return module.train_forward(params, batch["tokens"], c, **extras(batch))
 
     slots = getattr(module, "train_forward_slots", None)
     if slots is not None:
-        def fn_slots(params_slots, batch_slots, c):
+        def fn_slots(views, batch_slots, c, n_data=None):
             kw = [extras(b) for b in batch_slots]
             prefix = [k["prefix_embeds"] for k in kw] if kw[0] else None
-            return slots(params_slots, [b["tokens"] for b in batch_slots], c, prefix)
+            return slots(views, [b["tokens"] for b in batch_slots], c, prefix, n_data)
         fn.slots = fn_slots
+        fn.slot_views = module.slot_views
+        fn.independent = module.data_slots_independent
     return fn
 
 

@@ -20,9 +20,12 @@ is needed for that.
 :func:`place` applies specs to tensors: each global tensor becomes a
 :class:`ShardedTensor`, one block per mesh slot on the slot's device,
 following :func:`named`'s placements; :func:`gather` joins the blocks back
-into global tensors, and :func:`reduce_to_placement` sums per-data-slot
-gradients into a placement's blocks.  Their traffic goes through
-:mod:`repro_torch.launch.collectives`.
+into global tensors.  :class:`SlotViews` gives each computing (data slot,
+model slot) the blocks it computes with under tensor parallelism: a leaf
+split over ``model`` stays split, one under the data axes (``zero1_specs``)
+is all-gathered over the data axes only.  :func:`reduce_to_placement` sums
+the slots' gradients of those views into a placement's blocks.  Their
+traffic goes through :mod:`repro_torch.launch.collectives`.
 """
 
 from __future__ import annotations
@@ -35,9 +38,9 @@ import torch
 from .. import resolve_device
 from .common import ModelConfig
 
-__all__ = ["PartitionSpec", "ShardedTensor", "batch_spec", "gather", "make_batch_sharding",
-           "named", "param_specs", "place", "reduce_to_placement", "slot_bytes",
-           "state_specs", "zero1_specs"]
+__all__ = ["PartitionSpec", "ShardedTensor", "SlotViews", "batch_spec", "gather",
+           "make_batch_sharding", "model_dim", "model_split_dim", "named", "param_specs", "place",
+           "reduce_to_placement", "slot_bytes", "state_specs", "zero1_specs"]
 
 ATTN_PARENTS = {"attn", "self_attn", "cross_attn", "shared_attn"}
 
@@ -121,22 +124,30 @@ def _shard_priority(names: list) -> tuple:
     return 0, []
 
 
+def model_split_dim(names, shape, msize: int):
+    """The dim of a leaf named by ``names`` (its path) and of ``shape`` that
+    :func:`param_specs` splits over a ``model`` axis of ``msize`` slots, or
+    ``None``."""
+    nd = len(shape)
+    base_nd, prio = _shard_priority(list(names))
+    if msize > 1 and base_nd and nd >= base_nd:
+        off = nd - base_nd
+        for b in prio:
+            i = off + b
+            if shape[i] % msize == 0 and shape[i] >= msize:
+                return i
+    return None
+
+
 def param_specs(params, cfg: ModelConfig, mesh) -> dict:
     """Tree of :class:`PartitionSpec` matching ``params`` (tensor-parallel layout)."""
     msize = mesh.shape["model"] if "model" in mesh.axis_names else 1
 
     def one(names, leaf):
-        shape = tuple(leaf.shape)
-        nd = len(shape)
-        base_nd, prio = _shard_priority(list(names))
-        entries = [None] * nd
-        if msize > 1 and base_nd and nd >= base_nd:
-            off = nd - base_nd
-            for b in prio:
-                i = off + b
-                if shape[i] % msize == 0 and shape[i] >= msize:
-                    entries[i] = "model"
-                    break
+        entries = [None] * len(leaf.shape)
+        i = model_split_dim(names, tuple(leaf.shape), msize)
+        if i is not None:
+            entries[i] = "model"
         return P(*entries)
 
     return _map_with_path(one, params)
@@ -362,6 +373,19 @@ def place(tree, specs, mesh):
     return _map2(lambda spec, leaf: _place_one(spec, leaf, mesh), specs, tree)
 
 
+def _join(blocks: dict, counts: tuple, prefix: dict, dims: list, device) -> torch.Tensor:
+    """The blocks at ``prefix`` joined along ``dims`` (a module function, not
+    a recursive closure: a closure that calls itself is a reference cycle,
+    which would keep ``blocks`` alive until the cyclic collector runs)."""
+    from ..launch import collectives
+
+    if not dims:
+        return blocks[tuple(prefix.get(d, 0) for d in range(len(counts)))].to(device)
+    d = dims[0]
+    return collectives.gather_to([_join(blocks, counts, prefix | {d: i}, dims[1:], device)
+                                  for i in range(counts[d])], d, device)
+
+
 def _gather_one(st: ShardedTensor, device) -> torch.Tensor:
     from ..launch import collectives
 
@@ -370,18 +394,10 @@ def _gather_one(st: ShardedTensor, device) -> torch.Tensor:
     for s, t in enumerate(st.shards):
         blocks.setdefault(st.block(s), t)
     split = [d for d, c in enumerate(counts) if c > 1]
-
-    def join(prefix: dict, dims: list) -> torch.Tensor:
-        if not dims:
-            return blocks[tuple(prefix.get(d, 0) for d in range(len(counts)))].to(device)
-        d = dims[0]
-        return collectives.gather_to([join(prefix | {d: i}, dims[1:]) for i in range(counts[d])],
-                                     d, device)
-
     if not split:
         return collectives.gather_to([blocks[(0,) * len(counts)]], 0, device) \
             if counts else st.shards[0].to(device, copy=True)
-    return join({}, split)
+    return _join(blocks, counts, {}, split, device)
 
 
 def gather(tree, device=None):
@@ -396,20 +412,166 @@ def gather(tree, device=None):
     return _map_leaves(one, tree)
 
 
+def model_dim(spec):
+    """The tensor dim that ``spec`` splits over the ``model`` axis, or ``None``."""
+    for i, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return i
+    return None
+
+
+def _data_dim(spec):
+    for i, e in enumerate(spec):
+        if any(a in ("pod", "data") for a in (e if isinstance(e, tuple) else (e,))):
+            return i
+    return None
+
+
+class _Grid:
+    """One leaf's tensors per (computing data slot, model slot), and the dim
+    its spec splits over ``model``."""
+
+    __slots__ = ("cells", "dim")
+
+    def __init__(self, cells, dim):
+        self.cells, self.dim = cells, dim
+
+
+def _model_size(mesh) -> int:
+    return mesh.shape["model"] if "model" in mesh.axis_names else 1
+
+
+class SlotViews:
+    """What each computing slot of ``mesh`` computes with, tensor-parallel:
+    for data slot ``data_slots[jj]`` and model slot ``m``, ``rows[jj][m]``
+    is a tree of ``tree``'s structure whose leaves are the slot's blocks
+    made whole over the data axes: a leaf split over ``model`` is the
+    slot's shard, a leaf replicated over ``model`` is whole.  ``dims`` is
+    the tree of the dim each leaf is split on over ``model`` (``None``:
+    replicated).
+
+    From placed state (:class:`ShardedTensor` leaves): a block that the
+    data axes split (``zero1_specs``) is all-gathered over the data slots
+    of its model slot, one tensor per model slot where those share a device;
+    any other block is the slot's own.  From whole tensors: each leaf is
+    cut over every data slot's model slots by its spec in ``specs``
+    (``scatter``; ``broadcast`` where replicated), which copies nothing
+    where a slot shares the tensor's device.  No slot receives a whole leaf
+    that the specs split.
+
+    With ``leaves``, every slot's leaf is a tensor object of its own (an
+    alias of the block, ``detach``), so that autograd gives each slot its
+    own gradient (the mesh train step; :func:`reduce_to_placement` sums
+    them)."""
+
+    def __init__(self, tree, mesh, data_slots, specs=None, leaves: bool = False):
+        from ..launch import collectives
+
+        self.mesh = mesh
+        self.data_slots = list(data_slots)
+        self.msize = _model_size(mesh)
+        spec_of = {}
+        if specs is not None:
+            _map_with_path(lambda p, sp: spec_of.__setitem__(p, sp), specs)
+        devs = [mesh.model_devices(j) for j in self.data_slots]
+
+        def one(path, x):
+            if isinstance(x, ShardedTensor):
+                spec = x.spec
+                cells = [[x.shards[mesh.slot(**mesh.data_coords(j), model=m)]
+                          for m in range(self.msize)] for j in self.data_slots]
+                dd = _data_dim(spec)
+                if dd is not None:
+                    for m in range(self.msize):
+                        blocks = [x.shards[mesh.slot(**mesh.data_coords(j), model=m)]
+                                  for j in range(_data_size(mesh))]
+                        got = collectives.all_gather(blocks, dd, [d[m] for d in devs])
+                        for jj in range(len(self.data_slots)):
+                            cells[jj][m] = got[jj]
+            else:
+                spec = spec_of[path]
+                k = model_dim(spec)
+                cells = [collectives.scatter(x, k, d) if k is not None
+                         else collectives.broadcast(x, d) for d in devs]
+            if leaves:
+                cells = [[c.detach() for c in row] for row in cells]
+            return _Grid(cells, model_dim(spec))
+
+        self._grid = _map_with_path(one, tree)
+        self.dims = _map_leaves(lambda g: g.dim, self._grid)
+        self.rows = [[_map_leaves(lambda g: g.cells[jj][m], self._grid)
+                      for m in range(self.msize)] for jj in range(len(self.data_slots))]
+
+    def subset(self, jjs) -> "SlotViews":
+        """The views of the computing data slots at positions ``jjs``."""
+        out = object.__new__(SlotViews)
+        out.mesh, out.msize, out.dims, out._grid = self.mesh, self.msize, self.dims, self._grid
+        out.data_slots = [self.data_slots[jj] for jj in jjs]
+        out.rows = [self.rows[jj] for jj in jjs]
+        return out
+
+    def layer(self, jj: int, i: int, n_layers: int, key: str = "layers") -> list:
+        """Layer ``i`` of the stacked subtree ``key``, one tree per model
+        slot of computing data slot ``jj``: each leaf indexed at ``i`` on
+        its layer axis; where the specs split that axis over ``model``, the
+        slot that holds layer ``i`` has it whole and the others ``None``."""
+        per = max(n_layers // self.msize, 1)
+        return [_layer_of(self.rows[jj][m][key], self.dims[key], i, m, per)
+                for m in range(self.msize)]
+
+    def layer_dims(self, key: str = "layers"):
+        """The dims of one layer's leaves split over ``model`` (as
+        :attr:`dims`, the layer axis dropped): ``"owner"`` where the layer
+        axis itself is split (one slot holds the layer whole)."""
+        return _layer_dims(self.dims[key])
+
+
+def _layer_of(tree, dims, i: int, m: int, per: int):
+    if isinstance(tree, dict):
+        return {k: _layer_of(tree[k], dims[k], i, m, per) for k in tree}
+    if dims == 0:
+        owner = i // per
+        return tree[i - owner * per] if m == owner else None
+    return tree[i]
+
+
+def _layer_dims(dims):
+    if isinstance(dims, dict):
+        return {k: _layer_dims(v) for k, v in dims.items()}
+    return None if dims is None else ("owner" if dims == 0 else dims - 1)
+
+
+def _data_size(mesh) -> int:
+    return _data_axes(mesh)[1]
+
+
 def reduce_to_placement(slot_grads: list, like: ShardedTensor) -> ShardedTensor:
-    """Per-data-slot gradients of a global tensor (``slot_grads[j]`` data
-    slot ``j``'s, global shape) summed in float32, in data-slot order, into
-    the blocks of ``like``'s placement: each slot's block of the sum on the
-    slot's device (a reduce-scatter over the data axes; an all-reduce for a
-    block that every data slot holds)."""
+    """The gradients of a leaf's :class:`SlotViews` (``slot_grads[jj][m]``
+    computing data slot ``jj``'s model slot ``m``'s, of the view's shape)
+    summed in float32 into the blocks of ``like``'s placement: each slot's
+    block on the slot's device.  A leaf split over ``model`` sums its model
+    slot's gradients over the data slots; a leaf replicated over ``model``
+    first sums each data slot's model slots (its views each met a part of
+    the rows' gradient), then the data slots.  Every sum runs in slot
+    order (a reduce-scatter over the data axes, after an all-reduce over
+    ``model`` for a replicated leaf)."""
     from ..launch import collectives
 
+    k = model_dim(like.spec)
     made, shards = {}, []
     for s, dev in enumerate(like.mesh.devices):
         key = (like.block(s), dev)
         if key not in made:
-            region = like.region(s)
-            made[key] = collectives.psum([g[region].float() for g in slot_grads], dev)
+            region = list(like.region(s))
+            m_s = like.mesh.coords(s).get("model", 0)
+            if k is not None:
+                region[k] = slice(None)
+                parts = [row[m_s][tuple(region)].float() for row in slot_grads]
+            else:
+                region = tuple(region)
+                parts = [collectives.psum([g[region].float() for g in row], dev)
+                         if len(row) > 1 else row[0][region].float() for row in slot_grads]
+            made[key] = collectives.psum(parts, dev)
         shards.append(made[key])
     return ShardedTensor(like.shape, like.spec, like.mesh, tuple(shards))
 

@@ -12,13 +12,17 @@ float32, and AdamW updates the weights in place.
 Under an ambient mesh (:func:`repro_torch.launch.mesh.use_mesh`) the step
 takes placed state (:func:`place_train_state`: parameters and both moments
 by ``zero1_specs`` under ``cfg.fsdp_params``, else by ``param_specs``), the
-reference's jitted step with those in-shardings: each data slot runs the
-forward and backward on its rows of every microbatch with the weights
-gathered at use (its own copy; the ``model`` shards are gathered for
-compute too), the loss is the global mean over the slots' tokens, the
-gradients are summed in float32 in slot order into the placement's blocks
-(:func:`repro_torch.models.sharding.reduce_to_placement`), the clip norm is
-the global one, and AdamW updates each block in place.
+reference's jitted step with those in-shardings: every model slot of each
+data slot computes tensor-parallel from its own block of the weights
+(:class:`repro_torch.models.sharding.SlotViews`: the ``model`` shards as
+placed, a ``zero1_specs`` block all-gathered over the data axes only), on
+its data slot's rows of every microbatch.  The loss is the global mean over
+the slots' tokens, its cross-entropy computed on the vocabulary-split
+logits without gathering them (:func:`_nll_sums_row`); where the data
+slots compute independently each one's forward and backward runs on its
+own.  The gradients of the slots' views are summed in float32 in slot order
+into the placement's blocks (:func:`repro_torch.models.sharding.reduce_to_placement`),
+the clip norm is the global one, and AdamW updates each block in place.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from ..launch import collectives
 from ..optim import adamw_init, adamw_update, clip_by_global_norm, linear_warmup_cosine
 from ..optim.adamw import AdamWState
 from ..optim.tree import tree_leaves, tree_map
-from . import sharding
-from .common import ModelConfig, abstract_mesh
+from . import layers, sharding
+from .common import ModelConfig, abstract_mesh, symmetric_data
 
 __all__ = ["cross_entropy", "init_optimizer", "make_loss_fn", "make_train_step",
            "place_train_state", "value_and_grad"]
@@ -185,6 +189,47 @@ def _nll_sums(logits: torch.Tensor, labels: torch.Tensor, weights=None) -> tuple
     return (nll * w).sum(), w.sum()
 
 
+def _weight_sum(labels: torch.Tensor, weights=None) -> torch.Tensor:
+    """The tokens' weight in the loss's mean, float32, on the labels' device."""
+    if weights is None:
+        return torch.full((), float(labels.numel()), dtype=torch.float32, device=labels.device)
+    return weights.float().sum()
+
+
+def _nll_sums_row(lg, labels: torch.Tensor, weights, devs) -> torch.Tensor:
+    """The sum of one data slot's tokens' weighted cross-entropy, float32,
+    on its first model slot's device, from its :class:`.layers.SlotLogits`
+    (``labels``/``weights`` the data slot's, on that device).  Over a
+    vocabulary split across the model slots no logits are gathered: each
+    slot's maximum is all-gathered for the shared shift, the sums of
+    exponentials and the label's logit (taken by the slot whose block holds
+    it, zero elsewhere) are summed over the model slots in order.  Over
+    positions split across them each slot sums its own tokens."""
+    if lg.kind == "one":
+        return _nll_sums(lg.parts[0], labels, weights)[0]
+    M = len(devs)
+    labs = collectives.broadcast(labels, devs)
+    ws = collectives.broadcast(weights, devs) if weights is not None else [None] * M
+    if lg.kind == "seq":
+        return collectives.psum([_nll_sums(p, torch.chunk(l, M, dim=1)[m],
+                                           None if w is None else torch.chunk(w, M, dim=1)[m])[0]
+                                 for m, (p, l, w) in enumerate(zip(lg.parts, labs, ws))], devs[0])
+    lf = [p.float() for p in lg.parts]
+    rows = lf[0].shape[-1]
+    tops = collectives.all_gather([x.detach().amax(dim=-1, keepdim=True) for x in lf], -1, devs)
+    shift = [t.amax(dim=-1) for t in tops]
+    sumexp = [torch.exp(x - c[..., None]).sum(dim=-1) for x, c in zip(lf, shift)]
+    gold = []
+    for m, (x, l) in enumerate(zip(lf, labs)):
+        local = l.long() - layers.vocab_offset(m, rows)
+        inside = (local >= 0) & (local < rows)
+        g = torch.gather(x, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        gold.append(torch.where(inside, g, torch.zeros((), dtype=g.dtype, device=g.device)))
+    nll = torch.log(collectives.psum(sumexp, devs[0])) + shift[0] \
+        - collectives.psum(gold, devs[0])
+    return nll.sum() if weights is None else (nll * weights.float()).sum()
+
+
 def _global_norm(grads: list, mesh, devices) -> torch.Tensor:
     """The global norm of placed gradients: each block's squares counted
     once, by the data slot of the first slot that holds it, and the slots'
@@ -204,6 +249,15 @@ def _global_norm(grads: list, mesh, devices) -> torch.Tensor:
 
 def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState, batch,
                schedule: dict, clip: float) -> tuple:
+    """The step under the ambient mesh (module docstring).  Each data slot's
+    loss term is its tokens' summed cross-entropy over the global weight,
+    plus its share of the aux loss; where the data slots compute
+    independently (``forward.independent``), each term is differentiated on
+    its own, else one backward runs over all of them.  Under
+    :func:`repro_torch.launch.mesh.symmetric_data_slots` (the dry run) an
+    independent step computes data slot 0 alone, every op and collective of
+    it counted once per data slot, and stands its loss terms and gradients
+    in for the other data slots'."""
     mesh = abstract_mesh()
     slots_fn = getattr(forward, "slots", None)
     if slots_fn is None:
@@ -215,9 +269,14 @@ def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState,
     batch = {k: _global_rows(v) for k, v in batch.items()}
     mb = batch["tokens"].shape[0] // A
     devices = mesh.row_devices(mb)
+    D = len(devices)
     dev0 = devices[0]
-    # the weights gathered at use: one copy per data slot, each its own leaves
-    slot_params = [sharding.gather(params, d) for d in devices]
+    views = forward.slot_views(params, cfg, range(D), leaves=True)
+    leaves = [[tree_leaves(t) for t in row] for row in views.rows]
+    independent = forward.independent(cfg, mb, batch["tokens"].shape[1])
+    symmetric = independent and D > 1 and symmetric_data()
+    sections = [[0]] if symmetric else \
+        [[jj] for jj in range(D)] if independent else [list(range(D))]
     g_acc = None
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev0)
     aux_sum = torch.zeros((), dtype=torch.float32, device=dev0)
@@ -225,28 +284,46 @@ def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState,
     for a in range(A):
         micro = {k: collectives.scatter(v[a * mb:(a + 1) * mb], 0, devices)
                  for k, v in batch.items()}
-        batch_slots = [{k: v[j] for k, v in micro.items()} for j in range(len(devices))]
-        leaves = [tree_leaves(p) for p in slot_params]
-        with torch.enable_grad():
-            for p in (x for ls in leaves for x in ls):
-                p.requires_grad_(True)
-            try:
-                logits, aux = slots_fn(slot_params, batch_slots, cfg)
-                sums = [_nll_sums(lg, b["labels"], b.get("weights"))
-                        for lg, b in zip(logits, batch_slots)]
-                del logits
-                ce = collectives.psum([n for n, _ in sums], dev0) / torch.clamp(
-                    collectives.psum([w for _, w in sums], dev0), min=1.0)
-                loss = ce + AUX_WEIGHT * aux
-                flat = [x for ls in leaves for x in ls]
-                grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                            materialize_grads=True)
-            finally:
-                for p in (x for ls in leaves for x in ls):
-                    p.requires_grad_(False)
-        n = len(leaves[0])
-        reduced = [sharding.reduce_to_placement([grads[j * n + i] for j in range(len(devices))],
-                                                like) for i, like in enumerate(placed)]
+        batch_slots = [{k: v[j] for k, v in micro.items()} for j in range(D)]
+        total = collectives.psum([_weight_sum(b["labels"], b.get("weights"))
+                                  for b in batch_slots], list(devices))
+        ce_j, aux_j, grads = [None] * D, [None] * D, [None] * D
+        for sec in sections:
+            flat = [x for jj in sec for ls in leaves[jj] for x in ls]
+            with collectives.counted_as(D if symmetric else 1), torch.enable_grad():
+                for p in flat:
+                    p.requires_grad_(True)
+                try:
+                    logits, auxes = slots_fn(views.subset(sec), [batch_slots[jj] for jj in sec],
+                                             cfg, D)
+                    terms = []
+                    for lg, aux, jj in zip(logits, auxes, sec):
+                        b = batch_slots[jj]
+                        nll = _nll_sums_row(lg, b["labels"], b.get("weights"),
+                                            mesh.model_devices(jj))
+                        ce_j[jj] = nll / torch.clamp(total[jj], min=1.0)
+                        aux_j[jj] = aux
+                        terms.append(ce_j[jj] + AUX_WEIGHT * aux)
+                    del logits
+                    loss = terms[0] if len(terms) == 1 else collectives.psum(terms, dev0)
+                    got = iter(torch.autograd.grad(loss, flat, allow_unused=True,
+                                                   materialize_grads=True))
+                finally:
+                    for p in flat:
+                        p.requires_grad_(False)
+            for jj in sec:
+                grads[jj] = [[next(got) for _ in ls] for ls in leaves[jj]]
+            ce_j = [x.detach() if x is not None else None for x in ce_j]
+            aux_j = [x.detach() if x is not None else None for x in aux_j]
+        if symmetric:
+            ce_j, aux_j, grads = [ce_j[0]] * D, [aux_j[0]] * D, [grads[0]] * D
+        reduced = []
+        for i, like in enumerate(placed):
+            reduced.append(sharding.reduce_to_placement([[g[i] for g in row] for row in grads],
+                                                        like))
+            for row in grads:          # each leaf's slot gradients freed once reduced
+                for g in row:
+                    g[i] = None
         del grads
         if g_acc is None:
             g_acc = reduced
@@ -254,10 +331,12 @@ def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState,
             for acc, g in zip(g_acc, reduced):
                 for s, t in acc.unique():
                     t.add_(g.shards[s])
-        loss_sum = loss_sum + loss.detach()
-        aux_sum = aux_sum + aux.detach()
-        ces.append(ce.detach())
-    del slot_params
+        ce = collectives.psum(ce_j, dev0)
+        aux = collectives.psum(aux_j, dev0)
+        loss_sum = loss_sum + ce + AUX_WEIGHT * aux
+        aux_sum = aux_sum + aux
+        ces.append(ce)
+    del views, leaves
     for g in g_acc:
         for _, t in g.unique():
             t.div_(A)

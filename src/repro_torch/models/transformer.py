@@ -31,13 +31,24 @@ capacity factor of at least 8, as the reference does for its small batches.
 Under an ambient mesh (:func:`repro_torch.launch.mesh.use_mesh`) the
 forward, ``train_forward`` and prefill split the rows over the mesh's data
 slots where their count divides the batch (else data slot 0 takes them
-all), and run the layers one at a time over the slots, each slot on its
-device (:func:`train_forward_slots`): the RMSNorm kernel and flash
-attention per slot where the reference takes them, blocked attention
-sequence-parallel over the slot's ``model`` slots where the head count does
-not divide that axis, and the MoE per data slot (:func:`.moe.moe_ffn_slots`).
-The outputs (and prefill's caches) are gathered back onto the tokens'
-device.
+all), and each data slot's model slots compute tensor-parallel from their
+own blocks of the weights (:class:`repro_torch.models.sharding.SlotViews`:
+from a placed tree, or cut from a whole one), layer by layer over the grid
+(:func:`train_forward_slots`): every model slot holds its copy of the
+data slot's residual rows; the embedding, the attention heads, the FFN's
+inner dim (or the experts) and the vocabulary split over ``model`` as
+``param_specs`` places them, each split layer a column-parallel product
+and a row-parallel partial sum all-reduced over the model slots in order
+(:func:`.layers.embed_row`, :func:`.attention.attention_row`,
+:func:`.layers.mlp_row`, :func:`.moe.moe_ffn_grid`,
+:func:`.layers.unembed_row`).  RMSNorm runs on each slot's copy (the
+kernel under ``use_pallas``), flash attention per slot at its head counts.
+Where the heads do not divide the model axis, model slot 0 takes one
+layer's projections whole and runs the attention sequence-parallel over
+the model slots, as the reference does.  The logits stay split over the
+vocabulary (:class:`.layers.SlotLogits`) until the forward gathers them
+onto the tokens' device; prefill's caches come out with their K/V heads
+per model slot and are gathered there too.
 """
 
 from __future__ import annotations
@@ -50,18 +61,18 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..launch import collectives
 from ..launch.mesh import data_slot_scope
-from .attention import (KVCache, _out_proj, _project_qkv, attention, blocked_attention,
-                        cache_from_prefill, decode_attention_step, init_attention,
-                        plain_attention)
+from . import attention as attn
+from .attention import (KVCache, _out_proj, _project_qkv, attention, cache_from_prefill,
+                        core_attention, decode_attention_step, init_attention)
 from .common import ModelConfig, abstract_mesh
-from . import layers
+from . import layers, moe, sharding
 from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp, mlp,
                      rms_norm, unembed)
-from .moe import KEEP_FLOAT32, init_moe, moe_ffn, moe_ffn_slots
+from .moe import KEEP_FLOAT32, init_moe, moe_ffn
 
-__all__ = ["DecodeState", "block_forward", "check_family", "decode_step", "forward",
-           "init_decode_state", "init_params", "params_from_numpy", "prefill",
-           "train_forward", "train_forward_slots"]
+__all__ = ["DecodeState", "block_forward", "check_family", "data_slots_independent",
+           "decode_step", "forward", "init_decode_state", "init_params", "params_from_numpy",
+           "prefill", "slot_views", "train_forward", "train_forward_slots"]
 
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -145,28 +156,38 @@ def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions) -> tupl
     return x + h, aux
 
 
-def _slots_block(lps: list, xs: list, cfg: ModelConfig, positions: list,
-                 prefill: bool = False) -> tuple:
-    """One layer over the data slots' rows (``xs[j]`` with its parameters
-    ``lps[j]`` on slot ``j``'s device): each slot's attention half, then the
-    FFN (the MoE across the slots).  Returns (the slots' outputs, the aux
-    loss, each slot's (k, v) when ``prefill``)."""
-    xs2, hs, kvs = [], [], []
-    for j, (p, x) in enumerate(zip(lps, xs)):
+def _grid_block(lrows: list, ldims: dict, xs: list, cfg: ModelConfig, positions: list,
+                data_slots: list, n_data: int, prefill: bool = False) -> tuple:
+    """One layer over the grid: ``xs[jj][m]`` model slot ``m``'s copy of
+    computing data slot ``data_slots[jj]``'s rows, ``lrows[jj][m]`` its
+    block of the layer's weights.  Each data slot's attention half over its
+    model slots, then the FFN (the MoE across the grid).  Returns (the
+    slots' outputs, each data slot's aux loss, each data slot's
+    (per-slot (k, v), their K/V heads) when ``prefill``)."""
+    mesh = abstract_mesh()
+    x2s, hs, kvs = [], [], []
+    for jj, j in enumerate(data_slots):
+        devs = mesh.model_devices(j)
+        row = lrows[jj]
+        own = attn.heads_parallel(cfg, len(devs))
         with data_slot_scope(j):
-            if prefill:
-                x, kv = _attend_prefill(p, x, cfg, positions[j])
-                kvs.append(kv)
-            else:
-                x = _attend(p, x, cfg, positions[j])
-        xs2.append(x)
-        hs.append(rms_norm(x, p["ln2"], cfg.norm_eps, cfg.use_pallas))
+            h1 = [rms_norm(x, p["ln1"], cfg.norm_eps, cfg.use_pallas) if own or m == 0 else None
+                  for m, (p, x) in enumerate(zip(row, xs[jj]))]
+            out, kv, heads = attn.attention_row([p["attn"] for p in row], ldims["attn"], h1, cfg,
+                                                positions[jj][0], devs, prefill)
+        x2 = [x + a for x, a in zip(xs[jj], out)]
+        x2s.append(x2)
+        kvs.append((kv, heads))
+        hs.append([rms_norm(x, p["ln2"], cfg.norm_eps, cfg.use_pallas) for p, x in zip(row, x2)])
     if cfg.family == "moe":
-        ys, aux = moe_ffn_slots([p["moe"] for p in lps], hs, cfg)
+        ys, auxes = moe.moe_ffn_grid([[p["moe"] for p in row] for row in lrows], ldims["moe"], hs,
+                                     cfg, n_data, data_slots)
     else:
-        ys = [mlp(p["mlp"], h, cfg) for p, h in zip(lps, hs)]
-        aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
-    return [x + y for x, y in zip(xs2, ys)], aux, kvs
+        ys = [layers.mlp_row([p["mlp"] for p in row], ldims["mlp"], h, cfg,
+                             mesh.model_devices(j))
+              for row, h, j in zip(lrows, hs, data_slots)]
+        auxes = [torch.zeros((), dtype=torch.float32, device=x2[0].device) for x2 in x2s]
+    return [[x + y for x, y in zip(x2, yr)] for x2, yr in zip(x2s, ys)], auxes, kvs
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
@@ -184,46 +205,90 @@ def _embed_with_prefix(params, tokens, cfg, prefix_embeds):
     return x
 
 
-def _slots_forward(params_slots: list, tokens_slots: list, cfg: ModelConfig,
-                   prefix_slots=None, prefill: bool = False) -> tuple:
-    """The layers over the data slots' rows: (each slot's final hidden
-    state, the aux loss on the first slot's device, per layer each slot's
-    (k, v) when ``prefill``)."""
+def slot_views(params, cfg: ModelConfig, data_slots, leaves: bool = False):
+    """The :class:`.sharding.SlotViews` of ``params`` on the ambient mesh's
+    computing data slots ``data_slots``: a placed tree as placed, a whole
+    tree cut by ``param_specs``."""
+    mesh = abstract_mesh()
+    if isinstance(params["ln_f"], sharding.ShardedTensor):
+        return sharding.SlotViews(params, mesh, data_slots, leaves=leaves)
+    return sharding.SlotViews(params, mesh, data_slots, sharding.param_specs(params, cfg, mesh),
+                              leaves=leaves)
+
+
+def _grid_forward(views, tokens_slots: list, cfg: ModelConfig, prefix_slots=None,
+                  prefill: bool = False, n_data: Optional[int] = None) -> tuple:
+    """The layers over the grid of ``views``' computing data slots
+    (``tokens_slots[jj]`` and ``prefix_slots[jj]`` data slot
+    ``views.data_slots[jj]``'s, on its device): (each slot's final hidden
+    state, each data slot's aux loss, per layer each data slot's prefill
+    (k, v) and K/V heads when ``prefill``)."""
+    mesh = abstract_mesh()
+    data_slots = views.data_slots
+    n_data = n_data or len(data_slots)
     prefix_slots = prefix_slots or [None] * len(tokens_slots)
-    xs = [_embed_with_prefix(p, t, cfg, pe)
-          for p, t, pe in zip(params_slots, tokens_slots, prefix_slots)]
-    positions = [torch.arange(x.shape[1], device=x.device)[None, :] for x in xs]
-    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
-    block = _maybe_remat(lambda lps, xs: _slots_block(lps, xs, cfg, positions, prefill), cfg)
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, mesh.model_devices(j), pe)
+          for jj, (j, t, pe) in enumerate(zip(data_slots, tokens_slots, prefix_slots))]
+    positions = [[torch.arange(x.shape[1], device=x.device)[None, :] for x in row] for row in xs]
+    auxes = [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
+    ldims = views.layer_dims()
+    block = _maybe_remat(lambda lrows, xs: _grid_block(lrows, ldims, xs, cfg, positions,
+                                                       data_slots, n_data, prefill), cfg)
     kvs = []
     for i in range(cfg.n_layers):
-        xs, a, kv = block([index_tree(p["layers"], i) for p in params_slots], xs)
+        lrows = [views.layer(jj, i, cfg.n_layers) for jj in range(len(data_slots))]
+        xs, a, kv = block(lrows, xs)
         kvs.append(kv)
-        aux = aux + a
-    return [rms_norm(x, p["ln_f"], cfg.norm_eps, cfg.use_pallas)
-            for p, x in zip(params_slots, xs)], aux, kvs
+        auxes = [x + y for x, y in zip(auxes, a)]
+    hs = [[rms_norm(x, p["ln_f"], cfg.norm_eps, cfg.use_pallas) for p, x in zip(prow, row)]
+          for prow, row in zip(views.rows, xs)]
+    return hs, auxes, kvs
 
 
-def train_forward_slots(params_slots: list, tokens_slots: list, cfg: ModelConfig,
-                        prefix_slots=None) -> tuple:
-    """:func:`train_forward` over rows held per data slot of the ambient
-    mesh: ``tokens_slots[j]`` on slot ``j``'s device with its parameter tree
-    ``params_slots[j]`` (the mesh train step gives each slot its own copy).
-    Returns (each slot's logits, the aux loss on the first slot's device)."""
+def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig, prefix_slots=None,
+                        n_data: Optional[int] = None) -> tuple:
+    """:func:`train_forward` over the ambient mesh's grid: ``views`` the
+    :class:`.sharding.SlotViews` of the weights (:func:`slot_views`),
+    ``tokens_slots[jj]`` (and a VLM's ``prefix_slots[jj]``) the rows of
+    computing data slot ``views.data_slots[jj]`` on its device, ``n_data``
+    the data slots that take rows in all (the MoE's groups follow the whole
+    batch).  Returns (each data slot's :class:`.layers.SlotLogits` over its
+    model slots, of the text positions; each data slot's aux loss on its
+    first model slot's device)."""
     check_family(cfg)
-    hs, aux, _ = _slots_forward(params_slots, tokens_slots, cfg, prefix_slots)
-    logits = [unembed(p["embed"], h, cfg) for p, h in zip(params_slots, hs)]
-    if prefix_slots is not None:
-        logits = [lg[:, pe.shape[1]:] for lg, pe in zip(logits, prefix_slots)]
-    return logits, aux
+    mesh = abstract_mesh()
+    hs, auxes, _ = _grid_forward(views, tokens_slots, cfg, prefix_slots, n_data=n_data)
+    logits = []
+    for jj, (j, row) in enumerate(zip(views.data_slots, hs)):
+        if prefix_slots is not None:
+            row = [h[:, prefix_slots[jj].shape[1]:] for h in row]
+        logits.append(layers.unembed_row(views.rows[jj], views.dims, row, cfg,
+                                         mesh.model_devices(j)))
+    return logits, auxes
+
+
+def data_slots_independent(cfg: ModelConfig, rows: int, seq: int) -> bool:
+    """Whether, under the ambient mesh, the data slots' parts of a forward
+    over ``rows`` x ``seq`` tokens depend on no other data slot's (so each
+    may run, and be differentiated, on its own): always but for an MoE
+    whose dispatch gathers the data slots' rows (:func:`.moe.per_data_slot`)."""
+    return cfg.family != "moe" or moe.per_data_slot(cfg, rows, seq)
+
+
+def _joined(parts: list) -> torch.Tensor:
+    """The data slots' rows, already on one device, as one tensor."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 def _mesh_train_forward(params, tokens, cfg, prefix_embeds) -> tuple:
-    devices = abstract_mesh().row_devices(tokens.shape[0])
+    mesh = abstract_mesh()
+    devices = mesh.row_devices(tokens.shape[0])
     prefix = None if prefix_embeds is None else collectives.scatter(prefix_embeds, 0, devices)
-    logits, aux = train_forward_slots(collectives.broadcast_tree(params, devices),
-                                      collectives.scatter(tokens, 0, devices), cfg, prefix)
-    return collectives.gather_to(logits, 0, tokens.device), aux.to(tokens.device)
+    views = slot_views(params, cfg, range(len(devices)))
+    logits, auxes = train_forward_slots(views, collectives.scatter(tokens, 0, devices), cfg,
+                                        prefix)
+    return (_joined([layers.gather_logits(lg, tokens.device) for lg in logits]),
+            collectives.psum(auxes, tokens.device))
 
 
 def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -270,12 +335,8 @@ class DecodeState(NamedTuple):
 def _attend_prefill(p, x, cfg: ModelConfig, positions) -> tuple:
     """A block's first half in prefill: (x plus its attention, (k, v))."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps, cfg.use_pallas)
-    S = h.shape[1]
     q, k, v = _project_qkv(p["attn"], h, h, cfg, positions, positions)
-    if S <= 2048 or S % 512:
-        out = plain_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    else:
-        out = blocked_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = core_attention(q, k, v, cfg, window=cfg.sliding_window, prefill=True)
     return x + _out_proj(out, p["attn"]["wo"].to(h.dtype)), (k, v)
 
 
@@ -313,23 +374,29 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def _mesh_prefill(params, tokens, cfg: ModelConfig, prefix_embeds) -> tuple:
-    """:func:`prefill` with the rows split over the ambient mesh's data
-    slots; the last logits and the caches gathered onto the tokens'
-    device."""
+    """:func:`prefill` over the ambient mesh's grid (rows over the data
+    slots, each data slot tensor-parallel over its model slots); the last
+    logits and the caches (each K/V head from a model slot that computed
+    it) gathered onto the tokens' device."""
     with torch.inference_mode():
-        devices = abstract_mesh().row_devices(tokens.shape[0])
+        mesh = abstract_mesh()
+        devices = mesh.row_devices(tokens.shape[0])
         prefix = None if prefix_embeds is None else collectives.scatter(prefix_embeds, 0, devices)
-        params_slots = collectives.broadcast_tree(params, devices)
-        hs, _, kvs = _slots_forward(params_slots, collectives.scatter(tokens, 0, devices), cfg,
-                                    prefix, prefill=True)
-        logits = [unembed(p["embed"], h[:, -1:], cfg) for p, h in zip(params_slots, hs)]
-        caches = [cache_from_prefill(cfg, collectives.gather_to([kv[0] for kv in layer], 0,
-                                                                tokens.device),
-                                     collectives.gather_to([kv[1] for kv in layer], 0,
-                                                           tokens.device), cfg.sliding_window)
-                  for layer in kvs]
-        return (collectives.gather_to(logits, 0, tokens.device),
-                DecodeState(KVCache(*(torch.stack(f) for f in zip(*caches)))))
+        views = slot_views(params, cfg, range(len(devices)))
+        hs, _, kvs = _grid_forward(views, collectives.scatter(tokens, 0, devices), cfg, prefix,
+                                   prefill=True)
+        dev = tokens.device
+        logits = [layers.gather_logits(layers.unembed_row(
+            views.rows[jj], views.dims, [h[:, -1:] for h in row], cfg, mesh.model_devices(jj)),
+            dev) for jj, row in enumerate(hs)]
+        caches = []
+        for layer in kvs:
+            per_slot = [attn.prefill_cache_kv(kv, heads, cfg.n_kv_heads, dev)
+                        for kv, heads in layer]
+            caches.append(cache_from_prefill(cfg, _joined([k for k, _ in per_slot]),
+                                             _joined([v for _, v in per_slot]),
+                                             cfg.sliding_window))
+        return _joined(logits), DecodeState(KVCache(*(torch.stack(f) for f in zip(*caches))))
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, capacity: int,

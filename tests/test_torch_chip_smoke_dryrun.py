@@ -86,7 +86,9 @@ def test_phase_passes_on_cpu_slots(card_route):
     a, b, c = out["validate"], out["mesh"], out["production"]
     assert a["hlo_equal"] and a["analysis_launches"] == {"rmsnorm": 7}
     assert a["measured_peak_bytes"] is None and a["wall_over_roofline"] > 0
-    assert set(b["collectives"]) == {"gather", "psum", "scatter"}
+    # tensor-parallel: the zero1 blocks all-gathered over the data axes, the
+    # rows broadcast to the model slots, the model slots' sums
+    assert set(b["collectives"]) == {"all_gather", "broadcast", "gather", "psum", "scatter"}
     assert b["collective_counts"]["psum"] > 0 and not any(b["launches"].values())
     assert set(c) == {"cell", "pipeline 1.0", "pipeline 2.0"}
     for what in ("pipeline 1.0", "pipeline 2.0"):

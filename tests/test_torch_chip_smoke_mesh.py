@@ -1,8 +1,9 @@
-"""chip_smoke.py's phase 21 (the mesh's data and model axes in execution),
-run here on meshes of CPU slots at the smoke configs in float32, and three
-planted faults, each of which the phase must refuse: a sequence-parallel
-slot that ignores its query offset, an MoE slot that dispatches another
-slot's rows, and a gradient reduction that drops a slot."""
+"""chip_smoke.py's phase 21 (the mesh's data and model axes in execution,
+tensor-parallel over the model axis), run here on meshes of CPU slots at
+the smoke configs in float32, and three planted faults, each of which the
+phase must refuse: a sequence-parallel slot that ignores its query offset,
+an MoE slot that dispatches another slot's rows, and a gradient reduction
+that drops a slot."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
-from repro_torch.models import attention, sharding, transformer  # noqa: E402
+from repro_torch.models import attention, moe, sharding  # noqa: E402
 
 # the phase's three parts at smoke sizes, cut to one layer: qwen2.5's 8
 # heads on a 5-way model axis go sequence-parallel at S = 2560 (512 queries
@@ -70,9 +71,20 @@ def test_mesh_phase_passes_on_cpu_slots():
     assert c["moment_rel_err"] <= 1e-4 and c["moment_leaf_max_rel_err"] <= 1e-4
     assert c["bytes_per_slot"] < c["bytes_unsharded"] / 4
     assert sorted(out["by_path"]) == ["mesh moe", "mesh prefill", "mesh train"]
-    assert chip_smoke.mesh_launches(cfg, "prefill", 2, 4096)["rmsnorm"] == 2 * (2 * 3 + 1)
+    # per data slot: model slot 0 normalizes before the attention it runs
+    # whole (the heads do not divide the model axis), every model slot
+    # before its FFN block and at the end
+    assert chip_smoke.mesh_launches(cfg, "prefill", 2, 4096, 5)["rmsnorm"] == 2 * (3 + 5 * 4)
     full = chip_smoke.mesh_cfg(chip_smoke.MESH_RUNS["prefill"])
-    assert chip_smoke.mesh_launches(full, "prefill", 2, 4096)["rmsnorm"] == 194
+    assert chip_smoke.mesh_launches(full, "prefill", 2, 4096, 16)["rmsnorm"] == 2 * (48 + 16 * 49)
+    moe_full = chip_smoke.mesh_cfg(chip_smoke.MESH_RUNS["moe"])
+    assert chip_smoke.mesh_launches(moe_full, "forward", 4, 2048, 2) == dict(
+        dict.fromkeys(chip_smoke.KERNEL_NAMES, 0), rmsnorm=4 * 2 * 17, flash_attention=4 * 2 * 8)
+    assert b["flash_heads"] == [chip_smoke.flash_heads(b_cfg(), 2)]
+
+
+def b_cfg():
+    return chip_smoke.mesh_cfg(SMOKE_RUNS["moe"], smoke=True)
 
 
 def test_a_seq_parallel_slot_that_ignores_its_offset_is_refused(monkeypatch):
@@ -84,12 +96,12 @@ def test_a_seq_parallel_slot_that_ignores_its_offset_is_refused(monkeypatch):
 
 
 def test_an_moe_slot_that_dispatches_another_slots_rows_is_refused(monkeypatch):
-    real = transformer.moe_ffn_slots
+    real = moe.moe_ffn_grid
 
-    def shifted(params_slots, xs, cfg):
-        return real(params_slots, xs[1:] + xs[:1], cfg)
+    def shifted(ps, dims, hs, cfg, n_data, data_slots):
+        return real(ps, dims, hs[1:] + hs[:1], cfg, n_data, data_slots)
 
-    monkeypatch.setattr(transformer, "moe_ffn_slots", shifted)
+    monkeypatch.setattr(moe, "moe_ffn_grid", shifted)
     with pytest.raises(SystemExit):
         _run("moe")
 

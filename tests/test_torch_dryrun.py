@@ -208,16 +208,17 @@ def test_record_keeps_the_reference_keys():
 
 
 def test_per_device_values_divide_by_the_computing_slots():
-    """A prefill over the 16 data slots of pod16x16: the per-device values
-    are the totals over the 16 slots that take rows, not over the 256 of the
-    mesh (the model slots beside them compute nothing)."""
+    """A prefill over the 16 data slots of pod16x16, each tensor-parallel
+    over its 16 model slots: the per-device values are the totals over the
+    256 slots that compute; the peak holds data slot 0's 16 model slots
+    (the symmetric shortcut)."""
     shape = ShapeSpec("prefill_64_b32", "prefill", 64, 32)
     rec = dryrun.run_cell("qwen3-4b", shape.name, smoke=True, shape=shape, detail=False)
     an = rec["hlo"]
-    assert an["devices"] == 256 and an["computing_devices"] == 16
-    assert rec["memory"]["computing_slots"] == 16
+    assert an["devices"] == 256 and an["computing_devices"] == 256
+    assert rec["memory"]["computing_slots"] == 256 and rec["memory"]["simulated_slots"] == 16
     for key in ("dot_flops", "bytes_accessed", "collective_bytes"):
-        assert an["per_device"][key] == an[key] / 16, key
+        assert an["per_device"][key] == an[key] / 256, key
 
 
 def test_kernel_meta_routes_record_their_launches():

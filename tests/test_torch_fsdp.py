@@ -176,7 +176,9 @@ def test_masked_loss_is_the_global_mean_not_a_mean_of_slot_means():
     with use_mesh(mesh):
         _, _, (m,) = _steps(step, placed, popt, [tb])
     _, _, (m1,) = _steps(step, tparams, init_optimizer(tparams), [tb])
-    assert abs(m["ce"] - m1["ce"]) <= 1e-5
+    # the reference's bound: the model slots' partial sums round apart in
+    # bf16 (the same step in float32 agrees to 5e-7)
+    assert abs(m["ce"] - m1["ce"]) <= REF_TOL
     from repro_torch.models.train import cross_entropy
     logits, _ = get_model(cfg).forward(tparams, tb, cfg)
     per_slot = [float(cross_entropy(logits[i:i + 4], tb["labels"][i:i + 4], w[i:i + 4]))
@@ -199,7 +201,8 @@ def test_moe_mesh_step_dispatches_per_slot(monkeypatch):
     shapes = []
     real = moe._grouped_dispatch
     monkeypatch.setattr(moe, "_grouped_dispatch",
-                        lambda p, flat, c: shapes.append(tuple(flat.shape)) or real(p, flat, c))
+                        lambda p, flat, c, *e: shapes.append(tuple(flat.shape)) or real(p, flat, c,
+                                                                                          *e))
     step = make_train_step(get_model(cfg).train_forward, cfg)
     with use_mesh(mesh):
         _, _, (m,) = _steps(step, placed, popt, [tb])

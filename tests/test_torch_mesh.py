@@ -431,8 +431,9 @@ def test_forward_and_prefill_under_a_mesh_match_one_device(arch, mesh_shape, seq
         m_logits, m_state = transformer.prefill(params, toks, cfg)
         n_prefill = len(rms)
         m_fwd, _ = api.forward(params, {"tokens": toks}, cfg)
-    dsize = mesh_shape[0]
-    assert n_prefill == dsize * (2 * cfg.n_layers + 1)        # per data slot
+    dsize, msize = mesh_shape
+    # per model slot of each data slot: each normalizes its copy of the rows
+    assert n_prefill == dsize * msize * (2 * cfg.n_layers + 1)
     assert seqpar == []                                       # heads divide the model axis
     assert set(rms) == {2 // dsize}                           # each on its slot's rows
     for a, b in ((m_logits, logits), (m_fwd, fwd), (m_state.caches.k, state.caches.k),
