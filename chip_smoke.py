@@ -9,8 +9,9 @@ full width, the planner API and its reliability extensions, the fleet
 replanning service, serving's planner hooks with prefill, training, the
 MoE, VLM, enc-dec and xLSTM families, the planner's stage plan run as a
 pipeline, the mesh's data and model axes in execution, the dry run held
-against a real run, and tensor parallelism over the model axis
-(``repro_torch``), in twenty-three phases; any failure exits non-zero:
+against a real run, tensor parallelism over the model axis, and decode over
+the mesh (``repro_torch``), in twenty-four phases; any failure exits
+non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -311,9 +312,35 @@ against a real run, and tensor parallelism over the model axis
               21(c)'s step under the op analysis: the same bounds, one
               slot's bytes of state and of weights gathered over ``data``,
               and its peak charged as the dry run charges it.
+ 24. decode — decode over the mesh, every slot on the one card, the decode
+              state placed by ``state_specs`` and read and written in place
+              (no slot gathers the cache or a split weight): (a) qwen3-4b
+              whole, B = 8, a 4,096-slot cache drawn from the seed and
+              filled to 4,000 positions, on (2, 16): 8 K/V heads on 16
+              slots split their head_dim (the head-dim layout: q and the
+              new k all-gathered, partial scores all-reduced in float32,
+              plain PyTorch); (b) the same on (2, 8): one K/V head a slot,
+              the decode-attention kernel on every (data, model) slot; (c)
+              mixtral-8x7b cut to 4 layers, B = 1, its 4,096-slot window
+              filled to 5,000 positions (the ring wrapped), on (4, 8): the
+              cache length split over the data slots, the kernel's
+              log-sum-exp route, partials merged onto data slot 0, one
+              expert a model slot.  Each 8 steps against one device's
+              decode on the same tokens and state (counters zeroed just
+              before and read just after each): logits within phase 12's
+              bf16 limit, pos and positions ``==``, the written K/V
+              columns of layer 0 within the bf16 rounding of one device's
+              (per element; deeper layers carry the slots' rounding, held
+              to the logits' limit), every other column untouched, the
+              state's blocks the placed tensors
+              after the steps, launches and collective calls exactly
+              derived, every kernel call (and its log-sum-exp) held to its
+              plain version; an MoE routed as one device routed (near-ties
+              aside); then the log-sum-exp route timed at (c)'s per-slot
+              shape beside the route without it and the plain version.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-23;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-24;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -4489,6 +4516,526 @@ def dryrun_phase(torch, counters, card, device: str = "cuda", runs: dict = DRYRU
 
 
 
+# ---------------------------------------------------------------------------
+# 24. decode over the mesh, the decode state left where state_specs puts it
+# ---------------------------------------------------------------------------
+
+# every slot on the one card.  (a) qwen3-4b whole (36 layers, 32 / 8 heads of
+# 80), B = 8, a cache of 4,096 slots drawn from the seed and filled to 4,000
+# positions, on (2, 16): 8 K/V heads on 16 model slots, so ``state_specs``
+# splits the cache's head_dim (5 of 80 columns a slot): the head-dim layout;
+# (b) the same weights and state on (2, 8): one K/V head a model slot, the
+# decode-attention kernel on each (data, model) slot; (c) mixtral-8x7b cut
+# to 4 layers, B = 1, its 4,096-slot window filled to 5,000 positions (the
+# ring wrapped), on (4, 8): one K/V head and one expert a model slot, the
+# cache length split over the 4 data slots (1,024 slots each), partials
+# merged by their log-sum-exp
+DECODE_RUNS = {
+    "cols": {"arch": "qwen3-4b", "layers": None, "batch": 8, "capacity": 4096, "filled": 4000,
+             "steps": 8, "mesh": (2, 16), "seed": 51, "dtype": None, "float32_pair": True},
+    "heads": {"arch": "qwen3-4b", "layers": None, "batch": 8, "capacity": 4096, "filled": 4000,
+              "steps": 8, "mesh": (2, 8), "seed": 51, "dtype": None},
+    "length": {"arch": "mixtral-8x7b", "layers": 4, "batch": 1, "capacity": 4096,
+               "filled": 5000, "steps": 8, "mesh": (4, 8), "seed": 52, "dtype": None},
+}
+# a kernel call's log-sum-exp against its plain version's: the kernel's
+# exponentials are the SFU's ex2 (~2 ulp), its sums in another order
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+
+
+def decode_layout_of(cfg, msize: int) -> str:
+    """The layout ``state_specs`` gives a decode over ``msize`` model slots
+    (:func:`repro_torch.models.attention.decode_layout`'s rule)."""
+    if msize == 1 or cfg.n_kv_heads % msize == 0:
+        return "heads"
+    return "cols" if cfg.head_dim % msize == 0 else "whole"
+
+
+def decode_holders(cfg, dsize: int, batch: int, capacity: int) -> tuple:
+    """(data slots that carry rows, data slots holding a part of each
+    carried row's cache, whether each holder computes a partial): the batch
+    split over the data slots (each its own), else the cache length (every
+    data slot a slice), else the cache replicated (one computes)."""
+    C = min(capacity, cfg.sliding_window) if cfg.sliding_window else capacity
+    if batch % dsize == 0:
+        return dsize, 1, True
+    return 1, dsize, C % dsize == 0
+
+
+def decode_launches(cfg, dsize: int, msize: int, batch: int, capacity: int, steps: int,
+                    mesh: bool = True) -> dict:
+    """The kernels ``steps`` decode steps launch: on one device (``mesh``
+    off) the decode-attention kernel once per layer under ``use_pallas``;
+    over the mesh, in the heads layout, once per layer on each model slot of
+    each data slot that computes a partial; none in the head-dim layout
+    (plain PyTorch there) and no RMSNorm (decode's norms are plain, as one
+    device's)."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    if not cfg.use_pallas:
+        return out
+    L = cfg.n_layers
+    if not mesh:
+        out["decode_attention"] = steps * L
+    elif decode_layout_of(cfg, msize) == "heads":
+        D, H, each = decode_holders(cfg, dsize, batch, capacity)
+        out["decode_attention"] = steps * L * D * (H if each else 1) * msize
+    return out
+
+
+def decode_collective_calls(cfg, dsize: int, msize: int, batch: int, capacity: int,
+                            steps: int) -> dict:
+    """The collective calls of ``steps`` mesh decode steps from placed
+    weights (not ``zero1_specs``) and a state placed by ``state_specs``,
+    from ``param_specs``'s split of each leaf, per step:
+
+    - the token ``scatter`` over the D data slots that carry rows; with
+      M > 1 model slots, per carrier, the token ``broadcast`` to its model
+      slots and the embedding's ``psum`` (vocabulary split) or
+      ``all_gather`` (``d_model`` split);
+    - per layer per carrier: where other data slots hold a part of the
+      cache, one ``broadcast`` per model slot of its packed q / k / v to
+      them, and, where several compute, two ``gather`` per model slot of
+      their partial outputs and log-sum-exps; the heads layout: the output's
+      ``psum``; the head-dim layout: an ``all_gather`` (heads or head_dim
+      split) or ``psum`` (``d_model`` split) of q and of k (and of v where
+      ``wv`` does not split head_dim), each computing holder's score
+      ``psum``, the output columns' ``all_gather`` unless ``wo`` splits
+      head_dim too, then ``wo``'s ``psum`` (heads or head_dim split) or
+      ``all_gather`` (``d_model``); the FFN as the forward's (the MLP's or
+      the split experts' ``psum``; an MoE whose dispatch gathers the data
+      slots' rows a ``gather`` and a ``scatter`` per dispatching model
+      slot);
+    - per carrier the logits' ``gather`` (with a ``psum`` of the partial
+      logits first where ``d_model`` is split)."""
+    import collections
+
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.models import get_model, moe, sharding
+
+    M = msize
+    params = get_model(cfg).init(0, "meta")
+    named = {}
+    sharding._map_with_path(lambda pth, x: named.__setitem__(
+        "/".join(pth), sharding.model_split_dim(list(pth), tuple(x.shape), M)), params)
+    layer = {k[len("layers/"):]: (None if d is None else "owner" if d == 0 else d - 1)
+             for k, d in named.items() if k.startswith("layers/")}
+    D, H, each = decode_holders(cfg, dsize, batch, capacity)
+    computing = H if each else 1
+    layout = decode_layout_of(cfg, M)
+    calls, per = collections.Counter(), collections.Counter()
+    calls["scatter"] += 1
+    if M > 1:
+        calls["broadcast"] += D
+        if named["embed/tok"] is not None:
+            calls["psum" if named["embed/tok"] == 0 else "all_gather"] += D
+    if H > 1:
+        per["broadcast"] += M
+    if computing > 1:
+        per["gather"] += 2 * M
+    if layout == "heads":
+        per["psum"] += M > 1
+    else:
+        split = layout == "cols" and M > 1
+        for w in ("wq", "wk", "wv"):
+            d = layer[f"attn/{w}"]
+            if d is None or M == 1 or (w == "wv" and split and d == 2):
+                continue
+            per["psum" if d == 0 else "all_gather"] += 1
+        per["psum"] += computing * split
+        d = layer["attn/wo"]
+        if M > 1:
+            if d == 1 and split:
+                per["psum"] += 1
+            else:
+                per["all_gather"] += split
+                if d in (0, 1):
+                    per["psum"] += 1
+                elif d == 2:
+                    per["all_gather"] += 1
+    ffn = [("mlp", layer.get("mlp/wi"))]
+    once = collections.Counter()
+    if cfg.family == "moe":
+        dcfg = cfg.replace(capacity_factor=max(cfg.capacity_factor, 8.0))
+        with use_mesh(make_mesh((dsize, M), ("data", "model"), devices=["meta"] * (dsize * M))):
+            own = moe._per_data_slot(dcfg, batch, 1, D)[1]
+        inner = M > 1 and layer["moe/wi"] in (0, 2)
+        experts = sum(layer[f"moe/{k}"] is not None for k in ("router", "wi", "wg", "wo"))
+        (per if own else once)["gather"] += 0 if inner else experts
+        if not own:
+            once.update({"gather": M if inner else 1, "scatter": M if inner else 1})
+        if inner:
+            per["psum"] += 1
+        elif M > 1:
+            per["broadcast"] += 1
+        ffn = [("moe/dense", layer.get("moe/dense/wi"))] if cfg.dense_residual else []
+    for pre, d in ffn:
+        if M == 1:
+            continue
+        if d == 1:
+            per["psum"] += 1
+        else:
+            per["gather"] += sum(v is not None for k, v in layer.items() if k.startswith(pre + "/"))
+            per["broadcast"] += 1
+    L = cfg.n_layers
+    for k, v in per.items():
+        calls[k] += v * L * D
+    for k, v in once.items():
+        calls[k] += v * L
+    head = named["embed/tok"] if cfg.tie_embeddings else named["embed/unembed"]
+    calls["psum"] += D * (M > 1 and head == (1 if cfg.tie_embeddings else 0))
+    calls["gather"] += D
+    return {k: v * steps for k, v in sorted(calls.items()) if v}
+
+
+def decode_state_fill(torch, api, batch: int, capacity: int, filled: int, seed: int, device):
+    """A decode state of ``capacity`` slots (the window where smaller) as
+    ``filled`` tokens of decode would leave it: each ring slot holds the
+    latest position written to it (-1 where none was), ``pos`` is
+    ``filled``, K and V are ``normal * 0.5`` drawn from ``seed`` (the
+    unwritten slots' too: the mask must hide them)."""
+    st = api.init_decode_state(batch, capacity, device)
+    c = st.caches
+    C = c.k.shape[2]
+    g = torch.Generator(device=device).manual_seed(seed)
+    for t in (c.k, c.v):
+        for i in range(t.shape[0]):       # a layer at a time: one layer's float32 draw
+            t[i].copy_(torch.randn(t[i].shape, generator=g, device=device) * 0.5)
+    slot = torch.arange(C, device=device)
+    p = (filled - 1) - (filled - 1 - slot) % C
+    c.positions.copy_(torch.where(p >= 0, p, -1).to(torch.int32).expand_as(c.positions))
+    c.pos.fill_(filled)
+    return st
+
+
+@contextlib.contextmanager
+def decode_recording(torch, calls: list):
+    """Within the block every decode-attention call through the kernels'
+    ``ops`` wrapper is held to its plain version on its own inputs: the
+    output by phase 7's limit, a log-sum-exp (the cache-length split's
+    route) within ``LSE_ATOL + LSE_RTOL |want|``; each call's (name, max abs
+    err, within) is appended to ``calls``."""
+    from repro_torch.kernels import ops, ref
+
+    real = ops.decode_attention
+
+    def rec(q, k, v, positions, pos, *, window=None, return_lse=False):
+        got = real(q, k, v, positions, pos, window=window, return_lse=return_lse)
+        mask = ops.decode_mask(positions, pos, window)
+        want = ref.decode_attention_ref(q, k, v, mask, return_lse)
+        if return_lse:
+            ok, err = _within(torch, got[0], want[0])
+            lerr = (got[1] - want[1]).abs()
+            lok = bool((lerr <= LSE_ATOL + LSE_RTOL * want[1].abs()).all())
+            calls.append(("decode_attention_lse", float(lerr.max()), lok))
+        else:
+            ok, err = _within(torch, got, want)
+        calls.append(("decode_attention", err, ok))
+        return got
+
+    ops.decode_attention = rec
+    try:
+        yield calls
+    finally:
+        ops.decode_attention = real
+
+
+def _shard_ptrs(state) -> list:
+    from repro_torch.models import sharding
+
+    out = []
+    sharding._map_leaves(lambda x: out.append(tuple(t.data_ptr() for t in x.shards)), state)
+    return out
+
+
+def decode_mesh_run(torch, counters, name: str, run: dict, cfg, params, device) -> dict:
+    """One part of phase 24: ``run["steps"]`` decode steps of ``cfg`` on
+    one device from a :func:`decode_state_fill` state (the counters zeroed
+    just before and read just after: one decode-attention launch a layer
+    under ``use_pallas``; an MoE's every dispatch held to
+    :func:`check_moe_layer`, its routing recorded), then the same steps on
+    the same tokens over the mesh from the weights and the state placed by
+    ``param_specs`` and ``state_specs`` (counters zeroed just before and
+    read just after: :func:`decode_launches`, the collective calls exactly
+    :func:`decode_collective_calls`'s; an MoE routed as one device routed,
+    each layer's own choice a near-tie where it differs,
+    :func:`forced_routing`): every step's logits within
+    :func:`_logits_close`'s limit of one device's; the state's blocks the
+    same tensors after the steps; gathered afterwards, ``pos`` and the
+    positions ``==`` one device's, the written K/V columns of layer 0
+    within the bf16 rounding of one device's (per element) and those of
+    every layer within the logits' limit, every other column untouched; then,
+    where the layout launches the kernel, the mesh steps again from a fresh
+    placement with every kernel call held to its plain version.  With
+    ``run["float32_pair"]`` a bf16 run is also held to
+    :func:`decode_float32_pair`."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, moe, sharding
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    api = get_model(cfg)
+    mesh = _mesh_of(run, device)
+    dsize, msize = run["mesh"]
+    B, steps, cap = run["batch"], run["steps"], run["capacity"]
+    state0 = decode_state_fill(torch, api, B, cap, run["filled"], run["seed"], device)
+    toks = torch.randint(0, cfg.vocab_size, (B, steps), device=device, dtype=torch.int32,
+                         generator=torch.Generator(device=device).manual_seed(run["seed"] + 1))
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "capacity": state0.caches.k.shape[2],
+           "layout": decode_layout_of(cfg, msize)}
+    ref_state = clone_state(state0)
+    is_moe = cfg.family == "moe"
+    zero_counters(counters)
+    t0 = time.time()
+    want = []
+    with moe_checks(torch, moe) if is_moe else contextlib.nullcontext([]) as routed:
+        for t in range(steps):
+            lg, ref_state = api.decode(params, ref_state, toks[:, t:t + 1])
+            want.append(lg)
+        sync()
+    out["single_wall_s"] = time.time() - t0
+    out["single_launches"] = {c.__name__: c.launches for c in counters}
+    if on_card:
+        check_launches(f"decode {name} one device", out["single_launches"],
+                       decode_launches(cfg, dsize, msize, B, cap, steps, mesh=False))
+    per = msize if is_moe and moe_split(cfg, msize) != "none" else 1
+    forced = [r for r in routed for _ in range(per)]
+    pparams = sharding.place(params, sharding.param_specs(params, cfg, mesh), mesh)
+    specs = sharding.state_specs(state0, cfg, mesh, B)
+    pstate = sharding.place(state0, specs, mesh)
+    ptrs = _shard_ptrs(pstate)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    collectives.TRAFFIC.clear()
+    got = []
+    t0 = time.time()
+    with forced_routing(moe, forced) if is_moe else contextlib.nullcontext() as flips, \
+            use_mesh(mesh):
+        for t in range(steps):
+            lg, pstate = api.decode(pparams, pstate, toks[:, t:t + 1])
+            got.append(lg)
+        sync()
+    out["mesh_wall_s"] = time.time() - t0
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+    out["routing"] = flips
+    if on_card:
+        check_launches(f"decode {name}", out["launches"],
+                       decode_launches(cfg, dsize, msize, B, cap, steps))
+    check_collective_calls(f"decode {name}", out["collectives"],
+                           decode_collective_calls(cfg, dsize, msize, B, cap, steps))
+    worst = {"max_err": 0.0, "mean_rel_err": 0.0}
+    for t, (g, w) in enumerate(zip(got, want)):
+        close = _logits_close(g, w, cfg.dtype)
+        if not close["ok"] or tuple(g.shape) != (B, 1, cfg.vocab_size):
+            fail(f"decode {name}: step {t}'s logits {tuple(g.shape)} against one device's "
+                 f"{close}")
+        worst = {k: max(v, close[k]) for k, v in worst.items()}
+    out["logits"] = worst
+    if _shard_ptrs(pstate) != ptrs or sharding.state_specs(state0, cfg, mesh, B) != specs:
+        fail(f"decode {name}: the state's blocks are not the placed blocks after the steps")
+    a, b, s0 = sharding.gather(pstate).caches, ref_state.caches, state0.caches
+    if not (torch.equal(a.pos, b.pos) and torch.equal(a.positions, b.positions)):
+        fail(f"decode {name}: pos or positions differ from one device's")
+    C = out["capacity"]
+    written = torch.tensor(sorted({(run["filled"] + t) % C for t in range(steps)}),
+                           device=a.k.device)
+    rest = torch.ones(C, dtype=torch.bool, device=a.k.device)
+    rest[written] = False
+    out["cache"] = {}
+    for f in ("k", "v"):
+        x, y, x0 = getattr(a, f), getattr(b, f), getattr(s0, f)
+        if not torch.equal(x[:, :, rest], x0[:, :, rest]):
+            fail(f"decode {name}: the step wrote {f} outside the token's ring slots")
+        x, y = x[:, :, written], y[:, :, written]
+        # layer 0's columns carry the projections' rounding alone: each
+        # element within it; every layer's carry the rounding of the layers
+        # before (the slots' partial sums round apart), held as the logits
+        first_ok, first_err = _within(torch, x[0], y[0])
+        close = _logits_close(x, y, cfg.dtype, f32_tol=F32_TOL)
+        if not (first_ok and close["ok"]):
+            fail(f"decode {name}: written {f} columns differ from one device's: layer 0 by "
+                 f"{first_err}, all layers {close}")
+        out["cache"][f] = {"layer0_max_err": first_err,
+                           "layer0_equal_share": float((x[0] == y[0]).float().mean()),
+                           "max_err": close["max_err"], "mean_rel_err": close["mean_rel_err"],
+                           "equal_share": float((x == y).float().mean())}
+    if cfg.dtype != "float32" and run.get("float32_pair"):
+        del pparams, pstate
+        out["float32"] = decode_float32_pair(torch, cfg, params, state0, toks, mesh, name,
+                                             {"one device": want, "mesh": got})
+    n_kernel = decode_launches(cfg, dsize, msize, B, cap, steps)["decode_attention"]
+    if n_kernel:
+        pparams = sharding.place(params, sharding.param_specs(params, cfg, mesh), mesh)
+        calls = []
+        rstate = sharding.place(state0, specs, mesh)
+        forced = [r for r in routed for _ in range(per)]
+        with decode_recording(torch, calls), use_mesh(mesh), \
+                forced_routing(moe, forced) if is_moe else contextlib.nullcontext():
+            for t in range(steps):
+                api.decode(pparams, rstate, toks[:, t:t + 1])
+        lse = decode_holders(cfg, dsize, B, cap)[1] > 1
+        want_calls = {"decode_attention": n_kernel} | (
+            {"decode_attention_lse": n_kernel} if lse else {})
+        out["kernel_vs_plain_max_err"] = _check_calls(f"decode {name}", calls, want_calls)
+        del rstate
+    return out
+
+
+def decode_float32_pair(torch, cfg, params, state0, toks, mesh, name: str,
+                        bf16: dict) -> dict:
+    """The same steps in float32 from the same (bf16) weights and state, on
+    one device and over the mesh.  How far each bf16 run's logits
+    (``bf16``: run name -> per-step logits) lie from the float32 one
+    device's is reported: at qwen3-4b's full width one device's own are
+    ~4.4 % off (mean rel, PERF.md), so the bf16 pair's limit sees a fault
+    only once it moves the logits by as much; the float32 pair holds the
+    mesh to one device within
+    :data:`LOGIT_F32_TOL`, layer 0's cache within :data:`F32_TOL` and every
+    layer's within :data:`LOGIT_F32_TOL` (the slots' partial sums round
+    apart, and each layer carries the rounding of those before: 2.6e-5 at
+    qwen3-4b's full width on the card)."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, sharding
+
+    cfg32 = cfg.replace(dtype="float32")
+    api = get_model(cfg32)
+    def widen(x):
+        return x.float() if x.is_floating_point() else x.clone()
+
+    p32 = sharding._map_leaves(widen, params)
+    ref = sharding._map_leaves(widen, state0)
+    B, steps = toks.shape
+    pp = sharding.place(p32, sharding.param_specs(p32, cfg32, mesh), mesh)
+    ps = sharding.place(ref, sharding.state_specs(ref, cfg32, mesh, B), mesh)
+    worst = {"max_err": 0.0, "mean_rel_err": 0.0}
+    off = {k: 0.0 for k in bf16}
+    for t in range(steps):
+        want, ref = api.decode(p32, ref, toks[:, t:t + 1])
+        with use_mesh(mesh):
+            got, ps = api.decode(pp, ps, toks[:, t:t + 1])
+        close = _logits_close(got, want, "float32")
+        if not close["ok"]:
+            fail(f"decode {name} float32: step {t}'s logits against one device's {close}")
+        worst = {k: max(v, close[k]) for k, v in worst.items()}
+        for k, runs in bf16.items():
+            off[k] = max(off[k], _logits_close(runs[t], want, cfg.dtype)["mean_rel_err"])
+    a = sharding.gather(ps).caches
+    err = [(getattr(a, f) - getattr(ref.caches, f)).abs() for f in ("k", "v")]
+    first, cache = max(float(e[0].max()) for e in err), max(float(e.max()) for e in err)
+    if first > F32_TOL or cache > LOGIT_F32_TOL or \
+            not torch.equal(a.positions, ref.caches.positions):
+        fail(f"decode {name} float32: the caches differ from one device's by {first} in layer 0, "
+             f"{cache} in all")
+    return {"logits": worst, "cache_layer0_max_err": first, "cache_max_err": cache,
+            "bf16_mean_rel_err_from_float32": off}
+
+
+def lse_route_row(torch, cfg, run: dict, gen) -> dict:
+    """Decode attention's log-sum-exp route at (c)'s per-slot shape (one
+    row, the model slot's K/V head and its G query heads, one data slot's
+    slice of the window), a quarter of the slots valid in a mask drawn from
+    ``gen``: the output ``==`` the route without the log-sum-exp's, the
+    kernel with and without it and the plain version with it timed by
+    :func:`device_time` (K/V cold), against the bound."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_cost
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    dsize, msize = run["mesh"]
+    C = min(run["capacity"], cfg.sliding_window or run["capacity"]) // dsize
+    K, H, hd, B = cfg.n_kv_heads // msize, cfg.n_heads // msize, cfg.head_dim, run["batch"]
+    q = (torch.randn((B, H, hd), generator=gen, device=dev) * 0.5).to(bf16)
+    mask = torch.rand((B, C), generator=gen, device=dev) < 0.25
+    nbytes, flops = decode_cost(B, H, K, hd, C, 2, int(mask.sum()), lse=True)
+    n = cold_ring(nbytes)
+    kv = (torch.randn((n, 2, B, C, K, hd), generator=gen, device=dev) * 0.5).to(bf16)
+    got = kdec.decode_attention(q, kv[0, 0], kv[0, 1], mask, return_lse=True)
+    if not torch.equal(got[0], kdec.decode_attention(q, kv[0, 0], kv[0, 1], mask)):
+        fail("decode_attention lse route: its output differs from the route without it")
+    want = ref.decode_attention_ref(q, kv[0, 0], kv[0, 1], mask, True)
+    err = _err(torch, "decode_attention lse route", got[0], want[0])
+    lerr = (got[1] - want[1]).abs()
+    if not bool((lerr <= LSE_ATOL + LSE_RTOL * want[1].abs()).all()):
+        fail(f"decode_attention lse route: log-sum-exp differs by {float(lerr.max())}")
+    # REPS calls a window over a ring of n cold buffers: at this small shape
+    # n runs to hundreds, and as many calls (two launches each) behind the
+    # sleep would fill the card's launch queue, which blocks the host
+    kern = device_time(torch, [lambda i=i: kdec.decode_attention(q, kv[i, 0], kv[i, 1], mask,
+                                                                 return_lse=True)
+                               for i in range(n)])
+    base = device_time(torch, [lambda i=i: kdec.decode_attention(q, kv[i, 0], kv[i, 1], mask)
+                               for i in range(n)])
+    plain = device_time(torch, [lambda i=i: ref.decode_attention_ref(q, kv[i, 0], kv[i, 1], mask,
+                                                                     True)
+                                for i in range(n)])
+    b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
+    del kv
+    return {"shape": {"B": B, "C": C, "H": H, "K": K, "hd": hd, "live": int(mask.sum()),
+                      "cold_buffers": n},
+            "max_abs_err": err, "lse_max_abs_err": float(lerr.max()), "ms": kern["ms"],
+            "host_us": kern["host_us"], "no_lse_ms": base["ms"], "plain_ms": plain["ms"],
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def decode_phase(torch, counters, card, device: str = "cuda", runs: dict = DECODE_RUNS,
+                 smoke: bool = False, gen=None) -> dict:
+    """Phase 24 on ``device``: :func:`decode_mesh_run` for (a) and (b) from
+    one seeded qwen3-4b, then (c) from a seeded mixtral cut to its layers;
+    on the card, the decode kernel's log-sum-exp route timed at (c)'s
+    per-slot shape (:func:`lse_route_row`)."""
+    from repro_torch.models import get_model
+
+    on_card = torch.device(device).type == "cuda"
+    out, by_path = {"card": card}, {}
+    params, key = None, None
+    for name in ("cols", "heads", "length"):
+        run = runs[name]
+        t0 = time.time()
+        cfg = mesh_cfg(run, smoke, use_pallas=True)
+        if key != (run["arch"], run["seed"]):
+            params = None
+            if on_card:
+                torch.cuda.empty_cache()
+            params, key = get_model(cfg).init(run["seed"], device), (run["arch"], run["seed"])
+        res = decode_mesh_run(torch, counters, name, run, cfg, params, device)
+        res["part_s"] = time.time() - t0
+        by_path[f"decode {name} one device"] = res["single_launches"]
+        by_path[f"decode {name}"] = res["launches"]
+        out[name] = res
+        say_decode_part(name, res, run, card)
+        if on_card:
+            torch.cuda.empty_cache()
+    del params
+    if on_card:
+        out["lse_route"] = lse_route_row(torch, mesh_cfg(runs["length"], smoke), runs["length"],
+                                         gen)
+        r = out["lse_route"]
+        say(f"phase decode: the decode kernel's log-sum-exp route at {r['shape']}: "
+            f"{r['ms']:.5f} ms ({r['no_lse_ms']:.5f} without it), plain {r['plain_ms']:.5f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); max abs err {r['max_abs_err']:.3g}, "
+            f"lse {r['lse_max_abs_err']:.3g}; {card}")
+    out["by_path"] = by_path
+    return out
+
+
+def say_decode_part(name: str, r: dict, run: dict, card) -> None:
+    """The line phase 24 prints for part ``name`` as it ends."""
+    say(f"phase decode: ({ {'cols': 'a', 'heads': 'b', 'length': 'c'}[name] }) {r['config']} "
+        f"{r['layers']} layers B={run['batch']} C={r['capacity']} filled {run['filled']} on a "
+        f"{run['mesh']} mesh, {r['layout']} layout: {run['steps']} steps in "
+        f"{r['mesh_wall_s']:.3f} s, one device {r['single_wall_s']:.3f} s; logits {r['logits']}; "
+        f"float32 pair {r.get('float32')}; "
+        f"written K/V {r['cache']}; peak {r['peak_mem_bytes']} B; kernel calls within their "
+        f"plain versions {r.get('kernel_vs_plain_max_err')}; routing {r['routing']}; "
+        f"collectives {r['collectives']}; launches {r['launches']} (one device "
+        f"{r['single_launches']}); part {r['part_s']:.1f} s; {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -4901,6 +5448,21 @@ def main() -> None:
     report["tp"]["phase_s"] = time.time() - t0
     by_path.update(report["tp"].pop("by_path"))
     say(f"phase tp: {report['tp']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 24. decode over the mesh on the one card, the decode state left where
+    # state_specs puts it: qwen3-4b's head-dim layout on (2, 16) and heads
+    # layout on (2, 8), mixtral's cache-length split on (4, 8), each against
+    # one device's decode; each run's counters zeroed just before and read
+    # just after
+    t0 = time.time()
+    report["decode"] = decode_phase(torch, counters, card, gen=gen)
+    report["decode"]["phase_s"] = time.time() - t0
+    by_path.update(report["decode"].pop("by_path"))
+    for k in kernels:
+        if k["name"] == "decode_attention":
+            k["lse_route"] = report["decode"]["lse_route"]
+    say(f"phase decode: {report['decode']['phase_s']:.1f} s")
 
     launches = {}
     for counts in by_path.values():

@@ -58,6 +58,12 @@
 //   Folding it into the last block of each row (an arrival counter) was
 //   slower on the card: one block then sums a row's splits alone.  No
 //   atomics: the result is the same on every run.
+// - Optional log-sum-exp: given an lse pointer, the combine also writes each
+//   (row, head)'s natural log of its softmax denominator, m ln 2 + log(l)
+//   from the max and sum it already holds (-1e30 for a row with no valid
+//   slot, as the oracle's float32 logsumexp rounds it), so that partial
+//   attentions over slices of one cache (a cache split over devices) can be
+//   merged by their weights.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the
 // launches.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
@@ -79,6 +85,7 @@ constexpr int kGroup = 8;      // query heads of one KV head per block
 constexpr int kMaxTiles = 32;  // tiles per split (the wrapper keeps splits within it)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -388,11 +395,13 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
 // One thread per (batch row, query head, d): rescale the splits to their
 // common max, sum in split order (a split of weight 0, such as a skipped
 // one, is passed over without reading its accumulator), apply the
-// l == 0 -> 1 guard, divide and round once.
+// l == 0 -> 1 guard, divide and round once; with lse, the d == 0 thread of
+// each (row, head) also writes its log-sum-exp.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_combine(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                         T* __restrict__ out, int H, int hd, int n_split) {
+                         T* __restrict__ out, float* __restrict__ lse, int H, int hd,
+                         int n_split) {
   // launched early (programmatic dependent launch): wait until the split
   // pass has finished and its writes are visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -413,6 +422,8 @@ decode_attention_combine(const float* __restrict__ part_ml, const float* __restr
   }
   l = l == 0.0f ? 1.0f : l;
   out[(static_cast<int64_t>(b) * H + h) * hd + d] = from_f32<T>(acc / l);
+  if (lse != nullptr && d == 0)
+    lse[static_cast<int64_t>(b) * H + h] = m == kNegInf ? kNegInf : m * kLn2 + logf(l);
 }
 
 // Both kernels are programmatic dependent launches: a kernel's blocks may be
@@ -468,8 +479,8 @@ cudaError_t occupancy(int hd, int* blocks) {
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
-           float* part_ml, float* part_acc, int B, int C, int K, int G, int hd, int split,
-           float scale, int vec, cudaStream_t st) {
+           float* lse, float* part_ml, float* part_acc, int B, int C, int K, int G, int hd,
+           int split, float scale, int vec, cudaStream_t st) {
   const int H = K * G;
   const int n_split = C > 0 ? (C + split - 1) / split : 0;
   cudaLaunchConfig_t cfg;
@@ -489,7 +500,7 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* mask, voi
   cudaError_t e = cudaLaunchKernelEx(&cfg, decode_attention_combine<T>,
                                      static_cast<const float*>(part_ml),
                                      static_cast<const float*>(part_acc), static_cast<T*>(out),
-                                     H, hd, n_split);
+                                     lse, H, hd, n_split);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -509,19 +520,21 @@ extern "C" int decode_attention_blocks_per_sm(int hd, int dtype) {
 // wrapper sizes it from the grid); vec: 1 for 16-byte K/V loads (hd *
 // sizeof(T) a multiple of 16 and both base pointers 16-byte aligned).
 // part_ml: float32 scratch of B * H * ceil(C / split) * 2 values;
-// part_acc: float32 scratch of B * H * ceil(C / split) * hd values.
+// part_acc: float32 scratch of B * H * ceil(C / split) * hd values;
+// lse: null, or float32 (B, H) for each (row, head)'s log-sum-exp.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* mask, void* out, void* part_ml, void* part_acc,
-                                int B, int C, int K, int G, int hd, int split, float scale,
-                                int dtype, int vec, void* stream) {
+                                const void* mask, void* out, void* lse, void* part_ml,
+                                void* part_acc, int B, int C, int K, int G, int hd, int split,
+                                float scale, int dtype, int vec, void* stream) {
   if (B == 0 || K == 0 || G == 0 || hd == 0) return 0;
   if (split <= 0 || split % kTile != 0 || split > kTile * kMaxTiles) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, m, out, ml, acc, B, C, K, G, hd, split, scale, vec,
-                                 st);
-  return launch<float>(q, k, v, m, out, ml, acc, B, C, K, G, hd, split, scale, vec, st);
+    return launch<__nv_bfloat16>(q, k, v, m, out, ls, ml, acc, B, C, K, G, hd, split, scale,
+                                 vec, st);
+  return launch<float>(q, k, v, m, out, ls, ml, acc, B, C, K, G, hd, split, scale, vec, st);
 }

@@ -8,7 +8,10 @@ caller (:func:`repro_torch.kernels.ops.decode_attention` builds it from the
 cache's positions, as the reference's ``ops.py`` does).
 
 ``q`` (B, H, hd), ``k``/``v`` (B, C, K, hd) of one type (float32 or
-bfloat16), ``mask`` (B, C) bool; returns (B, H, hd) in ``q``'s type.  A CUDA
+bfloat16), ``mask`` (B, C) bool; returns (B, H, hd) in ``q``'s type, and
+with ``return_lse`` also each (row, head)'s log-sum-exp (B, H) float32,
+which the kernel's combine pass writes from the max and sum it holds (a
+cache split over devices merges its slices' partial results by it).  A CUDA
 tensor launches the kernel on the current stream and adds one to
 ``decode_attention.launches``; a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`).  Nothing falls back:
@@ -43,9 +46,9 @@ MAX_HEAD_DIM = 256
 TILE = 64  # cache slots per tile (kTile in the source)
 GROUP = 8  # query heads of one KV head per block (kGroup)
 MAX_SPLIT_TILES = 32  # tiles per split (kMaxTiles)
-# q, k, v, mask, out, part_ml, part_acc, B, C, K, G, hd, split, scale, dtype,
-# vec (then the stream)
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+# q, k, v, mask, out, lse, part_ml, part_acc, B, C, K, G, hd, split, scale,
+# dtype, vec (then the stream)
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
 _CARD: dict = {}
 
@@ -80,21 +83,23 @@ def card_shape(dev, hd: int, code: int) -> tuple:
 
 
 def decode_cost(B: int, H: int, K: int, hd: int, C: int, itemsize: int,
-                live: int = None) -> tuple:
+                live: int = None, lse: bool = False) -> tuple:
     """(bytes, operations) of :func:`decode_attention` over ``live`` live
     slots in all (every slot, ``B * C``, by default): q read and out
     written, the live slots' K and V read (a masked slot's never reach the
-    output), the mask read; q.K and p.V at 2 hd each.  The bound of the
-    row in ``chip_smoke.py``."""
+    output), the mask read, with ``lse`` the float32 log-sum-exp written;
+    q.K and p.V at 2 hd each.  The bound of the row in ``chip_smoke.py``."""
     live = B * C if live is None else live
-    return itemsize * (2 * B * H * hd + 2 * live * K * hd) + B * C, 4 * hd * H * live
+    return (itemsize * (2 * B * H * hd + 2 * live * K * hd) + B * C + (4 * B * H if lse else 0),
+            4 * hd * H * live)
 
 
-def decode_attention(q, k, v, mask) -> torch.Tensor:
-    """Softmax attention of each single-token query over its cache slots."""
+def decode_attention(q, k, v, mask, *, return_lse: bool = False):
+    """Softmax attention of each single-token query over its cache slots;
+    with ``return_lse``, (out, lse)."""
     dev = q.device
     if dev.type == "cpu":
-        return decode_attention_ref(q, k, v, mask)
+        return decode_attention_ref(q, k, v, mask, return_lse)
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention runs on cuda or cpu, not {dev}")
     if q.dtype not in DTYPE_CODES:
@@ -112,9 +117,11 @@ def decode_attention(q, k, v, mask) -> torch.Tensor:
                                    ("mask", mask, (B, C), torch.bool)):
             build.check_tensor(name, t, shape, dt, dev)
         out = torch.empty_like(q)
+        lse = torch.empty((B, H), dtype=torch.float32, device=dev) if return_lse else None
         if build.LAUNCH_LISTENERS:
-            build.note_launch("decode_attention", *decode_cost(B, H, K, hd, C, q.element_size()))
-        return out
+            build.note_launch("decode_attention", *decode_cost(B, H, K, hd, C, q.element_size(),
+                                                               lse=return_lse))
+        return (out, lse) if return_lse else out
     G = H // K
     split = split_slots(B, K, G, C, *card_shape(dev, hd, DTYPE_CODES[q.dtype]))
     n_split = -(-C // split)
@@ -129,16 +136,19 @@ def decode_attention(q, k, v, mask) -> torch.Tensor:
     vec = int(hd * q.element_size() % 16 == 0 and k.data_ptr() % 16 == 0
               and v.data_ptr() % 16 == 0)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev) if return_lse else None
     part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=dev)
     part_acc = torch.empty((B, H, n_split, hd), dtype=torch.float32, device=dev)
     build.launch("decode_attention", "decode_attention", _ARGTYPES, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                 part_ml.data_ptr(), part_acc.data_ptr(), B, C, K, G, hd, split,
-                 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], vec)
+                 None if lse is None else lse.data_ptr(), part_ml.data_ptr(),
+                 part_acc.data_ptr(), B, C, K, G, hd, split, 1.0 / math.sqrt(hd),
+                 DTYPE_CODES[q.dtype], vec)
     decode_attention.launches += 1
     if build.LAUNCH_LISTENERS:
-        build.note_launch("decode_attention", *decode_cost(B, H, K, hd, C, q.element_size()))
-    return out
+        build.note_launch("decode_attention", *decode_cost(B, H, K, hd, C, q.element_size(),
+                                                           lse=return_lse))
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -27,10 +27,13 @@ def decode_mask(positions, pos, window: Optional[int] = None):
     return valid
 
 
-def decode_attention(q, k, v, positions, pos, *, window: Optional[int] = None):
+def decode_attention(q, k, v, positions, pos, *, window: Optional[int] = None,
+                     return_lse: bool = False):
     """q: (B,H,hd); cache k,v: (B,C,K,hd); positions: (B,C) absolute positions
-    stored per slot (-1 = empty); pos: (B,) current decode position."""
-    return _dec.decode_attention(q, k, v, decode_mask(positions, pos, window))
+    stored per slot (-1 = empty); pos: (B,) current decode position.  With
+    ``return_lse``, (out, each (row, head)'s log-sum-exp)."""
+    return _dec.decode_attention(q, k, v, decode_mask(positions, pos, window),
+                                 return_lse=return_lse)
 
 
 def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int = 256):

@@ -43,8 +43,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, mask) -> torch.Tensor:
-    """q: (B,H,hd); k,v: (B,C,K,hd); mask: (B,C)."""
+def decode_attention_ref(q, k, v, mask, return_lse: bool = False):
+    """q: (B,H,hd); k,v: (B,C,K,hd); mask: (B,C).  With ``return_lse`` also
+    each (row, head)'s log-sum-exp of its float32 scores (B, H), masked
+    slots at -1e30: ``-1e30`` for a row with no valid slot."""
     B, H, hd = q.shape
     C, K = k.shape[1], k.shape[2]
     G = H // K
@@ -53,8 +55,8 @@ def decode_attention_ref(q, k, v, mask) -> torch.Tensor:
     s = torch.einsum("bhd,bchd->bhc", q.float(), kf.float()) / math.sqrt(hd)
     s = torch.where(mask[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhc,bchd->bhd", p, vf.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bhc,bchd->bhd", p, vf.float()).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def rmsnorm_ref(x, scale, *, eps: float = 1e-5) -> torch.Tensor:

@@ -30,15 +30,20 @@ A cell's step, as in the reference:
     ``batch_spec``, and the forward runs on the placed state over the grid
     (``train_forward.slots``), returning each data slot's logits split over
     its model slots, with nothing gathered to one slot.  The other families
-    gather the placed state onto data slot 0's device and run there.
+    gather the placed state onto data slot 0's device and run there
+    (``placement: "one device"``).
   - ``decode``: one decode step against a decode state of ``seq_len``
-    slots, placed by ``state_specs``; the step gathers the parameters, the
-    batch and the state onto data slot 0's device (a decode step runs on
-    one device), through :mod:`repro_torch.launch.collectives`.
+    slots, placed by ``state_specs``.  For the mesh families the step runs
+    on the placed parameters and state over the grid (``decode.slots``):
+    each slot reads and writes its own blocks of the state in place, and
+    nothing is gathered to one slot (``placement: "mesh"``).  The other
+    families gather the parameters, the batch and the state onto data slot
+    0's device and decode there (``placement: "one device"``).
 
 The data slots of a mesh step are symmetric: the same shapes on other rows.
 Where they compute independently (every dense and VLM step; an MoE whose
-dispatch is per data slot), the step runs data slot 0's model slots alone,
+dispatch is per data slot; a decode whose state splits its batch, not its
+cache length, over the data slots), the step runs data slot 0's model slots alone,
 under :func:`repro_torch.launch.mesh.symmetric_data_slots` (``symmetric``,
 on by default on every device): each op, launch and collective of that data
 slot counts once per data slot, and its results stand in for the others'
@@ -307,12 +312,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
     pspecs = (sharding.zero1_specs if cfg.fsdp_params else sharding.param_specs)(
         params, cfg, m)
     shared, k, k_sim, sym = 0, 1, 1, False
-    if mesh_family and shape.kind != "decode":
+    mesh_decode = getattr(api.decode, "slots", None) is not None
+    if shape.kind == "decode":
+        dstate = api.init_decode_state(B, S, device=dev)
+        sspecs = sharding.state_specs(dstate, cfg, m, batch=B)
+    if (mesh_family and shape.kind != "decode") or (mesh_decode and shape.kind == "decode"):
         rows = B // max(cfg.accum_steps, 1) if shape.kind == "train" else B
         n_data = len(m.row_devices(rows))
-        with use_mesh(m):
-            sym = symmetric and n_data > 1 and api.train_forward.independent(
-                cfg, rows, S + (cfg.n_vis_tokens if cfg.family == "vlm" else 0))
+        if shape.kind == "decode":
+            with use_mesh(m):
+                sym = symmetric and n_data > 1 and api.decode.independent(dstate, B)
+        else:
+            with use_mesh(m):
+                sym = symmetric and n_data > 1 and api.train_forward.independent(
+                    cfg, rows, S + (cfg.n_vis_tokens if cfg.family == "vlm" else 0))
         k = n_data * msize
         k_sim = msize if sym else k
         shared = _gathered_bytes(params, pspecs, m) if n_data > 1 else 0
@@ -363,24 +376,35 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
                 return out
             args = (placed, batch)
         elif shape.kind == "prefill":
+            rec["placement"] = "one device"
+
             def step():
                 p, b = sharding.gather(placed, dev0), sharding.gather(batch, dev0)
                 with use_mesh(m):
                     return api.forward(p, b, cfg)[0]
             args = (placed, batch)
         else:
-            dstate = api.init_decode_state(B, S, device=dev)
-            sspecs = sharding.state_specs(dstate, cfg, m, batch=B)
             args_bytes += sharding.slot_bytes(dstate, sspecs, m)
             pstate = sharding.place(dstate, sspecs, m)
             del dstate
-
-            def step():
-                p, b = sharding.gather(placed, dev0), sharding.gather(batch, dev0)
-                st = sharding.gather(pstate, dev0)
-                with use_mesh(m):
-                    return api.decode(p, st, b["token"])
             args = (placed, batch, pstate)
+            if mesh_decode:
+                def step():
+                    toks = [batch["token"].shards[m.slot(**m.data_coords(j))]
+                            for j in range(n_data)]
+                    with use_mesh(m), torch.inference_mode():
+                        views = api.decode.slot_views(placed, cfg, range(1 if sym else n_data))
+                        with collectives.counted_as(n_data if sym else 1):
+                            return api.decode.slots(views, pstate, toks[:1] if sym else toks,
+                                                    n_data)
+            else:
+                rec["placement"] = "one device"
+
+                def step():
+                    p, b = sharding.gather(placed, dev0), sharding.gather(batch, dev0)
+                    st = sharding.gather(pstate, dev0)
+                    with use_mesh(m):
+                        return api.decode(p, st, b["token"])
 
     t_setup = time.perf_counter()
     an, out_bytes, wall, card_peak = _run_step(step, dev, m.size, k, detail, args)

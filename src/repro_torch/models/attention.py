@@ -26,6 +26,23 @@ a partial sum, all-reduced in model-slot order.  Where the heads do not
 divide the axis, model slot 0 takes the layer's projections whole (one
 layer's, freed after it) and runs :func:`attention`, sequence-parallel over
 the model slots under the reference's condition, and broadcasts.
+
+:func:`decode_attention_row` is one data slot's one-token attention over its
+model slots against a cache left where ``state_specs`` places it (the
+blocks of :class:`repro_torch.models.sharding.StateBlocks`, read and written
+in place; nothing of the cache moves).  Its layout follows the cache's
+``model`` split (:func:`decode_layout`): whole K/V heads per model slot
+(``heads``: each slot projects its heads and runs the decode-attention
+kernel on them), or each head's ``head_dim`` columns per model slot
+(``cols``: the per-token q and new k are all-gathered whole over the model
+slots for qk-norm and RoPE, each slot's partial scores over its columns are
+all-reduced in float32 in slot order, and each slot applies the softmax to
+its V columns; the kernel's whole-head contract cannot hold there, so that
+attention is plain PyTorch).  Where the cache length is split over the data
+slots (a batch the data axes do not divide), only the data slot whose block
+holds ring slot ``pos % C`` writes the new token, every data slot computes
+its partial attention and log-sum-exp over its slice, and the partials are
+merged by their weights onto the data slot that carries the row.
 """
 
 from __future__ import annotations
@@ -39,9 +56,11 @@ from ..launch import collectives
 from .common import ModelConfig, abstract_mesh, data_slot
 from .layers import _whole_tree, apply_rope, dense_init, rms_norm
 
-__all__ = ["KVCache", "attention", "attention_row", "blocked_attention", "cache_from_prefill",
-           "core_attention", "decode_attention_step", "heads_parallel", "init_attention", "init_cache",
-           "kv_heads", "plain_attention", "prefill_cache_kv", "seq_parallel_attention"]
+__all__ = ["CacheSlice", "KVCache", "attention", "attention_row", "blocked_attention",
+           "cache_from_prefill", "core_attention", "decode_attention_row",
+           "decode_attention_step", "decode_cache_slices", "decode_layout", "heads_parallel",
+           "init_attention", "init_cache", "kv_heads", "merge_partials", "plain_attention",
+           "prefill_cache_kv", "read_pos", "seq_parallel_attention"]
 
 NEG_INF = -1e30
 
@@ -524,3 +543,314 @@ def decode_attention_step(params, x, cache: KVCache, cfg: ModelConfig,
         out = out.reshape(B, 1, H, hd)
     y = _out_proj(out, params["wo"].to(x.dtype))
     return y, KVCache(k=k, v=v, pos=pos + 1, positions=positions)
+
+
+# ---------------------------------------------------------------------------
+# Decode over the mesh: the cache stays where state_specs places it
+# ---------------------------------------------------------------------------
+
+class CacheSlice(NamedTuple):
+    """One layer's cache blocks that data slot ``j`` (model devices
+    ``devs``) holds for the rows a data slot computes: per model slot its
+    K, V and positions blocks (views, written in place) over the cache slots
+    ``[c0, c0 + C_l)``; ``keys[m]`` names the positions block (model slots
+    that share one are written once); ``compute`` is false for a replica of
+    a slice that another data slot computes."""
+    j: int
+    devs: tuple
+    c0: int
+    k: list
+    v: list
+    positions: list
+    keys: list
+    compute: bool
+
+
+def decode_layout(blocks, msize: int) -> str:
+    """How the cache's ``model`` split lays out a decode step: ``heads``
+    (whole K/V heads per model slot, or one model slot), ``cols`` (each
+    head's ``head_dim`` split) or ``whole`` (every model slot holds the
+    cache whole)."""
+    from .sharding import model_dim
+
+    k = blocks.leaves["k"]
+    d = model_dim(k.spec)
+    nd = len(k.shape)
+    if msize == 1 or d == nd - 2:
+        return "heads"
+    return "cols" if d == nd - 1 else "whole"
+
+
+def decode_cache_slices(blocks, mesh, i: int, rows: slice, j: int) -> list:
+    """Layer ``i``'s cache for the global rows ``rows`` that data slot
+    ``j`` computes, as :class:`CacheSlice` per data slot that holds a part
+    of it, in data-slot order: one slice where the batch is split over the
+    data slots (data slot ``j``'s own), one per data slot where the cache
+    length is (its range of slots), a replica on each where the cache is
+    replicated (computed by ``j``, written on every one)."""
+    from ..launch.mesh import data_axis_size, model_axis_size
+
+    k, v, p = (blocks.leaves[n] for n in ("k", "v", "positions"))
+    M = model_axis_size(mesh)
+    out, seen = [], {}
+    order = [j] + [jj for jj in range(data_axis_size(mesh)) if jj != j]
+    for jj in order:
+        slots = [mesh.slot(**mesh.data_coords(jj), model=m) for m in range(M)]
+        if k.find({0: i, 1: rows}, slots[:1]) is None:
+            continue
+        reg = k.regions[slots[0]][2]
+        if p.regions[slots[0]][2] != reg:
+            raise ValueError("the positions and the K cache split the cache length apart")
+        idx = {0: i, 1: rows}
+        sl = CacheSlice(jj, mesh.model_devices(jj), reg.start,
+                        [k.local(s, idx) for s in slots], [v.local(s, idx) for s in slots],
+                        [p.local(s, idx) for s in slots], [id(p.blocks[s]) for s in slots],
+                        (reg.start, reg.stop) not in seen)
+        seen[(reg.start, reg.stop)] = jj
+        out.append(sl)
+    if not out:
+        raise ValueError(f"no mesh slot holds layer {i}'s cache of rows {rows}")
+    return sorted(out, key=lambda sl: sl.j)
+
+
+def read_pos(blocks, mesh, i: int, rows: slice, j: int, m: int, device) -> torch.Tensor:
+    """Layer ``i``'s next position of ``rows`` for model slot ``m`` of data
+    slot ``j``: its own ``pos`` block where that covers them, else the first
+    mesh slot's that does, broadcast to ``device``."""
+    pos = blocks.leaves["pos"]
+    own = mesh.slot(**mesh.data_coords(j), model=m)
+    s = pos.find({0: i, 1: rows}, [own] + list(range(mesh.size)))
+    if s is None:
+        raise ValueError(f"no mesh slot holds layer {i}'s pos of rows {rows}")
+    x = pos.local(s, {0: i, 1: rows})
+    return x if s == own else collectives.broadcast(x, [device])[0]
+
+
+def advance_pos(blocks, mesh, i: int, rows: slice) -> None:
+    """``pos + 1`` for layer ``i``'s ``rows`` in every block that holds
+    them (each distinct block once)."""
+    pos = blocks.leaves["pos"]
+    done = set()
+    for s in range(mesh.size):
+        if id(pos.blocks[s]) in done or pos.find({0: i, 1: rows}, [s]) is None:
+            continue
+        done.add(id(pos.blocks[s]))
+        pos.local(s, {0: i, 1: rows}).add_(1)
+
+
+def _proj_whole(ps: list, dims: dict, hs: list, w: str, b: Optional[str], devs) -> list:
+    """The per-token projection ``h @ w (+ b)`` (B, 1, N, hd) whole on every
+    model slot from the slots' blocks: all-gathered where ``w`` splits its
+    heads or ``head_dim`` (the bias block added first), all-reduced where it
+    splits ``d_model``, computed on each slot where it is replicated."""
+    d, bd = dims[w], (dims[b] if b else None)
+    parts = []
+    for p, h in zip(ps, hs):
+        x = _proj(h, p[w].to(h.dtype))
+        if b and bd is not None:
+            x = x + p[b].to(h.dtype)
+        parts.append(x)
+    if len(devs) > 1 and d is not None:
+        parts = collectives.psum(parts, list(devs)) if d == 0 else \
+            collectives.all_gather(parts, d + 1, devs)
+    if b and bd is None:
+        parts = [x + p[b].to(x.dtype) for x, p in zip(parts, ps)]
+    return parts
+
+
+def _qk_finish(x, scale, cfg: ModelConfig, pos) -> torch.Tensor:
+    """qk-norm (``scale``) and RoPE at ``pos`` (B,) of whole heads x (B, 1, N, hd)."""
+    if cfg.qk_norm:
+        x = rms_norm(x, scale, cfg.norm_eps)
+    return apply_rope(x, pos[:, None], cfg.rope_theta)
+
+
+def _ring_write(sl: CacheSlice, m: int, k_new, v_new, pos, C: int, done: set) -> None:
+    """Write one token's k/v (B, K_l, hd_l) and position into slice ``sl``'s
+    model slot ``m`` at ring slot ``pos % C``, for the rows whose slot lies
+    in the slice (every row where the slice is the whole cache)."""
+    kb, vb, pb = sl.k[m], sl.v[m], sl.positions[m]
+    Cl = kb.shape[1]
+    slot = (pos % C).long() - sl.c0
+    b = torch.arange(kb.shape[0], device=kb.device)
+    write_pos = sl.keys[m] not in done
+    done.add(sl.keys[m])
+    if Cl == C:
+        kb[b, slot] = k_new.to(kb.dtype)
+        vb[b, slot] = v_new.to(vb.dtype)
+        if write_pos:
+            pb[b, slot] = pos
+        return
+    inside = (slot >= 0) & (slot < Cl)
+    idx = slot.clamp(0, Cl - 1)
+    kb[b, idx] = torch.where(inside[:, None, None], k_new.to(kb.dtype), kb[b, idx])
+    vb[b, idx] = torch.where(inside[:, None, None], v_new.to(vb.dtype), vb[b, idx])
+    if write_pos:
+        pb[b, idx] = torch.where(inside, pos, pb[b, idx])
+
+
+def _plain_decode(q, k, v, valid, lse: bool):
+    """The one-device plain decode attention (:func:`decode_attention_step`'s)
+    of q (B, H, hd) over k/v (B, C, K, hd) under ``valid`` (B, C); with
+    ``lse`` also each (row, head)'s log-sum-exp (B, H)."""
+    B, H, hd = q.shape
+    K = k.shape[2]
+    q5 = q.reshape(B, 1, K, H // K, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", q5.float(), k.float()) / math.sqrt(hd)
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v).reshape(B, H, hd)
+    return (out, torch.logsumexp(scores, dim=-1).reshape(B, H)) if lse else out
+
+
+def _heads_partial(q, kb, vb, pb, pos, cfg: ModelConfig, lse: bool):
+    """One model slot's attention over its whole K/V heads of a slice: the
+    decode-attention kernel under ``use_pallas`` (as one device runs it),
+    else the plain formula."""
+    if cfg.use_pallas:
+        from ..kernels import ops as kops
+
+        return kops.decode_attention(q, kb, vb, pb, pos, window=cfg.sliding_window,
+                                     return_lse=lse)
+    from ..kernels.ops import decode_mask
+
+    return _plain_decode(q, kb, vb, decode_mask(pb, pos, cfg.sliding_window), lse)
+
+
+def _cols_partial(sl: CacheSlice, qs: list, poss: list, cfg: ModelConfig, hd: int,
+                  split: bool, lse: bool) -> list:
+    """A slice's attention over each model slot's ``head_dim`` columns:
+    partial scores ``q[:, :, cols] . k_colsᵀ`` in float32, all-reduced over
+    the slice's model slots in slot order (``split``), then on every slot
+    the mask, the softmax and the product with its V columns.  Plain
+    PyTorch: the kernel needs whole heads."""
+    from ..kernels.ops import decode_mask
+
+    B, H = qs[0].shape[:2]
+    K = sl.k[0].shape[2]
+    scores = [torch.einsum("bkgh,bckh->bkgc", q.reshape(B, K, H // K, -1).float(), k.float())
+              for q, k in zip(qs, sl.k)]
+    if split:
+        scores = collectives.psum(scores, list(sl.devs))
+    out = []
+    for s, v, pb, pos in zip(scores, sl.v, sl.positions, poss):
+        s = s / math.sqrt(hd)
+        valid = decode_mask(pb, pos, cfg.sliding_window)
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        probs = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgc,bckh->bkgh", probs.to(v.dtype), v).reshape(B, H, -1)
+        out.append((o, torch.logsumexp(s, dim=-1).reshape(B, H)) if lse else o)
+    return out
+
+
+def merge_partials(parts: list) -> torch.Tensor:
+    """Partial attentions over slices of one cache, ``(out, lse)`` each on
+    one device in slice order, merged by their weights ``exp(lse)`` in
+    float32 and rounded once to out's type.  A slice with no valid slot
+    (lse -1e30) adds nothing beside one with a valid slot; where no slice
+    has one, the equal slices weigh alike and the row gets the mean of V."""
+    lse = torch.stack([l for _, l in parts])
+    w = torch.exp(lse - lse.amax(dim=0))
+    acc = sum(wi[..., None] * o.float() for wi, (o, _) in zip(w, parts))
+    return (acc / w.sum(dim=0)[..., None]).to(parts[0][0].dtype)
+
+
+def _out_row(outs: list, ps: list, dims: dict, devs, cols_split: bool) -> list:
+    """The output projection of the head-dim layout's attention (each slot
+    holding its columns ``outs[m]`` (B, H, hd_l), or the whole output where
+    the cache is not split): the columns all-gathered (unless ``wo`` splits
+    them too), each slot's part of ``wo`` applied and the partial sums
+    all-reduced (``wo`` split over heads or ``head_dim``), the output
+    columns all-gathered (split over ``d_model``), or the whole ``wo`` on
+    each slot (replicated)."""
+    dt = outs[0].dtype
+    d, M = dims["wo"], len(devs)
+    if d == 1 and cols_split:
+        return collectives.psum([_out_proj(o[:, None], p["wo"].to(dt))
+                                 for o, p in zip(outs, ps)], list(devs))
+    whole = collectives.all_gather(outs, -1, devs) if cols_split else outs
+    if d is None or M == 1:
+        return [_out_proj(o[:, None], p["wo"].to(dt)) for o, p in zip(whole, ps)]
+    if d == 2:
+        return collectives.all_gather([_out_proj(o[:, None], p["wo"].to(dt))
+                                       for o, p in zip(whole, ps)], -1, devs)
+    parts = []
+    for m, (o, p) in enumerate(zip(whole, ps)):
+        n = p["wo"].shape[d]
+        o = o.narrow(1, m * n, n) if d == 0 else o.narrow(2, m * n, n)
+        parts.append(_out_proj(o[:, None], p["wo"].to(dt)))
+    return collectives.psum(parts, list(devs))
+
+
+def decode_attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, j: int, devs,
+                         poss: dict, slices: list, capacity: int, layout: str,
+                         cols: list) -> list:
+    """One-token attention of data slot ``j`` (model devices ``devs``) over
+    its model slots, against the cache ``slices`` (:func:`decode_cache_slices`)
+    of ring ``capacity``: ``hs[m]`` model slot ``m``'s copy of the
+    normalized rows (B, 1, d), ``ps[m]`` its block of the layer's attention
+    weights, ``poss[jj][m]`` the rows' next position as data slot ``jj``'s
+    model slot ``m`` holds it (:func:`read_pos`), ``cols[m]`` its
+    ``head_dim`` columns (``cols`` layout).  Writes the new token into the
+    slice that holds ring slot ``pos % C`` (and each replica of it); returns
+    each model slot's output (B, 1, d)."""
+    M = len(devs)
+    if layout == "heads":
+        toks = []
+        for p, h, pos in zip(ps, hs, poss[j]):
+            q, k, v = _project_qkv(p, h, h, cfg, pos[:, None], pos[:, None])
+            toks.append((q[:, 0], k[:, 0], v[:, 0]))
+    else:
+        qw = _proj_whole(ps, dims, hs, "wq", "bq" if cfg.qkv_bias else None, devs)
+        kw = _proj_whole(ps, dims, hs, "wk", "bk" if cfg.qkv_bias else None, devs)
+        if layout == "cols" and dims["wv"] == 2:       # the cache's columns: no gather
+            vs = []
+            for p, h in zip(ps, hs):
+                v = _proj(h, p["wv"].to(h.dtype))
+                vs.append(v + p["bv"].to(h.dtype) if cfg.qkv_bias else v)
+        else:
+            vs = [v[..., c] for v, c in zip(_proj_whole(
+                ps, dims, hs, "wv", "bv" if cfg.qkv_bias else None, devs), cols)]
+        toks = []
+        for m, (p, pos) in enumerate(zip(ps, poss[j])):
+            q = _qk_finish(qw[m], p.get("q_scale"), cfg, pos)[..., cols[m]]
+            k = _qk_finish(kw[m], p.get("k_scale"), cfg, pos)[..., cols[m]]
+            toks.append((q[:, 0], k[:, 0], vs[m][:, 0]))
+    # the per-token vectors, packed, to each other data slot holding a part
+    remote = [sl for sl in slices if sl.j != j]
+    got = {}
+    if remote:
+        for m in range(M):
+            sizes = [t.shape[1] for t in toks[m]]
+            for sl, x in zip(remote, collectives.broadcast(torch.cat(toks[m], dim=1),
+                                                           [sl.devs[m] for sl in remote])):
+                got[(sl.j, m)] = torch.split(x, sizes, dim=1)
+    done, parts = set(), []
+    lse = sum(sl.compute for sl in slices) > 1
+    for sl in slices:
+        here = [got.get((sl.j, m), toks[m]) for m in range(M)]
+        for m, (_, k_new, v_new) in enumerate(here):
+            _ring_write(sl, m, k_new, v_new, poss[sl.j][m], capacity, done)
+        if not sl.compute:
+            continue
+        if layout == "heads":
+            part = [_heads_partial(here[m][0], sl.k[m], sl.v[m], sl.positions[m],
+                                   poss[sl.j][m], cfg, lse) for m in range(M)]
+        else:
+            part = _cols_partial(sl, [t[0] for t in here], poss[sl.j], cfg, cfg.head_dim,
+                                 layout == "cols" and M > 1, lse)
+        parts.append((sl.j, part))
+    outs = []
+    for m in range(M):
+        if not lse:
+            jj, part = parts[0]
+            outs.append(part[m] if jj == j else collectives.gather_to([part[m]], 0, devs[m]))
+            continue
+        o = collectives.gather_to([part[m][0][None] for _, part in parts], 0, devs[m])
+        ls = collectives.gather_to([part[m][1][None] for _, part in parts], 0, devs[m])
+        outs.append(merge_partials(list(zip(o, ls))))
+    if layout == "heads":
+        dt = hs[0].dtype
+        ys = [_out_proj(o[:, None], p["wo"].to(dt)) for o, p in zip(outs, ps)]
+        return ys if M == 1 else collectives.psum(ys, list(devs))
+    return _out_row(outs, ps, dims, devs, layout == "cols" and M > 1)

@@ -5,7 +5,7 @@
   - forward(params, batch, cfg) -> (logits, aux)          [inference]
   - train_forward(params, batch, cfg) -> (logits, aux)    [autograd, training]
   - init_decode_state(batch, capacity, device=None) -> state
-  - decode(params, state, token) -> (logits, state)       [serve_step core]
+  - decode(params, state, token) -> (logits, state)       [serve_step core; .slots under a mesh]
   - input_specs(shape) -> dict of TensorSpec              [dry-run stand-ins]
   - workload(shape) -> repro_torch.core.Workload          [planner integration]
 
@@ -166,6 +166,26 @@ def _train_forward(module, extras) -> Callable:
     return fn
 
 
+def _decode(module, cfg: ModelConfig) -> Callable:
+    """The family's decode step.  Where the family decodes under a mesh
+    (``module.decode_slots``), its ``slots`` attribute is the step over the
+    mesh's grid, (views, state, token_slots, n_data) -> each data slot's
+    logits over its model slots, the state placed by ``state_specs`` and
+    updated in place, ``views`` the weights' ``SlotViews``
+    (``module.slot_views``), and ``independent(state, rows)`` says whether
+    each data slot's part may run on its own; the dry run calls them."""
+    def fn(params, state, token):
+        return module.decode_step(params, state, token, cfg)
+
+    slots = getattr(module, "decode_slots", None)
+    if slots is not None:
+        fn.slots = lambda views, state, token_slots, n_data=None: slots(
+            views, state, token_slots, cfg, n_data)
+        fn.slot_views = module.slot_views
+        fn.independent = lambda state, rows: module.decode_independent(cfg, state, rows)
+    return fn
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")
@@ -178,7 +198,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         train_forward=_train_forward(module, extras),
         init_decode_state=lambda b, cap, device=None: module.init_decode_state(
             cfg, b, cap, device),
-        decode=lambda p, st, tok: module.decode_step(p, st, tok, cfg),
+        decode=_decode(module, cfg),
         input_specs=lambda shape: _input_specs(cfg, shape),
         workload=lambda shape: lm_workload(cfg, shape),
     )

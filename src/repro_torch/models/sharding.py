@@ -26,6 +26,10 @@ split over ``model`` stays split, one under the data axes (``zero1_specs``)
 is all-gathered over the data axes only.  :func:`reduce_to_placement` sums
 the slots' gradients of those views into a placement's blocks.  Their
 traffic goes through :mod:`repro_torch.launch.collectives`.
+:class:`StateBlocks` hands each mesh slot its blocks of a decode state
+placed by :func:`state_specs` (or of a whole state, as views of it) and
+where each block lies in the global tensor, so that a decode step over the
+mesh reads and writes each slot's own blocks in place.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 from .. import resolve_device
 from .common import ModelConfig
 
-__all__ = ["PartitionSpec", "ShardedTensor", "SlotViews", "batch_spec", "gather",
+__all__ = ["PartitionSpec", "ShardedTensor", "SlotViews", "StateBlocks", "batch_spec", "gather",
            "make_batch_sharding", "model_dim", "model_split_dim", "named", "param_specs", "place",
            "reduce_to_placement", "slot_bytes", "state_specs", "zero1_specs"]
 
@@ -524,6 +528,90 @@ class SlotViews:
         :attr:`dims`, the layer axis dropped): ``"owner"`` where the layer
         axis itself is split (one slot holds the layer whole)."""
         return _layer_dims(self.dims[key])
+
+
+class _Blocks:
+    """One state leaf on a mesh: ``blocks[s]`` mesh slot ``s``'s block,
+    ``regions[s]`` where it lies in the global tensor (a slice per dim),
+    ``spec`` the placement."""
+
+    __slots__ = ("blocks", "regions", "spec", "shape")
+
+    def __init__(self, blocks, regions, spec, shape):
+        self.blocks, self.regions, self.spec, self.shape = blocks, regions, spec, shape
+
+    def find(self, index: dict, slots) -> int:
+        """The first of ``slots`` whose block covers ``index`` (dim -> slice
+        or int of the global tensor), or ``None``."""
+        for s in slots:
+            reg = self.regions[s]
+            if all(_covers(reg[d], i) for d, i in index.items()):
+                return s
+        return None
+
+    def local(self, s: int, index: dict) -> tuple:
+        """Slot ``s``'s block indexed at ``index`` given in global
+        coordinates (a view)."""
+        reg = self.regions[s]
+        idx = [slice(None)] * len(reg)
+        for d, i in index.items():
+            lo = reg[d].start
+            idx[d] = i - lo if isinstance(i, int) else slice(i.start - lo, i.stop - lo)
+        return self.blocks[s][tuple(idx)]
+
+
+def _covers(region: slice, i) -> bool:
+    if isinstance(i, int):
+        return region.start <= i < region.stop
+    return region.start <= i.start and i.stop <= region.stop
+
+
+class StateBlocks:
+    """Each mesh slot's blocks of a decode-state tree (nested NamedTuples of
+    tensors): from a tree placed by :func:`state_specs`
+    (:class:`ShardedTensor` leaves) its shards; from a tree of whole tensors
+    the regions ``state_specs`` would give each slot, as views of the whole
+    tensor (a slot whose device is not the tensor's raises: a write there
+    would not reach the tensor).  ``leaves[name]`` is a :class:`_Blocks`
+    per leaf name (``k``, ``v``, ``pos``, ``positions``).  Nothing is
+    copied, so a write into a block updates the state in place."""
+
+    def __init__(self, tree, cfg: ModelConfig, mesh, batch: int):
+        leaves, spec_of = {}, {}
+        _map_with_path(lambda p, x: leaves.__setitem__(p, x), tree)
+        if not all(isinstance(x, ShardedTensor) for x in leaves.values()):
+            _map_with_path(lambda p, sp: spec_of.__setitem__(p, sp),
+                           state_specs(tree, cfg, mesh, batch))
+        self.mesh = mesh
+        self.leaves = {path[-1]: _placed_blocks(x, mesh) if isinstance(x, ShardedTensor)
+                       else _view_blocks(x, spec_of[path], mesh) for path, x in leaves.items()}
+
+    def data_dims(self) -> dict:
+        """Leaf name -> the dim its placement splits over the data axes."""
+        return {n: _data_dim(b.spec) for n, b in self.leaves.items()}
+
+
+def _placed_blocks(x: ShardedTensor, mesh) -> _Blocks:
+    return _Blocks(x.shards, tuple(x.region(s) for s in range(mesh.size)), x.spec, x.shape)
+
+
+def _view_blocks(x: torch.Tensor, spec, mesh) -> _Blocks:
+    """A whole tensor's blocks by ``spec`` as views of it; slots with the
+    same region share one view, as placed shards on one device do."""
+    for dev in dict.fromkeys(mesh.devices):
+        if resolve_device(dev) != x.device:
+            raise ValueError(f"a whole decode state on {x.device} cannot be decoded in place by "
+                             f"a mesh slot on {dev}: place it (sharding.place(state, "
+                             f"state_specs(...), mesh))")
+    spec = P(*(tuple(spec) + (None,) * (x.dim() - len(spec))))
+    shape, nd = tuple(x.shape), x.dim()
+    counts = _counts(spec, mesh, nd)
+    regions = tuple(_region(shape, counts, _block(spec, mesh, nd, s)) for s in range(mesh.size))
+    views = {}
+    for reg in regions:
+        views.setdefault(tuple((r.start, r.stop) for r in reg), x[reg])
+    return _Blocks(tuple(views[tuple((r.start, r.stop) for r in reg)] for reg in regions),
+                   regions, spec, shape)
 
 
 def _layer_of(tree, dims, i: int, m: int, per: int):

@@ -49,6 +49,14 @@ the model slots, as the reference does.  The logits stay split over the
 vocabulary (:class:`.layers.SlotLogits`) until the forward gathers them
 onto the tokens' device; prefill's caches come out with their K/V heads
 per model slot and are gathered there too.
+
+Under an ambient mesh :func:`decode_step` runs over the grid as well
+(:func:`decode_slots`), with the decode state left where ``state_specs``
+puts it: a state placed by :func:`repro_torch.models.sharding.place` (or a
+whole one, read through views of the blocks ``state_specs`` gives each
+slot) is read and written in place, each slot its own blocks
+(:class:`.sharding.StateBlocks`, :func:`.attention.decode_attention_row`),
+and ``pos`` advances per block; no slot gathers the cache or a split weight.
 """
 
 from __future__ import annotations
@@ -71,8 +79,9 @@ from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed,
 from .moe import KEEP_FLOAT32, init_moe, moe_ffn
 
 __all__ = ["DecodeState", "block_forward", "check_family", "data_slots_independent",
-           "decode_step", "forward", "init_decode_state", "init_params", "params_from_numpy",
-           "prefill", "slot_views", "train_forward", "train_forward_slots"]
+           "decode_independent", "decode_slots", "decode_step", "forward", "init_decode_state",
+           "init_params", "params_from_numpy", "prefill", "slot_views", "train_forward",
+           "train_forward_slots"]
 
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -414,15 +423,110 @@ def init_decode_state(cfg: ModelConfig, batch: int, capacity: int,
     ))
 
 
+def _decode_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Decode's config: the MoE's capacity boosted for tiny decode batches
+    so that routing rarely drops."""
+    return cfg.replace(capacity_factor=max(cfg.capacity_factor, 8.0)) \
+        if cfg.family == "moe" else cfg
+
+
+def decode_independent(cfg: ModelConfig, state: DecodeState, rows: int) -> bool:
+    """Whether, under the ambient mesh, each data slot's part of a decode
+    step over ``rows`` rows depends on no other data slot's: the rows split
+    over every data slot, each state leaf's data split on its batch dim
+    (not the cache length), and the MoE dispatching per data slot."""
+    mesh = abstract_mesh()
+    if len(mesh.row_devices(rows)) == 1:
+        return False
+    blocks = sharding.StateBlocks(state.caches, cfg, mesh, rows)
+    batch_dim = {"k": 1, "v": 1, "pos": 1, "positions": 1}
+    return blocks.data_dims() == batch_dim and (
+        cfg.family != "moe" or moe.per_data_slot(_decode_cfg(cfg), rows, 1))
+
+
+def decode_slots(views, state: DecodeState, tokens_slots: list, cfg: ModelConfig,
+                 n_data: Optional[int] = None) -> list:
+    """:func:`decode_step` over the ambient mesh's grid: ``views`` the
+    weights' :class:`.sharding.SlotViews`, ``tokens_slots[jj]`` the rows of
+    computing data slot ``views.data_slots[jj]`` on its device (with ``n_data``
+    data slots taking rows in all; one takes every row), ``state`` placed by
+    ``state_specs`` or whole.  Each data slot embeds its rows, then per
+    layer each model slot normalizes its copy, the attention reads and
+    writes the cache blocks in place (:func:`.attention.decode_attention_row`;
+    the layout from the cache's ``model`` split), ``pos`` advances in every
+    block that holds it, and the FFN runs as in the forward
+    (:func:`.layers.mlp_row`, :func:`.moe.moe_ffn_grid` at decode's
+    capacity).  Returns each data slot's :class:`.layers.SlotLogits`."""
+    check_family(cfg)
+    mesh = abstract_mesh()
+    data_slots = views.data_slots
+    n_data = n_data or len(data_slots)
+    b = tokens_slots[0].shape[0]
+    blocks = sharding.StateBlocks(state.caches, cfg, mesh, b * n_data)
+    M = views.msize
+    layout = attn.decode_layout(blocks, M)
+    k = blocks.leaves["k"]
+    C = k.shape[-3]
+    cols = [k.regions[mesh.slot(model=m)][-1] if layout == "cols" else slice(None)
+            for m in range(M)]
+    rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
+    devs = [mesh.model_devices(j) for j in data_slots]
+    dcfg = _decode_cfg(cfg)
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+          for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
+    ldims = views.layer_dims()
+    for i in range(cfg.n_layers):
+        lrows = [views.layer(jj, i, cfg.n_layers) for jj in range(len(data_slots))]
+        x2s, hs = [], []
+        for jj, j in enumerate(data_slots):
+            row = lrows[jj]
+            h = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(row, xs[jj])]
+            slices = attn.decode_cache_slices(blocks, mesh, i, rows[jj], j)
+            poss = {h_j: [attn.read_pos(blocks, mesh, i, rows[jj], h_j, m,
+                                        mesh.model_devices(h_j)[m]) for m in range(M)]
+                    for h_j in dict.fromkeys([j] + [sl.j for sl in slices])}
+            out = attn.decode_attention_row([p["attn"] for p in row], ldims["attn"], h, cfg, j,
+                                            devs[jj], poss, slices, C, layout, cols)
+            attn.advance_pos(blocks, mesh, i, rows[jj])
+            x2 = [x + a for x, a in zip(xs[jj], out)]
+            x2s.append(x2)
+            hs.append([rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(row, x2)])
+        if cfg.family == "moe":
+            ys, _ = moe.moe_ffn_grid([[p["moe"] for p in row] for row in lrows], ldims["moe"],
+                                     hs, dcfg, n_data, data_slots)
+        else:
+            ys = [layers.mlp_row([p["mlp"] for p in row], ldims["mlp"], h, cfg, dv)
+                  for row, h, dv in zip(lrows, hs, devs)]
+        xs = [[x + y for x, y in zip(x2, yr)] for x2, yr in zip(x2s, ys)]
+    return [layers.unembed_row(views.rows[jj], views.dims,
+                               [rms_norm(x, p["ln_f"], cfg.norm_eps)
+                                for p, x in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+            for jj in range(len(data_slots))]
+
+
+def _mesh_decode(params, state: DecodeState, token, cfg: ModelConfig) -> tuple:
+    """:func:`decode_step` over the ambient mesh: the rows over the data
+    slots (:func:`decode_slots`), the logits gathered onto the token's
+    device; the state updated in place where it lies."""
+    with torch.inference_mode():
+        mesh = abstract_mesh()
+        devices = mesh.row_devices(token.shape[0])
+        views = slot_views(params, cfg, range(len(devices)))
+        logits = decode_slots(views, state, collectives.scatter(token, 0, devices), cfg)
+        return _joined([layers.gather_logits(lg, token.device) for lg in logits]), state
+
+
 def decode_step(params: dict, state: DecodeState, token: torch.Tensor,
                 cfg: ModelConfig) -> tuple:
     """One decoding step: token (B, 1) -> (logits (B,1,V), state).  The
-    caches are updated in place; the returned state holds the same tensors."""
+    caches are updated in place; the returned state holds the same tensors.
+    Under an ambient mesh the step runs over its grid (:func:`decode_slots`),
+    ``params`` placed or whole, ``state`` placed by ``state_specs`` or whole."""
     check_family(cfg)
+    if abstract_mesh() is not None:
+        return _mesh_decode(params, state, token, cfg)
     c = state.caches
-    # Boost MoE capacity for tiny decode batches so routing rarely drops.
-    dcfg = cfg.replace(capacity_factor=max(cfg.capacity_factor, 8.0)) \
-        if cfg.family == "moe" else cfg
+    dcfg = _decode_cfg(cfg)
     with torch.inference_mode():
         x = embed(params["embed"], token, cfg)
         for i in range(cfg.n_layers):

@@ -177,14 +177,15 @@ def test_pipeline_plan_equals_the_reference(straggler):
 
 def test_probe_round_trips_through_the_planner(capsys):
     """``probe`` -> ``probe_to_workload``: the workload's total work is the
-    probe's per-device dot flops times the devices that compute (one for a
-    decode step, which runs on one device; not the mesh's 256 slots), the
-    analysis' total; the terms are in seconds at one H100's peaks."""
+    probe's per-device dot flops times the devices that compute (all 256
+    slots of the mesh for a decode step, which runs over the 16 data slots'
+    16 model slots each), the analysis' total; the terms are in seconds at
+    one H100's peaks."""
     out = perf_probe.probe("qwen3-4b", "decode_32k", top=4)
     printed = capsys.readouterr().out
     assert perf_probe.CARD in printed and "989 TFLOP/s" in printed
     total = out["res"]["dot_flops"] * out["devices"]
-    assert out["devices"] == 1 and out["mesh_devices"] == 256 and total > 0
+    assert out["devices"] == 256 and out["mesh_devices"] == 256 and total > 0
     wl = perf_probe.probe_to_workload(out, "qwen3-4b", "decode_32k")
     assert float(wl.w.sum()) == pytest.approx(total, rel=1e-12)
     assert out["terms"]["compute"] == out["res"]["dot_flops"] / perf_probe.PEAK_FLOPS
