@@ -283,8 +283,9 @@ non-zero:
               21(c)'s FSDP step on its (2, 4) mesh, card and meta: the
               collectives (bytes and calls per kind) ``==``; (c) on meta,
               after every phase that times the host, in three child
-              processes at once: qwen3-4b ``train_4k`` on pod16x16 and
-              ``run_pipeline_cell`` at straggler 1.0 and 2.0, each plan
+              processes at once: qwen3-4b ``train_4k`` on pod16x16 cut to
+              12 of 36 layers and ``run_pipeline_cell`` at straggler 1.0 and
+              2.0 over 4 microbatches, each plan
               covering every layer, each record's per-slot memory,
               ``fits``, dot TFLOP, collective GB and plan printed.  The
               mesh cells take the symmetric data-slot shortcut (data slot
@@ -338,9 +339,34 @@ non-zero:
               plain version; an MoE routed as one device routed (near-ties
               aside); then the log-sum-exp route timed at (c)'s per-slot
               shape beside the route without it and the plain version.
+ 25. tp families — the hybrid, enc-dec and xLSTM families tensor-parallel
+              over the model axis, every slot on the one card, each model
+              slot computing from its own blocks of the weights: first
+              flash and the SSD at (a)'s per-slot shapes timed against
+              their plain versions; (a) zamba2-7b whole (81 layers), B = 1,
+              S = 4096, the forward with kernels on (1, 16): exactly 84 x 16
+              SSD launches at 7 of 112 heads and 14 x 16 flash at 2 of 32
+              heads; (b) whisper-large-v3 whole (32 + 32 layers), B = 2, on
+              (1, 16): each attention whole on model slot 0 (20 heads), the
+              embedding split over d_model; (c) xlstm-350m whole (24
+              layers), B = 2, S = 2048, on (1, 16), in float32, each sLSTM
+              layer's collective calls exactly derived (none inside its
+              time loop).  Each with the counters zeroed just before and
+              read just after, every collective call count exactly derived
+              from ``param_specs``, a second forward with every kernel call
+              held to its plain version under ``param_guard`` (no op
+              reading more than a slot's block of a split weight but the
+              listed exceptions); the logits of a float32 pair (the mesh's
+              forward and one device's from the same weights) within 1e-3
+              mean relative error (a random zamba2-7b's own bf16 forward
+              lies ~60 % from its float32 one, so (a)'s and (b)'s bf16
+              pairs are reported, (b)'s also within phase 12's bf16 limit);
+              (d) the zamba2-7b train step at full width cut to one group
+              (6 Mamba2 layers and the shared block) on (2, 4), phase
+              21(c)'s bounds and float32 pair.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-24;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-25;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -3556,10 +3582,15 @@ def flash_heads(cfg, msize: int) -> tuple:
 
 
 @contextlib.contextmanager
-def mesh_recording(torch, calls: list, moe_records=None, flash_heads_seen=None):
-    """Within the block every RMSNorm and flash-attention call is held to
-    its plain version on its own inputs (with ``flash_heads_seen``, each
-    flash call's (query heads, K/V heads) appended to it), every
+def mesh_recording(torch, calls: list, moe_records=None, flash_heads_seen=None,
+                   ssd_heads_seen=None):
+    """Within the block every RMSNorm, flash-attention and SSD call is held
+    to its plain version on its own inputs (with ``flash_heads_seen``, each
+    flash call's (query heads, K/V heads) appended to it; with
+    ``ssd_heads_seen``, each SSD call's heads; each SSD output within
+    :data:`SSD_ATOL` + :data:`SSD_RTOL` of its largest plain value: a
+    model's live chunks sum terms of O(10) that cancel, where an
+    elementwise limit reads the float32 rounding of the sum as a fault), every
     sequence-parallel attention call to ``blocked_attention`` on one device
     on its own inputs, and (with ``moe_records``) every MoE call over the
     grid to :func:`check_mesh_moe`, on each data slot's rows and output at
@@ -3568,9 +3599,9 @@ def mesh_recording(torch, calls: list, moe_records=None, flash_heads_seen=None):
     ``calls``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.mesh import use_mesh
-    from repro_torch.models import attention, layers, moe
+    from repro_torch.models import attention, layers, moe, ssm
 
-    flash, rms = ops.flash_attention, ops.rmsnorm
+    flash, rms, ssd = ops.flash_attention, ops.rmsnorm, ops.ssd_chunked
     seqpar, moe_grid = attention.seq_parallel_attention, moe.moe_ffn_grid
 
     def check(name, got, want):
@@ -3600,7 +3631,19 @@ def mesh_recording(torch, calls: list, moe_records=None, flash_heads_seen=None):
         calls.append(("moe", moe_records[-1]["out_max_err"], True))
         return ys, auxes
 
-    ops.flash_attention = flash_rec
+    def ssd_rec(x, dt, A, Bm, Cm, chunk=256):
+        if ssd_heads_seen is not None:
+            ssd_heads_seen.append(x.shape[2])
+        got = ssd(x, dt, A, Bm, Cm, chunk)
+        ok, err = True, 0.0
+        for g, w in zip(got, ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk)):
+            diff = float((g - w).abs().max())
+            ok = ok and diff <= SSD_ATOL + SSD_RTOL * float(w.abs().max())
+            err = max(err, diff)
+        calls.append(("ssd_intra_chunk", err, ok))
+        return got
+
+    ops.flash_attention, ops.ssd_chunked = flash_rec, ssd_rec
     ops.rmsnorm = lambda x, scale, *, eps: check(
         "rmsnorm", rms(x, scale, eps=eps), ref.rmsnorm_ref(x, scale, eps=eps))
     attention.seq_parallel_attention = seqpar_rec
@@ -3609,7 +3652,7 @@ def mesh_recording(torch, calls: list, moe_records=None, flash_heads_seen=None):
     try:
         yield calls
     finally:
-        ops.flash_attention, ops.rmsnorm = flash, rms
+        ops.flash_attention, ops.rmsnorm, ops.ssd_chunked = flash, rms, ssd
         attention.seq_parallel_attention, moe.moe_ffn_grid = seqpar, moe_grid
 
 
@@ -4028,15 +4071,22 @@ TP_RUNS = {
 }
 
 
+# the subtrees stacked on leading layer axes, and how many
+STACKED_AXES = {"layers": 1, "enc": 1, "dec": 1, "mamba_groups": 2, "mamba_ln": 2, "mlstm": 2,
+                "slstm": 1}
+
+
 @contextlib.contextmanager
-def param_guard(torch, params, cfg, mesh):
+def param_guard(torch, params, cfg, mesh, allowed=()):
     """Within the block (a run from the whole tree ``params`` under
     ``mesh``), every op that reads a tensor in the memory of a leaf that
     ``param_specs`` splits over ``model`` must read at most one model
     slot's block of it, and no op may make a tensor of such a leaf's whole
-    shape or of one layer's whole shape (a view reads nothing).  Yields a
-    dict: the most elements any op read of a parameter, that of each split
-    leaf against its block, and the shapes made."""
+    shape or of one layer's whole shape (a view reads nothing), but for
+    the leaves whose paths start with one of ``allowed`` (the documented
+    exceptions, :func:`family_tp_exceptions`), which may be made whole.
+    Yields a dict: the most elements any op read of a parameter, that of
+    each split leaf against its block, and the shapes made."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.launch import hlo_analysis
@@ -4044,21 +4094,22 @@ def param_guard(torch, params, cfg, mesh):
 
     msize = mesh.shape["model"]
     specs = sharding.param_specs(params, cfg, mesh)
-    spans, whole = [], set()
+    spans, whole, exempt = [], set(), set()
 
     def leaf(path, x):
         split = sharding.model_dim(specs_at[path]) is not None
+        name = "/".join(path)
         spans.append((x.data_ptr(), x.data_ptr() + x.numel() * x.element_size(), x.numel(),
-                      x.numel() // msize if split else x.numel(), "/".join(path)))
-        if split:
-            whole.add(tuple(x.shape))
-            if "layers" in path:
-                whole.add(tuple(x.shape[1:]))
+                      x.numel() // msize if split else x.numel(), name))
+        if split:     # the whole leaf, and one layer of a stack
+            (exempt if name.startswith(tuple(allowed)) else whole).update(
+                tuple(x.shape[i:]) for i in range(STACKED_AXES.get(path[0], 0) + 1))
         return x
 
     specs_at = {}
     sharding._map_with_path(lambda pth, sp: specs_at.__setitem__(pth, sp), specs)
     sharding._map_with_path(leaf, params)
+    whole -= exempt
     report = {"max_read": 0, "over_block": [], "whole_made": [], "reads": {}}
 
     def tensors(xs):
@@ -4087,13 +4138,15 @@ def param_guard(torch, params, cfg, mesh):
                 if t.device.type == "meta":
                     continue
                 ptr = t.data_ptr()
+                # an expanded dim (stride 0) reads its elements once
+                n_read = math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
                 for lo, hi, n, block, name in spans:
                     if lo <= ptr < hi:
-                        report["max_read"] = max(report["max_read"], t.numel())
-                        report["reads"][name] = max(report["reads"].get(name, 0), t.numel())
-                        if t.numel() > block:
+                        report["max_read"] = max(report["max_read"], n_read)
+                        report["reads"][name] = max(report["reads"].get(name, 0), n_read)
+                        if n_read > block:
                             report["over_block"].append((func.overloadpacket.__name__, name,
-                                                         t.numel(), block))
+                                                         n_read, block))
                         break
             for t in made:
                 if tuple(t.shape) in whole:
@@ -4269,7 +4322,10 @@ def say_tp_part(name: str, r: dict, run: dict, card) -> None:
 # ---------------------------------------------------------------------------
 
 # (a) one slot: qwen3-4b prefill at full width with kernels; (b) phase 21(c)'s
-# FSDP step on its (2, 4) mesh; (c) production dry runs on meta
+# FSDP step on its (2, 4) mesh; (c) production dry runs on meta, the cell cut
+# to 12 of 36 layers and the pipelines to 4 microbatches (at 36 layers and 8
+# microbatches they took 227.8 s and 130-143 s, which put the whole script
+# over 1,200 s once phase 25 came; PERF.md)
 DRYRUN_RUNS = {
     "validate": {"arch": ARCH, "kind": "prefill", "batch": 1, "seq": FWD_S, "mesh": (1, 1),
                  "overrides": {"use_pallas": True}, "seed": 31},
@@ -4279,7 +4335,7 @@ DRYRUN_RUNS = {
              "overrides": {"n_layers": MESH_RUNS["train"]["layers"], "fsdp_params": True,
                            "accum_steps": MESH_RUNS["train"]["accum"]}},
     "production": {"arch": ARCH, "shape": "train_4k", "stragglers": (1.0, 2.0),
-                   "pipeline_shape": None},
+                   "pipeline_shape": None, "layers": 12, "microbatches": 4},
 }
 # the analysis a dry run on meta must match on the card: (a) every count,
 # (b) the traffic between slots
@@ -4392,16 +4448,19 @@ def dryrun_mesh(torch, counters, run: dict, device, smoke: bool = False) -> dict
 
 def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
     """One of (c)'s dry runs on meta, on the host: ``"cell"`` is ``run_cell``
-    of the production cell on pod16x16, ``"pipeline <straggler>"``
-    ``run_pipeline_cell`` at that straggler (its plan covering every layer);
+    of the production cell on pod16x16 cut to ``run["layers"]`` layers,
+    ``"pipeline <straggler>"`` ``run_pipeline_cell`` at that straggler over
+    ``run["microbatches"]`` microbatches (its plan covering every layer);
     the record's per-slot memory, ``fits``, dot TFLOP, collective GB and
     plan."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.dryrun import run_cell, run_pipeline_cell
 
     t0 = time.time()
+    cfg = (get_smoke_config if smoke else get_config)(run["arch"])
     if what == "cell":
-        rec = run_cell(run["arch"], run["shape"], device="meta", smoke=smoke, detail=False)
+        rec = run_cell(run["arch"], run["shape"], device="meta", smoke=smoke, detail=False,
+                       overrides={"n_layers": min(cfg.n_layers, run["layers"])})
     else:
         st = float(what.split()[1])
         shape = None
@@ -4409,12 +4468,11 @@ def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
             from repro_torch.models.common import ShapeSpec
 
             shape = ShapeSpec(*run["pipeline_shape"])
-        rec = run_pipeline_cell(run["arch"], straggler=st, device="meta", smoke=smoke,
-                                shape=shape, detail=False)
-        layers = (get_smoke_config if smoke else get_config)(run["arch"]).n_layers
-        if sum(rec["plan"]["stage_sizes"]) != layers:
+        rec = run_pipeline_cell(run["arch"], run["microbatches"], straggler=st, device="meta",
+                                smoke=smoke, shape=shape, detail=False)
+        if sum(rec["plan"]["stage_sizes"]) != cfg.n_layers:
             fail(f"dry run (c): the plan at straggler {st} ({rec['plan']['stage_sizes']}) does "
-                 f"not cover the {layers} layers")
+                 f"not cover the {cfg.n_layers} layers")
     mem = rec["memory"]
     out = {"arch": run["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
            "argument_bytes": mem["argument_size_in_bytes"],
@@ -4424,6 +4482,9 @@ def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
            "step_s": rec["step_s"], "s": time.time() - t0}
     if "plan" in rec:
         out["plan"] = rec["plan"]
+        out["cut"] = f"{run['microbatches']} microbatches"
+    else:
+        out["cut"] = f"{min(cfg.n_layers, run['layers'])} of {cfg.n_layers} layers"
     return out
 
 
@@ -4505,7 +4566,8 @@ def dryrun_phase(torch, counters, card, device: str = "cuda", runs: dict = DRYRU
         if "plan" in rec:
             plan = (f"plan {rec['plan']['stage_sizes']} on pods {rec['plan']['alloc']} "
                     f"({rec['plan']['planner']}, period {rec['plan']['period_s']:.6g} s); ")
-        say(f"phase dryrun: (c) meta {rec['arch']} {what} {rec['shape']} on {rec['mesh']}: "
+        say(f"phase dryrun: (c) meta {rec['arch']} {what} {rec['shape']} ({rec['cut']}) on "
+            f"{rec['mesh']}: "
             f"{plan}per slot {rec['argument_bytes'] / 1e9:.2f} GB arguments + "
             f"{rec['temp_bytes'] / 1e9:.2f} GB temp, fits {rec['fits']}, "
             f"{rec['dot_tflop']:.1f} dot TFLOP, collectives "
@@ -5036,6 +5098,492 @@ def say_decode_part(name: str, r: dict, run: dict, card) -> None:
         f"{r['single_launches']}); part {r['part_s']:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------------------
+# 25. the hybrid, enc-dec and xLSTM families over the model axis
+# ---------------------------------------------------------------------------
+
+# every slot on the one card, random weights from each run's seed.  (a)
+# zamba2-7b whole (81 layers in 14 groups of 6, the last 3 padded), B = 1,
+# S = 4096, the forward with kernels on (1, 16): 7 of 112 SSM heads and 2
+# of 32 attention heads a model slot; (b) whisper-large-v3 whole (32 + 32
+# layers), B = 2, 448 decoder positions over 1,500 frames, on (1, 16): 20
+# heads do not divide 16, so model slot 0 runs each attention whole, and
+# the vocabulary does not either, so the embedding splits over d_model
+# (its bf16 pair is gated too, beside the float32 pair); (c) xlstm-350m
+# whole (24 layers), B = 2, S = 2048, on (1, 16): a quarter of an mLSTM
+# head's columns a slot, the sLSTM's time loop on slot 0, in float32
+# (:data:`F32_PAIR_REL`), its dispatch guard on the first 256 positions
+# (what a slot reads does not depend on the length); (d)
+# the zamba2-7b train step at full width cut to one group (6 Mamba layers
+# and the shared block), fsdp_params and 2 microbatches, B = 4, S = 1024,
+# on (2, 4), with phase 21(c)'s bounds and float32 pair
+FAMILY_TP_RUNS = {
+    "hybrid": {"arch": "zamba2-7b", "layers": None, "batch": 1, "seq": 4096, "mesh": (1, 16),
+               "seed": 51, "dtype": None},
+    "encdec": {"arch": "whisper-large-v3", "layers": None, "batch": 2, "seq": 448,
+               "mesh": (1, 16), "seed": 52, "dtype": None, "bf16_gate": True},
+    "xlstm": {"arch": "xlstm-350m", "layers": None, "batch": 2, "seq": 2048, "mesh": (1, 16),
+              "seed": 53, "dtype": "float32", "guard_seq": 256},
+    "train": {"arch": "zamba2-7b", "layers": 6, "batch": 4, "seq": 1024, "mesh": (2, 4),
+              "seed": 54, "dtype": None, "accum": 2, "base_lr": 1e-3},
+}
+
+
+# These random-weight models' logits move with the rounding of their
+# recurrences: at full width the one-device bf16 forward lies 7.3 % (mean
+# rel) from the float32 forward on the same weights after one zamba2-7b
+# group and 35 % for xlstm-350m (S = 256; PERF.md), and a mesh's bf16 forward
+# as far from one device's (zamba2 whole: 59 %), so a bf16 pair sees no fault
+# short of that.  The logits are held on a float32 pair, the mesh's forward
+# against one device's from the same weights: within this mean relative
+# error (the port's own float32 xlstm-350m forward lies 1.6e-4 from the
+# reference's at S = 2048, zamba2's one group on (1, 16) 1.4e-5 from one
+# device's; this repo's CPU, PERF.md; the whole zamba2-7b on (1, 16) 3.0e-4
+# on the H100).  A wrong head, a wrong slot's columns or a dropped slot
+# moves the logits by O(1)
+F32_PAIR_REL = 1e-3
+
+
+def _pair_close(got, want) -> dict:
+    """A float32 pair's logits: max and mean relative error, within
+    :data:`F32_PAIR_REL` by the mean relative error."""
+    out = _logits_close(got, want, "float32")
+    return out | {"ok": bool(got.isfinite().all()) and out["mean_rel_err"] <= F32_PAIR_REL}
+
+
+def _split_dims(cfg, msize: int) -> dict:
+    """Leaf path -> the dim ``param_specs`` splits over a ``model`` axis of
+    ``msize`` slots (``None``: replicated), from a meta tree."""
+    from repro_torch.models import get_model, sharding
+
+    named = {}
+    sharding._map_with_path(lambda pth, x: named.__setitem__(
+        "/".join(pth), sharding.model_split_dim(list(pth), tuple(x.shape), msize)),
+        get_model(cfg).init(0, "meta"))
+    return named
+
+
+def _sub_dims(named: dict, prefix: str, lead: int) -> dict:
+    """The leaves under ``prefix`` (their names below it) with the dims of
+    one entry of a stack on ``lead`` leading axes."""
+    return {k[len(prefix):]: (None if d is None else d - lead) for k, d in named.items()
+            if k.startswith(prefix)}
+
+
+def family_tp_exceptions(cfg, msize: int) -> tuple:
+    """The leaf paths whose one-layer weights a model slot may take whole
+    under a ``model`` axis of ``msize`` slots (``param_guard``'s
+    exceptions): an attention whose heads do not divide the axis (slot 0
+    runs it whole, PR 26's exception), a Mamba2 mixer whose SSM heads or
+    layout do not split (slot 0 runs it whole), the sLSTM's recurrent ``r``
+    (re-laid whole on the time loop's slot once per layer), and any other
+    layer that ``param_specs`` does not split the tensor-parallel way."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.attention import heads_parallel
+
+    if msize == 1:
+        return ()
+    named = _split_dims(cfg, msize)
+    out = []
+    if not heads_parallel(cfg, msize):
+        out += {"hybrid": ["shared_attn/attn/"],
+                "encdec": ["enc/attn/", "dec/self_attn/", "dec/cross_attn/"]}.get(cfg.family, [])
+    for pre, lead in (("shared_attn/mlp/", 0), ("enc/mlp/", 1), ("dec/mlp/", 1),
+                      ("slstm/ffn/", 1)):
+        d = _sub_dims(named, pre, lead)
+        if d and not (d["wi"] == 1 and d["wo"] in (0, None)):
+            out.append(pre)
+    if cfg.family == "hybrid" and not ssm.heads_parallel(cfg, _sub_dims(named, "mamba_groups/", 2),
+                                                          msize):
+        out.append("mamba_groups/")
+    if cfg.family == "xlstm":
+        if not xlstm.mlstm_parallel(cfg, _sub_dims(named, "mlstm/", 2), msize):
+            out.append("mlstm/")
+        sd = _sub_dims(named, "slstm/", 1)
+        out += ["slstm/r"] + (["slstm/wx"] if sd["wx"] not in (None, 1) else []) \
+            + (["slstm/out"] if sd["out"] not in (None, 0) else [])
+    return tuple(out)
+
+
+def _attn_calls(d: dict, cfg, M: int, S: int, T: int) -> dict:
+    """One attention's collective calls per data slot (``attention_row``)
+    of a forward with kernels: per K/V weight split over ``head_dim`` an
+    ``all_gather`` per K/V head, and the output's ``psum``, where the heads
+    divide the axis; else a ``gather`` per split leaf onto model slot 0,
+    sequence-parallel attention's 3 ``scatter`` + 2 ``all_gather`` + 1
+    ``gather`` where its condition holds, and the output's ``broadcast``."""
+    from repro_torch.models.attention import heads_parallel
+
+    out = {}
+    if heads_parallel(cfg, M):
+        for n in ("wk", "wv", "bk", "bv"):
+            dim, axis = d.get(n), 1 if n[0] == "w" else 0
+            if dim is None or dim == axis:
+                continue
+            out["all_gather"] = out.get("all_gather", 0) + (cfg.n_kv_heads if dim == axis + 1
+                                                            else 1)
+        out["psum"] = 1
+        return out
+    out["gather"] = sum(v is not None for v in d.values())
+    blocked = not (cfg.use_pallas and flash_gate(S, T)) and S > 2048 and S % 512 == 0 \
+        and T % 512 == 0
+    if blocked and S == T and S % M == 0 and (S // M) % 128 == 0:
+        out.update({"scatter": 3, "all_gather": 2, "gather": out["gather"] + 1})
+    out["broadcast"] = 1
+    return out
+
+
+def _mlp_calls(d: dict) -> dict:
+    """``mlp_row``'s: the partial sums' ``psum`` where the inner dim is
+    split, else a ``gather`` per split leaf and a ``broadcast``."""
+    if d["wi"] == 1 and d["wo"] in (0, None):
+        return {"psum": 1}
+    return {"gather": sum(v is not None for v in d.values()), "broadcast": 1}
+
+
+def _whole_calls(d: dict) -> dict:
+    return {"gather": sum(v is not None for v in d.values()), "broadcast": 1}
+
+
+def slstm_layer_calls(cfg, msize: int) -> dict:
+    """One sLSTM layer's collective calls per data slot (``slstm_row``):
+    the input projection's columns gathered onto the loop's slot (one
+    ``gather``), ``r`` re-laid whole there (one ``gather``), the output's
+    columns scattered to ``out``'s row blocks and the partial sums'
+    ``psum``, then the FFN's; none inside the time loop."""
+    d = _sub_dims(_split_dims(cfg, msize), "slstm/", 1)
+    out = {"gather": (d["wx"] is not None) + (d["r"] is not None)}
+    if d["out"] == 0:
+        out.update({"scatter": 1, "psum": 1})
+    else:
+        out.update({"gather": out["gather"] + (d["out"] is not None), "broadcast": 1})
+    for k, v in _mlp_calls(_sub_dims(d, "ffn/", 0)).items():
+        out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def family_tp_collectives(cfg, dsize: int, msize: int, seq: int, batch: int) -> dict:
+    """The collective calls of the forward of the hybrid, enc-dec or xLSTM
+    family from a whole tree under a (dsize, msize) mesh, from
+    ``param_specs``'s split of each leaf: the views (per data slot that
+    takes rows, a ``scatter`` per split leaf and a ``broadcast`` per
+    replicated one), the tokens' (and frames') ``scatter``; with M > 1 the
+    tokens' (and frames') ``broadcast`` and the embedding's ``psum`` or
+    ``all_gather`` per data slot; per layer per data slot :func:`_attn_calls`,
+    :func:`_mlp_calls`, the Mamba2 mixer's (where split by heads: a
+    ``gather`` of activation columns and one of conv tap rows per model
+    slot, the gated norm's and ``out_proj``'s ``psum``), the mLSTM's (where
+    split by columns: x_in's ``all_gather``, a ``gather`` of z's columns per
+    model slot, an ``all_gather`` of q and of k per head where a head's
+    columns span slots, ``down``'s ``psum``) and :func:`slstm_layer_calls`;
+    else the layer's split leaves
+    gathered onto slot 0 and a ``broadcast``; the head: the unembedding's
+    ``reduce_scatter`` (``d_model`` split; a ``psum`` where M does not
+    divide the positions), a ``gather`` of each data slot's logits and the
+    aux losses' ``psum``."""
+    import collections
+
+    from repro_torch.models import ssm, xlstm
+
+    M = msize
+    named = _split_dims(cfg, M)
+    D = dsize if batch % dsize == 0 else 1
+    encdec = cfg.family == "encdec"
+    calls, per = collections.Counter(), collections.Counter()
+    split = sum(d is not None for d in named.values())
+    calls["scatter"] += D * split + 1 + encdec
+    calls["broadcast"] += D * (len(named) - split)
+    if M > 1:
+        calls["broadcast"] += D * (1 + encdec)
+        if named["embed/tok"] is not None:
+            calls["psum" if named["embed/tok"] == 0 else "all_gather"] += D
+        if cfg.family == "hybrid":
+            ng, g = math.ceil(cfg.n_layers / cfg.attn_every), cfg.attn_every
+            sd = _sub_dims(named, "shared_attn/", 0)
+            md = _sub_dims(named, "mamba_groups/", 2)
+            per.update({k: v * ng for k, v in _attn_calls(_sub_dims(sd, "attn/", 0), cfg, M,
+                                                          seq, seq).items()})
+            per.update({k: v * ng for k, v in _mlp_calls(_sub_dims(sd, "mlp/", 0)).items()})
+            if ssm.heads_parallel(cfg, md, M):
+                mix = {"gather": 2 * M, "psum": 2}
+            else:
+                mix = _whole_calls(md)
+            per.update({k: v * ng * g for k, v in mix.items()})
+        elif encdec:
+            for pre, L, S, T in (("enc/attn/", cfg.n_enc_layers, cfg.enc_seq, cfg.enc_seq),
+                                 ("dec/self_attn/", cfg.n_layers, seq, seq),
+                                 ("dec/cross_attn/", cfg.n_layers, seq, cfg.enc_seq)):
+                per.update({k: v * L for k, v in _attn_calls(_sub_dims(named, pre, 1), cfg, M,
+                                                             S, T).items()})
+            for pre, L in (("enc/mlp/", cfg.n_enc_layers), ("dec/mlp/", cfg.n_layers)):
+                per.update({k: v * L for k, v in _mlp_calls(_sub_dims(named, pre, 1)).items()})
+        else:
+            ng, nm = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+            md = _sub_dims(named, "mlstm/", 2)
+            if xlstm.mlstm_parallel(cfg, md, M):
+                d_in, H, P = xlstm.mlstm_dims(cfg)
+                mix = {"all_gather": 1 + (2 * H if d_in // M < P else 0), "gather": M, "psum": 1}
+            else:
+                mix = _whole_calls(md)
+            per.update({k: v * ng * nm for k, v in mix.items()})
+            per.update({k: v * ng for k, v in slstm_layer_calls(cfg, M).items()})
+    for k, v in per.items():
+        calls[k] += v * D
+    head = named["embed/tok"] if cfg.tie_embeddings else named["embed/unembed"]
+    if M > 1 and head == (1 if cfg.tie_embeddings else 0):
+        calls["reduce_scatter" if seq % M == 0 else "psum"] += D
+    calls["gather"] += D
+    calls["psum"] += 1
+    return {k: v for k, v in sorted(calls.items()) if v}
+
+
+def ssd_heads(cfg, msize: int) -> int:
+    """The SSM heads of each SSD call on a model slot: the slot's share
+    where the mixer splits by heads, else all of them (slot 0)."""
+    from repro_torch.models import ssm
+
+    H = ssm.ssm_dims(cfg)[1]
+    md = _sub_dims(_split_dims(cfg, msize), "mamba_groups/", 2)
+    return H // msize if ssm.heads_parallel(cfg, md, msize) else H
+
+
+def family_tp_launches(cfg, dsize: int, msize: int, seq: int) -> dict:
+    """The kernels the forward of the hybrid, enc-dec or xLSTM family with
+    ``use_pallas`` launches over (dsize, msize): the SSD once per Mamba2
+    layer (padded ones included) per model slot where the SSM heads split
+    (else once, on slot 0), flash attention once per shared-attention
+    application per model slot where the heads divide the axis (else once)
+    where the gate passes; the enc-dec family flash where phase 19's gate
+    passes (whisper: never); the xLSTM family nothing; no RMSNorm kernel
+    (every norm of these families is the plain formula)."""
+    from repro_torch.models import ssm
+    from repro_torch.models.attention import heads_parallel
+
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    per = msize if heads_parallel(cfg, msize) else 1
+    if cfg.family == "hybrid":
+        ng, g = math.ceil(cfg.n_layers / cfg.attn_every), cfg.attn_every
+        out["ssd_intra_chunk"] = dsize * ng * g * ssm.ssm_dims(cfg)[1] // ssd_heads(cfg, msize)
+        out["flash_attention"] = dsize * ng * per * flash_gate(seq, seq)
+    elif cfg.family == "encdec":
+        out["flash_attention"] = dsize * per * family_launches(cfg, "forward", seq)[
+            "flash_attention"]
+    return out
+
+
+@contextlib.contextmanager
+def slstm_traffic(torch, per_layer: list):
+    """Within the block each sLSTM layer's collective calls over the grid
+    (``slstm_row``) are appended to ``per_layer``, one dict a call."""
+    from repro_torch.launch import collectives
+    from repro_torch.models import xlstm
+
+    real = xlstm.slstm_row
+
+    def counted(*a, **k):
+        before = {op: v[0] for op, v in collectives.TRAFFIC.items()}
+        out = real(*a, **k)
+        per_layer.append({op: v[0] - before.get(op, 0) for op, v in collectives.TRAFFIC.items()
+                          if v[0] - before.get(op, 0)})
+        return out
+
+    xlstm.slstm_row = counted
+    try:
+        yield per_layer
+    finally:
+        xlstm.slstm_row = real
+
+
+def family_tp_forward_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
+    """(a)-(c): the forward of ``run``'s model with kernels under its mesh,
+    tensor-parallel, the counters zeroed just before and read just after
+    (:func:`family_tp_launches`), its collective calls exactly
+    :func:`family_tp_collectives`'s, each sLSTM layer's exactly
+    :func:`slstm_layer_calls`'s; a second forward with every kernel call
+    held to its plain version (flash at one model slot's heads, the SSD at
+    its SSM heads) under :func:`param_guard` (the exceptions of
+    :func:`family_tp_exceptions`); then the single-device forward from the
+    same weights: logits within :func:`_logits_close`'s limit."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, sharding
+    from repro_torch.models.registry import stub_inputs
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = mesh_cfg(run, smoke, use_pallas=True)
+    api = get_model(cfg)
+    mesh = _mesh_of(run, device)
+    dsize, msize = run["mesh"]
+    B, S = run["batch"], run["seq"]
+    t0 = time.time()
+    params = api.init(run["seed"], device)
+    gen = torch.Generator(device=device).manual_seed(run["seed"])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=device, generator=gen)}
+    batch.update(stub_inputs(cfg, B, device, gen))
+    sync()
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "init_s": time.time() - t0}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    collectives.TRAFFIC.clear()
+    per_layer = []
+    t0 = time.time()
+    with use_mesh(mesh), slstm_traffic(torch, per_layer):
+        got, _ = api.forward(params, batch, cfg)
+    sync()
+    out["mesh_wall_s"] = time.time() - t0
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+    want = family_tp_launches(cfg, dsize, msize, S)
+    if on_card:
+        check_launches(f"tp {cfg.arch_id}", out["launches"], want)
+        if want["flash_attention"]:
+            check_flash_routes(f"tp {cfg.arch_id}", out["launches"], route_counts(counters))
+    check_collective_calls(f"tp {cfg.arch_id}", collectives.TRAFFIC,
+                           family_tp_collectives(cfg, dsize, msize, S, B))
+    if cfg.family == "xlstm":
+        layer = slstm_layer_calls(cfg, msize)
+        if len(per_layer) != dsize * cfg.n_layers // cfg.slstm_every \
+                or any(c != layer for c in per_layer):
+            fail(f"tp {cfg.arch_id}: sLSTM collective calls per layer {per_layer}, expected "
+                 f"{layer} in each of {dsize * cfg.n_layers // cfg.slstm_every}")
+        out["slstm_layer_collectives"] = layer
+    calls, fheads, sheads = [], [], []
+    allowed = family_tp_exceptions(cfg, msize)
+    gseq = run.get("guard_seq") or S
+    t0 = time.time()
+    with mesh_recording(torch, calls, flash_heads_seen=fheads, ssd_heads_seen=sheads), \
+            param_guard(torch, params, cfg, mesh, allowed) as guard, use_mesh(mesh):
+        api.forward(params, dict(batch, tokens=batch["tokens"][:, :gseq]), cfg)
+    sync()
+    out["checked_wall_s"] = time.time() - t0
+    out["kernel_vs_plain_max_err"] = _check_calls(
+        f"tp {cfg.arch_id}", calls, {"flash_attention": want["flash_attention"],
+                                     "ssd_intra_chunk": want["ssd_intra_chunk"]})
+    out["flash_heads"], out["ssd_heads"] = sorted(set(fheads)), sorted(set(sheads))
+    if want["flash_attention"] and out["flash_heads"] != [flash_heads(cfg, msize)]:
+        fail(f"tp {cfg.arch_id}: flash calls at (query, K/V) heads {out['flash_heads']}, "
+             f"expected {flash_heads(cfg, msize)}")
+    if want["ssd_intra_chunk"] and out["ssd_heads"] != [ssd_heads(cfg, msize)]:
+        fail(f"tp {cfg.arch_id}: SSD calls at {out['ssd_heads']} heads, expected "
+             f"{ssd_heads(cfg, msize)}")
+    check_param_guard(f"tp {cfg.arch_id}", guard)
+    out["exceptions"] = list(allowed)
+    out["largest_param_read"] = guard["max_read"]
+    sync()
+    t0 = time.time()
+    ref, _ = api.forward(params, batch, cfg)
+    sync()
+    out["single_wall_s"] = time.time() - t0
+    if cfg.dtype == "float32":
+        out["logits"] = _pair_close(got, ref)
+    else:
+        out["bf16_logits"] = _logits_close(got, ref, cfg.dtype)
+        if run.get("bf16_gate") and not out["bf16_logits"]["ok"]:
+            fail(f"tp {cfg.arch_id}: bf16 logits against the single-device forward's "
+                 f"{out['bf16_logits']}")
+        del got
+        cfg = cfg.replace(dtype="float32")
+        params = sharding._map_leaves(lambda x: x.float(), params)
+        batch = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+        t0 = time.time()
+        with use_mesh(mesh):
+            got, _ = api.forward(params, batch, cfg)
+        want, _ = api.forward(params, batch, cfg)
+        sync()
+        out["float32_pair_wall_s"] = time.time() - t0
+        out["logits"] = _pair_close(got, want)
+        out["bf16_one_device_from_float32"] = _logits_close(ref, want, "float32")
+    if not out["logits"]["ok"]:
+        fail(f"tp {cfg.arch_id}: float32 logits against the single-device forward's "
+             f"{out['logits']} (limit {F32_PAIR_REL} mean rel)")
+    return out
+
+
+def family_tp_kernel_rows(torch, gen, kernels: list, runs: dict = FAMILY_TP_RUNS) -> None:
+    """The per-slot shapes (a) gives the kernels, timed against their plain
+    versions and added as sub-rows ``tp_families`` of the flash and SSD
+    rows: flash at zamba2-7b's 2 query and 2 K/V heads of 112 a slot, S =
+    4096; the SSD at 7 of its 112 SSM heads (B = 1, S = 4096), beside which
+    sixteen such calls stand against phase 7's one call over all 112 heads
+    (each slot recomputes the heads-independent C·Bᵀ scores)."""
+    cfg = mesh_cfg(runs["hybrid"])
+    M = runs["hybrid"]["mesh"][1]
+    rows = {k["name"]: k for k in kernels}
+    H, K = flash_heads(cfg, M)
+    row = check_flash(torch, gen, H, K, cfg.head_dim, None, runs["hybrid"]["seq"])
+    rows["flash_attention"].setdefault("tp_families", {})[f"{cfg.arch_id} per slot"] = \
+        _sub_row(row)
+    torch.cuda.empty_cache()
+    per = check_ssd_kernel(torch, cfg.replace(d_model=cfg.d_model // M), gen)
+    sub = _sub_row(per)
+    full = rows["ssd_intra_chunk"]
+    sub["slots_ms"] = M * per["ms"]
+    sub["one_call_all_heads_ms"] = full["ms"]
+    rows["ssd_intra_chunk"].setdefault("tp_families", {})[f"{cfg.arch_id} per slot"] = sub
+    torch.cuda.empty_cache()
+
+
+def family_tp_phase(torch, counters, card, kernels=None, gen=None, device: str = "cuda",
+                    runs: dict = FAMILY_TP_RUNS, smoke: bool = False) -> dict:
+    """Phase 25 on ``device``: (a)-(c) :func:`family_tp_forward_run`, (d)
+    :func:`mesh_train_run` on the hybrid, each from its own seeded weights,
+    freed before the next; on the card first the per-slot kernel shapes
+    (:func:`family_tp_kernel_rows`)."""
+    on_card = torch.device(device).type == "cuda"
+    out, by_path = {"card": card}, {}
+    if on_card and kernels is not None:
+        t0 = time.time()
+        family_tp_kernel_rows(torch, gen, kernels, runs)
+        out["kernel_rows_s"] = time.time() - t0
+    for name in ("hybrid", "encdec", "xlstm", "train"):
+        t0 = time.time()
+        if name == "train":
+            res = mesh_train_run(torch, counters, runs[name], device, smoke)
+        else:
+            res = family_tp_forward_run(torch, counters, runs[name], device, smoke)
+        by_path[f"tp family {name}"] = res["launches"]
+        res["part_s"] = time.time() - t0
+        out[name] = res
+        say_family_tp_part(name, res, runs[name], card)
+        if on_card:
+            torch.cuda.empty_cache()
+    out["by_path"] = by_path
+    return out
+
+
+def say_family_tp_part(name: str, r: dict, run: dict, card) -> None:
+    """The line phase 25 prints for part ``name`` as it ends."""
+    head = (f"phase tp families: {r['config']} {r['layers']} layers B={run['batch']} "
+            f"S={run['seq']} on a {run['mesh']} mesh:")
+    if name == "train":
+        f32 = r["float32"]
+        say(f"{head} (d) FSDP step in {r['mesh_step_s']:.3f} s, unsharded "
+            f"{r['single_step_s']:.3f} s; loss err {r['loss_err']:.3g}, worst parameter err "
+            f"{r['param_max_err']:.3g} (limit {MESH_TRAIN_TOL}), grad norm rel err "
+            f"{r['grad_norm_rel_err']:.3g}, first moments rel err {r['moment_rel_err']:.3g}; "
+            f"float32: grad norm rel err {f32['grad_norm_rel_err']:.3g}, first moments rel err "
+            f"{f32['moment_rel_err']:.3g} (limit {MESH_GRAD_RTOL}), replicated leaves "
+            f"{f32['replicated_moment_max_rel_err']:.3g} (limit {MESH_REPLICATED_RTOL}); per "
+            f"slot {r['bytes_per_slot']} B of state against {r['bytes_unsharded']} B unsharded; "
+            f"peak {r['peak_mem_bytes']} B; collectives {r['collectives']}; part "
+            f"{r['part_s']:.1f} s; {card}")
+        return
+    say(f"{head} forward {r['mesh_wall_s']:.3f} s tensor-parallel (init {r['init_s']:.1f} s, "
+        f"checked run {r['checked_wall_s']:.1f} s, float32 pair "
+        f"{r.get('float32_pair_wall_s', 0.0):.1f} s), one device {r['single_wall_s']:.3f} s; peak "
+        f"{r['peak_mem_bytes']} B; float32 logits {r['logits']} (bf16 pair "
+        f"{r.get('bf16_logits')}, one device's bf16 from its float32 "
+        f"{r.get('bf16_one_device_from_float32')}); flash at {r['flash_heads']}, SSD at "
+        f"{r['ssd_heads']} heads; every call within its plain version (worst "
+        f"{r['kernel_vs_plain_max_err']}); largest parameter block read "
+        f"{r['largest_param_read']} elements, exceptions {r['exceptions']}; sLSTM per layer "
+        f"{r.get('slstm_layer_collectives')}; collectives {r['collectives']}; launches "
+        f"{r['launches']}; part {r['part_s']:.1f} s; {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -5463,6 +6011,17 @@ def main() -> None:
         if k["name"] == "decode_attention":
             k["lse_route"] = report["decode"]["lse_route"]
     say(f"phase decode: {report['decode']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 25. the hybrid, enc-dec and xLSTM families over the model axis on the
+    # one card: the per-slot kernel shapes, then zamba2-7b's, whisper's and
+    # xlstm's forwards on (1, 16) and the zamba2-7b step on (2, 4), each
+    # run's counters zeroed just before and read just after
+    t0 = time.time()
+    report["tp_families"] = family_tp_phase(torch, counters, card, kernels, gen)
+    report["tp_families"]["phase_s"] = time.time() - t0
+    by_path.update(report["tp_families"].pop("by_path"))
+    say(f"phase tp families: {report['tp_families']['phase_s']:.1f} s")
 
     launches = {}
     for counts in by_path.values():

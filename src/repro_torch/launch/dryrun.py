@@ -17,31 +17,34 @@ dry run allocates nothing.  Nothing here sets an environment variable.
 A cell's step, as in the reference:
 
   - ``train``: the train step (forward, backward, AdamW).  Where the family
-    trains under a mesh (the dense, MoE and VLM families), the state is
-    placed by ``zero1_specs`` (``cfg.fsdp_params``) or ``param_specs``
-    (:func:`repro_torch.models.train.place_train_state`) and the batch by
-    ``batch_spec``, and the step runs under the mesh, tensor-parallel:
-    every model slot of each data slot computes from its own block of the
-    weights.  The other families train on one device (the port has no mesh
-    form for them): their state and batch sit whole on data slot 0
-    (``placement: "one device"``).
+    trains under a mesh (every family: its ``train_forward.slots``), the
+    state is placed by ``zero1_specs`` (``cfg.fsdp_params``) or
+    ``param_specs`` (:func:`repro_torch.models.train.place_train_state`)
+    and the batch by ``batch_spec``, and the step runs under the mesh,
+    tensor-parallel: every model slot of each data slot computes from its
+    own block of the weights.  A family without that form would train on
+    one device, its state and batch whole on data slot 0 (``placement:
+    "one device"``).
   - ``prefill``: the forward, returning the logits.  For the mesh families
     the parameters are placed by their specs and the batch by
     ``batch_spec``, and the forward runs on the placed state over the grid
     (``train_forward.slots``), returning each data slot's logits split over
-    its model slots, with nothing gathered to one slot.  The other families
-    gather the placed state onto data slot 0's device and run there
-    (``placement: "one device"``).
+    its model slots, with nothing gathered to one slot.  The hybrid, enc-dec
+    and xLSTM families have no ``prefill`` of their own: their cell runs
+    that forward.  A family without the form would gather the placed state
+    onto data slot 0's device and run there (``placement: "one device"``).
   - ``decode``: one decode step against a decode state of ``seq_len``
-    slots, placed by ``state_specs``.  For the mesh families the step runs
-    on the placed parameters and state over the grid (``decode.slots``):
-    each slot reads and writes its own blocks of the state in place, and
-    nothing is gathered to one slot (``placement: "mesh"``).  The other
-    families gather the parameters, the batch and the state onto data slot
-    0's device and decode there (``placement: "one device"``).
+    slots, placed by ``state_specs``.  For the families that decode under a
+    mesh (dense, MoE, VLM: ``decode.slots``) the step runs on the placed
+    parameters and state over the grid: each slot reads and writes its own
+    blocks of the state in place, and nothing is gathered to one slot
+    (``placement: "mesh"``).  The hybrid, enc-dec and xLSTM families gather
+    the parameters, the batch and the state onto data slot 0's device and
+    decode there (``placement: "one device"``).
 
 The data slots of a mesh step are symmetric: the same shapes on other rows.
-Where they compute independently (every dense and VLM step; an MoE whose
+Where they compute independently (every dense, VLM, hybrid, enc-dec and
+xLSTM step; an MoE whose
 dispatch is per data slot; a decode whose state splits its batch, not its
 cache length, over the data slots), the step runs data slot 0's model slots alone,
 under :func:`repro_torch.launch.mesh.symmetric_data_slots` (``symmetric``,

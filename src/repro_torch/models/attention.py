@@ -17,7 +17,9 @@ cache, which :func:`cache_from_prefill` builds from a prefill's keys and
 values.
 
 :func:`attention_row` is the attention of one data slot over its model
-slots, tensor-parallel where the head count divides the model axis: slot
+slots (causal or bidirectional self-attention, or cross-attention over each
+slot's copy of other rows), tensor-parallel where the head count divides
+the model axis: slot
 ``m`` takes query heads ``[m H/M, (m+1) H/M)`` and the K/V heads they read
 (its own block where ``param_specs`` splits the K/V heads; where it splits
 their ``head_dim`` instead, the slot all-gathers over ``model`` only the
@@ -410,14 +412,23 @@ def _kv_row(leaves: list, dim, axis: int, heads: list, devs) -> list:
 
 
 def attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, positions, devs,
-                  prefill: bool = False) -> tuple:
-    """Causal self-attention of one data slot over its model slots:
-    ``hs[m]`` model slot ``m``'s copy of the normalized rows (only
-    ``hs[0]`` is read where the heads do not divide the axis), ``ps[m]``
-    its block of the layer's attention weights.  Returns (each slot's
-    output, each slot's (k, v) over its K/V heads, :func:`kv_heads` of the
-    slots or ``None`` where slot 0 holds every head)."""
+                  prefill: bool = False, *, causal: bool = True, kv_hs: Optional[list] = None,
+                  rope: bool = True) -> tuple:
+    """Self-attention (causal unless ``causal`` is off) of one data slot
+    over its model slots: ``hs[m]`` model slot ``m``'s copy of the
+    normalized rows (only ``hs[0]`` is read where the heads do not divide
+    the axis), ``ps[m]`` its block of the layer's attention weights.  With
+    ``kv_hs`` (each slot's copy of the rows the keys and values come from,
+    at positions from 0) it is a cross-attention; ``rope`` off applies no
+    rotary positions.  Returns (each slot's output, each slot's (k, v) over
+    its K/V heads, :func:`kv_heads` of the slots or ``None`` where slot 0
+    holds every head)."""
     M = len(devs)
+    kv_in = hs if kv_hs is None else kv_hs
+
+    def kv_positions(x):
+        return positions if kv_hs is None else torch.arange(x.shape[1], device=x.device)[None, :]
+
     if M > 1 and heads_parallel(cfg, M):
         H, K = cfg.n_heads, cfg.n_kv_heads
         heads = [kv_heads(m, H, K, M) for m in range(M)]
@@ -425,19 +436,19 @@ def attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, positions, d
         kv = {n: _kv_row([p[n] for p in ps], dims[n], 1 if n[0] == "w" else 0, heads, devs)
               for n in names}
         outs, kvs = [], []
-        for m, (p, h) in enumerate(zip(ps, hs)):
+        for m, (p, h, x) in enumerate(zip(ps, hs, kv_in)):
             p = dict(p, **{n: kv[n][m] for n in names})
-            q, k, v = _project_qkv(p, h, h, cfg, positions, positions)
-            out = core_attention(q, k, v, cfg, window=cfg.sliding_window, prefill=prefill,
-                                 sequence_parallel=False)
+            q, k, v = _project_qkv(p, h, x, cfg, positions, kv_positions(x), rope=rope)
+            out = core_attention(q, k, v, cfg, causal=causal, window=cfg.sliding_window,
+                                 prefill=prefill, sequence_parallel=False)
             outs.append(_out_proj(out, p["wo"].to(h.dtype)))
             kvs.append((k, v))
         return collectives.psum(outs, list(devs)), kvs, heads
     w = _whole_tree(ps, dims, devs[0])
-    h = hs[0]
-    q, k, v = _project_qkv(w, h, h, cfg, positions, positions)
-    out = _out_proj(core_attention(q, k, v, cfg, window=cfg.sliding_window, prefill=prefill),
-                    w["wo"].to(h.dtype))
+    h, x = hs[0], kv_in[0]
+    q, k, v = _project_qkv(w, h, x, cfg, positions, kv_positions(x), rope=rope)
+    out = _out_proj(core_attention(q, k, v, cfg, causal=causal, window=cfg.sliding_window,
+                                   prefill=prefill), w["wo"].to(h.dtype))
     outs = [out] if M == 1 else collectives.broadcast(out, devs)
     return outs, [(k, v)], None
 

@@ -23,25 +23,38 @@ The reference's decode state starts with zero cross K/V and its serving
 loop never runs :func:`encode`, so a served request attends to zeros; the
 port mirrors that.  :func:`precompute_cross` gives a state's cross K/V from
 an encoder output.
+
+Under an ambient mesh (:func:`repro_torch.launch.mesh.use_mesh`) the forward
+and ``train_forward`` split the rows (and frames) over the mesh's data slots
+and each data slot's model slots compute tensor-parallel from their own
+blocks (:func:`train_forward_slots`): every attention through
+:func:`.attention.attention_row` (model slot 0 whole where the heads do not
+divide the axis: whisper's 20 on 16 or 8), the MLP through
+:func:`.layers.mlp_row`, the embedding and unembedding through
+:func:`.layers.embed_row` / :func:`.layers.unembed_row`.  Decode under a
+mesh is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import sys
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import resolve_device
-from .attention import (KVCache, _out_proj, _proj, attention, decode_attention_step,
-                        init_attention, plain_attention)
-from .common import ModelConfig
-from . import layers
+from ..launch import collectives
+from .attention import (KVCache, _out_proj, _proj, attention, attention_row,
+                        decode_attention_step, heads_parallel, init_attention, plain_attention)
+from .common import ModelConfig, abstract_mesh
+from . import layers, transformer
 from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp,
                      layer_norm, mlp, unembed)
-from .transformer import _maybe_remat
+from .transformer import _maybe_remat, slot_views
 
 __all__ = ["EncDecState", "decode_step", "encode", "forward", "init_decode_state",
-           "init_params", "params_from_numpy", "precompute_cross", "train_forward"]
+           "init_params", "params_from_numpy", "precompute_cross", "slot_views", "train_forward",
+           "train_forward_slots"]
 
 _STACKED_AXES = {"enc": 1, "dec": 1}
 
@@ -137,10 +150,95 @@ def _dec_block(lp, x, enc_out, cfg, positions):
     return x + mlp(lp["mlp"], h, cfg)
 
 
+def _enc_block_row(lrows: list, ldims: dict, xs: list, cfg, positions: list, devs: list) -> list:
+    """One encoder block over the grid (``xs[jj][m]`` model slot ``m``'s
+    copy of computing data slot ``jj``'s rows, ``lrows[jj][m]`` its block
+    of the layer's weights)."""
+    out = []
+    for row, x, pos, dv in zip(lrows, xs, positions, devs):
+        own = heads_parallel(cfg, len(dv))
+        h = [_ln(a, p["ln1"], cfg) if own or m == 0 else None
+             for m, (p, a) in enumerate(zip(row, x))]
+        att, _, _ = attention_row([p["attn"] for p in row], ldims["attn"], h, cfg, pos, dv,
+                                  causal=False)
+        x = [a + b for a, b in zip(x, att)]
+        h = [_ln(a, p["ln2"], cfg) for p, a in zip(row, x)]
+        out.append([a + b for a, b in zip(x, layers.mlp_row([p["mlp"] for p in row],
+                                                             ldims["mlp"], h, cfg, dv))])
+    return out
+
+
+def _dec_block_row(lrows: list, ldims: dict, xs: list, encs: list, cfg, positions: list,
+                   devs: list) -> list:
+    """One decoder block over the grid; ``encs[jj][m]`` model slot ``m``'s
+    copy of the encoder output of data slot ``jj``'s rows."""
+    out = []
+    for row, x, enc, pos, dv in zip(lrows, xs, encs, positions, devs):
+        own = heads_parallel(cfg, len(dv))
+        h = [_ln(a, p["ln1"], cfg) if own or m == 0 else None
+             for m, (p, a) in enumerate(zip(row, x))]
+        att, _, _ = attention_row([p["self_attn"] for p in row], ldims["self_attn"], h, cfg, pos,
+                                  dv)
+        x = [a + b for a, b in zip(x, att)]
+        h = [_ln(a, p["ln2"], cfg) if own or m == 0 else None
+             for m, (p, a) in enumerate(zip(row, x))]
+        att, _, _ = attention_row([p["cross_attn"] for p in row], ldims["cross_attn"], h, cfg,
+                                  pos, dv, causal=False, kv_hs=enc, rope=False)
+        x = [a + b for a, b in zip(x, att)]
+        h = [_ln(a, p["ln3"], cfg) for p, a in zip(row, x)]
+        out.append([a + b for a, b in zip(x, layers.mlp_row([p["mlp"] for p in row],
+                                                             ldims["mlp"], h, cfg, dv))])
+    return out
+
+
+def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig, frames=None,
+                        n_data: Optional[int] = None) -> tuple:
+    """:func:`train_forward` over the ambient mesh's grid (``views`` the
+    weights' :class:`.sharding.SlotViews`, ``tokens_slots[jj]`` and
+    ``frames[jj]`` computing data slot ``views.data_slots[jj]``'s rows on
+    its device): the frames are rows of each data slot, every model slot
+    holding its copy; LayerNorm is local; each attention (the encoder's
+    bidirectional, the decoder's causal and its cross-attention over the
+    encoder rows) runs through :func:`.attention.attention_row`, the GELU
+    MLP through :func:`.layers.mlp_row`, the embedding and the unembedding
+    through :func:`.layers.embed_row` / :func:`.layers.unembed_row`; each
+    block checkpointed under ``remat == "block"``.  Returns (each data
+    slot's :class:`.layers.SlotLogits`, each data slot's aux loss, zero)."""
+    mesh = abstract_mesh()
+    D = len(views.data_slots)
+    devs = [mesh.model_devices(j) for j in views.data_slots]
+    xs = [collectives.broadcast(f.to(cfg.torch_dtype), dv) if len(dv) > 1
+          else [f.to(cfg.torch_dtype)] for f, dv in zip(frames, devs)]
+    enc_pos = [torch.arange(row[0].shape[1], device=row[0].device)[None, :] for row in xs]
+    edims = views.layer_dims("enc")
+    block = _maybe_remat(lambda lrows, xs: _enc_block_row(lrows, edims, xs, cfg, enc_pos, devs),
+                         cfg)
+    for i in range(cfg.n_enc_layers):
+        xs = block([views.layer(jj, i, cfg.n_enc_layers, "enc") for jj in range(D)], xs)
+    encs = [[_ln(a, p["ln_enc"], cfg) for p, a in zip(views.rows[jj], xs[jj])] for jj in range(D)]
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, devs[jj])
+          for jj, t in enumerate(tokens_slots)]
+    dec_pos = [torch.arange(row[0].shape[1], device=row[0].device)[None, :] for row in xs]
+    ddims = views.layer_dims("dec")
+    block = _maybe_remat(lambda lrows, xs, encs: _dec_block_row(lrows, ddims, xs, encs, cfg,
+                                                                dec_pos, devs), cfg)
+    for i in range(cfg.n_layers):
+        xs = block([views.layer(jj, i, cfg.n_layers, "dec") for jj in range(D)], xs, encs)
+    logits = [layers.unembed_row(views.rows[jj], views.dims,
+                                 [_ln(a, p["ln_f"], cfg) for p, a in zip(views.rows[jj], xs[jj])],
+                                 cfg, devs[jj]) for jj in range(D)]
+    return logits, [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
+
+
 def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   frames: torch.Tensor = None) -> tuple:
     """Returns (logits, aux_loss = 0), differentiable in ``params``.
-    tokens: (B, S) decoder tokens; frames: (B, enc_seq, d) stub embeddings."""
+    tokens: (B, S) decoder tokens; frames: (B, enc_seq, d) stub embeddings.
+    Under an ambient mesh the rows split over its data slots, each
+    tensor-parallel over its model slots (:func:`train_forward_slots`)."""
+    if abstract_mesh() is not None:
+        return transformer.mesh_train_forward(sys.modules[__name__], params, tokens, cfg,
+                                              frames=frames)
     enc_out = encode(params, frames, cfg)
     x = embed(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]

@@ -27,27 +27,39 @@ kernel); the shared attention takes the flash kernel at S > 1024 with
 Decode updates the KV caches and the Mamba states in place, as
 :func:`repro_torch.models.transformer.decode_step` does; the returned state
 holds the same tensors.
+
+Under an ambient mesh (:func:`repro_torch.launch.mesh.use_mesh`) the forward
+and ``train_forward`` split the rows over the mesh's data slots and each
+data slot's model slots compute tensor-parallel from their own blocks of the
+weights (:func:`train_forward_slots`, :class:`.sharding.SlotViews`): the
+shared block through :func:`.attention.attention_row` and
+:func:`.layers.mlp_row`, each Mamba2 layer through :func:`.ssm.mamba2_row`
+(each slot its SSM heads; model slot 0 runs the mixer whole where the heads
+do not divide the axis).  Decode under a mesh is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+import sys
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import resolve_device
-from .attention import KVCache, attention, decode_attention_step, init_attention
-from .common import ModelConfig
-from . import layers
+from .attention import (KVCache, attention, attention_row, decode_attention_step,
+                        heads_parallel, init_attention)
+from .common import ModelConfig, abstract_mesh
+from . import layers, transformer
 from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp, mlp,
                      rms_norm, unembed)
-from .ssm import (MambaState, init_mamba2, mamba2_decode_step, mamba2_forward,
+from .ssm import (MambaState, init_mamba2, mamba2_decode_step, mamba2_forward, mamba2_row,
                   ssm_dims)
-from .transformer import _maybe_remat
+from .transformer import _maybe_remat, slot_views
 
 __all__ = ["HybridState", "decode_step", "forward", "group_shape", "init_decode_state",
-           "init_params", "params_from_numpy", "train_forward"]
+           "init_params", "params_from_numpy", "slot_views", "train_forward",
+           "train_forward_slots"]
 
 # weights stacked over (groups, layers of a group), and those that stay float32
 _STACKED_AXES = {"mamba_groups": 2, "mamba_ln": 2}
@@ -128,9 +140,77 @@ def _group_forward(shared, params, i, mask, x, cfg, positions):
     return x
 
 
+def _grid_group(shared_rows: list, sdims: dict, mrows: list, mdims: dict, xs: list, masks: list,
+                cfg: ModelConfig, positions: list, devs: list) -> list:
+    """One group over the grid: ``xs[jj][m]`` model slot ``m``'s copy of
+    computing data slot ``jj``'s rows, ``shared_rows[jj][m]`` its block of
+    the shared block's weights, ``mrows[jj][j][m]`` of the group's Mamba
+    layer ``j``, ``masks[jj][j]`` that layer's mask on the data slot's
+    devices.  Returns the slots' outputs."""
+    out = []
+    for jj, (row, x) in enumerate(zip(shared_rows, xs)):
+        own = heads_parallel(cfg, len(devs[jj]))
+        h = [rms_norm(a, p["ln"], cfg.norm_eps) if own or m == 0 else None
+             for m, (p, a) in enumerate(zip(row, x))]
+        att, _, _ = attention_row([p["attn"] for p in row], sdims["attn"], h, cfg,
+                                  positions[jj], devs[jj])
+        x = [a + b for a, b in zip(x, att)]
+        h = [rms_norm(a, p["ln2"], cfg.norm_eps) for p, a in zip(row, x)]
+        y = layers.mlp_row([p["mlp"] for p in row], sdims["mlp"], h, cfg, devs[jj])
+        x = [a + b for a, b in zip(x, y)]
+        for j, lrow in enumerate(mrows[jj]):
+            h = [rms_norm(a, p["ln"], cfg.norm_eps) for p, a in zip(lrow, x)]
+            y = mamba2_row([p["mix"] for p in lrow], mdims, h, cfg, devs[jj])
+            x = [a + mk[j] * b for a, b, mk in zip(x, y, masks[jj])]
+        out.append(x)
+    return out
+
+
+def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig,
+                        n_data: Optional[int] = None) -> tuple:
+    """:func:`train_forward` over the ambient mesh's grid (``views`` the
+    weights' :class:`.sharding.SlotViews`, ``tokens_slots[jj]`` computing
+    data slot ``views.data_slots[jj]``'s rows on its device): each model
+    slot holds its copy of the rows; the shared block runs through
+    :func:`.attention.attention_row` and :func:`.layers.mlp_row`, each
+    Mamba layer through :func:`.ssm.mamba2_row`, the padded layers
+    computed and masked, each group checkpointed under ``remat ==
+    "block"``.  Returns (each data slot's :class:`.layers.SlotLogits`, each
+    data slot's aux loss, zero)."""
+    mesh = abstract_mesh()
+    devs = [mesh.model_devices(j) for j in views.data_slots]
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+          for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
+    positions = [torch.arange(row[0].shape[1], device=row[0].device)[None, :] for row in xs]
+    ng, g, _ = group_shape(cfg)
+    masks = [[_layer_mask(cfg, a.device, a.dtype) for a in row] for row in xs]
+    sdims = views.dims["shared_attn"]
+    mdims = views.entry_dims("mamba_groups", 2)
+    group = _maybe_remat(lambda srows, mrows, xs, ms: _grid_group(
+        srows, sdims, mrows, mdims, xs, ms, cfg, positions, devs), cfg)
+    D = len(views.data_slots)
+    srows = [[r["shared_attn"] for r in views.rows[jj]] for jj in range(D)]
+    for i in range(ng):
+        mrows = [[[{"ln": ln, "mix": mix}
+                   for ln, mix in zip(views.entry(jj, "mamba_ln", i, j),
+                                      views.entry(jj, "mamba_groups", i, j))]
+                  for j in range(g)] for jj in range(D)]
+        ms = [[mk[i] for mk in row] for row in masks]
+        xs = group(srows, mrows, xs, ms)
+    logits = [layers.unembed_row(views.rows[jj], views.dims,
+                                 [rms_norm(a, p["ln_f"], cfg.norm_eps)
+                                  for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+              for jj in range(D)]
+    return logits, [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
+
+
 def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> tuple:
     """Returns (logits, aux_loss), differentiable in ``params``.  tokens:
-    (B, S) on the parameters' device."""
+    (B, S) on the parameters' device.  Under an ambient mesh the rows split
+    over its data slots, each tensor-parallel over its model slots
+    (:func:`train_forward_slots`)."""
+    if abstract_mesh() is not None:
+        return transformer.mesh_train_forward(sys.modules[__name__], params, tokens, cfg)
     x = embed(params["embed"], tokens, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]

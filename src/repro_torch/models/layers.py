@@ -32,7 +32,7 @@ from .sharding import PartitionSpec
 __all__ = ["LOGICAL_RULES", "SlotLogits", "apply_rope", "cast_matrices", "dense_init",
            "draw_stacked", "embed", "embed_init", "embed_row", "gather_logits", "index_tree",
            "init_embed", "init_mlp", "layer_norm", "logical_sharding", "mlp", "mlp_row",
-           "params_from_numpy", "rms_norm", "rope_freqs", "shard", "shard_spec",
+           "params_from_numpy", "rms_norm", "rope_freqs", "shard", "shard_spec", "take_columns",
            "tree_from_numpy", "unembed", "unembed_row", "vocab_offset", "whole_on"]
 
 
@@ -330,6 +330,28 @@ def whole_on(leaves: list, dim, device) -> torch.Tensor:
     return collectives.gather_to(leaves, dim, device)
 
 
+def take_columns(blocks: list, spans: list, device, dim: int = -1) -> torch.Tensor:
+    """The global indices ``spans`` (a list of ``(lo, hi)``) along ``dim``
+    of a tensor split over the model slots in equal blocks along that dim
+    (``blocks[m]`` model slot ``m``'s), joined in order on ``device``: one
+    gather, each piece read from the slot whose block holds it.  Moves
+    activations between a column-parallel product's slots (or a few rows
+    of a weight); differentiable, so each piece's gradient goes back to
+    its slot."""
+    from ..launch import collectives
+
+    width = blocks[0].shape[dim]
+    parts = []
+    for lo, hi in spans:
+        c = lo
+        while c < hi:
+            m = c // width
+            e = min(hi, (m + 1) * width)
+            parts.append(blocks[m].narrow(dim, c - m * width, e - c))
+            c = e
+    return collectives.gather_to(parts, dim, device)
+
+
 def _whole_tree(ps: list, dims, device):
     if isinstance(ps[0], dict) or isinstance(dims, dict):
         keys = next(p for p in ps if p is not None).keys()
@@ -340,14 +362,19 @@ def _whole_tree(ps: list, dims, device):
 def mlp_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, devs) -> list:
     """:func:`mlp` over one data slot's model slots (``hs[m]`` slot ``m``'s
     copy of the rows): with the inner dim split (``wi``/``wg`` by column,
-    ``wo`` by row) each slot's product is a partial sum, all-reduced in
+    ``wo`` by row, or ``wo`` replicated, each slot reading its rows of it:
+    the hybrid's shared MLP, whose ``wo`` ``param_specs`` takes for an
+    attention output) each slot's product is a partial sum, all-reduced in
     model-slot order; otherwise model slot 0 computes with the layer's
     weights whole and broadcasts.  Returns each slot's output."""
     from ..launch import collectives
 
     if len(devs) == 1:
         return [mlp(ps[0], hs[0], cfg)]
-    if dims["wi"] == 1:
+    if dims["wi"] == 1 and dims["wo"] in (0, None):
+        if dims["wo"] is None:
+            f = ps[0]["wi"].shape[-1]
+            ps = [dict(p, wo=p["wo"][m * f:(m + 1) * f]) for m, p in enumerate(ps)]
         return collectives.psum([mlp(p, h, cfg) for p, h in zip(ps, hs)], list(devs))
     w = _whole_tree(ps, dims, devs[0])
     return collectives.broadcast(mlp(w, hs[0], cfg), devs)

@@ -142,15 +142,22 @@ _FAMILIES = {
 }
 
 
+def _always_independent(cfg: ModelConfig, rows: int, seq: int) -> bool:
+    """A family whose data slots share no work in a forward (no MoE
+    dispatch across them)."""
+    return True
+
+
 def _train_forward(module, extras) -> Callable:
     """The family's ``train_forward`` over a batch dict.  Where the family
     runs under a mesh (``module.train_forward_slots``), its ``slots``
     attribute is the same over the mesh's grid, (views, batch_slots, cfg,
     n_data) -> (each data slot's logits over its model slots, each data
-    slot's aux), ``views`` the weights' ``SlotViews``
-    (``module.slot_views``), and ``independent(cfg, rows, seq)`` says
-    whether each data slot's part may run on its own; the mesh train step
-    and the dry run call them."""
+    slot's aux), the family's extras (a VLM's ``prefix_embeds``, the
+    enc-dec model's ``frames``) passed per data slot under their names,
+    ``views`` the weights' ``SlotViews`` (``module.slot_views``), and
+    ``independent(cfg, rows, seq)`` says whether each data slot's part may
+    run on its own; the mesh train step and the dry run call them."""
     def fn(params, batch, c):
         return module.train_forward(params, batch["tokens"], c, **extras(batch))
 
@@ -158,11 +165,11 @@ def _train_forward(module, extras) -> Callable:
     if slots is not None:
         def fn_slots(views, batch_slots, c, n_data=None):
             kw = [extras(b) for b in batch_slots]
-            prefix = [k["prefix_embeds"] for k in kw] if kw[0] else None
-            return slots(views, [b["tokens"] for b in batch_slots], c, prefix, n_data)
+            per_slot = {k: [x[k] for x in kw] for k in kw[0]}
+            return slots(views, [b["tokens"] for b in batch_slots], c, n_data=n_data, **per_slot)
         fn.slots = fn_slots
         fn.slot_views = module.slot_views
-        fn.independent = module.data_slots_independent
+        fn.independent = getattr(module, "data_slots_independent", _always_independent)
     return fn
 
 

@@ -529,6 +529,18 @@ class SlotViews:
         axis itself is split (one slot holds the layer whole)."""
         return _layer_dims(self.dims[key])
 
+    def entry(self, jj: int, key: str, *idx) -> list:
+        """Entry ``idx`` of the subtree ``key``, stacked on ``len(idx)``
+        leading axes that the specs do not split (the hybrid's groups and
+        their layers, the xLSTM's), one tree per model slot of computing
+        data slot ``jj``."""
+        return [_index_of(self.rows[jj][m][key], idx) for m in range(self.msize)]
+
+    def entry_dims(self, key: str, n: int):
+        """The dims of :meth:`entry`'s leaves split over ``model`` (the
+        ``n`` stacked axes dropped)."""
+        return _entry_dims(self.dims[key], n)
+
 
 class _Blocks:
     """One state leaf on a mesh: ``blocks[s]`` mesh slot ``s``'s block,
@@ -621,6 +633,20 @@ def _layer_of(tree, dims, i: int, m: int, per: int):
         owner = i // per
         return tree[i - owner * per] if m == owner else None
     return tree[i]
+
+
+def _index_of(tree, idx: tuple):
+    if isinstance(tree, dict):
+        return {k: _index_of(v, idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+def _entry_dims(dims, n: int):
+    if isinstance(dims, dict):
+        return {k: _entry_dims(v, n) for k, v in dims.items()}
+    if dims is not None and dims < n:
+        raise ValueError(f"a stacked axis (dim {dims}) is split over model")
+    return None if dims is None else dims - n
 
 
 def _layer_dims(dims):

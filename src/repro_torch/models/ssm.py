@@ -19,6 +19,10 @@ the reference does.  The function computed is the same.
 Casts follow the reference: x, B and C enter the SSD in float32; the
 forward reads ``conv_w``/``conv_b`` in the compute dtype and the decode step
 in float32; the gated norm is the plain RMSNorm formula, never the kernel.
+
+:func:`mamba2_row` is the mixer of one data slot over its model slots under
+a mesh, each model slot owning a block of the SSM heads where they divide
+the axis.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ from .. import resolve_device
 from .common import ModelConfig
 from .layers import dense_init, rms_norm
 
-__all__ = ["MambaState", "init_mamba2", "init_mamba_state", "mamba2_decode_step",
-           "mamba2_forward", "softplus", "ssd_chunked", "ssm_dims"]
+__all__ = ["MambaState", "heads_parallel", "in_proj_spans", "init_mamba2", "init_mamba_state",
+           "mamba2_decode_step", "mamba2_forward", "mamba2_row", "softplus", "ssd_chunked",
+           "ssm_dims"]
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple:
@@ -157,6 +162,102 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y.reshape(B, S, d_in).to(dt)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Per model slot (tensor parallelism over a data slot's model slots)
+# ---------------------------------------------------------------------------
+
+def heads_parallel(cfg: ModelConfig, dims: dict, msize: int) -> bool:
+    """Whether a data slot's model slots split the mixer by SSM heads: the
+    heads divide the axis and ``param_specs`` splits ``in_proj`` by its
+    output columns, ``conv_w`` by channels and ``out_proj`` by rows (the
+    heads' channels); else model slot 0 runs the mixer whole."""
+    H = ssm_dims(cfg)[1]
+    return (msize > 1 and H % msize == 0 and dims["in_proj"] == 1 and dims["conv_w"] == 0
+            and dims["out_proj"] == 0)
+
+
+def in_proj_spans(cfg: ModelConfig, msize: int, m: int) -> list:
+    """The ``in_proj`` output columns model slot ``m`` computes with, as
+    ``(lo, hi)`` spans in the order it reads them: z and x of its heads,
+    B and C (the single group, every slot), dt of its heads."""
+    d_in, H, P, N = ssm_dims(cfg)
+    c, h, dt0 = d_in // msize, H // msize, 2 * d_in + 2 * N
+    return [(m * c, (m + 1) * c), (d_in + m * c, d_in + (m + 1) * c), (2 * d_in, dt0),
+            (dt0 + m * h, dt0 + (m + 1) * h)]
+
+
+def _gated_norm_row(gs: list, scales: list, eps: float, d_in: int, devs) -> list:
+    """``rms_norm(g, norm)`` over the whole ``d_in`` channels from each
+    model slot's columns ``gs[m]`` (and its scale columns ``scales[m]``):
+    each slot's float32 sum of squares is all-reduced over the model slots
+    before any slot scales its columns, as the plain formula does."""
+    from ..launch import collectives
+
+    g32 = [g.float() for g in gs]
+    sq = collectives.psum([(x * x).sum(dim=-1, keepdim=True) for x in g32], list(devs))
+    return [(x * torch.rsqrt(s / d_in + eps)).to(g.dtype) * w.to(g.dtype)
+            for x, s, g, w in zip(g32, sq, gs, scales)]
+
+
+def mamba2_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, devs) -> list:
+    """:func:`mamba2_forward` over one data slot's model slots (``hs[m]``
+    slot ``m``'s copy of the normed rows, ``ps[m]`` its block of the
+    layer's weights).  Where the SSM heads divide the axis
+    (:func:`heads_parallel`) model slot ``m`` owns heads ``[m H/M, (m+1)
+    H/M)``: it computes its block of ``in_proj``'s output columns, and the
+    activations move to their heads' owners (:func:`in_proj_spans`, one
+    gather a slot; the blocks cross the z | x B C | dt boundaries); the
+    depthwise conv's tap rows of its x channels and of B and C come to it
+    (a few rows of ``conv_w``: (d_in / M + 2N) x 4 values, where the
+    activations they would otherwise meet are B x S times as many); A, D
+    and dt_bias are its heads' slices; the SSD runs on its heads; the gated
+    RMSNorm's sum of squares is all-reduced over the whole d_in
+    (:func:`_gated_norm_row`); ``out_proj``'s rows are its heads', a
+    partial sum all-reduced in model-slot order.  Otherwise model slot 0
+    runs the mixer with the layer's weights whole and broadcasts.  Returns
+    each slot's output."""
+    from ..launch import collectives
+    from .layers import _whole_tree, take_columns
+
+    M = len(devs)
+    if M == 1:
+        return [mamba2_forward(ps[0], hs[0], cfg)]
+    if not heads_parallel(cfg, dims, M):
+        w = _whole_tree(ps, dims, devs[0])
+        return collectives.broadcast(mamba2_forward(w, hs[0], cfg), devs)
+    d_in, H, P, N = ssm_dims(cfg)
+    c, hp = d_in // M, H // M
+    dt = hs[0].dtype
+    acts = [h @ p["in_proj"].to(dt) for p, h in zip(ps, hs)]
+    zxs = [take_columns(acts, in_proj_spans(cfg, M, m), dev) for m, dev in enumerate(devs)]
+    conv_rows = [[(m * c, (m + 1) * c), (d_in, d_in + 2 * N)] for m in range(M)]
+    ws = [take_columns([p["conv_w"] for p in ps], r, dev, dim=0)
+          for r, dev in zip(conv_rows, devs)]
+    ys, scales = [], []
+    if cfg.use_pallas:
+        from ..kernels import ops as kops
+
+        ssd = kops.ssd_chunked
+    else:
+        ssd = ssd_chunked
+    for m, (p, zx, w) in enumerate(zip(ps, zxs, ws)):
+        B, S, _ = zx.shape
+        z, xbc, dtv = torch.split(zx, [c, c + 2 * N, hp], dim=-1)
+        b = torch.cat([p["conv_b"][lo:hi] for lo, hi in conv_rows[m]])
+        xbc = F.silu(_causal_conv(xbc, w.to(dt), b.to(dt)))
+        xs, Bmat, Cmat = torch.split(xbc, [c, N, N], dim=-1)
+        xs = xs.reshape(B, S, hp, P)
+        heads = slice(m * hp, (m + 1) * hp)
+        dtv = softplus(dtv.float() + p["dt_bias"][heads].float())
+        A = -torch.exp(p["A_log"][heads].float())
+        y, _ = ssd(xs.float(), dtv, A, Bmat.float(), Cmat.float(), cfg.ssm_chunk)
+        y = y + xs.float() * p["D"][heads].float()[None, None, :, None]
+        ys.append(y.reshape(B, S, c).to(dt) * F.silu(z))
+        scales.append(p["norm"][m * c:(m + 1) * c])
+    gs = _gated_norm_row(ys, scales, cfg.norm_eps, d_in, devs)
+    return collectives.psum([g @ p["out_proj"].to(dt) for p, g in zip(ps, gs)], list(devs))
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ at load), each cast to the compute dtype at its use; gradients come back
 float32, and AdamW updates the weights in place.
 
 Under an ambient mesh (:func:`repro_torch.launch.mesh.use_mesh`) the step
-takes placed state (:func:`place_train_state`: parameters and both moments
-by ``zero1_specs`` under ``cfg.fsdp_params``, else by ``param_specs``), the
+of every family (each model's ``train_forward.slots``) takes placed state
+(:func:`place_train_state`: parameters and both moments by
+``zero1_specs`` under ``cfg.fsdp_params``, else by ``param_specs``), the
 reference's jitted step with those in-shardings: every model slot of each
 data slot computes tensor-parallel from its own block of the weights
 (:class:`repro_torch.models.sharding.SlotViews`: the ``model`` shards as

@@ -61,6 +61,7 @@ and ``pos`` advances per block; no slot gathers the cache or a split weight.
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple, Optional
 
 import torch
@@ -80,8 +81,8 @@ from .moe import KEEP_FLOAT32, init_moe, moe_ffn
 
 __all__ = ["DecodeState", "block_forward", "check_family", "data_slots_independent",
            "decode_independent", "decode_slots", "decode_step", "forward", "init_decode_state",
-           "init_params", "params_from_numpy", "prefill", "slot_views", "train_forward",
-           "train_forward_slots"]
+           "init_params", "mesh_train_forward", "params_from_numpy", "prefill", "slot_views",
+           "train_forward", "train_forward_slots"]
 
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -219,7 +220,7 @@ def slot_views(params, cfg: ModelConfig, data_slots, leaves: bool = False):
     computing data slots ``data_slots``: a placed tree as placed, a whole
     tree cut by ``param_specs``."""
     mesh = abstract_mesh()
-    if isinstance(params["ln_f"], sharding.ShardedTensor):
+    if isinstance(params["embed"]["tok"], sharding.ShardedTensor):
         return sharding.SlotViews(params, mesh, data_slots, leaves=leaves)
     return sharding.SlotViews(params, mesh, data_slots, sharding.param_specs(params, cfg, mesh),
                               leaves=leaves)
@@ -254,11 +255,11 @@ def _grid_forward(views, tokens_slots: list, cfg: ModelConfig, prefix_slots=None
     return hs, auxes, kvs
 
 
-def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig, prefix_slots=None,
+def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig, prefix_embeds=None,
                         n_data: Optional[int] = None) -> tuple:
     """:func:`train_forward` over the ambient mesh's grid: ``views`` the
     :class:`.sharding.SlotViews` of the weights (:func:`slot_views`),
-    ``tokens_slots[jj]`` (and a VLM's ``prefix_slots[jj]``) the rows of
+    ``tokens_slots[jj]`` (and a VLM's ``prefix_embeds[jj]``) the rows of
     computing data slot ``views.data_slots[jj]`` on its device, ``n_data``
     the data slots that take rows in all (the MoE's groups follow the whole
     batch).  Returns (each data slot's :class:`.layers.SlotLogits` over its
@@ -266,11 +267,11 @@ def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig, prefix_slot
     first model slot's device)."""
     check_family(cfg)
     mesh = abstract_mesh()
-    hs, auxes, _ = _grid_forward(views, tokens_slots, cfg, prefix_slots, n_data=n_data)
+    hs, auxes, _ = _grid_forward(views, tokens_slots, cfg, prefix_embeds, n_data=n_data)
     logits = []
     for jj, (j, row) in enumerate(zip(views.data_slots, hs)):
-        if prefix_slots is not None:
-            row = [h[:, prefix_slots[jj].shape[1]:] for h in row]
+        if prefix_embeds is not None:
+            row = [h[:, prefix_embeds[jj].shape[1]:] for h in row]
         logits.append(layers.unembed_row(views.rows[jj], views.dims, row, cfg,
                                          mesh.model_devices(j)))
     return logits, auxes
@@ -289,13 +290,19 @@ def _joined(parts: list) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
-def _mesh_train_forward(params, tokens, cfg, prefix_embeds) -> tuple:
+def mesh_train_forward(module, params, tokens, cfg: ModelConfig, **extras) -> tuple:
+    """A family module's ``train_forward`` under the ambient mesh: the rows
+    of ``tokens`` and of each of ``extras`` (a VLM's ``prefix_embeds``, the
+    enc-dec model's ``frames``; ``None`` for none) scattered over the data
+    slots that take them, ``module.train_forward_slots`` over the grid of
+    ``module.slot_views`` of ``params`` (placed or whole), the logits
+    gathered onto the tokens' device and the aux losses summed there."""
     mesh = abstract_mesh()
     devices = mesh.row_devices(tokens.shape[0])
-    prefix = None if prefix_embeds is None else collectives.scatter(prefix_embeds, 0, devices)
-    views = slot_views(params, cfg, range(len(devices)))
-    logits, auxes = train_forward_slots(views, collectives.scatter(tokens, 0, devices), cfg,
-                                        prefix)
+    extras = {k: collectives.scatter(v, 0, devices) for k, v in extras.items() if v is not None}
+    views = module.slot_views(params, cfg, range(len(devices)))
+    logits, auxes = module.train_forward_slots(views, collectives.scatter(tokens, 0, devices),
+                                               cfg, **extras)
     return (_joined([layers.gather_logits(lg, tokens.device) for lg in logits]),
             collectives.psum(auxes, tokens.device))
 
@@ -310,7 +317,8 @@ def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     (:func:`train_forward_slots`)."""
     check_family(cfg)
     if abstract_mesh() is not None:
-        return _mesh_train_forward(params, tokens, cfg, prefix_embeds)
+        return mesh_train_forward(sys.modules[__name__], params, tokens, cfg,
+                                  prefix_embeds=prefix_embeds)
     x = _embed_with_prefix(params, tokens, cfg, prefix_embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]

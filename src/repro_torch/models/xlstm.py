@@ -17,28 +17,37 @@ float32 at each use and so stays in the parameter dtype; for training
 (``master=True``) nothing is cast.  Every RMSNorm here is the plain
 formula, as in the reference, which passes no ``use_pallas`` at any of its
 call sites: the family reaches no hand-written kernel.
+
+Under an ambient mesh (:func:`repro_torch.launch.mesh.use_mesh`) the forward
+and ``train_forward`` split the rows over the mesh's data slots and each
+data slot's model slots compute tensor-parallel from their own blocks
+(:func:`train_forward_slots`): the mLSTM by its q/k/v output columns
+(:func:`mlstm_row`), the sLSTM's time loop on model slot 0 with its input
+projection column-parallel and its output row-parallel (:func:`slstm_row`).
+Decode under a mesh is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+import sys
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from .common import ModelConfig
-from . import layers
+from .common import ModelConfig, abstract_mesh
+from . import layers, transformer
 from .layers import (cast_matrices, dense_init, draw_stacked, embed, index_tree, init_embed,
                      init_mlp, mlp, rms_norm, unembed)
-from .transformer import _maybe_remat
+from .transformer import _maybe_remat, slot_views
 
 __all__ = ["MLSTMState", "SLSTMState", "XLSTMState", "decode_step", "ffn_dim", "forward",
            "init_decode_state", "init_mlstm_state", "init_params", "init_slstm_state",
-           "mlstm_decode_step", "mlstm_dims", "mlstm_forward", "params_from_numpy",
-           "slstm_decode_step", "slstm_dims", "slstm_forward", "train_forward",
-           "xlstm_group_shape"]
+           "mlstm_decode_step", "mlstm_dims", "mlstm_forward", "mlstm_parallel", "mlstm_row",
+           "params_from_numpy", "slot_views", "slstm_decode_step", "slstm_dims", "slstm_forward",
+           "slstm_row", "train_forward", "train_forward_slots", "whole_r", "xlstm_group_shape"]
 
 _STACKED_AXES = {"mlstm": 2, "slstm": 1}
 _KEEP_FLOAT32 = {"r"}
@@ -91,8 +100,9 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, lead: tuple = ()) -> dict
 
 
 def _mlstm_chunked(q, k, v, li, lf, chunk: int) -> torch.Tensor:
-    """q,k,v: (B,S,H,P) fp32; li: log input gate, lf: log forget gate (B,S,H).
-    Returns h (B,S,H,P)."""
+    """q,k: (B,S,H,P) fp32, v: (B,S,H,Pv) (a head's value columns, all or
+    some: each is computed on its own); li: log input gate, lf: log forget
+    gate (B,S,H).  Returns h (B,S,H,Pv)."""
     B, S, H, P = q.shape
     Q = min(chunk, S)
     assert S % Q == 0
@@ -116,7 +126,7 @@ def _mlstm_chunked(q, k, v, li, lf, chunk: int) -> torch.Tensor:
     new_n = torch.einsum("bcqh,bcqhp->bchp", dec_state, k)
     chunk_dec = torch.exp(A[:, :, -1, :])                        # (B,nc,H)
 
-    C = torch.zeros((B, H, P, P), dtype=q.dtype, device=q.device)
+    C = torch.zeros((B, H, P, v.shape[-1]), dtype=q.dtype, device=q.device)
     n = torch.zeros((B, H, P), dtype=q.dtype, device=q.device)
     Cs, ns = [], []
     for c in range(nc):                                          # states before chunk c
@@ -131,7 +141,7 @@ def _mlstm_chunked(q, k, v, li, lf, chunk: int) -> torch.Tensor:
     inter_n = torch.einsum("bcqhp,bchp->bcqh", qs, ns)
     denom = torch.clamp(torch.abs(intra_n + inter_n), min=1.0)
     h = (intra_h + inter_h) / denom[..., None]
-    return h.reshape(B, S, H, P)
+    return h.reshape(B, S, H, v.shape[-1])
 
 
 def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -261,6 +271,186 @@ def slstm_decode_step(p: dict, x: torch.Tensor, state: SLSTMState, cfg: ModelCon
 
 
 # ---------------------------------------------------------------------------
+# Per model slot (tensor parallelism over a data slot's model slots)
+# ---------------------------------------------------------------------------
+
+def mlstm_parallel(cfg: ModelConfig, dims: dict, msize: int) -> bool:
+    """Whether a data slot's model slots split the mLSTM by the q/k/v
+    output columns: ``param_specs`` splits ``up`` and ``wq``/``wk``/``wv``
+    by columns and ``down`` by rows, and each slot's columns are whole heads
+    or a part of one head; else model slot 0 runs the layer whole."""
+    d_in, H, P = mlstm_dims(cfg)
+    cw = d_in // msize
+    return (msize > 1 and dims["up"] == dims["wq"] == dims["wk"] == dims["wv"] == 1
+            and dims["down"] == 0 and (cw % P == 0 or P % cw == 0))
+
+
+def _head_cols(qs: list, head_group: list, devs) -> list:
+    """Each model slot's q (or k) columns of the whole heads it reads: its
+    own where it holds whole heads, else its head's columns all-gathered
+    over the slots that hold them (``head_group[m]``: those slots)."""
+    from ..launch import collectives
+
+    out = list(qs)
+    for group in dict.fromkeys(tuple(g) for g in head_group):
+        if len(group) > 1:
+            got = collectives.all_gather([qs[m] for m in group], -1, [devs[m] for m in group])
+            for m, t in zip(group, got):
+                out[m] = t
+    return out
+
+
+def mlstm_row(ps: list, dims: dict, xs: list, cfg: ModelConfig, devs) -> list:
+    """:func:`mlstm_forward` over one data slot's model slots (``xs[m]``
+    slot ``m``'s copy of the residual rows, ``ps[m]`` its block of the
+    layer's weights), where :func:`mlstm_parallel`: ``up`` is
+    column-parallel and x_in is all-gathered over the model slots for the
+    q/k/v and gate products; ``wif`` is replicated, so every slot computes
+    the gates; slot ``m`` computes its q/k/v columns, and where a head's
+    head_dim is split over several slots those slots all-gather that
+    head's q and k columns (v and the output stay split: each value
+    column's output is computed on its own, with no score all-reduce); z's
+    columns move to the output's layout for the ``silu(z)`` product;
+    ``down`` is row-parallel, a partial sum all-reduced in model-slot
+    order.  Otherwise model slot 0 runs the layer whole and broadcasts.
+    Returns each slot's output."""
+    from ..launch import collectives
+    from .layers import _whole_tree, take_columns
+
+    M = len(devs)
+    if M == 1:
+        return [mlstm_forward(ps[0], xs[0], cfg)]
+    if not mlstm_parallel(cfg, dims, M):
+        w = _whole_tree(ps, dims, devs[0])
+        return collectives.broadcast(mlstm_forward(w, xs[0], cfg), devs)
+    B, S, _ = xs[0].shape
+    d_in, H, P = mlstm_dims(cfg)
+    cw = d_in // M
+    dt = xs[0].dtype
+    hs = [rms_norm(x, p["ln"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    ups = [h @ p["up"].to(dt) for p, h in zip(ps, hs)]
+    uw = ups[0].shape[-1]
+    x_in = collectives.all_gather([ups[m][..., :min(uw, d_in - m * uw)]
+                                   for m in range((d_in + uw - 1) // uw)], -1, devs)
+    zs = [take_columns(ups, [(d_in + m * cw, d_in + (m + 1) * cw)], dev)
+          for m, dev in enumerate(devs)]
+    per = max(cw // P, 1)                         # whole heads a slot reads
+    group = [[m] if cw >= P else list(range(m - m % (P // cw), m - m % (P // cw) + P // cw))
+             for m in range(M)]
+    q = _head_cols([x @ p["wq"].to(dt) for p, x in zip(ps, x_in)], group, devs)
+    k = _head_cols([x @ p["wk"].to(dt) for p, x in zip(ps, x_in)], group, devs)
+    outs = []
+    for m, (p, x) in enumerate(zip(ps, x_in)):
+        h0 = (m * cw) // P                        # the slot's first head
+        heads = slice(h0, h0 + per)
+        v = (x @ p["wv"].to(dt)).reshape(B, S, per, -1)
+        gi, gf = torch.chunk((x @ p["wif"].to(dt)).float(), 2, dim=-1)
+        y = _mlstm_chunked(q[m].reshape(B, S, per, P).float(), k[m].reshape(B, S, per, P).float(),
+                           v.float(), _log_sigmoid(gi[..., heads]), _log_sigmoid(gf[..., heads]),
+                           cfg.xlstm_chunk)
+        y = y.reshape(B, S, cw).to(dt) * F.silu(zs[m])
+        outs.append(y @ p["down"].to(dt))
+    return collectives.psum(outs, list(devs))
+
+
+def whole_r(leaves: list, dim, device) -> torch.Tensor:
+    """The sLSTM's recurrent ``r`` (H, dh, 4 dh) whole on ``device``, from
+    its model slots' blocks: gathered once per layer where ``param_specs``
+    splits it (over dh, not the heads), slot 0's own where replicated."""
+    from .layers import whole_on
+
+    return whole_on(leaves, dim, device)
+
+
+def slstm_row(ps: list, dims: dict, xs: list, cfg: ModelConfig, devs) -> list:
+    """:func:`slstm_forward` over one data slot's model slots (``xs[m]``
+    slot ``m``'s copy of the residual rows).  The reference's recurrence
+    joins the heads' outputs (B, H, 4 dh) into one (B, 4d) vector before
+    splitting it into the z, i, f, o gates, so every gate of every
+    position reads every head's state at every step: the time loop runs
+    on model slot 0, which takes ``r`` whole once per layer
+    (:func:`whole_r`) and every column of the input projection, each slot
+    computing its block of ``wx``'s columns; no collective runs inside the
+    loop, and the other model slots wait.  The output's columns then go to
+    the slots that hold their rows of ``out`` (row-parallel, a partial sum
+    all-reduced in model-slot order), and the FFN runs through
+    :func:`.layers.mlp_row`.  Returns each slot's output."""
+    from ..launch import collectives
+    from .layers import mlp_row, whole_on
+
+    M = len(devs)
+    if M == 1:
+        return [slstm_forward(ps[0], xs[0], cfg)]
+    B, S, d = xs[0].shape
+    dt = xs[0].dtype
+    dev0 = devs[0]
+    hs = [rms_norm(x, p["ln"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    if dims["wx"] == 1:
+        xt = collectives.gather_to([h @ p["wx"].to(dt) for p, h in zip(ps, hs)], -1, dev0)
+    else:
+        xt = hs[0] @ whole_on([p["wx"] for p in ps], dims["wx"], dev0).to(dt)
+    xt = xt.float()
+    cell = {"r": whole_r([p["r"] for p in ps], dims["r"], dev0).float()}
+    state = init_slstm_state(cfg, B, dev0)
+    steps = []
+    for t in range(S):
+        state = _slstm_cell(cell, xt[:, t], state, cfg)
+        steps.append(state.h)
+    y = torch.stack(steps, dim=1).to(dt)                           # (B,S,d) on slot 0
+    if dims["out"] == 0:
+        o = collectives.psum([a @ p["out"].to(dt) for p, a in
+                              zip(ps, collectives.scatter(y, -1, devs))], list(devs))
+    else:
+        o = collectives.broadcast(y @ whole_on([p["out"] for p in ps], dims["out"], dev0).to(dt),
+                                  devs)
+    x2 = [x + a for x, a in zip(xs, o)]
+    h2 = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, x2)]
+    return [x + f for x, f in zip(x2, mlp_row([p["ffn"] for p in ps], dims["ffn"], h2, cfg,
+                                               devs))]
+
+
+def _grid_group(mrows: list, srows: list, mdims: dict, sdims: dict, xs: list, cfg,
+                devs: list) -> list:
+    """One group over the grid: ``xs[jj][m]`` model slot ``m``'s copy of
+    computing data slot ``jj``'s rows, ``mrows[jj][j][m]`` its block of
+    mLSTM layer ``j``, ``srows[jj][m]`` of the sLSTM layer."""
+    out = []
+    for jj, x in enumerate(xs):
+        for lrow in mrows[jj]:
+            x = [a + b for a, b in zip(x, mlstm_row(lrow, mdims, x, cfg, devs[jj]))]
+        out.append(slstm_row(srows[jj], sdims, x, cfg, devs[jj]))
+    return out
+
+
+def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig,
+                        n_data: Optional[int] = None) -> tuple:
+    """:func:`train_forward` over the ambient mesh's grid (``views`` the
+    weights' :class:`.sharding.SlotViews`, ``tokens_slots[jj]`` computing
+    data slot ``views.data_slots[jj]``'s rows on its device): each model
+    slot holds its copy of the rows, each mLSTM layer runs through
+    :func:`mlstm_row`, each sLSTM layer through :func:`slstm_row`, each
+    group checkpointed under ``remat == "block"``.  Returns (each data
+    slot's :class:`.layers.SlotLogits`, each data slot's aux loss, zero)."""
+    mesh = abstract_mesh()
+    D = len(views.data_slots)
+    devs = [mesh.model_devices(j) for j in views.data_slots]
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, devs[jj])
+          for jj, t in enumerate(tokens_slots)]
+    ng, nm = xlstm_group_shape(cfg)
+    mdims, sdims = views.entry_dims("mlstm", 2), views.entry_dims("slstm", 1)
+    group = _maybe_remat(lambda mrows, srows, xs: _grid_group(mrows, srows, mdims, sdims, xs,
+                                                              cfg, devs), cfg)
+    for g in range(ng):
+        xs = group([[views.entry(jj, "mlstm", g, j) for j in range(nm)] for jj in range(D)],
+                   [views.entry(jj, "slstm", g) for jj in range(D)], xs)
+    logits = [layers.unembed_row(views.rows[jj], views.dims,
+                                 [rms_norm(a, p["ln_f"], cfg.norm_eps)
+                                  for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+              for jj in range(D)]
+    return logits, [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
+
+
+# ---------------------------------------------------------------------------
 # Full model: groups of (slstm_every - 1) mLSTM + 1 sLSTM
 # ---------------------------------------------------------------------------
 
@@ -301,7 +491,11 @@ def _group_forward(params, g, x, cfg):
 
 def train_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> tuple:
     """Returns (logits, aux_loss = 0), differentiable in ``params``; each
-    group recomputed in the backward pass when ``cfg.remat == "block"``."""
+    group recomputed in the backward pass when ``cfg.remat == "block"``.
+    Under an ambient mesh the rows split over its data slots, each
+    tensor-parallel over its model slots (:func:`train_forward_slots`)."""
+    if abstract_mesh() is not None:
+        return transformer.mesh_train_forward(sys.modules[__name__], params, tokens, cfg)
     x = embed(params["embed"], tokens, cfg)
     group = _maybe_remat(lambda params, x, g: _group_forward(params, g, x, cfg), cfg)
     for g in range(xlstm_group_shape(cfg)[0]):

@@ -325,10 +325,11 @@ def test_symmetric_shortcut_equals_the_full_simulation_for_a_decode_cell():
 @pytest.mark.parametrize("arch, kind, placement",
                          [("qwen3-4b", "decode", "mesh"), ("zamba2-7b", "decode", "one device"),
                           ("whisper-large-v3", "decode", "one device"),
-                          ("zamba2-7b", "prefill", "one device")])
+                          ("zamba2-7b", "prefill", "mesh")])
 def test_a_gathered_cell_is_labelled_one_device(arch, kind, placement, monkeypatch):
     """A cell whose step gathers the placed state onto one slot says so; a
-    transformer decode cell runs over the mesh and gathers nothing."""
+    transformer decode cell and the hybrid's prefill cell run over the mesh
+    and gather nothing."""
     calls = []
     real = sharding.gather
     monkeypatch.setattr(sharding, "gather", lambda *a, **k: calls.append(1) or real(*a, **k))
