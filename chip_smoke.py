@@ -10,7 +10,8 @@ replanning service, serving's planner hooks with prefill, training, the
 MoE, VLM, enc-dec and xLSTM families, the planner's stage plan run as a
 pipeline, the mesh's data and model axes in execution, the dry run held
 against a real run, tensor parallelism over the model axis, and decode over
-the mesh (``repro_torch``), in twenty-four phases; any failure exits
+the mesh for every family (``repro_torch``), in twenty-six phases; any
+failure exits
 non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
@@ -282,8 +283,9 @@ non-zero:
               max(compute, memory) at the card's peaks, reported; (b) phase
               21(c)'s FSDP step on its (2, 4) mesh, card and meta: the
               collectives (bytes and calls per kind) ``==``; (c) on meta,
-              after every phase that times the host, in three child
-              processes at once: qwen3-4b ``train_4k`` on pod16x16 cut to
+              after the phases whose host times are end-to-end metrics, in
+              three child processes at once, joined after phase 26 (phases
+              23-26 run beside them): qwen3-4b ``train_4k`` on pod16x16 cut to
               12 of 36 layers and ``run_pipeline_cell`` at straggler 1.0 and
               2.0 over 4 microbatches, each plan
               covering every layer, each record's per-slot memory,
@@ -364,9 +366,39 @@ non-zero:
               (d) the zamba2-7b train step at full width cut to one group
               (6 Mamba2 layers and the shared block) on (2, 4), phase
               21(c)'s bounds and float32 pair.
+ 26. decode families — decode over the mesh for the hybrid, enc-dec and
+              xLSTM families, every slot on the one card, 4 steps from a
+              random state drawn from each run's seed (K/V, positions, conv
+              windows, SSM, mLSTM and sLSTM states, cross K/V), each slot's
+              blocks of it read and written in place where ``state_specs``
+              puts them: first the decode kernel at (a)'s, (b)'s and (d)'s
+              per-slot shapes timed against its plain version and SDPA;
+              (a) zamba2-7b whole (81 layers), float32, B = 4, C = 1,024 on
+              (1, 16): exactly 16 x 14 decode-kernel launches a step at 2
+              heads of 112, one checked step under ``param_guard`` over the
+              weights and the state (no op reading more than a slot's
+              block); (b) zamba2-7b cut to 12 layers, B = 1 on (4, 4): the
+              cache length over the data slots (the kernel's log-sum-exp
+              route), the Mamba states replicated over them, bf16 and a
+              float32 pair, the bf16 logits and states held against one
+              device that sums and rounds as the mesh does (``==`` on the
+              card: within 1e-4 / 1e-5), three planted bf16-only faults
+              refused by that limit; (c) whisper-large-v3 whole, bf16, B = 4 on (2,
+              16): the self and cross K/V split by head_dim; (d) the same on
+              (2, 4): 5 heads a slot, the kernel on the self cache; (e)
+              xlstm-350m whole, float32, B = 8 on (2, 16), each sLSTM
+              layer's collective calls exactly derived.  Each against one
+              device's decode from the same weights and state (counters
+              zeroed just before and read just after each): launches and
+              collective calls exactly derived, every kernel call held to
+              its plain version, the logits within phase 12's bf16 limit
+              (bf16) or a float32 pair's 1e-3 mean relative error, every
+              state leaf likewise (positions and ``pos`` ``==``, static
+              cross K/V untouched), the state's blocks the placed tensors
+              after the steps.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-25;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-26;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -4077,7 +4109,7 @@ STACKED_AXES = {"layers": 1, "enc": 1, "dec": 1, "mamba_groups": 2, "mamba_ln": 
 
 
 @contextlib.contextmanager
-def param_guard(torch, params, cfg, mesh, allowed=()):
+def param_guard(torch, params, cfg, mesh, allowed=(), state=None, state_specs=None):
     """Within the block (a run from the whole tree ``params`` under
     ``mesh``), every op that reads a tensor in the memory of a leaf that
     ``param_specs`` splits over ``model`` must read at most one model
@@ -4085,8 +4117,11 @@ def param_guard(torch, params, cfg, mesh, allowed=()):
     shape or of one layer's whole shape (a view reads nothing), but for
     the leaves whose paths start with one of ``allowed`` (the documented
     exceptions, :func:`family_tp_exceptions`), which may be made whole.
-    Yields a dict: the most elements any op read of a parameter, that of
-    each split leaf against its block, and the shapes made."""
+    With a whole decode ``state`` and its ``state_specs``, every op that
+    reads a state leaf's memory must read at most one mesh slot's block of
+    it (its reads are reported under ``state/<path>``).  Yields a dict: the
+    most elements any op read of a parameter, that of each split leaf (and
+    state leaf) against its block, and the shapes made."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.launch import hlo_analysis
@@ -4110,6 +4145,15 @@ def param_guard(torch, params, cfg, mesh, allowed=()):
     sharding._map_with_path(lambda pth, sp: specs_at.__setitem__(pth, sp), specs)
     sharding._map_with_path(leaf, params)
     whole -= exempt
+    if state is not None:
+        sspec = {}
+        sharding._map_with_path(lambda pth, sp: sspec.__setitem__(pth, sp), state_specs)
+
+        def state_leaf(path, x):
+            n = x.numel() // math.prod(sharding._counts(sspec[path], mesh, x.dim()))
+            spans.append((x.data_ptr(), x.data_ptr() + x.numel() * x.element_size(), x.numel(),
+                          n, "state/" + "/".join(path)))
+        sharding._map_with_path(state_leaf, state)
     report = {"max_read": 0, "over_block": [], "whole_made": [], "reads": {}}
 
     def tensors(xs):
@@ -4492,12 +4536,19 @@ def dryrun_production_whats(run: dict) -> list:
     return ["cell"] + [f"pipeline {st}" for st in run["stragglers"]]
 
 
-def dryrun_production_children(run: dict, smoke: bool = False) -> dict:
+def _stop_children(children: dict) -> None:
+    for child, _ in children.values():
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def start_production_children(run: dict, smoke: bool = False) -> dict:
     """(c)'s dry runs (:func:`dryrun_production_record`), each in a child
-    process, all started at once (host work on meta tensors, after every
-    phase that times the host): what -> record.  A child that fails, or
-    runs past :data:`DRYRUN_CHILD_TIMEOUT`, fails the phase; every child has
-    ended or been stopped when this returns."""
+    process, all started at once (host work on meta tensors): a handle for
+    :func:`join_production_children`.  A child still running when the
+    script exits is stopped then."""
+    import atexit
     import os
     import tempfile
 
@@ -4511,10 +4562,25 @@ def dryrun_production_children(run: dict, smoke: bool = False) -> dict:
                 [sys.executable, str(pathlib.Path(__file__).resolve()), "--dryrun-production",
                  what, str(out), json.dumps({"run": run, "smoke": smoke})], env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
-        recs, t_end = {}, time.time() + DRYRUN_CHILD_TIMEOUT
+    except BaseException:
+        _stop_children(children)
+        work.cleanup()
+        raise
+    atexit.register(_stop_children, children)
+    return {"children": children, "work": work, "t_end": time.time() + DRYRUN_CHILD_TIMEOUT}
+
+
+def join_production_children(handle: dict) -> dict:
+    """What -> record of the children :func:`start_production_children`
+    started.  A child that fails, or runs past
+    :data:`DRYRUN_CHILD_TIMEOUT` from its start, fails the phase; every
+    child has ended or been stopped when this returns."""
+    children = handle["children"]
+    try:
+        recs = {}
         for what, (child, path) in children.items():
             try:
-                _, err = child.communicate(timeout=max(t_end - time.time(), 1.0))
+                _, err = child.communicate(timeout=max(handle["t_end"] - time.time(), 1.0))
             except subprocess.TimeoutExpired:
                 fail(f"dry run (c): {what} did not end within {DRYRUN_CHILD_TIMEOUT} s")
             if child.returncode != 0 or not path.exists():
@@ -4522,18 +4588,33 @@ def dryrun_production_children(run: dict, smoke: bool = False) -> dict:
             recs[what] = json.loads(path.read_text())
         return recs
     finally:
-        for child, _ in children.values():
-            if child.poll() is None:
-                child.kill()
-                child.wait()
-        work.cleanup()
+        _stop_children(children)
+        handle["work"].cleanup()
+
+
+def say_dryrun_production(c: dict) -> None:
+    """The lines phase 22 prints for (c)'s records."""
+    for what, rec in c.items():
+        plan = ""
+        if "plan" in rec:
+            plan = (f"plan {rec['plan']['stage_sizes']} on pods {rec['plan']['alloc']} "
+                    f"({rec['plan']['planner']}, period {rec['plan']['period_s']:.6g} s); ")
+        say(f"phase dryrun: (c) meta {rec['arch']} {what} {rec['shape']} ({rec['cut']}) on "
+            f"{rec['mesh']}: "
+            f"{plan}per slot {rec['argument_bytes'] / 1e9:.2f} GB arguments + "
+            f"{rec['temp_bytes'] / 1e9:.2f} GB temp, fits {rec['fits']}, "
+            f"{rec['dot_tflop']:.1f} dot TFLOP, collectives "
+            f"{ {k: round(v, 2) for k, v in rec['collective_gb'].items()} } GB; "
+            f"{rec['s']:.1f} s in its process")
 
 
 def dryrun_phase(torch, counters, card, device: str = "cuda", runs: dict = DRYRUN_RUNS,
-                 smoke: bool = False) -> dict:
+                 smoke: bool = False, defer: bool = False) -> dict:
     """Phase 22 on ``device``: (a) :func:`dryrun_validate`, (b)
     :func:`dryrun_mesh`, then (c) the production dry runs on meta in child
-    processes at once (:func:`dryrun_production_children`)."""
+    processes at once (:func:`start_production_children`), joined here or,
+    with ``defer``, left running under ``"production_pending"`` for the
+    caller to join (:func:`join_production_children`)."""
     out = {"card": card}
     t0 = time.time()
     a = out["validate"] = dryrun_validate(torch, counters, runs["validate"], device, smoke)
@@ -4558,21 +4639,13 @@ def dryrun_phase(torch, counters, card, device: str = "cuda", runs: dict = DRYRU
     if device == "cuda":
         torch.cuda.empty_cache()
     t0 = time.time()
-    c = dryrun_production_children(runs["production"], smoke)
-    out["production"] = c
-    out["production_s"] = time.time() - t0
-    for what, rec in c.items():
-        plan = ""
-        if "plan" in rec:
-            plan = (f"plan {rec['plan']['stage_sizes']} on pods {rec['plan']['alloc']} "
-                    f"({rec['plan']['planner']}, period {rec['plan']['period_s']:.6g} s); ")
-        say(f"phase dryrun: (c) meta {rec['arch']} {what} {rec['shape']} ({rec['cut']}) on "
-            f"{rec['mesh']}: "
-            f"{plan}per slot {rec['argument_bytes'] / 1e9:.2f} GB arguments + "
-            f"{rec['temp_bytes'] / 1e9:.2f} GB temp, fits {rec['fits']}, "
-            f"{rec['dot_tflop']:.1f} dot TFLOP, collectives "
-            f"{ {k: round(v, 2) for k, v in rec['collective_gb'].items()} } GB; "
-            f"{rec['s']:.1f} s in its process")
+    handle = start_production_children(runs["production"], smoke)
+    if defer:
+        out["production_pending"] = handle
+    else:
+        out["production"] = c = join_production_children(handle)
+        out["production_s"] = time.time() - t0
+        say_dryrun_production(c)
     out["by_path"] = {"dryrun validate": a["launches"], "dryrun mesh": b["launches"]}
     return out
 
@@ -4672,50 +4745,19 @@ def decode_collective_calls(cfg, dsize: int, msize: int, batch: int, capacity: i
     import collections
 
     from repro_torch.launch.mesh import make_mesh, use_mesh
-    from repro_torch.models import get_model, moe, sharding
+    from repro_torch.models import moe
 
     M = msize
-    params = get_model(cfg).init(0, "meta")
-    named = {}
-    sharding._map_with_path(lambda pth, x: named.__setitem__(
-        "/".join(pth), sharding.model_split_dim(list(pth), tuple(x.shape), M)), params)
+    named = _split_dims(cfg, M)
     layer = {k[len("layers/"):]: (None if d is None else "owner" if d == 0 else d - 1)
              for k, d in named.items() if k.startswith("layers/")}
     D, H, each = decode_holders(cfg, dsize, batch, capacity)
     computing = H if each else 1
     layout = decode_layout_of(cfg, M)
-    calls, per = collections.Counter(), collections.Counter()
-    calls["scatter"] += 1
-    if M > 1:
-        calls["broadcast"] += D
-        if named["embed/tok"] is not None:
-            calls["psum" if named["embed/tok"] == 0 else "all_gather"] += D
-    if H > 1:
-        per["broadcast"] += M
-    if computing > 1:
-        per["gather"] += 2 * M
-    if layout == "heads":
-        per["psum"] += M > 1
-    else:
-        split = layout == "cols" and M > 1
-        for w in ("wq", "wk", "wv"):
-            d = layer[f"attn/{w}"]
-            if d is None or M == 1 or (w == "wv" and split and d == 2):
-                continue
-            per["psum" if d == 0 else "all_gather"] += 1
-        per["psum"] += computing * split
-        d = layer["attn/wo"]
-        if M > 1:
-            if d == 1 and split:
-                per["psum"] += 1
-            else:
-                per["all_gather"] += split
-                if d in (0, 1):
-                    per["psum"] += 1
-                elif d == 2:
-                    per["all_gather"] += 1
+    calls = _decode_embed_calls(named, cfg, D, M)
+    per, once = collections.Counter(), collections.Counter()
+    per.update(_decode_attn_calls(_sub_dims(layer, "attn/", 0), M, H, computing, layout))
     ffn = [("mlp", layer.get("mlp/wi"))]
-    once = collections.Counter()
     if cfg.family == "moe":
         dcfg = cfg.replace(capacity_factor=max(cfg.capacity_factor, 8.0))
         with use_mesh(make_mesh((dsize, M), ("data", "model"), devices=["meta"] * (dsize * M))):
@@ -4743,10 +4785,73 @@ def decode_collective_calls(cfg, dsize: int, msize: int, batch: int, capacity: i
         calls[k] += v * L * D
     for k, v in once.items():
         calls[k] += v * L
+    return {k: v * steps for k, v in sorted(calls.items()) if v}
+
+
+def _decode_embed_calls(named: dict, cfg, D: int, M: int):
+    """A decode step's collective calls outside its layers: the token
+    ``scatter`` over the data slots; per carrying data slot, with M > 1
+    model slots, the token ``broadcast`` to its model slots and the
+    embedding's ``psum`` (vocabulary split) or ``all_gather`` (``d_model``
+    split); the logits' ``gather`` (with a ``psum`` of the partial logits
+    first where ``d_model`` is split)."""
+    import collections
+
+    calls = collections.Counter()
+    calls["scatter"] += 1
+    if M > 1:
+        calls["broadcast"] += D
+        if named["embed/tok"] is not None:
+            calls["psum" if named["embed/tok"] == 0 else "all_gather"] += D
     head = named["embed/tok"] if cfg.tie_embeddings else named["embed/unembed"]
     calls["psum"] += D * (M > 1 and head == (1 if cfg.tie_embeddings else 0))
     calls["gather"] += D
-    return {k: v * steps for k, v in sorted(calls.items()) if v}
+    return calls
+
+
+def _decode_attn_calls(layer: dict, M: int, H: int, computing: int, layout: str):
+    """One decode attention's collective calls per carrying data slot
+    (``decode_attention_row``), ``layer`` the dims of one layer's attention
+    leaves, as :func:`decode_collective_calls` lists them."""
+    import collections
+
+    per = collections.Counter()
+    if H > 1:
+        per["broadcast"] += M
+    if computing > 1:
+        per["gather"] += 2 * M
+    if layout == "heads":
+        per["psum"] += M > 1
+        return per
+    split = layout == "cols" and M > 1
+    for w in ("wq", "wk", "wv"):
+        d = layer[w]
+        if d is None or M == 1 or (w == "wv" and split and d == 2):
+            continue
+        per["psum" if d == 0 else "all_gather"] += 1
+    per["psum"] += computing * split
+    per.update(_out_row_calls(layer["wo"], M, split))
+    return per
+
+
+def _out_row_calls(d, M: int, split: bool):
+    """``attention._out_row``'s calls, ``d`` the dim ``wo`` splits: a
+    ``psum`` where it splits head_dim as the columns are; else the columns'
+    ``all_gather`` and ``wo``'s ``psum`` (heads or head_dim split) or
+    ``all_gather`` (``d_model``)."""
+    import collections
+
+    per = collections.Counter()
+    if M > 1:
+        if d == 1 and split:
+            per["psum"] += 1
+        else:
+            per["all_gather"] += split
+            if d in (0, 1):
+                per["psum"] += 1
+            elif d == 2:
+                per["all_gather"] += 1
+    return per
 
 
 def decode_state_fill(torch, api, batch: int, capacity: int, filled: int, seed: int, device):
@@ -5372,13 +5477,14 @@ def family_tp_launches(cfg, dsize: int, msize: int, seq: int) -> dict:
 
 
 @contextlib.contextmanager
-def slstm_traffic(torch, per_layer: list):
+def slstm_traffic(torch, per_layer: list, fn: str = "slstm_row"):
     """Within the block each sLSTM layer's collective calls over the grid
-    (``slstm_row``) are appended to ``per_layer``, one dict a call."""
+    (``xlstm.<fn>``: ``slstm_row``, or decode's ``slstm_decode_row``) are
+    appended to ``per_layer``, one dict a call."""
     from repro_torch.launch import collectives
     from repro_torch.models import xlstm
 
-    real = xlstm.slstm_row
+    real = getattr(xlstm, fn)
 
     def counted(*a, **k):
         before = {op: v[0] for op, v in collectives.TRAFFIC.items()}
@@ -5387,11 +5493,11 @@ def slstm_traffic(torch, per_layer: list):
                           if v[0] - before.get(op, 0)})
         return out
 
-    xlstm.slstm_row = counted
+    setattr(xlstm, fn, counted)
     try:
         yield per_layer
     finally:
-        xlstm.slstm_row = real
+        setattr(xlstm, fn, real)
 
 
 def family_tp_forward_run(torch, counters, run: dict, device, smoke: bool = False) -> dict:
@@ -5582,6 +5688,876 @@ def say_family_tp_part(name: str, r: dict, run: dict, card) -> None:
         f"{r['largest_param_read']} elements, exceptions {r['exceptions']}; sLSTM per layer "
         f"{r.get('slstm_layer_collectives')}; collectives {r['collectives']}; launches "
         f"{r['launches']}; part {r['part_s']:.1f} s; {card}")
+
+
+# ---------------------------------------------------------------------------
+# 26. decode over the mesh for the hybrid, enc-dec and xLSTM families
+# ---------------------------------------------------------------------------
+
+# every slot on the one card, random weights and a random decode state from
+# each run's seed (a zero state would hide a fault in reading the old one),
+# 4 steps (the conv window turns over).  (a) zamba2-7b whole (81 layers in
+# 14 groups of 6), B = 4, a 1,024-slot cache filled to 1,000 positions, on
+# (1, 16), in float32 (a random zamba2-7b amplifies bf16 rounding to O(1):
+# PERF.md): 2 of 32 K/V heads and 7 of 112 SSM heads a model slot, the decode
+# kernel on each, one step checked under the dispatch guard; (b) zamba2-7b
+# cut to 2 groups (12 of 81 layers), B = 1, on (4, 4): the cache length split
+# over the data slots (the kernel's log-sum-exp route, 8 heads a slot), the
+# Mamba states replicated over them, in bf16 and in a float32 pair: the bf16
+# logits and states gated against one device that sums and rounds as the
+# mesh does (:func:`mesh_rounding`, bit for bit on the card), three planted
+# bf16-only faults refused by that gate; (c)
+# whisper-large-v3 whole, bf16, B = 4, its 448-slot self cache filled to 400
+# and random cross K/V, on (2, 16): 20 heads do not divide 16, so the self and
+# cross K/V split head_dim (4 of 64 columns a slot), plain PyTorch; (d) the
+# same weights and state on (2, 4): 5 heads a slot, the decode kernel on the
+# self cache; (e) xlstm-350m whole, float32 (its bf16 forward lies 35 % from
+# float32), B = 8, on (2, 16)
+FAMILY_DECODE_RUNS = {
+    "hybrid": {"arch": "zamba2-7b", "layers": None, "batch": 4, "capacity": 1024,
+               "filled": 1000, "steps": 4, "mesh": (1, 16), "seed": 61, "dtype": "float32",
+               "guard_steps": 1},
+    "hybrid_b1": {"arch": "zamba2-7b", "layers": 12, "batch": 1, "capacity": 1024,
+                  "filled": 1000, "steps": 4, "mesh": (4, 4), "seed": 62, "dtype": None,
+                  "float32_pair": True, "rounding_limit": {"logits": 1e-4, "state": 1e-5},
+                  "rounding_faults": ("psum", "merge", "state")},
+    "encdec": {"arch": "whisper-large-v3", "layers": None, "batch": 4, "capacity": 448,
+               "filled": 400, "steps": 4, "mesh": (2, 16), "seed": 63, "dtype": None,
+               "bf16_gate": True},
+    "encdec_heads": {"arch": "whisper-large-v3", "layers": None, "batch": 4, "capacity": 448,
+                     "filled": 400, "steps": 4, "mesh": (2, 4), "seed": 63, "dtype": None,
+                     "bf16_gate": True},
+    "xlstm": {"arch": "xlstm-350m", "layers": None, "batch": 8, "capacity": 0, "filled": 0,
+              "steps": 4, "mesh": (2, 16), "seed": 64, "dtype": "float32"},
+}
+FAMILY_DECODE_PARTS = {"hybrid": "a", "hybrid_b1": "b", "encdec": "c", "encdec_heads": "d",
+                       "xlstm": "e"}
+# leaves a decode step never writes
+STATIC_LEAVES = ("cross_k", "cross_v")
+
+
+def family_state_fill(torch, api, run: dict, device):
+    """A decode state of ``run``'s batch and capacity drawn from its seed:
+    K/V, conv windows, SSM states, the mLSTM's ``C`` and ``n``, the sLSTM's
+    ``c``, ``m`` and ``h`` and the cross K/V ``normal * 0.5``, the sLSTM's
+    ``n`` in [0.5, 1.5) (a normalizer), each ring slot holding the latest
+    position of ``run["filled"]`` tokens (-1 where none was) and ``pos``
+    that count.  One stacked entry is drawn at a time (a float32 draw of one
+    layer, not of the stack)."""
+    from repro_torch.models import sharding
+
+    B, cap, filled = run["batch"], run["capacity"], run["filled"]
+    st = api.init_decode_state(B, cap, device)
+    g = torch.Generator(device=device).manual_seed(run["seed"])
+
+    def fill(path, x):
+        name = path[-1]
+        if name == "pos":
+            x.fill_(filled)
+        elif name == "positions":
+            C = x.shape[-1]
+            slot = torch.arange(C, device=device)
+            p = (filled - 1) - (filled - 1 - slot) % C
+            x.copy_(torch.where(p >= 0, p, -1).to(torch.int32).expand_as(x))
+        else:
+            for i in range(x.shape[0]):
+                r = torch.rand(x[i].shape, generator=g, device=device) + 0.5 \
+                    if path == ("sl", "n") else \
+                    torch.randn(x[i].shape, generator=g, device=device) * 0.5
+                x[i].copy_(r)
+    sharding._map_with_path(fill, st)
+    return st
+
+
+def _state_leaves(state) -> dict:
+    from repro_torch.models import sharding
+
+    out = {}
+    sharding._map_with_path(lambda p, x: out.__setitem__("/".join(p), x), state)
+    return out
+
+
+def _state_model_dims(cfg, dsize: int, msize: int, batch: int, capacity: int) -> dict:
+    """Leaf path -> the dim ``state_specs`` splits over ``model`` (or None),
+    from a meta state."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model, sharding
+
+    mesh = make_mesh((dsize, msize), ("data", "model"), devices=["meta"] * (dsize * msize))
+    st = get_model(cfg).init_decode_state(batch, capacity, "meta")
+    return {k: sharding.model_dim(v) for k, v in
+            _state_leaves(sharding.state_specs(st, cfg, mesh, batch)).items()}
+
+
+def family_attn_layers(cfg) -> int:
+    """The decode attentions of one step: the hybrid's shared block once a
+    group, the enc-dec model's self attention once a decoder layer."""
+    if cfg.family == "hybrid":
+        return math.ceil(cfg.n_layers / cfg.attn_every)
+    return cfg.n_layers if cfg.family == "encdec" else 0
+
+
+def family_decode_launches(cfg, dsize: int, msize: int, batch: int, capacity: int, steps: int,
+                           mesh: bool = True) -> dict:
+    """:func:`decode_launches` for the hybrid's shared attention (once a
+    group) and the enc-dec model's self attention (once a layer; its cross
+    attention is plain PyTorch, as the reference's); none for the xLSTM."""
+    return decode_launches(cfg.replace(n_layers=family_attn_layers(cfg)), dsize, msize, batch,
+                           capacity, steps, mesh) if family_attn_layers(cfg) else \
+        dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def _pos_broadcasts(cfg, dsize: int, msize: int, batch: int, capacity: int, holders: int,
+                    L: int) -> int:
+    """``attention.read_pos``'s broadcasts per layer per carrying data slot:
+    where ``state_specs`` splits ``pos``'s layer axis over ``model`` (whisper's
+    32 layers on 16 or 4 model slots), every model slot but the layer's
+    owner reads it from the owner, for each data slot holding a part of the
+    cache."""
+    key = "caches/pos" if cfg.family == "hybrid" else "self_caches/pos"
+    d = _state_model_dims(cfg, dsize, msize, batch, capacity)[key]
+    return holders * (msize - 1) if d == 0 and L % msize == 0 else 0
+
+
+def _cross_decode_calls(layer: dict, M: int, holders: int, computing: int, layout: str):
+    """One cross attention's collective calls per carrying data slot
+    (``attention.cross_attention_row``): q's ``psum`` / ``all_gather``
+    where the head-dim layout's ``wq`` does not split head_dim; where the
+    frames are split over the data slots, one ``broadcast`` per model slot
+    of q to them and two ``gather`` per model slot of the partials and
+    log-sum-exps; the head-dim layout's score ``psum`` per computing slice;
+    the output as :func:`_out_row_calls` (a ``psum`` in the heads layout)."""
+    import collections
+
+    per = collections.Counter()
+    if M > 1 and layout == "cols" and layer["wq"] not in (2, None):
+        per["psum" if layer["wq"] == 0 else "all_gather"] += 1
+    if computing > 1:
+        per["broadcast"] += M
+        per["gather"] += 2 * M
+    if layout == "heads":
+        per["psum"] += M > 1
+        return per
+    per["psum"] += computing * (M > 1)
+    per.update(_out_row_calls(layer["wo"], M, M > 1))
+    return per
+
+
+def _mlstm_y_moves(cfg, dims: dict, M: int) -> int:
+    """The model slots whose rows of ``down`` hold channels of y that
+    another slot's ``C`` block computed (one gather each in
+    ``xlstm.mlstm_decode_row``)."""
+    from repro_torch.models.xlstm import mlstm_dims
+
+    d_in, H, P = mlstm_dims(cfg)
+    d = dims["ml/C"]
+    nd = 6
+    cd, moves = d_in // M, 0
+    for m in range(M):
+        heads = range(m * H // M, (m + 1) * H // M) if d == nd - 3 else range(H)
+        cols = range(m * P // M, (m + 1) * P // M) if d == nd - 1 else range(P)
+        moves += any((c // P) not in heads or (c % P) not in cols
+                     for c in range(m * cd, (m + 1) * cd))
+    return moves
+
+
+def slstm_decode_layer_calls(cfg, msize: int) -> dict:
+    """One sLSTM layer's collective calls per carrying data slot
+    (``xlstm.slstm_decode_row``): the old h's ``all_gather``, the partial
+    recurrent products' ``psum`` (``r`` split by its rows), one ``gather``
+    per model slot of its gate columns of the input projection, the output's
+    ``psum`` (row-parallel ``out``), then the FFN's; none per head."""
+    if msize == 1:
+        return {}
+    d = _sub_dims(_split_dims(cfg, msize), "slstm/", 1)
+    out = {"all_gather": 1, "gather": msize, "psum": 1 + (d["r"] == 1)}
+    for k, v in _mlp_calls(_sub_dims(d, "ffn/", 0)).items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def family_decode_collectives(cfg, dsize: int, msize: int, batch: int, capacity: int,
+                              steps: int) -> dict:
+    """The collective calls of ``steps`` mesh decode steps of the hybrid,
+    enc-dec or xLSTM family from placed weights and a state placed by
+    ``state_specs``, per step: :func:`_decode_embed_calls`; per carrying data
+    slot, for the hybrid per group :func:`_decode_attn_calls` and the shared
+    MLP's ``psum``, per Mamba2 layer one ``gather`` per model slot into the
+    conv window's channel blocks and one into the SSM state's block (one
+    more moving y to ``out_proj``'s rows where the state splits the head
+    dim, not the heads) and two ``psum`` (the gated norm's, ``out_proj``'s);
+    for the enc-dec model per layer :func:`_decode_attn_calls`,
+    :func:`_cross_decode_calls`, the MLP's ``psum`` and
+    :func:`_pos_broadcasts`; for the xLSTM per mLSTM layer three
+    ``all_gather`` (x_in, q, k), one ``gather`` per model slot of its v
+    columns and of its z columns, one per slot that takes y from others
+    (:func:`_mlstm_y_moves`) and two ``psum`` (den, ``down``), per sLSTM
+    layer :func:`slstm_decode_layer_calls`."""
+    import collections
+
+    from repro_torch.models import xlstm
+
+    M = msize
+    named = _split_dims(cfg, M)
+    sdims = _state_model_dims(cfg, dsize, M, batch, capacity)
+    if cfg.family == "xlstm":
+        D = dsize if batch % dsize == 0 else 1
+    else:
+        D, H, each = decode_holders(cfg, dsize, batch, capacity)
+        computing = H if each else 1
+        layout = decode_layout_of(cfg, M)
+    calls = _decode_embed_calls(named, cfg, D, M)
+    per = collections.Counter()
+
+    def add(counts, n):
+        for k, v in counts.items():
+            per[k] += v * n
+    if cfg.family == "hybrid":
+        ng, g = family_attn_layers(cfg), cfg.attn_every
+        add(_decode_attn_calls(_sub_dims(named, "shared_attn/attn/", 0), M, H, computing,
+                               layout), ng)
+        add({"broadcast": _pos_broadcasts(cfg, dsize, M, batch, capacity, H, ng)}, ng)
+        if M > 1:
+            add(_mlp_calls(_sub_dims(named, "shared_attn/mlp/", 0)), ng)
+            heads = sdims["mamba/ssm"] == 3
+            add({"gather": 2 * M + (0 if heads else M), "psum": 2}, ng * g)
+    elif cfg.family == "encdec":
+        L = cfg.n_layers
+        add(_decode_attn_calls(_sub_dims(named, "dec/self_attn/", 1), M, H, computing, layout),
+            L)
+        add({"broadcast": _pos_broadcasts(cfg, dsize, M, batch, capacity, H, L)}, L)
+        if batch % dsize == 0:
+            cross_computing = 1
+        else:
+            cross_computing = dsize if cfg.enc_seq % dsize == 0 else 1
+        clayout = "heads" if sdims["cross_k"] in (None, 3) else "cols"
+        add(_cross_decode_calls(_sub_dims(named, "dec/cross_attn/", 1), M, dsize,
+                                cross_computing, clayout), L)
+        if M > 1:
+            add(_mlp_calls(_sub_dims(named, "dec/mlp/", 1)), L)
+    elif M > 1:
+        ng, nm = xlstm.xlstm_group_shape(cfg)
+        add({"all_gather": 3, "gather": 2 * M + _mlstm_y_moves(cfg, sdims, M), "psum": 2},
+            ng * nm)
+        add(slstm_decode_layer_calls(cfg, M), ng)
+    for k, v in per.items():
+        calls[k] += v * D
+    return {k: v * steps for k, v in sorted(calls.items()) if v}
+
+
+def _compare_states(torch, got, want, init, dtype: str, what: str, gate: bool = True) -> dict:
+    """Every leaf of two decode states (trees of the same structure): the
+    integer leaves (``pos``, positions) ``==``, the static ones (the cross
+    K/V) untouched in both; each float leaf's max abs and mean relative
+    error, within a float32 pair's :data:`F32_PAIR_REL` where ``dtype`` is
+    float32 and, in a bf16 run with ``gate``, the bf16 leaves (the K/V
+    caches) within phase 12's bf16 limit (a bf16 run's float32 recurrent
+    states, and an ungated run's leaves, are held by its float32 pair)."""
+    out = {}
+    a, b, s0 = _state_leaves(got), _state_leaves(want), _state_leaves(init)
+    for k, w in b.items():
+        g = a[k].to(w.device)
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                fail(f"{what}: {k} differs from one device's")
+            continue
+        if k.split("/")[-1] in STATIC_LEAVES:
+            if not (torch.equal(g, s0[k]) and torch.equal(w, s0[k])):
+                fail(f"{what}: the static {k} was written")
+            continue
+        close = _logits_close(g, w, dtype)
+        if dtype == "float32" or w.dtype == torch.float32:
+            close["ok"] = bool(g.isfinite().all()) and close["mean_rel_err"] <= F32_PAIR_REL
+            gated = dtype == "float32"
+        else:
+            gated = gate
+        if gated and not close["ok"]:
+            fail(f"{what}: {k} differs from one device's: {close}")
+        out[k] = {"max_err": close["max_err"], "mean_rel_err": close["mean_rel_err"],
+                  "gated": gated}
+    return out
+
+
+def _close_fn(dtype: str):
+    return (lambda g, w: _pair_close(g, w)) if dtype == "float32" else \
+        (lambda g, w: _logits_close(g, w, dtype))
+
+
+def family_float32_pair(torch, cfg, params, state0, toks, mesh, name: str, bf16: dict) -> dict:
+    """The same steps in float32 from the same (bf16) weights and state, on
+    one device and over the mesh: every step's logits and every state leaf
+    within a float32 pair's limits; how far each bf16 run's logits
+    (``bf16``: run name -> per-step logits) lie from the float32 one
+    device's is reported."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, sharding
+
+    cfg32 = cfg.replace(dtype="float32")
+    api = get_model(cfg32)
+
+    def widen(x):
+        return x.float() if x.is_floating_point() else x.clone()
+    p32 = sharding._map_leaves(widen, params)
+    ref = sharding._map_leaves(widen, state0)
+    s32 = sharding._map_leaves(widen, state0)
+    B, steps = toks.shape
+    pp = sharding.place(p32, sharding.param_specs(p32, cfg32, mesh), mesh)
+    ps = sharding.place(s32, sharding.state_specs(s32, cfg32, mesh, B), mesh)
+    worst = {"max_err": 0.0, "mean_rel_err": 0.0}
+    off = {k: 0.0 for k in bf16}
+    for t in range(steps):
+        want, ref = api.decode(p32, ref, toks[:, t:t + 1])
+        with use_mesh(mesh):
+            got, ps = api.decode(pp, ps, toks[:, t:t + 1])
+        close = _pair_close(got, want)
+        if not close["ok"]:
+            fail(f"decode family {name} float32: step {t}'s logits against one device's {close}")
+        worst = {k: max(v, close[k]) for k, v in worst.items()}
+        for k, runs in bf16.items():
+            off[k] = max(off[k], _logits_close(runs[t], want, cfg.dtype)["mean_rel_err"])
+    states = _compare_states(torch, sharding.gather(ps), ref, s32, "float32",
+                             f"decode family {name} float32")
+    return {"logits": worst, "state": states, "bf16_mean_rel_err_from_float32": off}
+
+
+@contextlib.contextmanager
+def mesh_rounding(torch, params, cfg, msize: int, holders: int, ssm_dim: int,
+                  rows: bool = True, order: bool = True):
+    """Within the block one device's bf16 hybrid decode computes as the
+    mesh of ``msize`` model slots and ``holders`` cache slices does.
+
+    With ``rows`` each product the mesh computes row-parallel (every Mamba2
+    layer's ``out_proj``, the shared attention's ``wo`` and the shared
+    MLP's ``wo``, their rows in ``msize`` contiguous blocks) runs as
+    ``msize`` partial products, each rounded to its type, summed in float32
+    in slot order and rounded once, as ``collectives.psum`` does.  With
+    ``holders`` > 1 the decode attention runs over that many contiguous
+    slices of the cache length, each slice's output (rounded by the kernel)
+    weighed by its log-sum-exp in float32 and the sum rounded once, as the
+    mesh's data slots merge theirs (the formula written out here, so a
+    fault in the port's merge does not reach this reference).  With
+    ``order`` every other sum is taken in the mesh's blocks, in the order
+    the mesh takes it: each column-parallel product (``in_proj``, ``wq``,
+    ``wk``, ``wv``, the MLP's ``wi`` and ``wg``, the unembedding) by
+    ``msize`` column blocks, the decode kernel on each model slot's heads,
+    the gated RMSNorm's float32 sum of squares by ``d_in`` blocks summed in
+    slot order, and ``y = C . ssm`` by the SSM state's blocks (its dim
+    ``ssm_dim`` of the (groups, layers, B, H, P, N) leaf).  Yields the set
+    of products reached, to check against those expected."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.ssm import ssm_dims
+
+    aten = torch.ops.aten
+    d_in = ssm_dims(cfg)[0]
+    by_rows, by_cols = set(), set()
+
+    def add(where, w, shape):
+        where.add((w.data_ptr(), tuple(shape)))
+    for key, where in (("out_proj", by_rows), ("in_proj", by_cols)):
+        st = params["mamba_groups"][key]
+        for i in range(st.shape[0]):
+            for jl in range(st.shape[1]):
+                add(where, st[i, jl], st.shape[2:])
+    att, mlp = params["shared_attn"]["attn"], params["shared_attn"]["mlp"]
+    add(by_rows, att["wo"], (att["wo"].shape[0] * att["wo"].shape[1], att["wo"].shape[2]))
+    add(by_rows, mlp["wo"], mlp["wo"].shape)
+    for k in ("wq", "wk", "wv"):
+        add(by_cols, att[k], (att[k].shape[0], att[k].shape[1] * att[k].shape[2]))
+    for k in ("wi", "wg"):
+        add(by_cols, mlp[k], mlp[k].shape)
+    add(by_cols, params["embed"]["unembed"], params["embed"]["unembed"].shape)
+    expected = by_rows if rows else set()
+    if order:
+        expected = expected | by_cols | {"gated_norm", "ssm_read"}
+    seen = set()
+
+    def blocks(n):
+        return [slice(m * (n // msize), (m + 1) * (n // msize)) for m in range(msize)]
+
+    class Mirror(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in (aten.mm.default, aten.matmul.default) and not kwargs:
+                a, w = args
+                key = (w.data_ptr(), tuple(w.shape))
+                if rows and key in by_rows:
+                    seen.add(key)
+                    parts = [func(a[..., b].contiguous(), w[b]) for b in blocks(w.shape[0])]
+                    acc = parts[0].float()
+                    for part in parts[1:]:
+                        acc = acc + part.float()
+                    return acc.to(parts[0].dtype)
+                if order and key in by_cols:
+                    seen.add(key)
+                    return torch.cat([func(a, w[:, b].contiguous()) for b in blocks(w.shape[1])],
+                                     dim=-1)
+            if order and func is aten.mean.dim and args[0].dtype == torch.float32 and \
+                    args[0].shape[-1] == d_in and list(args[1]) == [-1]:
+                seen.add("gated_norm")
+                x = args[0]
+                acc = None
+                for b in blocks(d_in):
+                    part = x[..., b].contiguous().sum(dim=-1, keepdim=True)
+                    acc = part if acc is None else acc + part
+                return acc / d_in
+            if order and func is aten.einsum.default and args[0] == "bn,bhpn->bhp":
+                seen.add("ssm_read")
+                c, st = args[1]
+                dim = ssm_dim - 2
+                return torch.cat([func(args[0], [c, st.narrow(dim, b.start, b.stop - b.start)
+                                                 .contiguous()])
+                                  for b in blocks(st.shape[dim])], dim=dim)
+            return func(*args, **kwargs)
+
+    real = kops.decode_attention
+
+    def mirrored(q, k, v, positions, pos, *, window=None, return_lse=False):
+        if return_lse:
+            raise ValueError("the one-device decode asks for no log-sum-exp")
+        H, K, c = q.shape[1], k.shape[2], k.shape[1] // holders
+        hb = blocks(H) if order else [slice(0, H)]
+        kb = blocks(K) if order else [slice(0, K)]
+        outs = []
+        for h, g in zip(hb, kb):
+            parts = [real(q[:, h].contiguous(), k[:, i * c:(i + 1) * c, g].contiguous(),
+                          v[:, i * c:(i + 1) * c, g].contiguous(),
+                          positions[:, i * c:(i + 1) * c].contiguous(), pos, window=window,
+                          return_lse=holders > 1) for i in range(holders)]
+            if holders == 1:
+                outs.append(parts[0])
+                continue
+            lse = torch.stack([lv for _, lv in parts])
+            wt = torch.exp(lse - lse.amax(dim=0))
+            acc = sum(wi[..., None] * o.float() for wi, (o, _) in zip(wt, parts))
+            outs.append((acc / wt.sum(dim=0)[..., None]).to(parts[0][0].dtype))
+        return torch.cat(outs, dim=1)
+
+    kops.decode_attention = mirrored
+    try:
+        with Mirror():
+            yield seen
+    finally:
+        kops.decode_attention = real
+    if seen != expected:
+        fail(f"the mesh's rounding reached {len(seen & expected)} of the {len(expected)} "
+             f"products and sums it mirrors (and {len(seen - expected)} others)")
+
+
+def _written_rel(got, want, init) -> float:
+    """The mean relative error of ``got`` against ``want`` over the entries
+    either changed from ``init`` (a decode step writes a cache's new slots
+    only; a recurrent state changes whole)."""
+    g, w, s0 = got.float().to(want.device), want.float(), init.float().to(want.device)
+    m = (w != s0) | (g != s0)
+    if not bool(m.any()):
+        return 0.0
+    return float((g - w).abs()[m].mean() / w.abs()[m].mean())
+
+
+def _rounding_dist(logits: list, state, ref_logits: list, ref_state, init) -> dict:
+    """How far a bf16 run (each step's logits, its final state, gathered)
+    lies from a reference run: the largest step's mean relative logit
+    error, and each float state leaf's :func:`_written_rel`."""
+    a, b, s0 = _state_leaves(state), _state_leaves(ref_state), _state_leaves(init)
+    return {"logits": max(_logits_close(g, w, "float32")["mean_rel_err"]
+                          for g, w in zip(logits, ref_logits)),
+            "state": {k: _written_rel(a[k], w, s0[k]) for k, w in b.items()
+                      if w.is_floating_point() and k.split("/")[-1] not in STATIC_LEAVES}}
+
+
+def _over(dist: dict, limit: dict) -> bool:
+    return dist["logits"] > limit["logits"] or max(dist["state"].values()) > limit["state"]
+
+
+@contextlib.contextmanager
+def rounding_fault(torch, kind: str, dtype):
+    """A fault that shows only where the model computes in bf16: ``psum``
+    (every all-reduce of bf16 partial sums accumulating in their own type,
+    rounded after each add: no fault over two slots, whose one add rounds
+    once either way), ``merge`` (the cache slices' partial attentions
+    merged in their own type, not float32) or ``state`` (the new conv
+    windows and SSM states rounded to the model's ``dtype`` before they are
+    written)."""
+    from repro_torch.launch import collectives
+    from repro_torch.models import attention, sharding
+
+    real = (collectives._sum32, attention.merge_partials, sharding.write_piece)
+
+    def sum_rounding(xs, dev):
+        out = xs[0].to(dev)
+        for x in xs[1:]:
+            out = out + x.to(dev)
+        return out.float()
+
+    def merge_rounding(parts):
+        lse = torch.stack([l for _, l in parts])
+        w = torch.exp(lse - lse.amax(dim=0))
+        acc = sum(wi[..., None].to(o.dtype) * o for wi, (o, _) in zip(w, parts))
+        return acc / w.sum(dim=0)[..., None].to(acc.dtype)
+
+    def write_rounded(piece, new):
+        return real[2](piece, new.to(dtype).to(new.dtype))
+
+    if kind == "psum":
+        collectives._sum32 = sum_rounding
+    elif kind == "merge":
+        attention.merge_partials = merge_rounding
+    else:
+        sharding.write_piece = write_rounded
+    try:
+        yield
+    finally:
+        collectives._sum32, attention.merge_partials, sharding.write_piece = real
+
+
+def family_rounding_gate(torch, cfg, params, state0, toks, mesh, name: str, run: dict,
+                         got: list, got_state, want: list, want_state) -> dict:
+    """(b)'s bf16 gate.  One device's bf16 decode run again under
+    :func:`mesh_rounding` (the same weights, state and tokens) is the
+    reference; how far it lies from plain one device's, and how far each of
+    its parts alone does (the row-parallel partial sums, the cache slices,
+    the mesh's summation order), is what the mesh's layout does to the
+    numbers.  The mesh's own bf16 run (``got``, ``got_state``) must lie
+    within ``run["rounding_limit"]`` of it, by the logits and by every
+    float state leaf (:func:`_rounding_dist`): the two compute alike, so
+    the limit sits just above float32 noise (an extra rounding anywhere
+    grows to a few percent over the steps).  Each :func:`rounding_fault` of
+    ``run["rounding_faults"]`` planted in the mesh run must then lie beyond
+    the limit, else the gate is blind."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, sharding
+
+    api = get_model(cfg)
+    dsize, msize = run["mesh"]
+    B, steps = toks.shape
+    holders = decode_holders(cfg, dsize, B, run["capacity"])[1]
+    ssm_dim = _state_model_dims(cfg, dsize, msize, B, run["capacity"])["mamba/ssm"]
+
+    def one_device(rows: bool, holders: int, order: bool):
+        st, lgs = clone_state(state0), []
+        with mesh_rounding(torch, params, cfg, msize, holders, ssm_dim, rows, order):
+            for t in range(steps):
+                lg, st = api.decode(params, st, toks[:, t:t + 1])
+                lgs.append(lg)
+        return lgs, st
+    limit = run["rounding_limit"]
+    out = {"limit": limit}
+    for part, knobs in (("rows_only", (True, 1, False)), ("slices_only", (False, holders, False)),
+                        ("order_only", (False, 1, True))):
+        lgs, st = one_device(*knobs)
+        out[f"{part}_from_one_device"] = _rounding_dist(lgs, st, want, want_state, state0)
+    emu, st = one_device(True, holders, True)
+    out |= {"emulated_from_one_device": _rounding_dist(emu, st, want, want_state, state0),
+           "mesh_from_one_device": _rounding_dist(got, got_state, want, want_state, state0),
+           "mesh_from_emulated": _rounding_dist(got, got_state, emu, st, state0)}
+    pparams = sharding.place(params, sharding.param_specs(params, cfg, mesh), mesh)
+    for kind in run["rounding_faults"]:
+        ps = sharding.place(clone_state(state0), sharding.state_specs(state0, cfg, mesh, B),
+                            mesh)
+        bad = []
+        with rounding_fault(torch, kind, getattr(torch, cfg.dtype)), use_mesh(mesh):
+            for t in range(steps):
+                lg, ps = api.decode(pparams, ps, toks[:, t:t + 1])
+                bad.append(lg)
+        out[f"planted_{kind}_from_emulated"] = _rounding_dist(bad, sharding.gather(ps), emu, st,
+                                                              state0)
+    if _over(out["mesh_from_emulated"], limit):
+        fail(f"decode family {name} bf16: the mesh lies beyond {limit} from one device rounded "
+             f"as the mesh rounds: {out}")
+    for kind in run["rounding_faults"]:
+        if not _over(out[f"planted_{kind}_from_emulated"], limit):
+            fail(f"decode family {name} bf16: the gate {limit} passes a planted {kind} rounding "
+                 f"fault: {out}")
+    return out
+
+
+def family_decode_guard(torch, cfg, params, state0, toks, mesh, steps: int, want: list,
+                        name: str) -> dict:
+    """``steps`` mesh decode steps from the whole weights and a whole copy
+    of the state (each slot reading its blocks through views) under
+    :func:`param_guard` over both: no op reads more than a model slot's
+    block of a split weight or more than one slot's block of a state leaf
+    (the exceptions of :func:`family_tp_exceptions` aside), and the logits
+    are the counted run's."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, sharding
+
+    api = get_model(cfg)
+    st = clone_state(state0)
+    B = toks.shape[0]
+    specs = sharding.state_specs(st, cfg, mesh, B)
+    allowed = family_tp_exceptions(cfg, mesh.shape["model"])
+    close = _close_fn(cfg.dtype)
+    t0 = time.time()
+    with param_guard(torch, params, cfg, mesh, allowed, state=st, state_specs=specs) as guard, \
+            use_mesh(mesh):
+        for t in range(steps):
+            lg, st = api.decode(params, st, toks[:, t:t + 1])
+            c = close(lg, want[t])
+            if not c["ok"]:
+                fail(f"decode family {name}: the checked step {t}'s logits {c}")
+    check_param_guard(f"decode family {name}", guard)
+    state_reads = {k: v for k, v in guard["reads"].items() if k.startswith("state/")}
+    if set(state_reads) != {f"state/{k}" for k in _state_leaves(st)}:
+        fail(f"decode family {name}: the guard saw reads of {sorted(state_reads)} only")
+    return {"steps": steps, "wall_s": time.time() - t0, "exceptions": list(allowed),
+            "largest_param_read": max((v for k, v in guard["reads"].items()
+                                       if not k.startswith("state/")), default=0),
+            "largest_state_read": state_reads}
+
+
+def family_decode_run(torch, counters, name: str, run: dict, device, smoke: bool = False,
+                      params=None) -> dict:
+    """One part of phase 26: ``run["steps"]`` decode steps of ``run``'s
+    model on one device from :func:`family_state_fill`'s state (the
+    counters zeroed just before and read just after), then the same steps
+    on the same tokens over the mesh from the weights and the state placed
+    by ``param_specs`` and ``state_specs`` (counters zeroed just before and
+    read just after: :func:`family_decode_launches`, the collective calls
+    exactly :func:`family_decode_collectives`'s, each sLSTM layer's exactly
+    :func:`slstm_decode_layer_calls`'s; every decode-kernel call held to its
+    plain version, :func:`decode_recording`): every step's logits within
+    phase 12's bf16 limit or a float32 pair's; the state's blocks the same
+    tensors after the steps; gathered afterwards, every leaf against one
+    device's (:func:`_compare_states`); then ``run["rounding_limit"]``'s
+    :func:`family_rounding_gate`, ``run["float32_pair"]``'s
+    :func:`family_float32_pair` and ``run["guard_steps"]``'s
+    :func:`family_decode_guard`."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import get_model, sharding
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = mesh_cfg(run, smoke, use_pallas=True)
+    api = get_model(cfg)
+    mesh = _mesh_of(run, device)
+    dsize, msize = run["mesh"]
+    B, steps, cap = run["batch"], run["steps"], run["capacity"]
+    t0 = time.time()
+    if params is None:
+        params = api.init(run["seed"], device)
+    state0 = family_state_fill(torch, api, run, device)
+    toks = torch.randint(0, cfg.vocab_size, (B, steps), device=device, dtype=torch.int32,
+                         generator=torch.Generator(device=device).manual_seed(run["seed"] + 1))
+    sync()
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "init_s": time.time() - t0,
+           "layout": decode_layout_of(cfg, msize) if family_attn_layers(cfg) else None,
+           "state_model_dims": _state_model_dims(cfg, dsize, msize, B, cap)}
+    ref_state = clone_state(state0)
+    zero_counters(counters)
+    t0 = time.time()
+    want = []
+    for t in range(steps):
+        lg, ref_state = api.decode(params, ref_state, toks[:, t:t + 1])
+        want.append(lg)
+    sync()
+    out["single_wall_s"] = time.time() - t0
+    out["single_launches"] = {c.__name__: c.launches for c in counters}
+    if on_card:
+        check_launches(f"decode family {name} one device", out["single_launches"],
+                       family_decode_launches(cfg, dsize, msize, B, cap, steps, mesh=False))
+    pparams = sharding.place(params, sharding.param_specs(params, cfg, mesh), mesh)
+    specs = sharding.state_specs(state0, cfg, mesh, B)
+    pstate = sharding.place(state0, specs, mesh)
+    ptrs = _shard_ptrs(pstate)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    collectives.TRAFFIC.clear()
+    calls, per_layer, got = [], [], []
+    t0 = time.time()
+    with decode_recording(torch, calls), slstm_traffic(torch, per_layer, "slstm_decode_row"), \
+            use_mesh(mesh):
+        for t in range(steps):
+            lg, pstate = api.decode(pparams, pstate, toks[:, t:t + 1])
+            got.append(lg)
+        sync()
+    out["mesh_wall_s"] = time.time() - t0
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+    launches = family_decode_launches(cfg, dsize, msize, B, cap, steps)
+    if on_card:
+        check_launches(f"decode family {name}", out["launches"], launches)
+    check_collective_calls(f"decode family {name}", collectives.TRAFFIC,
+                           family_decode_collectives(cfg, dsize, msize, B, cap, steps))
+    if cfg.family == "xlstm":
+        layer = slstm_decode_layer_calls(cfg, msize)
+        carriers = dsize if B % dsize == 0 else 1
+        n = carriers * (cfg.n_layers // cfg.slstm_every) * steps
+        if len(per_layer) != n or any(c != layer for c in per_layer):
+            fail(f"decode family {name}: sLSTM collective calls per layer {per_layer[:3]}..., "
+                 f"expected {layer} in each of {n}")
+        out["slstm_layer_collectives"] = layer
+    n_kernel = launches["decode_attention"]
+    lse = family_attn_layers(cfg) and decode_holders(cfg, dsize, B, cap)[1] > 1
+    want_calls = ({"decode_attention": n_kernel} | ({"decode_attention_lse": n_kernel}
+                                                   if lse else {})) if n_kernel else {}
+    if want_calls:
+        out["kernel_vs_plain_max_err"] = _check_calls(f"decode family {name}", calls, want_calls)
+    elif calls:
+        fail(f"decode family {name}: {len(calls)} decode-kernel calls in a layout that runs none")
+    close = _close_fn(cfg.dtype)
+    gate = cfg.dtype == "float32" or bool(run.get("bf16_gate"))
+    if not (gate or run.get("float32_pair")):
+        fail(f"decode family {name}: a bf16 run without its gate needs a float32 pair")
+    worst = {"max_err": 0.0, "mean_rel_err": 0.0}
+    for t, (g, w) in enumerate(zip(got, want)):
+        c = close(g, w)
+        if (gate and not c["ok"]) or not bool(g.isfinite().all()) or \
+                tuple(g.shape) != (B, 1, cfg.vocab_size):
+            fail(f"decode family {name}: step {t}'s logits {tuple(g.shape)} against one "
+                 f"device's {c}")
+        worst = {k: max(v, c[k]) for k, v in worst.items()}
+    out["logits"] = worst | {"gated": gate}
+    if _shard_ptrs(pstate) != ptrs or sharding.state_specs(state0, cfg, mesh, B) != specs:
+        fail(f"decode family {name}: the state's blocks are not the placed blocks after the "
+             f"steps")
+    out["state"] = _compare_states(torch, sharding.gather(pstate), ref_state, state0, cfg.dtype,
+                                   f"decode family {name}", gate)
+    if run.get("rounding_limit"):
+        out["rounding"] = family_rounding_gate(torch, cfg, params, state0, toks, mesh, name, run,
+                                               got, sharding.gather(pstate), want, ref_state)
+    del pparams, pstate
+    if run.get("float32_pair"):
+        out["float32"] = family_float32_pair(torch, cfg, params, state0, toks, mesh, name,
+                                             {"one device": want, "mesh": got})
+    if run.get("guard_steps"):
+        if on_card:
+            torch.cuda.empty_cache()
+        out["guard"] = family_decode_guard(torch, cfg, params, state0, toks, mesh,
+                                           run["guard_steps"], want, name)
+    return out
+
+
+def family_decode_shape_row(torch, gen, label: str, B: int, H: int, K: int, hd: int, C: int,
+                            live: int, dtype, lse: bool) -> dict:
+    """Decode attention at one of phase 26's per-slot shapes (B rows, H
+    query and K K/V heads of ``hd``, C slots of which the first ``live``
+    valid, as a filled ring leaves them; with ``lse`` the log-sum-exp
+    route), against its plain version, timed by :func:`device_time` (K/V
+    cold) beside the plain version and SDPA on the same mask, against the
+    bound of the bytes it must read."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_cost
+
+    dev = torch.device("cuda")
+    q = (torch.randn((B, H, hd), generator=gen, device=dev) * 0.5).to(dtype)
+    mask = (torch.arange(C, device=dev) < live)[None, :].expand(B, C).contiguous()
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes, flops = decode_cost(B, H, K, hd, C, itemsize, int(mask.sum()), lse=lse)
+    n = cold_ring(nbytes)
+    kv = (torch.randn((n, 2, B, C, K, hd), generator=gen, device=dev) * 0.5).to(dtype)
+    got = kdec.decode_attention(q, kv[0, 0], kv[0, 1], mask, return_lse=lse)
+    want = ref.decode_attention_ref(q, kv[0, 0], kv[0, 1], mask, lse)
+    err = _err(torch, f"decode_attention {label}", got[0] if lse else got,
+               want[0] if lse else want)
+    kern = device_time(torch, [lambda i=i: kdec.decode_attention(q, kv[i, 0], kv[i, 1], mask,
+                                                                 return_lse=lse)
+                               for i in range(n)])
+    plain = device_time(torch, [lambda i=i: ref.decode_attention_ref(q, kv[i, 0], kv[i, 1], mask,
+                                                                     lse)
+                                for i in range(n)])
+    kvt = kv.transpose(3, 4).contiguous()
+    q4, m4 = q[:, :, None], mask[:, None, None, :]
+    lib = device_time(torch, [lambda i=i: F.scaled_dot_product_attention(
+        q4, kvt[i, 0], kvt[i, 1], attn_mask=m4, enable_gqa=True) for i in range(n)])
+    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_TENSOR_FLOPS_PER_S
+    b_ms, b_by = bound(nbytes, flops, peak)
+    del kv, kvt
+    torch.cuda.empty_cache()
+    return {"shape": {"B": B, "H": H, "K": K, "hd": hd, "C": C, "live": live,
+                      "dtype": str(dtype).split(".")[-1], "lse": lse, "cold_buffers": n},
+            "max_abs_err": err, "ms": kern["ms"], "host_us": kern["host_us"],
+            "plain_ms": plain["ms"], "library_ms": lib["ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes}
+
+
+def family_decode_kernel_rows(torch, gen, kernels: list, runs: dict = FAMILY_DECODE_RUNS) -> None:
+    """The per-slot shapes phase 26 gives the decode kernel, timed and added
+    as sub-rows ``decode_families`` of the decode row: (a) zamba2-7b's 2 K/V
+    heads of 112 a model slot, B 4, 1,000 live of 1,024 slots, float32; (b)
+    its 8 heads a slot over one data slot's quarter of the cache (256
+    slots, all live), B 1, bf16, the log-sum-exp route; (d) whisper's 5
+    heads of 64 a slot, 2 rows a data slot, 400 live of 448, bf16."""
+    from repro_torch.configs import get_config
+
+    rows = {k["name"]: k for k in kernels}
+    sub = rows["decode_attention"].setdefault("decode_families", {})
+    for key, dtype, lse in (("hybrid", torch.float32, False), ("hybrid_b1", torch.bfloat16, True),
+                            ("encdec_heads", torch.bfloat16, False)):
+        run = runs[key]
+        c = get_config(run["arch"])
+        dsize, msize = run["mesh"]
+        D, Hd, _ = decode_holders(c, dsize, run["batch"], run["capacity"])
+        B = run["batch"] // D
+        C = run["capacity"] // Hd
+        live = min(C, run["filled"])
+        K, H = c.n_kv_heads // msize, c.n_heads // msize
+        label = f"{run['arch']} ({FAMILY_DECODE_PARTS[key]}) per slot"
+        sub[label] = family_decode_shape_row(torch, gen, label, B, H, K, c.head_dim, C, live,
+                                             dtype, lse)
+
+
+def family_decode_phase(torch, counters, card, kernels=None, gen=None, device: str = "cuda",
+                        runs: dict = FAMILY_DECODE_RUNS, smoke: bool = False) -> dict:
+    """Phase 26 on ``device``: on the card first the decode kernel at the
+    parts' per-slot shapes (:func:`family_decode_kernel_rows`), then
+    :func:`family_decode_run` for (a)-(e), (c) and (d) from one seeded
+    whisper, the others each from its own seeded weights, freed before the
+    next."""
+    from repro_torch.models import get_model
+
+    on_card = torch.device(device).type == "cuda"
+    out, by_path = {"card": card}, {}
+    if on_card and kernels is not None:
+        t0 = time.time()
+        family_decode_kernel_rows(torch, gen, kernels, runs)
+        out["kernel_rows_s"] = time.time() - t0
+    params, key = None, None
+    for name, run in runs.items():
+        t0 = time.time()
+        if key != (run["arch"], run["layers"], run["dtype"], run["seed"]):
+            params = None
+            if on_card:
+                torch.cuda.empty_cache()
+            cfg = mesh_cfg(run, smoke, use_pallas=True)
+            params = get_model(cfg).init(run["seed"], device)
+            key = (run["arch"], run["layers"], run["dtype"], run["seed"])
+        res = family_decode_run(torch, counters, name, run, device, smoke, params)
+        res["part_s"] = time.time() - t0
+        by_path[f"decode family {name} one device"] = res["single_launches"]
+        by_path[f"decode family {name}"] = res["launches"]
+        out[name] = res
+        say_family_decode_part(name, res, run, card)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    out["by_path"] = by_path
+    return out
+
+
+def say_family_decode_part(name: str, r: dict, run: dict, card) -> None:
+    """The line phase 26 prints for part ``name`` as it ends."""
+    say(f"phase decode families: ({FAMILY_DECODE_PARTS[name]}) {r['config']} {r['layers']} "
+        f"layers {r['dtype']} B={run['batch']} C={run['capacity']} filled {run['filled']} on a "
+        f"{run['mesh']} mesh, {r['layout']} layout, state split over model "
+        f"{r['state_model_dims']}: {run['steps']} steps in {r['mesh_wall_s']:.3f} s (every "
+        f"kernel call checked), one device {r['single_wall_s']:.3f} s (init {r['init_s']:.1f} s); "
+        f"logits {r['logits']}; state {r['state']}; bf16 against one device rounded as the "
+        f"mesh {r.get('rounding')}; float32 pair {r.get('float32')}; guard "
+        f"{r.get('guard')}; peak {r['peak_mem_bytes']} B; kernel calls within their plain "
+        f"versions {r.get('kernel_vs_plain_max_err')}; sLSTM per layer "
+        f"{r.get('slstm_layer_collectives')}; collectives {r['collectives']}; launches "
+        f"{r['launches']} (one device {r['single_launches']}); part {r['part_s']:.1f} s; {card}")
 
 
 def main() -> None:
@@ -5977,11 +6953,14 @@ def main() -> None:
 
     # 22. the dry run held against the card: the op analysis on meta against
     # a real run on one slot and on phase 21(c)'s mesh, then production dry
-    # runs on meta in three child processes, started here, after every phase
-    # that times the host; the real runs' counters zeroed just before and
-    # read just after
+    # runs on meta in three child processes, started here, after the phases
+    # whose host times are end-to-end metrics (the campaign, the planner,
+    # the fleet, serving), and joined after phase 26: phases 23-26 run
+    # beside them (their mesh walls are reported, not gated); the real runs'
+    # counters zeroed just before and read just after
     t0 = time.time()
-    report["dryrun"] = dryrun_phase(torch, counters, card)
+    report["dryrun"] = dryrun_phase(torch, counters, card, defer=True)
+    production = report["dryrun"].pop("production_pending")
     report["dryrun"]["phase_s"] = time.time() - t0
     by_path.update(report["dryrun"].pop("by_path"))
     say(f"phase dryrun: {report['dryrun']['phase_s']:.1f} s")
@@ -6022,6 +7001,26 @@ def main() -> None:
     report["tp_families"]["phase_s"] = time.time() - t0
     by_path.update(report["tp_families"].pop("by_path"))
     say(f"phase tp families: {report['tp_families']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 26. decode over the mesh for the hybrid, enc-dec and xLSTM families on
+    # the one card, each slot's blocks of a random state read and written in
+    # place: the decode kernel at the new per-slot shapes, then zamba2-7b on
+    # (1, 16) and (4, 4), whisper on (2, 16) and (2, 4), xlstm on (2, 16),
+    # each against one device's decode; each run's counters zeroed just
+    # before and read just after
+    t0 = time.time()
+    report["decode_families"] = family_decode_phase(torch, counters, card, kernels, gen)
+    report["decode_families"]["phase_s"] = time.time() - t0
+    by_path.update(report["decode_families"].pop("by_path"))
+    say(f"phase decode families: {report['decode_families']['phase_s']:.1f} s")
+
+    # 22(c), joined
+    t0 = time.time()
+    report["dryrun"]["production"] = join_production_children(production)
+    report["dryrun"]["production_wait_s"] = time.time() - t0
+    say_dryrun_production(report["dryrun"]["production"])
+    say(f"phase dryrun: (c) joined after {report['dryrun']['production_wait_s']:.1f} s more")
 
     launches = {}
     for counts in by_path.values():

@@ -16,31 +16,26 @@ dry run allocates nothing.  Nothing here sets an environment variable.
 
 A cell's step, as in the reference:
 
-  - ``train``: the train step (forward, backward, AdamW).  Where the family
-    trains under a mesh (every family: its ``train_forward.slots``), the
-    state is placed by ``zero1_specs`` (``cfg.fsdp_params``) or
-    ``param_specs`` (:func:`repro_torch.models.train.place_train_state`)
-    and the batch by ``batch_spec``, and the step runs under the mesh,
-    tensor-parallel: every model slot of each data slot computes from its
-    own block of the weights.  A family without that form would train on
-    one device, its state and batch whole on data slot 0 (``placement:
-    "one device"``).
-  - ``prefill``: the forward, returning the logits.  For the mesh families
-    the parameters are placed by their specs and the batch by
-    ``batch_spec``, and the forward runs on the placed state over the grid
-    (``train_forward.slots``), returning each data slot's logits split over
-    its model slots, with nothing gathered to one slot.  The hybrid, enc-dec
-    and xLSTM families have no ``prefill`` of their own: their cell runs
-    that forward.  A family without the form would gather the placed state
-    onto data slot 0's device and run there (``placement: "one device"``).
+  - ``train``: the train step (forward, backward, AdamW).  Every family
+    trains under a mesh (its ``train_forward.slots``): the state is placed
+    by ``zero1_specs`` (``cfg.fsdp_params``) or ``param_specs``
+    (:func:`repro_torch.models.train.place_train_state`) and the batch by
+    ``batch_spec``, and the step runs under the mesh, tensor-parallel:
+    every model slot of each data slot computes from its own block of the
+    weights.
+  - ``prefill``: the forward, returning the logits.  The parameters are
+    placed by their specs and the batch by ``batch_spec``, and the forward
+    runs on the placed state over the grid (``train_forward.slots``),
+    returning each data slot's logits split over its model slots, with
+    nothing gathered to one slot.  The hybrid, enc-dec and xLSTM families
+    have no ``prefill`` of their own: their cell runs that forward.
   - ``decode``: one decode step against a decode state of ``seq_len``
-    slots, placed by ``state_specs``.  For the families that decode under a
-    mesh (dense, MoE, VLM: ``decode.slots``) the step runs on the placed
-    parameters and state over the grid: each slot reads and writes its own
-    blocks of the state in place, and nothing is gathered to one slot
-    (``placement: "mesh"``).  The hybrid, enc-dec and xLSTM families gather
-    the parameters, the batch and the state onto data slot 0's device and
-    decode there (``placement: "one device"``).
+    slots, placed by ``state_specs``.  The step runs on the placed
+    parameters and state over the grid (``decode.slots``): each slot reads
+    and writes its own blocks of the state in place, and nothing is
+    gathered to one slot.
+
+Every cell says ``"placement": "mesh"``.
 
 The data slots of a mesh step are symmetric: the same shapes on other rows.
 Where they compute independently (every dense, VLM, hybrid, enc-dec and
@@ -63,8 +58,7 @@ is per slot:
 
   - ``argument_size_in_bytes``: the bytes one slot holds of the step's
     arguments (parameters, optimizer state, batch, decode state), computed
-    from their specs (:func:`repro_torch.models.sharding.slot_bytes`); for
-    a one-device family, everything.
+    from their specs (:func:`repro_torch.models.sharding.slot_bytes`).
   - ``output_size_in_bytes``: the bytes of the tensors the step returns that
     it allocated (a train step updates its state in place), per computing
     slot.
@@ -72,8 +66,8 @@ is per slot:
     per computing slot.  One process runs every slot, and here every slot
     names one device, so the simulated slots' live sets add up in that
     peak: the computing slots are every model slot of each data slot that
-    took rows (one for a step that runs on one device; the model slots of
-    data slot 0 alone under the symmetric shortcut), each with an equal
+    took rows (the model slots of data slot 0 alone under the symmetric
+    shortcut), each with an equal
     share, and one slot is charged ``(peak - shared) / k + shared / M``
     for ``k`` simulated slots, where ``shared`` is what the data slots
     share on the device: the ``zero1_specs`` blocks all-gathered over the
@@ -303,9 +297,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
     if overrides:
         rec["overrides"] = {k: repr(v) for k, v in overrides.items()}
     dsize, msize = data_axis_size(m), model_axis_size(m)
-    dev0 = m.devices[0]
-    slots_fn = getattr(api.train_forward, "slots", None)
-    mesh_family = slots_fn is not None
     bspec = sharding.batch_spec(m)
     inputs = make_inputs(api.input_specs(shape), dev, cfg.vocab_size, seed)
     in_specs = {k: sharding.P(bspec[0] if v.shape[0] % dsize == 0 else None)
@@ -314,27 +305,24 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
     params = api.init(seed, dev, master=master)
     pspecs = (sharding.zero1_specs if cfg.fsdp_params else sharding.param_specs)(
         params, cfg, m)
-    shared, k, k_sim, sym = 0, 1, 1, False
-    mesh_decode = getattr(api.decode, "slots", None) is not None
     if shape.kind == "decode":
         dstate = api.init_decode_state(B, S, device=dev)
         sspecs = sharding.state_specs(dstate, cfg, m, batch=B)
-    if (mesh_family and shape.kind != "decode") or (mesh_decode and shape.kind == "decode"):
-        rows = B // max(cfg.accum_steps, 1) if shape.kind == "train" else B
-        n_data = len(m.row_devices(rows))
+    rows = B // max(cfg.accum_steps, 1) if shape.kind == "train" else B
+    n_data = len(m.row_devices(rows))
+    with use_mesh(m):
         if shape.kind == "decode":
-            with use_mesh(m):
-                sym = symmetric and n_data > 1 and api.decode.independent(dstate, B)
+            sym = symmetric and n_data > 1 and api.decode.independent(dstate, B)
         else:
-            with use_mesh(m):
-                sym = symmetric and n_data > 1 and api.train_forward.independent(
-                    cfg, rows, S + (cfg.n_vis_tokens if cfg.family == "vlm" else 0))
-        k = n_data * msize
-        k_sim = msize if sym else k
-        shared = _gathered_bytes(params, pspecs, m) if n_data > 1 else 0
-        rec["symmetric_data_slots"] = sym
+            sym = symmetric and n_data > 1 and api.train_forward.independent(
+                cfg, rows, S + (cfg.n_vis_tokens if cfg.family == "vlm" else 0))
+    k = n_data * msize
+    k_sim = msize if sym else k
+    shared = _gathered_bytes(params, pspecs, m) if n_data > 1 else 0
+    rec["symmetric_data_slots"] = sym
+    rec["placement"] = "mesh"
 
-    if shape.kind == "train" and mesh_family:
+    if shape.kind == "train":
         opt = init_optimizer(params)
         args_bytes = (sum(sharding.slot_bytes(t, pspecs, m) for t in (params, opt.m, opt.v))
                       + 4 + sharding.slot_bytes(inputs, in_specs, m))
@@ -342,31 +330,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
         batch = sharding.place(inputs, in_specs, m)
         del params, opt, inputs
         train_step = make_train_step(api.train_forward, cfg)
-        rec["placement"] = "mesh"
 
         def step():
             with use_mesh(m), symmetric_data_slots(sym):
                 return train_step(placed, popt, batch)
         args = (placed, popt, batch)
-    elif shape.kind == "train":
-        opt = init_optimizer(params)
-        args_bytes = _tree_bytes((params, opt.m, opt.v)) + 4 + _tree_bytes(inputs)
-        train_step = make_train_step(api.train_forward, cfg)
-        rec["placement"] = "one device"
-        state = (params, opt, inputs)
-        del params, opt, inputs
-
-        def step():
-            return train_step(*state)
-        args = state
     else:
         placed = sharding.place(params, pspecs, m)
         batch = sharding.place(inputs, in_specs, m)
         args_bytes = sharding.slot_bytes(params, pspecs, m) + sharding.slot_bytes(
             inputs, in_specs, m)
         del params, inputs
-        rec["placement"] = "mesh"
-        if shape.kind == "prefill" and mesh_family:
+        if shape.kind == "prefill":
             def step():
                 rows = [{kk: v.shards[m.slot(**m.data_coords(j))] for kk, v in batch.items()}
                         for j in range(n_data)]
@@ -375,39 +350,24 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
                     views = api.train_forward.slot_views(placed, cfg, range(1 if sym else n_data))
                     for jj in range(1 if sym else n_data):
                         with collectives.counted_as(n_data if sym else 1):
-                            out.append(slots_fn(views.subset([jj]), [rows[jj]], cfg, n_data))
+                            out.append(api.train_forward.slots(views.subset([jj]), [rows[jj]],
+                                                               cfg, n_data))
                 return out
-            args = (placed, batch)
-        elif shape.kind == "prefill":
-            rec["placement"] = "one device"
-
-            def step():
-                p, b = sharding.gather(placed, dev0), sharding.gather(batch, dev0)
-                with use_mesh(m):
-                    return api.forward(p, b, cfg)[0]
             args = (placed, batch)
         else:
             args_bytes += sharding.slot_bytes(dstate, sspecs, m)
             pstate = sharding.place(dstate, sspecs, m)
             del dstate
             args = (placed, batch, pstate)
-            if mesh_decode:
-                def step():
-                    toks = [batch["token"].shards[m.slot(**m.data_coords(j))]
-                            for j in range(n_data)]
-                    with use_mesh(m), torch.inference_mode():
-                        views = api.decode.slot_views(placed, cfg, range(1 if sym else n_data))
-                        with collectives.counted_as(n_data if sym else 1):
-                            return api.decode.slots(views, pstate, toks[:1] if sym else toks,
-                                                    n_data)
-            else:
-                rec["placement"] = "one device"
 
-                def step():
-                    p, b = sharding.gather(placed, dev0), sharding.gather(batch, dev0)
-                    st = sharding.gather(pstate, dev0)
-                    with use_mesh(m):
-                        return api.decode(p, st, b["token"])
+            def step():
+                toks = [batch["token"].shards[m.slot(**m.data_coords(j))]
+                        for j in range(n_data)]
+                with use_mesh(m), torch.inference_mode():
+                    views = api.decode.slot_views(placed, cfg, range(1 if sym else n_data))
+                    with collectives.counted_as(n_data if sym else 1):
+                        return api.decode.slots(views, pstate, toks[:1] if sym else toks,
+                                                n_data)
 
     t_setup = time.perf_counter()
     an, out_bytes, wall, card_peak = _run_step(step, dev, m.size, k, detail, args)

@@ -46,10 +46,8 @@ def probe(arch: str, shape_name: str, multi_pod: bool = False, overrides: dict =
     the reference's does, and ``mesh_devices``.  ``res`` is the op analysis
     with ``dot_flops``, ``bytes_accessed`` and ``collective_bytes`` per
     computing device: the totals over ``devices``, the slots that compute
-    (every model slot of each data slot that took rows, tensor-parallel,
-    for the mesh families' train and prefill cells: 256 on pod16x16; one
-    for a step that runs on one device), not over the mesh's
-    ``mesh_devices``; ``terms`` are those over the peaks of one H100
+    (every model slot of each data slot that took rows, tensor-parallel:
+    256 on pod16x16), not over the mesh's ``mesh_devices``; ``terms`` are those over the peaks of one H100
     (:data:`CARD`), in seconds.  ``overrides`` are applied with
     ``cfg.replace``."""
     from .dryrun import run_cell

@@ -45,6 +45,10 @@ slots (a batch the data axes do not divide), only the data slot whose block
 holds ring slot ``pos % C`` writes the new token, every data slot computes
 its partial attention and log-sum-exp over its slice, and the partials are
 merged by their weights onto the data slot that carries the row.
+:func:`cross_attention_row` is the enc-dec decode's cross attention over a
+static K/V placed the same way (whole heads, or head-dim columns with
+float32 score all-reduces; frames split over the data slots merged by
+their log-sum-exps), which writes nothing.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ from .common import ModelConfig, abstract_mesh, data_slot
 from .layers import _whole_tree, apply_rope, dense_init, rms_norm
 
 __all__ = ["CacheSlice", "KVCache", "attention", "attention_row", "blocked_attention",
-           "cache_from_prefill", "core_attention", "decode_attention_row",
-           "decode_attention_step", "decode_cache_slices", "decode_layout", "heads_parallel",
+           "cache_from_prefill", "core_attention", "cross_attention_row", "decode_attention_layer",
+           "decode_attention_row", "decode_attention_step", "decode_cache_slices", "decode_cols",
+           "decode_layout", "heads_parallel",
            "init_attention", "init_cache", "kv_heads", "merge_partials", "plain_attention",
            "prefill_cache_kv", "read_pos", "seq_parallel_attention"]
 
@@ -577,14 +582,14 @@ class CacheSlice(NamedTuple):
     compute: bool
 
 
-def decode_layout(blocks, msize: int) -> str:
-    """How the cache's ``model`` split lays out a decode step: ``heads``
-    (whole K/V heads per model slot, or one model slot), ``cols`` (each
-    head's ``head_dim`` split) or ``whole`` (every model slot holds the
-    cache whole)."""
+def decode_layout(blocks, msize: int, key: str = "k") -> str:
+    """How the ``model`` split of cache leaf ``key`` lays out a decode step:
+    ``heads`` (whole K/V heads per model slot, or one model slot), ``cols``
+    (each head's ``head_dim`` split) or ``whole`` (every model slot holds
+    the cache whole)."""
     from .sharding import model_dim
 
-    k = blocks.leaves["k"]
+    k = blocks.leaves[key]
     d = model_dim(k.spec)
     nd = len(k.shape)
     if msize == 1 or d == nd - 2:
@@ -592,16 +597,20 @@ def decode_layout(blocks, msize: int) -> str:
     return "cols" if d == nd - 1 else "whole"
 
 
-def decode_cache_slices(blocks, mesh, i: int, rows: slice, j: int) -> list:
+def decode_cache_slices(blocks, mesh, i: int, rows: slice, j: int,
+                        names: tuple = ("k", "v", "positions")) -> list:
     """Layer ``i``'s cache for the global rows ``rows`` that data slot
     ``j`` computes, as :class:`CacheSlice` per data slot that holds a part
     of it, in data-slot order: one slice where the batch is split over the
     data slots (data slot ``j``'s own), one per data slot where the cache
     length is (its range of slots), a replica on each where the cache is
-    replicated (computed by ``j``, written on every one)."""
+    replicated (computed by ``j``, written on every one).  ``names`` are
+    the K, V and positions leaves' keys (no positions for a static cache:
+    the enc-dec model's cross K/V, every frame valid)."""
     from ..launch.mesh import data_axis_size, model_axis_size
 
-    k, v, p = (blocks.leaves[n] for n in ("k", "v", "positions"))
+    k, v = blocks.leaves[names[0]], blocks.leaves[names[1]]
+    p = blocks.leaves[names[2]] if names[2] else None
     M = model_axis_size(mesh)
     out, seen = [], {}
     order = [j] + [jj for jj in range(data_axis_size(mesh)) if jj != j]
@@ -610,12 +619,13 @@ def decode_cache_slices(blocks, mesh, i: int, rows: slice, j: int) -> list:
         if k.find({0: i, 1: rows}, slots[:1]) is None:
             continue
         reg = k.regions[slots[0]][2]
-        if p.regions[slots[0]][2] != reg:
+        if p is not None and p.regions[slots[0]][2] != reg:
             raise ValueError("the positions and the K cache split the cache length apart")
         idx = {0: i, 1: rows}
         sl = CacheSlice(jj, mesh.model_devices(jj), reg.start,
                         [k.local(s, idx) for s in slots], [v.local(s, idx) for s in slots],
-                        [p.local(s, idx) for s in slots], [id(p.blocks[s]) for s in slots],
+                        [p.local(s, idx) if p else None for s in slots],
+                        [id(p.blocks[s]) if p else None for s in slots],
                         (reg.start, reg.stop) not in seen)
         seen[(reg.start, reg.stop)] = jj
         out.append(sl)
@@ -647,6 +657,34 @@ def advance_pos(blocks, mesh, i: int, rows: slice) -> None:
             continue
         done.add(id(pos.blocks[s]))
         pos.local(s, {0: i, 1: rows}).add_(1)
+
+
+def decode_attention_layer(blocks, mesh, i: int, rows: slice, j: int, ps: list, dims: dict,
+                           hs: list, cfg: ModelConfig, devs, layout: str, cols: list) -> list:
+    """Layer ``i``'s one-token attention for data slot ``j``'s global
+    ``rows`` against the cache of ``blocks``: its slices
+    (:func:`decode_cache_slices`), each holder's ``pos`` (:func:`read_pos`),
+    :func:`decode_attention_row`, then ``pos + 1`` (:func:`advance_pos`).
+    Returns each model slot's output (B, 1, d)."""
+    M = len(devs)
+    slices = decode_cache_slices(blocks, mesh, i, rows, j)
+    poss = {h_j: [read_pos(blocks, mesh, i, rows, h_j, m, mesh.model_devices(h_j)[m])
+                  for m in range(M)]
+            for h_j in dict.fromkeys([j] + [sl.j for sl in slices])}
+    out = decode_attention_row(ps, dims, hs, cfg, j, devs, poss, slices,
+                               blocks.leaves["k"].shape[-3], layout, cols)
+    advance_pos(blocks, mesh, i, rows)
+    return out
+
+
+def decode_cols(blocks, mesh, layout: str, key: str = "k") -> list:
+    """Each model slot's ``head_dim`` columns of cache leaf ``key`` in the
+    ``cols`` layout (every column otherwise)."""
+    from ..launch.mesh import model_axis_size
+
+    k = blocks.leaves[key]
+    return [k.regions[mesh.slot(model=m)][-1] if layout == "cols" else slice(None)
+            for m in range(model_axis_size(mesh))]
 
 
 def _proj_whole(ps: list, dims: dict, hs: list, w: str, b: Optional[str], devs) -> list:
@@ -717,12 +755,14 @@ def _plain_decode(q, k, v, valid, lse: bool):
 def _heads_partial(q, kb, vb, pb, pos, cfg: ModelConfig, lse: bool):
     """One model slot's attention over its whole K/V heads of a slice: the
     decode-attention kernel under ``use_pallas`` (as one device runs it),
-    else the plain formula."""
+    else the plain formula.  The kernel reads packed rows: a whole state's
+    block is a strided view of it (its heads of every slot), packed first
+    (a read of the slot's block); a placed block is packed already."""
     if cfg.use_pallas:
         from ..kernels import ops as kops
 
-        return kops.decode_attention(q, kb, vb, pb, pos, window=cfg.sliding_window,
-                                     return_lse=lse)
+        return kops.decode_attention(q, kb.contiguous(), vb.contiguous(), pb, pos,
+                                     window=cfg.sliding_window, return_lse=lse)
     from ..kernels.ops import decode_mask
 
     return _plain_decode(q, kb, vb, decode_mask(pb, pos, cfg.sliding_window), lse)
@@ -865,3 +905,98 @@ def decode_attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, j: in
         ys = [_out_proj(o[:, None], p["wo"].to(dt)) for o, p in zip(outs, ps)]
         return ys if M == 1 else collectives.psum(ys, list(devs))
     return _out_row(outs, ps, dims, devs, layout == "cols" and M > 1)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention over a static K/V placed by state_specs (the enc-dec decode)
+# ---------------------------------------------------------------------------
+
+def _cross_partial(q, k, v, lse: bool):
+    """The reference's decode cross attention (``plain_attention``, not
+    causal, every frame valid) of q (B, H, hd) over k/v (B, T, K, hd); with
+    ``lse`` also each (row, head)'s log-sum-exp (B, H)."""
+    B, H, hd = q.shape
+    K = k.shape[2]
+    q5 = q.reshape(B, K, H // K, hd)
+    scores = torch.einsum("bkgh,btkh->bkgt", q5.float(), k.float()) * (1.0 / math.sqrt(hd))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkh->bkgh", probs.to(v.dtype), v).reshape(B, H, hd)
+    return (out, torch.logsumexp(scores, dim=-1).reshape(B, H)) if lse else out
+
+
+def _cross_cols(sl: CacheSlice, qs: list, hd: int, split: bool, lse: bool) -> list:
+    """A static slice's cross attention over each model slot's ``head_dim``
+    columns: partial scores in float32 all-reduced over the slice's model
+    slots in slot order (``split``), then on every slot the softmax and the
+    product with its V columns."""
+    B, H = qs[0].shape[:2]
+    K = sl.k[0].shape[2]
+    scores = [torch.einsum("bkgh,btkh->bkgt", q.reshape(B, K, H // K, -1).float(), k.float())
+              for q, k in zip(qs, sl.k)]
+    if split:
+        scores = collectives.psum(scores, list(sl.devs))
+    out = []
+    for s, v in zip(scores, sl.v):
+        s = s * (1.0 / math.sqrt(hd))
+        probs = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgt,btkh->bkgh", probs.to(v.dtype), v).reshape(B, H, -1)
+        out.append((o, torch.logsumexp(s, dim=-1).reshape(B, H)) if lse else o)
+    return out
+
+
+def cross_attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, j: int, devs,
+                        slices: list, layout: str, cols: list) -> list:
+    """The decode step's cross attention of data slot ``j`` (model devices
+    ``devs``) over its model slots, against the static K/V ``slices``
+    (:func:`decode_cache_slices` of the ``cross_k`` / ``cross_v`` blocks):
+    ``hs[m]`` model slot ``m``'s copy of the normalized rows (B, 1, d),
+    ``ps[m]`` its block of the layer's cross-attention weights.  By the
+    K/V's ``model`` split: whole heads a slot (``heads``: the slot's query
+    heads from its block of ``wq``, its output heads through its rows of
+    ``wo``, a partial sum all-reduced), or each head's ``head_dim`` columns
+    (``cols``: the slot's query columns, float32 partial scores
+    all-reduced, a local P V, ``wo`` row-parallel).  Where the frames are
+    split over the data slots (a batch of one), the query goes to each
+    slice's data slot, each computes its slice with its log-sum-exp, and
+    the partials merge by it on data slot ``j`` (:func:`merge_partials`).
+    Nothing is written.  Plain PyTorch, as the reference's.  Returns each
+    model slot's output (B, 1, d)."""
+    M = len(devs)
+    dt = hs[0].dtype
+    if layout == "heads" or (layout == "cols" and dims["wq"] == 2):
+        qs = [_proj(h, p["wq"].to(dt))[:, 0] for p, h in zip(ps, hs)]
+    elif layout == "cols":
+        qs = [q[:, 0, :, c] for q, c in zip(_proj_whole(ps, dims, hs, "wq", None, devs), cols)]
+    else:
+        raise ValueError("a cross attention over the mesh needs its K/V split over model by "
+                         "heads or head_dim")
+    remote = [sl for sl in slices if sl.j != j and sl.compute]   # nothing to write
+    got = {}
+    for m in range(M):
+        if remote:
+            for sl, x in zip(remote, collectives.broadcast(qs[m], [sl.devs[m] for sl in remote])):
+                got[(sl.j, m)] = x
+    lse = sum(sl.compute for sl in slices) > 1
+    parts = []
+    for sl in slices:
+        if not sl.compute:
+            continue
+        here = [got.get((sl.j, m), qs[m]) for m in range(M)]
+        if layout == "heads":
+            part = [_cross_partial(here[m], sl.k[m], sl.v[m], lse) for m in range(M)]
+        else:
+            part = _cross_cols(sl, here, cfg.head_dim, M > 1, lse)
+        parts.append((sl.j, part))
+    outs = []
+    for m in range(M):
+        if not lse:
+            jj, part = parts[0]
+            outs.append(part[m] if jj == j else collectives.gather_to([part[m]], 0, devs[m]))
+            continue
+        o = collectives.gather_to([part[m][0][None] for _, part in parts], 0, devs[m])
+        ls = collectives.gather_to([part[m][1][None] for _, part in parts], 0, devs[m])
+        outs.append(merge_partials(list(zip(o, ls))))
+    if layout == "heads":
+        ys = [_out_proj(o[:, None], p["wo"].to(dt)) for o, p in zip(outs, ps)]
+        return ys if M == 1 else collectives.psum(ys, list(devs))
+    return _out_row(outs, ps, dims, devs, M > 1)

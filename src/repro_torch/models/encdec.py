@@ -32,7 +32,11 @@ blocks (:func:`train_forward_slots`): every attention through
 divide the axis: whisper's 20 on 16 or 8), the MLP through
 :func:`.layers.mlp_row`, the embedding and unembedding through
 :func:`.layers.embed_row` / :func:`.layers.unembed_row`.  Decode under a
-mesh is not ported yet.
+mesh runs over the grid too (:func:`decode_slots`): the self-attention
+against the self cache's blocks (:func:`.attention.decode_attention_row`),
+the cross attention against the static cross K/V's
+(:func:`.attention.cross_attention_row`), each left where ``state_specs``
+puts it; LayerNorm on each model slot's copy of the rows.
 """
 
 from __future__ import annotations
@@ -44,17 +48,18 @@ import torch
 
 from .. import resolve_device
 from ..launch import collectives
+from . import attention as attn
 from .attention import (KVCache, _out_proj, _proj, attention, attention_row,
                         decode_attention_step, heads_parallel, init_attention, plain_attention)
 from .common import ModelConfig, abstract_mesh
-from . import layers, transformer
+from . import layers, sharding, transformer
 from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp,
                      layer_norm, mlp, unembed)
 from .transformer import _maybe_remat, slot_views
 
-__all__ = ["EncDecState", "decode_step", "encode", "forward", "init_decode_state",
-           "init_params", "params_from_numpy", "precompute_cross", "slot_views", "train_forward",
-           "train_forward_slots"]
+__all__ = ["EncDecState", "decode_independent", "decode_slots", "decode_step", "encode",
+           "forward", "init_decode_state", "init_params", "params_from_numpy", "precompute_cross",
+           "slot_views", "train_forward", "train_forward_slots"]
 
 _STACKED_AXES = {"enc": 1, "dec": 1}
 
@@ -300,10 +305,87 @@ def precompute_cross(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> t
         return torch.stack(ks), torch.stack(vs)
 
 
+def _cross_blocks(state: EncDecState, cfg: ModelConfig, mesh, rows: int):
+    return sharding.StateBlocks({"cross_k": state.cross_k, "cross_v": state.cross_v}, cfg, mesh,
+                                rows)
+
+
+def decode_independent(cfg: ModelConfig, state: EncDecState, rows: int) -> bool:
+    """Whether, under the ambient mesh, each data slot's part of a decode
+    step over ``rows`` rows depends on no other data slot's: the rows split
+    over every data slot and every cache's data split on its batch dim (not
+    its length)."""
+    mesh = abstract_mesh()
+    if len(mesh.row_devices(rows)) == 1:
+        return False
+    kv = sharding.StateBlocks(state.self_caches, cfg, mesh, rows)
+    return kv.data_dims() == {"k": 1, "v": 1, "pos": 1, "positions": 1} and \
+        _cross_blocks(state, cfg, mesh, rows).data_dims() == {"cross_k": 1, "cross_v": 1}
+
+
+def decode_slots(views, state: EncDecState, tokens_slots: list, cfg: ModelConfig,
+                 n_data: Optional[int] = None) -> list:
+    """:func:`decode_step` over the ambient mesh's grid (``views`` the
+    weights' :class:`.sharding.SlotViews`, ``tokens_slots[jj]`` the rows of
+    computing data slot ``views.data_slots[jj]``, with ``n_data`` data slots
+    taking rows in all), ``state`` placed by ``state_specs`` or whole.  Per
+    layer each model slot applies LayerNorm to its copy of the rows, in the
+    reference's rounding; the self-attention reads and writes the self
+    cache's blocks in place (:func:`.attention.decode_attention_row`: whole
+    heads with the decode kernel, or the head-dim columns), ``pos``
+    advances in every block that holds it, the cross attention reads the
+    static cross K/V's blocks where they lie
+    (:func:`.attention.cross_attention_row`: by heads or head-dim columns,
+    frames split over the data slots merged by log-sum-exp), and the MLP
+    runs as in the forward.  Returns each data slot's
+    :class:`.layers.SlotLogits`."""
+    mesh = abstract_mesh()
+    data_slots = views.data_slots
+    n_data = n_data or len(data_slots)
+    b = tokens_slots[0].shape[0]
+    kv = sharding.StateBlocks(state.self_caches, cfg, mesh, b * n_data)
+    xb = _cross_blocks(state, cfg, mesh, b * n_data)
+    M = views.msize
+    layout, clayout = attn.decode_layout(kv, M), attn.decode_layout(xb, M, "cross_k")
+    cols, ccols = attn.decode_cols(kv, mesh, layout), attn.decode_cols(xb, mesh, clayout,
+                                                                       "cross_k")
+    rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
+    devs = [mesh.model_devices(j) for j in data_slots]
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+          for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
+    ldims = views.layer_dims("dec")
+    L = cfg.n_layers
+    for i in range(L):
+        for jj, j in enumerate(data_slots):
+            row = views.layer(jj, i, L, "dec")
+            h = [_ln(x, p["ln1"], cfg) for p, x in zip(row, xs[jj])]
+            out = attn.decode_attention_layer(kv, mesh, i, rows[jj], j,
+                                              [p["self_attn"] for p in row], ldims["self_attn"],
+                                              h, cfg, devs[jj], layout, cols)
+            x = [a + o for a, o in zip(xs[jj], out)]
+            h = [_ln(a, p["ln2"], cfg) for p, a in zip(row, x)]
+            cross = attn.decode_cache_slices(xb, mesh, i, rows[jj], j,
+                                             ("cross_k", "cross_v", None))
+            out = attn.cross_attention_row([p["cross_attn"] for p in row], ldims["cross_attn"],
+                                           h, cfg, j, devs[jj], cross, clayout, ccols)
+            x = [a + o for a, o in zip(x, out)]
+            h = [_ln(a, p["ln3"], cfg) for p, a in zip(row, x)]
+            y = layers.mlp_row([p["mlp"] for p in row], ldims["mlp"], h, cfg, devs[jj])
+            xs[jj] = [a + o for a, o in zip(x, y)]
+    return [layers.unembed_row(views.rows[jj], views.dims,
+                               [_ln(a, p["ln_f"], cfg) for p, a in zip(views.rows[jj], xs[jj])],
+                               cfg, devs[jj])
+            for jj in range(len(data_slots))]
+
+
 def decode_step(params: dict, state: EncDecState, token: torch.Tensor,
                 cfg: ModelConfig) -> tuple:
     """One decoding step: token (B, 1) -> (logits (B,1,V), state).  The self
-    caches are updated in place; the returned state holds the same tensors."""
+    caches are updated in place; the returned state holds the same tensors.
+    Under an ambient mesh the step runs over its grid (:func:`decode_slots`),
+    ``params`` placed or whole, ``state`` placed by ``state_specs`` or whole."""
+    if abstract_mesh() is not None:
+        return transformer.mesh_decode(sys.modules[__name__], params, state, token, cfg)
     c = state.self_caches
     with torch.inference_mode():
         x = embed(params["embed"], token, cfg)

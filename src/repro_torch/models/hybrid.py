@@ -35,7 +35,12 @@ weights (:func:`train_forward_slots`, :class:`.sharding.SlotViews`): the
 shared block through :func:`.attention.attention_row` and
 :func:`.layers.mlp_row`, each Mamba2 layer through :func:`.ssm.mamba2_row`
 (each slot its SSM heads; model slot 0 runs the mixer whole where the heads
-do not divide the axis).  Decode under a mesh is not ported yet.
+do not divide the axis).  Decode under a mesh runs over the grid too
+(:func:`decode_slots`): the shared attention through
+:func:`.attention.decode_attention_row` against the K/V cache's blocks, each
+Mamba2 layer through :func:`.ssm.mamba2_decode_row` against its conv window's
+and SSM state's blocks, every block of the state read and written in place
+where ``state_specs`` puts it.
 """
 
 from __future__ import annotations
@@ -47,19 +52,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import resolve_device
+from . import attention as attn
 from .attention import (KVCache, attention, attention_row, decode_attention_step,
                         heads_parallel, init_attention)
 from .common import ModelConfig, abstract_mesh
-from . import layers, transformer
+from . import layers, sharding, transformer
 from .layers import (cast_matrices, draw_stacked, embed, index_tree, init_embed, init_mlp, mlp,
                      rms_norm, unembed)
-from .ssm import (MambaState, init_mamba2, mamba2_decode_step, mamba2_forward, mamba2_row,
-                  ssm_dims)
+from .ssm import (MambaState, init_mamba2, mamba2_decode_row, mamba2_decode_step,
+                  mamba2_forward, mamba2_row, ssm_dims)
 from .transformer import _maybe_remat, slot_views
 
-__all__ = ["HybridState", "decode_step", "forward", "group_shape", "init_decode_state",
-           "init_params", "params_from_numpy", "slot_views", "train_forward",
-           "train_forward_slots"]
+__all__ = ["HybridState", "decode_independent", "decode_slots", "decode_step", "forward",
+           "group_shape", "init_decode_state", "init_params", "params_from_numpy", "slot_views",
+           "train_forward", "train_forward_slots"]
 
 # weights stacked over (groups, layers of a group), and those that stay float32
 _STACKED_AXES = {"mamba_groups": 2, "mamba_ln": 2}
@@ -262,10 +268,82 @@ def init_decode_state(cfg: ModelConfig, batch: int, capacity: int,
     return HybridState(caches, mamba)
 
 
+def decode_independent(cfg: ModelConfig, state: HybridState, rows: int) -> bool:
+    """Whether, under the ambient mesh, each data slot's part of a decode
+    step over ``rows`` rows depends on no other data slot's: the rows split
+    over every data slot and each state leaf's data split on its batch dim."""
+    mesh = abstract_mesh()
+    if len(mesh.row_devices(rows)) == 1:
+        return False
+    kv = sharding.StateBlocks(state.caches, cfg, mesh, rows)
+    mb = sharding.StateBlocks(state.mamba, cfg, mesh, rows)
+    return kv.data_dims() == {"k": 1, "v": 1, "pos": 1, "positions": 1} and \
+        mb.data_dims() == {"conv": 2, "ssm": 2}
+
+
+def decode_slots(views, state: HybridState, tokens_slots: list, cfg: ModelConfig,
+                 n_data: Optional[int] = None) -> list:
+    """:func:`decode_step` over the ambient mesh's grid (``views`` the
+    weights' :class:`.sharding.SlotViews`, ``tokens_slots[jj]`` the rows of
+    computing data slot ``views.data_slots[jj]``, with ``n_data`` data slots
+    taking rows in all), ``state`` placed by ``state_specs`` or whole.  Per
+    group each model slot normalizes its copy of the rows; the shared
+    attention reads and writes the K/V cache's blocks in place
+    (:func:`.attention.decode_attention_row`, the layout from the cache's
+    ``model`` split: whole heads with the decode kernel, or the head-dim
+    columns; a cache length split over the data slots merges the kernel's
+    log-sum-exp partials), ``pos`` advances in every block that holds it,
+    the shared MLP runs as in the forward, and each Mamba2 layer runs
+    through :func:`.ssm.mamba2_decode_row` against its conv window's and
+    SSM state's blocks, masked where padded.  Returns each data slot's
+    :class:`.layers.SlotLogits`."""
+    mesh = abstract_mesh()
+    data_slots = views.data_slots
+    n_data = n_data or len(data_slots)
+    b = tokens_slots[0].shape[0]
+    kv = sharding.StateBlocks(state.caches, cfg, mesh, b * n_data)
+    mb = sharding.StateBlocks(state.mamba, cfg, mesh, b * n_data)
+    layout = attn.decode_layout(kv, views.msize)
+    cols = attn.decode_cols(kv, mesh, layout)
+    rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
+    devs = [mesh.model_devices(j) for j in data_slots]
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+          for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
+    ng, g, _ = group_shape(cfg)
+    masks = [[_layer_mask(cfg, a.device, a.dtype) for a in row] for row in xs]
+    sdims = views.dims["shared_attn"]
+    mdims = views.entry_dims("mamba_groups", 2)
+    for i in range(ng):
+        for jj, j in enumerate(data_slots):
+            row = [r["shared_attn"] for r in views.rows[jj]]
+            h = [rms_norm(x, p["ln"], cfg.norm_eps) for p, x in zip(row, xs[jj])]
+            out = attn.decode_attention_layer(kv, mesh, i, rows[jj], j, [p["attn"] for p in row],
+                                              sdims["attn"], h, cfg, devs[jj], layout, cols)
+            x = [a + o for a, o in zip(xs[jj], out)]
+            h = [rms_norm(a, p["ln2"], cfg.norm_eps) for p, a in zip(row, x)]
+            y = layers.mlp_row([p["mlp"] for p in row], sdims["mlp"], h, cfg, devs[jj])
+            x = [a + o for a, o in zip(x, y)]
+            for jl in range(g):
+                lns = views.entry(jj, "mamba_ln", i, jl)
+                mixes = views.entry(jj, "mamba_groups", i, jl)
+                h = [rms_norm(a, ln, cfg.norm_eps) for ln, a in zip(lns, x)]
+                y = mamba2_decode_row(mixes, mdims, h, cfg, devs[jj], mb, (i, jl), rows[jj], j)
+                x = [a + mk[i, jl] * o for a, o, mk in zip(x, y, masks[jj])]
+            xs[jj] = x
+    return [layers.unembed_row(views.rows[jj], views.dims,
+                               [rms_norm(a, p["ln_f"], cfg.norm_eps)
+                                for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+            for jj in range(len(data_slots))]
+
+
 def decode_step(params: dict, state: HybridState, token: torch.Tensor,
                 cfg: ModelConfig) -> tuple:
     """One decoding step: token (B, 1) -> (logits (B,1,V), state).  The
-    caches and Mamba states are updated in place."""
+    caches and Mamba states are updated in place.  Under an ambient mesh the
+    step runs over its grid (:func:`decode_slots`), ``params`` placed or
+    whole, ``state`` placed by ``state_specs`` or whole."""
+    if abstract_mesh() is not None:
+        return transformer.mesh_decode(sys.modules[__name__], params, state, token, cfg)
     c, ms = state.caches, state.mamba
     shared = params["shared_attn"]
     with torch.inference_mode():

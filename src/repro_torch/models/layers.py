@@ -337,9 +337,12 @@ def take_columns(blocks: list, spans: list, device, dim: int = -1) -> torch.Tens
     gather, each piece read from the slot whose block holds it.  Moves
     activations between a column-parallel product's slots (or a few rows
     of a weight); differentiable, so each piece's gradient goes back to
-    its slot."""
+    its slot.  With one block (one model slot) the pieces are joined
+    locally, no collective."""
     from ..launch import collectives
 
+    if len(blocks) == 1:
+        return torch.cat([blocks[0].narrow(dim, lo, hi - lo) for lo, hi in spans], dim=dim)
     width = blocks[0].shape[dim]
     parts = []
     for lo, hi in spans:

@@ -149,11 +149,11 @@ def _always_independent(cfg: ModelConfig, rows: int, seq: int) -> bool:
 
 
 def _train_forward(module, extras) -> Callable:
-    """The family's ``train_forward`` over a batch dict.  Where the family
-    runs under a mesh (``module.train_forward_slots``), its ``slots``
-    attribute is the same over the mesh's grid, (views, batch_slots, cfg,
-    n_data) -> (each data slot's logits over its model slots, each data
-    slot's aux), the family's extras (a VLM's ``prefix_embeds``, the
+    """The family's ``train_forward`` over a batch dict.  Its ``slots``
+    attribute is the same over the mesh's grid
+    (``module.train_forward_slots``), (views, batch_slots, cfg, n_data) ->
+    (each data slot's logits over its model slots, each data slot's aux),
+    the family's extras (a VLM's ``prefix_embeds``, the
     enc-dec model's ``frames``) passed per data slot under their names,
     ``views`` the weights' ``SlotViews`` (``module.slot_views``), and
     ``independent(cfg, rows, seq)`` says whether each data slot's part may
@@ -161,35 +161,31 @@ def _train_forward(module, extras) -> Callable:
     def fn(params, batch, c):
         return module.train_forward(params, batch["tokens"], c, **extras(batch))
 
-    slots = getattr(module, "train_forward_slots", None)
-    if slots is not None:
-        def fn_slots(views, batch_slots, c, n_data=None):
-            kw = [extras(b) for b in batch_slots]
-            per_slot = {k: [x[k] for x in kw] for k in kw[0]}
-            return slots(views, [b["tokens"] for b in batch_slots], c, n_data=n_data, **per_slot)
-        fn.slots = fn_slots
-        fn.slot_views = module.slot_views
-        fn.independent = getattr(module, "data_slots_independent", _always_independent)
+    def fn_slots(views, batch_slots, c, n_data=None):
+        kw = [extras(b) for b in batch_slots]
+        per_slot = {k: [x[k] for x in kw] for k in kw[0]}
+        return module.train_forward_slots(views, [b["tokens"] for b in batch_slots], c,
+                                          n_data=n_data, **per_slot)
+    fn.slots = fn_slots
+    fn.slot_views = module.slot_views
+    fn.independent = getattr(module, "data_slots_independent", _always_independent)
     return fn
 
 
 def _decode(module, cfg: ModelConfig) -> Callable:
-    """The family's decode step.  Where the family decodes under a mesh
-    (``module.decode_slots``), its ``slots`` attribute is the step over the
-    mesh's grid, (views, state, token_slots, n_data) -> each data slot's
-    logits over its model slots, the state placed by ``state_specs`` and
+    """The family's decode step.  Its ``slots`` attribute is the step over
+    the mesh's grid (``module.decode_slots``), (views, state, token_slots,
+    n_data) -> each data slot's logits over its model slots, the state placed by ``state_specs`` and
     updated in place, ``views`` the weights' ``SlotViews``
     (``module.slot_views``), and ``independent(state, rows)`` says whether
     each data slot's part may run on its own; the dry run calls them."""
     def fn(params, state, token):
         return module.decode_step(params, state, token, cfg)
 
-    slots = getattr(module, "decode_slots", None)
-    if slots is not None:
-        fn.slots = lambda views, state, token_slots, n_data=None: slots(
-            views, state, token_slots, cfg, n_data)
-        fn.slot_views = module.slot_views
-        fn.independent = lambda state, rows: module.decode_independent(cfg, state, rows)
+    fn.slots = lambda views, state, token_slots, n_data=None: module.decode_slots(
+        views, state, token_slots, cfg, n_data)
+    fn.slot_views = module.slot_views
+    fn.independent = lambda state, rows: module.decode_independent(cfg, state, rows)
     return fn
 
 

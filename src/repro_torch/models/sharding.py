@@ -36,15 +36,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import resolve_device
 from .common import ModelConfig
 
-__all__ = ["PartitionSpec", "ShardedTensor", "SlotViews", "StateBlocks", "batch_spec", "gather",
-           "make_batch_sharding", "model_dim", "model_split_dim", "named", "param_specs", "place",
-           "reduce_to_placement", "slot_bytes", "state_specs", "zero1_specs"]
+__all__ = ["PartitionSpec", "ShardedTensor", "SlotViews", "StateBlocks", "StatePiece", "batch_spec",
+           "gather", "make_batch_sharding", "model_dim", "model_split_dim", "named", "param_specs",
+           "place", "reduce_to_placement", "slot_bytes", "state_specs", "write_piece",
+           "zero1_specs"]
 
 ATTN_PARENTS = {"attn", "self_attn", "cross_attn", "shared_attn"}
 
@@ -578,14 +580,38 @@ def _covers(region: slice, i) -> bool:
     return region.start <= i.start and i.stop <= region.stop
 
 
+class StatePiece(NamedTuple):
+    """One model slot's part of a recurrent state leaf at a stacked index
+    and the rows a data slot computes: ``old`` the part as it stands, on
+    the computing slot's device (a view of the slot's own block, or a copy
+    read from the data slot that holds it); ``region`` where the holding
+    block lies in the global tensor (a slice per dim); ``holders`` one view
+    per distinct storage that holds the part (the block's replicas over the
+    data slots, each written once); ``replicas`` one view per mesh slot
+    that holds it, storage shared or not; ``remote`` whether each holder
+    lies on another data slot than the computing one."""
+    old: torch.Tensor
+    region: tuple
+    holders: list
+    remote: list
+    replicas: list
+
+
+def _leaf_key(path: tuple) -> str:
+    """A state leaf's key in :class:`StateBlocks`: its whole path, so that
+    two leaves of one name (the xLSTM's ``ml.n`` and ``sl.n``) stay apart."""
+    return "/".join(path)
+
+
 class StateBlocks:
     """Each mesh slot's blocks of a decode-state tree (nested NamedTuples of
     tensors): from a tree placed by :func:`state_specs`
     (:class:`ShardedTensor` leaves) its shards; from a tree of whole tensors
     the regions ``state_specs`` would give each slot, as views of the whole
     tensor (a slot whose device is not the tensor's raises: a write there
-    would not reach the tensor).  ``leaves[name]`` is a :class:`_Blocks`
-    per leaf name (``k``, ``v``, ``pos``, ``positions``).  Nothing is
+    would not reach the tensor).  ``leaves[key]`` is a :class:`_Blocks`
+    per leaf, keyed by its path joined by ``/`` (``k``, ``pos`` for a
+    ``KVCache``; ``ml/n`` and ``sl/n`` for the xLSTM's state).  Nothing is
     copied, so a write into a block updates the state in place."""
 
     def __init__(self, tree, cfg: ModelConfig, mesh, batch: int):
@@ -595,23 +621,74 @@ class StateBlocks:
             _map_with_path(lambda p, sp: spec_of.__setitem__(p, sp),
                            state_specs(tree, cfg, mesh, batch))
         self.mesh = mesh
-        self.leaves = {path[-1]: _placed_blocks(x, mesh) if isinstance(x, ShardedTensor)
+        self.leaves = {_leaf_key(path): _placed_blocks(x, mesh) if isinstance(x, ShardedTensor)
                        else _view_blocks(x, spec_of[path], mesh) for path, x in leaves.items()}
 
     def data_dims(self) -> dict:
-        """Leaf name -> the dim its placement splits over the data axes."""
+        """Leaf key -> the dim its placement splits over the data axes."""
         return {n: _data_dim(b.spec) for n, b in self.leaves.items()}
+
+    def piece(self, key: str, index: dict, j: int, m: int, device) -> StatePiece:
+        """Model slot ``m``'s part of leaf ``key`` at ``index`` (dim -> int
+        or slice of the global tensor: the stacked layer indices and the
+        rows) for data slot ``j`` computing on ``device``: read from the
+        data slot ``j``'s own block where it covers ``index``, else from the
+        first data slot's whose block does (a placement may split a stacked
+        axis over the data slots where its size equals the batch, as the
+        reference's ``state_specs`` does), moved to ``device``."""
+        from ..launch import collectives
+        from ..launch.mesh import data_axis_size
+
+        b, mesh = self.leaves[key], self.mesh
+        order = [j] + [jj for jj in range(data_axis_size(mesh)) if jj != j]
+        slots = [mesh.slot(**mesh.data_coords(jj), model=m) for jj in order]
+        covering = [(jj, s) for jj, s in zip(order, slots) if b.find(index, [s]) is not None]
+        if not covering:
+            raise ValueError(f"no mesh slot of model slot {m} holds {key} at {index}")
+        jj0, s0 = covering[0]
+        old = b.local(s0, index)
+        if jj0 != j:
+            old = collectives.broadcast(old, [device])[0]
+        seen, holders, remote = set(), [], []
+        for jj, s in covering:
+            if id(b.blocks[s]) not in seen:
+                seen.add(id(b.blocks[s]))
+                holders.append(b.local(s, index))
+                remote.append(jj != j)
+        return StatePiece(old, b.regions[s0], holders, remote,
+                          [b.local(s, index) for _, s in covering])
+
+
+def write_piece(piece: StatePiece, new: torch.Tensor) -> None:
+    """``new`` (computed from ``piece.old`` before any write) copied into
+    each distinct storage that holds the piece, once: into a holder on the
+    computing data slot in place, into one on another data slot after a
+    broadcast to its device."""
+    from ..launch import collectives
+
+    for view, far in zip(piece.holders, piece.remote):
+        view.copy_(collectives.broadcast(new, [view.device])[0] if far else new)
 
 
 def _placed_blocks(x: ShardedTensor, mesh) -> _Blocks:
     return _Blocks(x.shards, tuple(x.region(s) for s in range(mesh.size)), x.spec, x.shape)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
 def _view_blocks(x: torch.Tensor, spec, mesh) -> _Blocks:
     """A whole tensor's blocks by ``spec`` as views of it; slots with the
     same region share one view, as placed shards on one device do."""
     for dev in dict.fromkeys(mesh.devices):
-        if resolve_device(dev) != x.device:
+        if not _same_device(resolve_device(dev), x.device):
             raise ValueError(f"a whole decode state on {x.device} cannot be decoded in place by "
                              f"a mesh slot on {dev}: place it (sharding.place(state, "
                              f"state_specs(...), mesh))")

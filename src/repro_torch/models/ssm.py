@@ -22,7 +22,9 @@ in float32; the gated norm is the plain RMSNorm formula, never the kernel.
 
 :func:`mamba2_row` is the mixer of one data slot over its model slots under
 a mesh, each model slot owning a block of the SSM heads where they divide
-the axis.
+the axis.  :func:`mamba2_decode_row` is the decode step of one data slot
+over its model slots, the conv window and the SSM state read and written in
+place in the blocks ``state_specs`` gives them.
 """
 
 from __future__ import annotations
@@ -36,9 +38,9 @@ from .. import resolve_device
 from .common import ModelConfig
 from .layers import dense_init, rms_norm
 
-__all__ = ["MambaState", "heads_parallel", "in_proj_spans", "init_mamba2", "init_mamba_state",
-           "mamba2_decode_step", "mamba2_forward", "mamba2_row", "softplus", "ssd_chunked",
-           "ssm_dims"]
+__all__ = ["MambaState", "channels_to", "heads_parallel", "in_proj_spans", "init_mamba2",
+           "init_mamba_state", "mamba2_decode_row", "mamba2_decode_step", "mamba2_forward",
+           "mamba2_row", "softplus", "ssd_chunked", "ssm_dims"]
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple:
@@ -310,3 +312,148 @@ def mamba2_decode_step(p: dict, x: torch.Tensor, state: MambaState,
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = (y @ p["out_proj"].to(dt))[:, None]
     return out, state
+
+
+# ---------------------------------------------------------------------------
+# Decode per model slot, the state where state_specs puts it
+# ---------------------------------------------------------------------------
+
+def _rows_of(ps: list, dims: dict, key: str, lo: int, hi: int, m: int, device) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of weight ``key`` for model slot ``m``: its own
+    block where those are its rows, else those rows gathered from the slots
+    that hold them (a few rows of a small weight), or sliced where
+    replicated."""
+    from .layers import take_columns
+
+    d, w = dims.get(key), ps[m][key]
+    if d is None:
+        return w[lo:hi]
+    if d != 0:
+        raise ValueError(f"{key} is split over model on dim {d}, not its rows")
+    n = w.shape[0]
+    if (lo, hi) == (m * n, (m + 1) * n):
+        return w
+    return take_columns([p[key] for p in ps], [(lo, hi)], device, dim=0)
+
+
+def channels_to(parts: list, heads: list, cols: list, P: int, lo: int, hi: int, m: int,
+                 device) -> torch.Tensor:
+    """The channels ``[lo, hi)`` (channel ``h P + p``) of a (B, H, P) tensor
+    held as blocks ``parts[m']`` over heads ``heads[m']`` and columns
+    ``cols[m']``, joined on model slot ``m``'s ``device``: one gather
+    where another slot holds a piece, none where ``m`` holds them all."""
+    from ..launch import collectives
+
+    pieces, own = [], True
+    c = lo
+    while c < hi:
+        h, p = divmod(c, P)
+        src = next(k for k, (hs, ps) in enumerate(zip(heads, cols))
+                   if hs.start <= h < hs.stop and ps.start <= p < ps.stop)
+        e = min(hi, h * P + cols[src].stop)
+        pieces.append(parts[src][:, h - heads[src].start,
+                                 p - cols[src].start:e - h * P - cols[src].start])
+        own = own and src == m
+        c = e
+    if own:
+        return torch.cat(pieces, dim=-1)
+    return collectives.gather_to(pieces, -1, device)
+
+
+def mamba2_decode_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, devs, blocks,
+                      idx: tuple, rows: slice, j: int) -> list:
+    """:func:`mamba2_decode_step` over one data slot's model slots (``hs[m]``
+    slot ``m``'s copy of the normed rows (B, 1, d), ``ps[m]`` its block of
+    the layer's weights), against the state of ``blocks`` (a
+    :class:`.sharding.StateBlocks` of the :class:`MambaState`) at the
+    stacked index ``idx`` and the global ``rows`` of data slot ``j``.
+
+    The state's layout is read from its blocks, not assumed.  Each slot
+    computes its block of ``in_proj``'s output columns; one gather a slot
+    brings it its z columns (those of its ``out_proj`` rows), the x B C
+    channels of its conv-window block and the dt columns of its SSM heads.
+    The depthwise conv runs in the conv window's channel blocks (the
+    window's tap rows of ``conv_w`` are the slot's own where the window and
+    the weight split alike), so the window is read and written in place.
+    One gather a slot then moves the conv's output to the SSM state's
+    block: its heads' (the state split over heads) or its columns of every
+    head (split over the head dim), with B and C whole.  The SSM update and
+    ``y = C . ssm`` are local; y moves to ``out_proj``'s row owners (no
+    collective where the state splits by heads), the gated RMSNorm's
+    float32 sum of squares is all-reduced over d_in
+    (:func:`_gated_norm_row`) and ``out_proj`` is row-parallel, a partial
+    sum all-reduced in model-slot order.  Every new window and state is
+    computed from the old before it is written, each distinct storage once
+    (:func:`.sharding.write_piece`).  Returns each slot's output (B, 1, d)."""
+    from ..launch import collectives
+    from . import sharding
+    from .layers import take_columns
+
+    M = len(devs)
+    d_in, H, P, N = ssm_dims(cfg)
+    conv_dim = d_in + 2 * N
+    if M > 1 and (dims["in_proj"] != 1 or dims["out_proj"] != 0):
+        raise ValueError(f"a Mamba2 decode over {M} model slots needs in_proj split by columns "
+                         f"and out_proj by rows, not {dims['in_proj']} / {dims['out_proj']}")
+    dt = hs[0].dtype
+    lead = len(idx)
+    index = {i: x for i, x in enumerate(idx)} | {lead: rows}
+    conv = [blocks.piece("conv", index, j, m, dev) for m, dev in enumerate(devs)]
+    ssm = [blocks.piece("ssm", index, j, m, dev) for m, dev in enumerate(devs)]
+    cr = [pc.region[lead + 1] for pc in conv]
+    heads = [pc.region[lead + 1] for pc in ssm]
+    cols = [pc.region[lead + 2] for pc in ssm]
+    wc = conv_dim // M
+    if any(r != slice(m * wc, (m + 1) * wc) for m, r in enumerate(cr)) or \
+            any(pc.region[lead + 2].stop - pc.region[lead + 2].start != cfg.ssm_conv - 1
+                for pc in conv) or \
+            any(pc.region[lead + 3] != slice(0, N) for pc in ssm):
+        raise ValueError("a Mamba2 decode over the mesh needs the conv window split by channels "
+                         "and the SSM state by heads or head dim (state_specs' layouts)")
+    c = d_in // M
+    dt0 = 2 * d_in + 2 * N
+    acts = [h[:, 0] @ p["in_proj"].to(dt) for p, h in zip(ps, hs)]
+    xbcs, zs, dts, windows = [], [], [], []
+    for m, dev in enumerate(devs):
+        spans = [(m * c, (m + 1) * c), (d_in + cr[m].start, d_in + cr[m].stop),
+                 (dt0 + heads[m].start, dt0 + heads[m].stop)]
+        z, xbc, dtv = torch.split(take_columns(acts, spans, dev),
+                                  [hi - lo for lo, hi in spans], dim=-1)
+        zs.append(z)
+        # the depthwise conv in the window's channel blocks
+        hist = torch.cat([conv[m].old, xbc.float()[:, :, None]], dim=-1)
+        w = _rows_of(ps, dims, "conv_w", cr[m].start, cr[m].stop, m, dev).float()
+        b = _rows_of(ps, dims, "conv_b", cr[m].start, cr[m].stop, m, dev).float()
+        xbcs.append(F.silu((hist * w[None]).sum(-1) + b))
+        windows.append(hist[:, :, 1:])
+        dts.append(dtv)
+    news, ys = [], []
+    for m, (p, dev) in enumerate(zip(ps, devs)):
+        hsl, psl = heads[m], cols[m]
+        spans = [(h * P + psl.start, h * P + psl.stop) for h in range(hsl.start, hsl.stop)]
+        if psl == slice(0, P):
+            spans = [(hsl.start * P, hsl.stop * P)]
+        xbc = take_columns(xbcs, spans + [(d_in, d_in + 2 * N)], dev)
+        nx = (hsl.stop - hsl.start) * (psl.stop - psl.start)
+        xs, Bmat, Cmat = torch.split(xbc, [nx, N, N], dim=-1)
+        xs = xs.reshape(xs.shape[0], hsl.stop - hsl.start, -1)
+        dtv = softplus(dts[m].float() + p["dt_bias"][hsl].float())
+        A = -torch.exp(p["A_log"][hsl].float())
+        decay = torch.exp(dtv * A)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtv, xs, Bmat)
+        new = ssm[m].old * decay[..., None, None] + upd
+        news.append(new)
+        y = torch.einsum("bn,bhpn->bhp", Cmat, new)
+        ys.append((y + xs * p["D"][hsl].float()[None, :, None]).to(dt))
+    gs = [channels_to(ys, heads, cols, P, m * c, (m + 1) * c, m, dev) * F.silu(z)
+          for m, (z, dev) in enumerate(zip(zs, devs))]
+    scales = [p["norm"][m * c:(m + 1) * c] for m, p in enumerate(ps)]
+    if M == 1:
+        gs = [rms_norm(gs[0], scales[0], cfg.norm_eps)]
+    else:
+        gs = _gated_norm_row(gs, scales, cfg.norm_eps, d_in, devs)
+    outs = [(g @ p["out_proj"].to(dt))[:, None] for p, g in zip(ps, gs)]
+    for pc, window, ps_, new in zip(conv, windows, ssm, news):
+        sharding.write_piece(pc, window)
+        sharding.write_piece(ps_, new)
+    return outs if M == 1 else collectives.psum(outs, list(devs))

@@ -471,12 +471,8 @@ def decode_slots(views, state: DecodeState, tokens_slots: list, cfg: ModelConfig
     n_data = n_data or len(data_slots)
     b = tokens_slots[0].shape[0]
     blocks = sharding.StateBlocks(state.caches, cfg, mesh, b * n_data)
-    M = views.msize
-    layout = attn.decode_layout(blocks, M)
-    k = blocks.leaves["k"]
-    C = k.shape[-3]
-    cols = [k.regions[mesh.slot(model=m)][-1] if layout == "cols" else slice(None)
-            for m in range(M)]
+    layout = attn.decode_layout(blocks, views.msize)
+    cols = attn.decode_cols(blocks, mesh, layout)
     rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
     devs = [mesh.model_devices(j) for j in data_slots]
     dcfg = _decode_cfg(cfg)
@@ -489,13 +485,9 @@ def decode_slots(views, state: DecodeState, tokens_slots: list, cfg: ModelConfig
         for jj, j in enumerate(data_slots):
             row = lrows[jj]
             h = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(row, xs[jj])]
-            slices = attn.decode_cache_slices(blocks, mesh, i, rows[jj], j)
-            poss = {h_j: [attn.read_pos(blocks, mesh, i, rows[jj], h_j, m,
-                                        mesh.model_devices(h_j)[m]) for m in range(M)]
-                    for h_j in dict.fromkeys([j] + [sl.j for sl in slices])}
-            out = attn.decode_attention_row([p["attn"] for p in row], ldims["attn"], h, cfg, j,
-                                            devs[jj], poss, slices, C, layout, cols)
-            attn.advance_pos(blocks, mesh, i, rows[jj])
+            out = attn.decode_attention_layer(blocks, mesh, i, rows[jj], j,
+                                              [p["attn"] for p in row], ldims["attn"], h, cfg,
+                                              devs[jj], layout, cols)
             x2 = [x + a for x, a in zip(xs[jj], out)]
             x2s.append(x2)
             hs.append([rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(row, x2)])
@@ -512,15 +504,16 @@ def decode_slots(views, state: DecodeState, tokens_slots: list, cfg: ModelConfig
             for jj in range(len(data_slots))]
 
 
-def _mesh_decode(params, state: DecodeState, token, cfg: ModelConfig) -> tuple:
-    """:func:`decode_step` over the ambient mesh: the rows over the data
-    slots (:func:`decode_slots`), the logits gathered onto the token's
+def mesh_decode(module, params, state, token, cfg: ModelConfig) -> tuple:
+    """A family module's ``decode_step`` over the ambient mesh: the rows
+    over the data slots (``module.decode_slots`` over ``slot_views`` of
+    ``params``, placed or whole), the logits gathered onto the token's
     device; the state updated in place where it lies."""
     with torch.inference_mode():
         mesh = abstract_mesh()
         devices = mesh.row_devices(token.shape[0])
         views = slot_views(params, cfg, range(len(devices)))
-        logits = decode_slots(views, state, collectives.scatter(token, 0, devices), cfg)
+        logits = module.decode_slots(views, state, collectives.scatter(token, 0, devices), cfg)
         return _joined([layers.gather_logits(lg, token.device) for lg in logits]), state
 
 
@@ -532,7 +525,7 @@ def decode_step(params: dict, state: DecodeState, token: torch.Tensor,
     ``params`` placed or whole, ``state`` placed by ``state_specs`` or whole."""
     check_family(cfg)
     if abstract_mesh() is not None:
-        return _mesh_decode(params, state, token, cfg)
+        return mesh_decode(sys.modules[__name__], params, state, token, cfg)
     c = state.caches
     dcfg = _decode_cfg(cfg)
     with torch.inference_mode():

@@ -24,7 +24,11 @@ data slot's model slots compute tensor-parallel from their own blocks
 (:func:`train_forward_slots`): the mLSTM by its q/k/v output columns
 (:func:`mlstm_row`), the sLSTM's time loop on model slot 0 with its input
 projection column-parallel and its output row-parallel (:func:`slstm_row`).
-Decode under a mesh is not ported yet.
+Decode under a mesh runs over the grid too (:func:`decode_slots`): each
+model slot updates its blocks of the mLSTM's ``C`` and ``n`` and of the
+sLSTM's ``c``, ``n``, ``m`` and ``h`` in place where ``state_specs`` puts
+them (:func:`mlstm_decode_row`, :func:`slstm_decode_row`), the per-token
+activations moving between the weights' and the state's layouts.
 """
 
 from __future__ import annotations
@@ -38,15 +42,16 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from .common import ModelConfig, abstract_mesh
-from . import layers, transformer
+from . import layers, sharding, transformer
 from .layers import (cast_matrices, dense_init, draw_stacked, embed, index_tree, init_embed,
                      init_mlp, mlp, rms_norm, unembed)
 from .transformer import _maybe_remat, slot_views
 
-__all__ = ["MLSTMState", "SLSTMState", "XLSTMState", "decode_step", "ffn_dim", "forward",
-           "init_decode_state", "init_mlstm_state", "init_params", "init_slstm_state",
-           "mlstm_decode_step", "mlstm_dims", "mlstm_forward", "mlstm_parallel", "mlstm_row",
-           "params_from_numpy", "slot_views", "slstm_decode_step", "slstm_dims", "slstm_forward",
+__all__ = ["MLSTMState", "SLSTMState", "XLSTMState", "decode_independent", "decode_slots",
+           "decode_step", "ffn_dim", "forward", "init_decode_state", "init_mlstm_state",
+           "init_params", "init_slstm_state", "mlstm_decode_row", "mlstm_decode_step",
+           "mlstm_dims", "mlstm_forward", "mlstm_parallel", "mlstm_row", "params_from_numpy",
+           "slot_views", "slstm_decode_row", "slstm_decode_step", "slstm_dims", "slstm_forward",
            "slstm_row", "train_forward", "train_forward_slots", "whole_r", "xlstm_group_shape"]
 
 _STACKED_AXES = {"mlstm": 2, "slstm": 1}
@@ -534,10 +539,239 @@ def init_decode_state(cfg: ModelConfig, batch: int, capacity: int = 0,
                    h=torch.zeros(sl, dtype=f32, device=dev)))
 
 
+# ---------------------------------------------------------------------------
+# Decode per model slot, the state where state_specs puts it
+# ---------------------------------------------------------------------------
+
+def _index(idx: tuple, rows: slice) -> dict:
+    return {i: x for i, x in enumerate(idx)} | {len(idx): rows}
+
+
+def mlstm_decode_row(ps: list, dims: dict, xs: list, cfg: ModelConfig, devs, blocks,
+                     idx: tuple, rows: slice, j: int) -> list:
+    """:func:`mlstm_decode_step` over one data slot's model slots (``xs[m]``
+    slot ``m``'s copy of the residual rows (B, 1, d), ``ps[m]`` its block
+    of the layer's weights) against ``C`` and ``n`` of ``blocks`` (the
+    :class:`XLSTMState`'s :class:`.sharding.StateBlocks`, leaves ``ml/C``
+    and ``ml/n``) at the stacked index ``idx`` and the global ``rows`` of
+    data slot ``j``.
+
+    ``up``'s x_in columns are all-gathered (the q/k/v products need it
+    whole), each slot computes its q, k and v columns and every gate
+    (``wif`` replicated); q and k are all-gathered whole; each slot takes
+    the v columns of its ``C`` block (one gather).  ``C`` may be split over
+    heads or over its value index r (the columns of ``num``), ``n`` over
+    heads or its key index p: the slot updates its blocks in place and
+    computes its part of ``num``; ``den = |q . n|`` is a sum over p, each
+    slot's part all-reduced in float32 (B x H values).  y and z then move
+    to ``down``'s row owners (a gather each), and ``down`` is row-parallel,
+    a partial sum all-reduced in model-slot order.  Returns each slot's
+    output (B, 1, d)."""
+    from ..launch import collectives
+    from .layers import take_columns
+    from .ssm import channels_to
+
+    M = len(devs)
+    d_in, H, P = mlstm_dims(cfg)
+    dt = xs[0].dtype
+    if M > 1 and not (dims["up"] == dims["wq"] == dims["wk"] == dims["wv"] == 1
+                      and dims["down"] == 0 and dims["wif"] is None):
+        raise ValueError("an mLSTM decode over the mesh needs up, wq, wk and wv split by "
+                         "columns, down by rows and wif replicated")
+    lead = len(idx)
+    index = _index(idx, rows)
+    Cs = [blocks.piece("ml/C", index, j, m, dev) for m, dev in enumerate(devs)]
+    ns = [blocks.piece("ml/n", index, j, m, dev) for m, dev in enumerate(devs)]
+    if any(pc.region[lead + 2] != slice(0, P) for pc in Cs):
+        raise ValueError("an mLSTM decode over the mesh needs C split over heads or its value "
+                         "index, not its key index")
+    hs = [rms_norm(x, p["ln"], cfg.norm_eps)[:, 0] for p, x in zip(ps, xs)]
+    ups = [h @ p["up"].to(dt) for p, h in zip(ps, hs)]
+    uw = ups[0].shape[-1]
+    if M == 1:
+        x_in = [ups[0][:, :d_in]]
+    else:
+        x_in = collectives.all_gather([ups[m][..., :min(uw, d_in - m * uw)]
+                                       for m in range((d_in + uw - 1) // uw)], -1, devs)
+    qb = [x @ p["wq"].to(dt) for p, x in zip(ps, x_in)]
+    kb = [x @ p["wk"].to(dt) for p, x in zip(ps, x_in)]
+    vb = [x @ p["wv"].to(dt) for p, x in zip(ps, x_in)]
+    q, k = (qb, kb) if M == 1 else (collectives.all_gather(qb, -1, devs),
+                                    collectives.all_gather(kb, -1, devs))
+    B = hs[0].shape[0]
+    scale = 1.0 / math.sqrt(P)
+    heads, rcols, news, nums, dens = [], [], [], [], []
+    for m, (p, dev) in enumerate(zip(ps, devs)):
+        qm, km = q[m].reshape(B, H, P).float(), k[m].reshape(B, H, P).float()
+        gi, gf = torch.chunk((x_in[m] @ p["wif"].to(dt)).float(), 2, dim=-1)
+        fi, ff = torch.exp(_log_sigmoid(gi)), torch.exp(_log_sigmoid(gf))
+        hc, rc = Cs[m].region[lead + 1], Cs[m].region[lead + 3]
+        spans = [(h * P + rc.start, h * P + rc.stop) for h in range(hc.start, hc.stop)]
+        v = take_columns(vb, spans, dev).reshape(B, hc.stop - hc.start, -1).float()
+        C = Cs[m].old * ff[:, hc, None, None] + fi[:, hc, None, None] * (
+            km[:, hc, :, None] * v[:, :, None, :])
+        hn, pn = ns[m].region[lead + 1], ns[m].region[lead + 2]
+        n = ns[m].old * ff[:, hn, None] + fi[:, hn, None] * km[:, hn, pn]
+        news.append((C, n))
+        nums.append(torch.einsum("bhp,bhpr->bhr", qm[:, hc] * scale, C))
+        part = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        part[:, hn] = torch.einsum("bhp,bhp->bh", qm[:, hn, pn] * scale, n)
+        dens.append(part)
+        heads.append(hc)
+        rcols.append(rc)
+    if M > 1:
+        dens = collectives.psum(dens, list(devs))
+    ys = [(num / torch.clamp(torch.abs(den), min=1.0)[:, hc, None]).to(dt)
+          for num, den, hc in zip(nums, dens, heads)]
+    cd = d_in // M
+    outs = []
+    for m, (p, dev) in enumerate(zip(ps, devs)):
+        y = channels_to(ys, heads, rcols, P, m * cd, (m + 1) * cd, m, dev)
+        z = take_columns(ups, [(d_in + m * cd, d_in + (m + 1) * cd)], dev)
+        outs.append(((y * F.silu(z)) @ p["down"].to(dt))[:, None])
+    for (C, n), pc, pn in zip(news, Cs, ns):
+        sharding.write_piece(pc, C)
+        sharding.write_piece(pn, n)
+    return outs if M == 1 else collectives.psum(outs, list(devs))
+
+
+def slstm_decode_row(ps: list, dims: dict, xs: list, cfg: ModelConfig, devs, blocks,
+                     idx: tuple, rows: slice, j: int) -> list:
+    """:func:`slstm_decode_step` over one data slot's model slots (``xs[m]``
+    slot ``m``'s copy of the residual rows (B, 1, d)) against the sLSTM's
+    ``c``, ``n``, ``m`` and ``h`` of ``blocks`` (leaves ``sl/*``, each split
+    over ``d``) at the stacked index ``idx`` and the global ``rows`` of data
+    slot ``j``.
+
+    One step of the recurrence per layer: the old h is all-gathered whole
+    (B x d float32), each slot computes its partial recurrent product from
+    its rows of ``r`` (the rows of each head's dh that ``param_specs``
+    gives it; the whole product where ``r`` is replicated) and the partial
+    products are all-reduced.  The reference joins the heads' outputs
+    (B, H, 4 dh) into one (B, 4d) vector before cutting the z, i, f, o
+    gates from it, so each slot then takes its d-columns of each gate: of
+    the sum locally, of the input projection (``wx`` split by columns) in
+    one gather.  The cell updates the slot's blocks in place, ``out`` is
+    row-parallel on the same columns (a partial sum all-reduced), and the
+    FFN runs through :func:`.layers.mlp_row`.  No collective runs per
+    head.  Returns each slot's new residual (B, 1, d)."""
+    from ..launch import collectives
+    from .layers import mlp_row, take_columns
+
+    M = len(devs)
+    H, dh = slstm_dims(cfg)
+    d = cfg.d_model
+    dt = xs[0].dtype
+    if M > 1 and not (dims["wx"] == 1 and dims["out"] == 0 and dims["r"] in (1, None)):
+        raise ValueError("an sLSTM decode over the mesh needs wx split by columns, out by rows "
+                         "and r by its rows or replicated")
+    lead = len(idx)
+    index = _index(idx, rows)
+    st = {f: [blocks.piece(f"sl/{f}", index, j, m, dev) for m, dev in enumerate(devs)]
+          for f in ("c", "n", "m", "h")}
+    cols = [pc.region[lead + 1] for pc in st["h"]]
+    w = d // M
+    if any(c != slice(m * w, (m + 1) * w) for m, c in enumerate(cols)) or any(
+            pc.region[lead + 1] != c for f in "cnm" for pc, c in zip(st[f], cols)):
+        raise ValueError("an sLSTM decode over the mesh needs its state split over d alike")
+    hs = [rms_norm(x, p["ln"], cfg.norm_eps)[:, 0] for p, x in zip(ps, xs)]
+    xt = [h @ p["wx"].to(dt) for p, h in zip(ps, hs)]
+    B = hs[0].shape[0]
+    olds = [pc.old for pc in st["h"]]
+    h_all = olds if M == 1 else collectives.all_gather(olds, -1, devs)
+    if M > 1 and dims["r"] == 1:
+        rw = dh // M
+        rec = collectives.psum([
+            torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh)[:, :, m * rw:(m + 1) * rw],
+                         p["r"].float()).reshape(B, 4 * d)
+            for m, (p, h) in enumerate(zip(ps, h_all))], list(devs))
+    else:
+        rec = [torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh), p["r"].float()).reshape(B, 4 * d)
+               for p, h in zip(ps, h_all)]
+    news, ys = [], []
+    for m, (c, dev) in enumerate(zip(cols, devs)):
+        spans = [(g * d + c.start, g * d + c.stop) for g in range(4)]
+        pre = take_columns(xt, spans, dev).float() + torch.cat(
+            [rec[m][:, lo:hi] for lo, hi in spans], dim=-1)
+        zt, it, ft, ot = torch.chunk(pre, 4, dim=-1)
+        c_old, n_old, m_old = (st[f][m].old for f in "cnm")
+        m_new = torch.maximum(ft + m_old, it)
+        i_ = torch.exp(it - m_new)
+        f_ = torch.exp(ft + m_old - m_new)
+        cc = f_ * c_old + i_ * torch.tanh(zt)
+        nn = torch.clamp(f_ * n_old + i_, min=1e-6)
+        hh = torch.sigmoid(ot) * cc / nn
+        news.append({"c": cc, "n": nn, "m": m_new, "h": hh})
+        ys.append((hh.to(dt) @ ps[m]["out"].to(dt))[:, None])
+    o = ys if M == 1 else collectives.psum(ys, list(devs))
+    for m, new in enumerate(news):
+        for f in ("c", "n", "m", "h"):
+            sharding.write_piece(st[f][m], new[f])
+    x2 = [x + a for x, a in zip(xs, o)]
+    h2 = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, x2)]
+    return [x + f for x, f in zip(x2, mlp_row([p["ffn"] for p in ps], dims["ffn"], h2, cfg,
+                                               devs))]
+
+
+_BATCH_DIMS = {"ml/C": 2, "ml/n": 2, "sl/c": 1, "sl/n": 1, "sl/m": 1, "sl/h": 1}
+
+
+def decode_independent(cfg: ModelConfig, state: XLSTMState, rows: int) -> bool:
+    """Whether, under the ambient mesh, each data slot's part of a decode
+    step over ``rows`` rows depends on no other data slot's: the rows split
+    over every data slot and each state leaf's data split on its batch dim
+    (``state_specs`` splits a stacked axis instead where the group count
+    equals the batch, as the reference's does)."""
+    mesh = abstract_mesh()
+    if len(mesh.row_devices(rows)) == 1:
+        return False
+    return sharding.StateBlocks(state, cfg, mesh, rows).data_dims() == _BATCH_DIMS
+
+
+def decode_slots(views, state: XLSTMState, tokens_slots: list, cfg: ModelConfig,
+                 n_data: Optional[int] = None) -> list:
+    """:func:`decode_step` over the ambient mesh's grid (``views`` the
+    weights' :class:`.sharding.SlotViews`, ``tokens_slots[jj]`` the rows of
+    computing data slot ``views.data_slots[jj]``, with ``n_data`` data slots
+    taking rows in all), ``state`` placed by ``state_specs`` or whole: each
+    mLSTM layer through :func:`mlstm_decode_row`, each sLSTM layer through
+    :func:`slstm_decode_row`, every state block read and written in place
+    (a block another data slot holds is read from it and written back to
+    it).  Returns each data slot's :class:`.layers.SlotLogits`."""
+    mesh = abstract_mesh()
+    data_slots = views.data_slots
+    n_data = n_data or len(data_slots)
+    b = tokens_slots[0].shape[0]
+    blocks = sharding.StateBlocks(state, cfg, mesh, b * n_data)
+    rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
+    devs = [mesh.model_devices(j) for j in data_slots]
+    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+          for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
+    ng, nm = xlstm_group_shape(cfg)
+    mdims, sdims = views.entry_dims("mlstm", 2), views.entry_dims("slstm", 1)
+    for g in range(ng):
+        for jj, j in enumerate(data_slots):
+            x = xs[jj]
+            for jm in range(nm):
+                y = mlstm_decode_row(views.entry(jj, "mlstm", g, jm), mdims, x, cfg, devs[jj],
+                                     blocks, (g, jm), rows[jj], j)
+                x = [a + o for a, o in zip(x, y)]
+            xs[jj] = slstm_decode_row(views.entry(jj, "slstm", g), sdims, x, cfg, devs[jj],
+                                      blocks, (g,), rows[jj], j)
+    return [layers.unembed_row(views.rows[jj], views.dims,
+                               [rms_norm(a, p["ln_f"], cfg.norm_eps)
+                                for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+            for jj in range(len(data_slots))]
+
+
 def decode_step(params: dict, state: XLSTMState, token: torch.Tensor, cfg: ModelConfig):
     """One decoding step: token (B, 1) -> (logits (B,1,V), state).  The
     recurrent states are updated in place; the returned state holds the same
-    tensors."""
+    tensors.  Under an ambient mesh the step runs over its grid
+    (:func:`decode_slots`), ``params`` placed or whole, ``state`` placed by
+    ``state_specs`` or whole."""
+    if abstract_mesh() is not None:
+        return transformer.mesh_decode(sys.modules[__name__], params, state, token, cfg)
     ng, nm = xlstm_group_shape(cfg)
     ml, sl = state
     with torch.inference_mode():
