@@ -9,10 +9,10 @@ full width, the planner API and its reliability extensions, the fleet
 replanning service, serving's planner hooks with prefill, training, the
 MoE, VLM, enc-dec and xLSTM families, the planner's stage plan run as a
 pipeline, the mesh's data and model axes in execution, the dry run held
-against a real run, tensor parallelism over the model axis, and decode over
-the mesh for every family (``repro_torch``), in twenty-six phases; any
-failure exits
-non-zero:
+against a real run, tensor parallelism over the model axis, decode over
+the mesh for every family, and the pipeline's stages over each pod's data
+and model slots (``repro_torch``), in twenty-seven phases; any failure
+exits non-zero:
 
   1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` (one line);
   2. build  — compiles every kernel source of ``src/repro_torch/kernels/csrc``
@@ -284,11 +284,12 @@ non-zero:
               21(c)'s FSDP step on its (2, 4) mesh, card and meta: the
               collectives (bytes and calls per kind) ``==``; (c) on meta,
               after the phases whose host times are end-to-end metrics, in
-              three child processes at once, joined after phase 26 (phases
-              23-26 run beside them): qwen3-4b ``train_4k`` on pod16x16 cut to
+              three child processes at once, joined after phase 27 (phases
+              23-27 run beside them): qwen3-4b ``train_4k`` on pod16x16 cut to
               12 of 36 layers and ``run_pipeline_cell`` at straggler 1.0 and
-              2.0 over 4 microbatches, each plan
-              covering every layer, each record's per-slot memory,
+              2.0 cut to 4 layers over 4 microbatches, each pod's stage over
+              its 16 x 16 slots (``"placement": "mesh"``), each plan
+              covering every layer of the cut, each record's per-slot memory,
               ``fits``, dot TFLOP, collective GB and plan printed.  The
               mesh cells take the symmetric data-slot shortcut (data slot
               0's model slots, counted once per data slot), card and meta
@@ -396,9 +397,33 @@ non-zero:
               state leaf likewise (positions and ``pos`` ``==``, static
               cross K/V untouched), the state's blocks the placed tensors
               after the steps.
+ 27. pipeline grid — the planner's pipeline stages over each pod's data
+              and model slots, every slot on the one card, a ("pod",
+              "data", "model") mesh of (2, 2, 2): (a) qwen3-4b whole (36
+              layers, bf16 weights loaded as serving loads them), B = 8, S
+              = 2,048 in 4 microbatches, planned by
+              ``dryrun.pipeline_plan`` over two pods at straggler 2 (the
+              split-score counters zeroed just before and read just
+              after), each pod's stack placed over its sub-mesh by
+              ``param_specs``: the gradient pass (no launch) within 2e-3
+              of the stage-only pipelined loss from the same weights,
+              every placed block's gradient on its slot and 0 at every
+              masked slot, the hand-offs' ``ppermute`` calls and bytes
+              exactly derived; the kernel pass (RMSNorm 2 x 36 x 4 x 2 x 2
+              and flash 36 x 4 x 2 x 2 launches exactly, 16 / 4 heads a
+              slot), again from the whole stacks under ``param_guard`` (no
+              op reading more than one layer's model-slot block of a split
+              stage weight) with every call held to its plain version,
+              every hand-off's receiving slot and every data slot's rows
+              checked, then the plain pass: logits per microbatch and data
+              slot within phase 12's limit; each pod's stage device time
+              (CUDA events); (b) a float32 pair cut to 8 layers: the loss
+              and every gradient leaf within 1e-3 of the stage-only
+              pipeline's; (c) the smoke config in float32 on the grid, cpu
+              (a child process) against the card within 1e-4.
 
 Before its last line it prints one JSON line ``{"kernels": [...]}`` (per
-kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-26;
+kernel: launches summed over the main paths' runs (phases 5, 8-11, 13-27;
 the subprocess workers' launches are their own processes' and not counted),
 max abs error, kernel / plain / bound / library device times in ms; decode
 attention's at the serve runs' live count); the last line is
@@ -3135,12 +3160,28 @@ def pipeline_smoke_inputs(torch, arch: str, smoke: dict = PIPELINE_SMOKE) -> dic
 
 def pipeline_smoke_run(torch, inputs: dict, device) -> dict:
     """The smoke pipeline of ``inputs`` (:func:`pipeline_smoke_inputs`) on
-    ``device``: its plan (scored on ``device``), loss and gradients."""
+    ``device``: its plan (scored on ``device``), loss and gradients; where
+    ``inputs`` name a ``mesh`` (phase 27(c)), over that grid of slots on
+    ``device`` (two pods at the inputs' straggler, the stacks placed), the
+    gradients joined into the packed stacks' form."""
     from repro_torch import core
     from repro_torch.configs import get_smoke_config
     from repro_torch.pipeline import runtime
 
     cfg = get_smoke_config(inputs["arch"]).replace(dtype="float32")
+    if "mesh" in inputs:
+        pl = grid_plan(cfg, inputs, device)
+        mesh = grid_mesh(inputs, device)
+        params = _to(inputs["params"], device, copy=True)
+        stages, mask = runtime.make_stage_params(params["layers"], pl, inputs["mesh"][0],
+                                                 mesh=mesh, cfg=cfg, stage_axis="pod")
+        pipe = {"embed": params["embed"], "stages": stages, "ln_f": params["ln_f"]}
+        lf = runtime.pipelined_loss_fn(cfg, pl, inputs["microbatches"], mask, mesh=mesh,
+                                       stage_axis="pod")
+        loss, grads = grid_grads(torch, lf, pipe, {k: inputs[k].to(device)
+                                                   for k in ("tokens", "labels")})
+        return {"plan": [list(pl.stage_sizes), list(pl.mapping.alloc)], "loss": loss,
+                "grads": grid_global_grads(torch, pipe, grads)}
     run = dict(PIPELINE, batch=inputs["batch"], seq=inputs["seq"])
     pl = pipeline_plan(core, cfg, run, device)
     params = _to(inputs["params"], device, copy=True)
@@ -4105,11 +4146,12 @@ TP_RUNS = {
 
 # the subtrees stacked on leading layer axes, and how many
 STACKED_AXES = {"layers": 1, "enc": 1, "dec": 1, "mamba_groups": 2, "mamba_ln": 2, "mlstm": 2,
-                "slstm": 1}
+                "slstm": 1, "stages": 2}
 
 
 @contextlib.contextmanager
-def param_guard(torch, params, cfg, mesh, allowed=(), state=None, state_specs=None):
+def param_guard(torch, params, cfg, mesh, allowed=(), state=None, state_specs=None,
+                per_layer: bool = False):
     """Within the block (a run from the whole tree ``params`` under
     ``mesh``), every op that reads a tensor in the memory of a leaf that
     ``param_specs`` splits over ``model`` must read at most one model
@@ -4119,7 +4161,9 @@ def param_guard(torch, params, cfg, mesh, allowed=(), state=None, state_specs=No
     exceptions, :func:`family_tp_exceptions`), which may be made whole.
     With a whole decode ``state`` and its ``state_specs``, every op that
     reads a state leaf's memory must read at most one mesh slot's block of
-    it (its reads are reported under ``state/<path>``).  Yields a dict: the
+    it (its reads are reported under ``state/<path>``).  With ``per_layer``
+    a split leaf's block is one layer's (one stacked entry's) block: no op
+    may read more than that at a time.  Yields a dict: the
     most elements any op read of a parameter, that of each split leaf (and
     state leaf) against its block, and the shapes made."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -4134,8 +4178,11 @@ def param_guard(torch, params, cfg, mesh, allowed=(), state=None, state_specs=No
     def leaf(path, x):
         split = sharding.model_dim(specs_at[path]) is not None
         name = "/".join(path)
+        block = x.numel() // msize if split else x.numel()
+        if per_layer and split:
+            block //= math.prod(x.shape[:STACKED_AXES.get(path[0], 0)])
         spans.append((x.data_ptr(), x.data_ptr() + x.numel() * x.element_size(), x.numel(),
-                      x.numel() // msize if split else x.numel(), name))
+                      block, name))
         if split:     # the whole leaf, and one layer of a stack
             (exempt if name.startswith(tuple(allowed)) else whole).update(
                 tuple(x.shape[i:]) for i in range(STACKED_AXES.get(path[0], 0) + 1))
@@ -4367,9 +4414,11 @@ def say_tp_part(name: str, r: dict, run: dict, card) -> None:
 
 # (a) one slot: qwen3-4b prefill at full width with kernels; (b) phase 21(c)'s
 # FSDP step on its (2, 4) mesh; (c) production dry runs on meta, the cell cut
-# to 12 of 36 layers and the pipelines to 4 microbatches (at 36 layers and 8
-# microbatches they took 227.8 s and 130-143 s, which put the whole script
-# over 1,200 s once phase 25 came; PERF.md)
+# to 12 of 36 layers, the pipelines to 4 layers and 4 microbatches (the cell
+# at 36 layers took 227.8 s, which put the whole script over 1,200 s once
+# phase 25 came; each pipeline pod's stage runs over its 16 x 16 slots, 16
+# model slots simulated, ~38 s on meta at 4 layers and 2 microbatches on
+# one CPU core; PERF.md)
 DRYRUN_RUNS = {
     "validate": {"arch": ARCH, "kind": "prefill", "batch": 1, "seq": FWD_S, "mesh": (1, 1),
                  "overrides": {"use_pallas": True}, "seed": 31},
@@ -4379,7 +4428,8 @@ DRYRUN_RUNS = {
              "overrides": {"n_layers": MESH_RUNS["train"]["layers"], "fsdp_params": True,
                            "accum_steps": MESH_RUNS["train"]["accum"]}},
     "production": {"arch": ARCH, "shape": "train_4k", "stragglers": (1.0, 2.0),
-                   "pipeline_shape": None, "layers": 12, "microbatches": 4},
+                   "pipeline_shape": None, "layers": 12, "pipeline_layers": 4,
+                   "microbatches": 4},
 }
 # the analysis a dry run on meta must match on the card: (a) every count,
 # (b) the traffic between slots
@@ -4493,8 +4543,9 @@ def dryrun_mesh(torch, counters, run: dict, device, smoke: bool = False) -> dict
 def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
     """One of (c)'s dry runs on meta, on the host: ``"cell"`` is ``run_cell``
     of the production cell on pod16x16 cut to ``run["layers"]`` layers,
-    ``"pipeline <straggler>"`` ``run_pipeline_cell`` at that straggler over
-    ``run["microbatches"]`` microbatches (its plan covering every layer);
+    ``"pipeline <straggler>"`` ``run_pipeline_cell`` at that straggler cut
+    to ``run["pipeline_layers"]`` layers over ``run["microbatches"]``
+    microbatches (its plan covering every layer of the cut);
     the record's per-slot memory, ``fits``, dot TFLOP, collective GB and
     plan."""
     from repro_torch.configs import get_config, get_smoke_config
@@ -4512,11 +4563,12 @@ def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
             from repro_torch.models.common import ShapeSpec
 
             shape = ShapeSpec(*run["pipeline_shape"])
+        layers = min(cfg.n_layers, run["pipeline_layers"])
         rec = run_pipeline_cell(run["arch"], run["microbatches"], straggler=st, device="meta",
-                                smoke=smoke, shape=shape, detail=False)
-        if sum(rec["plan"]["stage_sizes"]) != cfg.n_layers:
+                                smoke=smoke, shape=shape, detail=False, layers=layers)
+        if sum(rec["plan"]["stage_sizes"]) != layers or rec["placement"] != "mesh":
             fail(f"dry run (c): the plan at straggler {st} ({rec['plan']['stage_sizes']}) does "
-                 f"not cover the {cfg.n_layers} layers")
+                 f"not cover the {layers} layers, or the pipeline ran off the mesh")
     mem = rec["memory"]
     out = {"arch": run["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
            "argument_bytes": mem["argument_size_in_bytes"],
@@ -4526,7 +4578,9 @@ def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
            "step_s": rec["step_s"], "s": time.time() - t0}
     if "plan" in rec:
         out["plan"] = rec["plan"]
-        out["cut"] = f"{run['microbatches']} microbatches"
+        out["placement"] = rec["placement"]
+        out["cut"] = (f"{rec['n_layers']} of {cfg.n_layers} layers, {run['microbatches']} "
+                      "microbatches")
     else:
         out["cut"] = f"{min(cfg.n_layers, run['layers'])} of {cfg.n_layers} layers"
     return out
@@ -6560,6 +6614,563 @@ def say_family_decode_part(name: str, r: dict, run: dict, card) -> None:
         f"{r['launches']} (one device {r['single_launches']}); part {r['part_s']:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------------------
+# 27. the planner's pipeline stages over each pod's data and model slots
+# ---------------------------------------------------------------------------
+
+# every slot on the one card, a ("pod", "data", "model") mesh of (2, 2, 2),
+# each pod's stage over its pod's (data, model) slots.  (a) qwen3-4b whole
+# (36 layers, bf16 weights loaded as serving loads them), B = 8 sequences of
+# 2,048 in M = 4 microbatches (one row a data slot), planned by
+# ``dryrun.pipeline_plan`` over two pods with pod 1 at straggler 2 ((12, 24)
+# on pods (1, 0)): 16 query and 4 K/V heads, d_ff 4,864 and 75,968 vocabulary
+# rows a model slot; (b) a float32 pair at full width cut to 8 layers on the
+# same mesh; (c) the smoke config in float32, the cpu in a child process
+PIPELINE_GRID_RUNS = {
+    "full": {"arch": "qwen3-4b", "layers": None, "dtype": None, "batch": 8, "seq": 2048,
+             "microbatches": 4, "mesh": (2, 2, 2), "straggler": 2.0, "seed": 71},
+    "pair": {"arch": "qwen3-4b", "layers": 8, "dtype": "float32", "batch": 8, "seq": 2048,
+             "microbatches": 4, "mesh": (2, 2, 2), "straggler": 2.0, "seed": 72},
+    "smoke": {"batch": 4, "seq": 256, "microbatches": 2, "mesh": (2, 2, 2), "straggler": 2.0},
+}
+GRID_AXES = ("pod", "data", "model")
+
+
+def grid_plan(cfg, run: dict, device):
+    """``dryrun.pipeline_plan`` of ``cfg`` at the run's batch and length
+    over two pods, pod 1 slowed by the run's straggler, scored on
+    ``device``."""
+    from repro_torch.launch.dryrun import pipeline_plan
+    from repro_torch.models.common import ShapeSpec
+
+    return pipeline_plan(cfg, ShapeSpec("pipeline_grid", "train", run["seq"], run["batch"]),
+                         run["straggler"], device)
+
+
+def grid_mesh(run: dict, device):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(run["mesh"], GRID_AXES, devices=[device] * math.prod(run["mesh"]))
+
+
+def grid_rows(run: dict) -> tuple:
+    """(data slots that take a microbatch's rows, rows each)."""
+    mb, dsize = run["batch"] // run["microbatches"], run["mesh"][1]
+    return (dsize, mb // dsize) if mb % dsize == 0 else (1, mb)
+
+
+def grid_launches(cfg, pl, run: dict) -> dict:
+    """The kernels the grid's kernel pass launches: :func:`pipeline_launches`
+    on every (data slot, model slot) that computes, where the heads divide
+    the model axis (else model slot 0 alone normalizes before the attention
+    and runs it)."""
+    from repro_torch.models.attention import heads_parallel
+
+    D, msize = grid_rows(run)[0], run["mesh"][2]
+    steps = sum(pl.stage_sizes) * run["microbatches"] * D
+    per = msize if heads_parallel(cfg, msize) else 1
+    return dict.fromkeys(KERNEL_NAMES, 0) | {
+        "rmsnorm": steps * (per + msize),
+        "flash_attention": steps * per * flash_gate(run["seq"], run["seq"])}
+
+
+def grid_ppermute(cfg, pl, run: dict) -> list:
+    """[calls, bytes] of the hand-offs: (intervals - 1) x M of them, one
+    ``ppermute`` a data slot, each of its model slots' sends of (rows, S,
+    d) residual rows in the compute dtype."""
+    import torch
+
+    D, rows = grid_rows(run)
+    calls = (pl.num_stages - 1) * run["microbatches"] * D
+    item = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return [calls, calls * run["mesh"][2] * rows * run["seq"] * cfg.d_model * item]
+
+
+def check_ppermute(what: str, traffic: dict, want: list) -> None:
+    got = list(traffic.get("ppermute", [0, 0]))
+    if got != want:
+        fail(f"{what}: ppermute [calls, bytes] {got}, expected {want}")
+
+
+def grid_steps(pl, M: int) -> list:
+    """(chain position, microbatch) of each live stage step in the
+    executor's order (:func:`pipeline_order`'s)."""
+    from repro_torch.pipeline.schedule import gpipe_ticks
+
+    m = pl.num_stages
+    return [(j, t - j) for t in range(gpipe_ticks(m, M)) for j in range(m)
+            if 0 <= t - j < M]
+
+
+def grid_grads(torch, loss_fn, pipe, batch) -> tuple:
+    """(loss, {id(tensor): gradient}) of ``loss_fn(pipe, batch)`` with
+    respect to each distinct tensor of ``pipe`` (``sharding.tensors``)."""
+    from repro_torch.models import sharding
+
+    leaves = sharding.tensors(pipe)
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(pipe, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss.detach()), {id(t): g for t, g in zip(leaves, grads)}
+
+
+def grid_global_grads(torch, pipe, grads: dict) -> dict:
+    """Path -> gradient on the cpu in the packed stacks' form
+    (:func:`_paths` of ``{"embed", "stages": (pods, L_max, ...), "ln_f"}``):
+    each placed leaf's blocks joined by their regions (blocks that several
+    tensors hold summed), the pods stacked."""
+    from repro_torch.models import sharding
+
+    def one(x):
+        if not isinstance(x, sharding.ShardedTensor):
+            return grads[id(x)].detach().cpu()
+        out = torch.zeros(x.shape, dtype=x.shards[0].dtype)
+        for s, t in x.unique():
+            out[x.region(s)] += grads[id(t)].detach().cpu()
+        return out
+    tree = sharding._map_leaves(one, pipe)
+    pods = [_paths(p) for p in tree.pop("stages")]
+    flat = _paths(tree)
+    flat.update({f"stages/{k}": torch.stack([p[k] for p in pods]) for k in pods[0]})
+    return flat
+
+
+def check_grid_grads(torch, pipe, grads: dict, mask) -> dict:
+    """Every placed block's gradient is of its block's shape on its
+    block's device, and 0 at every masked slot of its pod's stack (the
+    padding, an unenrolled pod's whole stack); the embedding's and final
+    norm's gradients finite."""
+    from repro_torch.models import sharding
+
+    bad, masked, nonzero = [], 0, []
+    for p, tree in enumerate(pipe["stages"]):
+        dead = ~mask[p]
+        for name, x in _paths(tree).items():
+            for s, t in x.unique():
+                g = grads[id(t)]
+                if g.shape != t.shape or g.device != t.device:
+                    bad.append((p, name, s, tuple(g.shape), str(g.device)))
+                masked += int(dead.sum())
+                if g[dead.to(g.device)].any():
+                    nonzero.append((p, name, s))
+    head = {k: bool(grads[id(v)].isfinite().all()) for k, v in
+            _paths({"embed": pipe["embed"], "ln_f": pipe["ln_f"]}).items()}
+    if bad:
+        fail(f"pipeline grid: gradients off their blocks {bad[:4]}")
+    if nonzero:
+        fail(f"pipeline grid: masked slots carry a gradient in {nonzero[:4]}")
+    if not all(head.values()):
+        fail(f"pipeline grid: embedding or final norm gradient not finite {head}")
+    return {"masked_block_slots": masked, "blocks": sum(len(x.unique()) for tree in pipe["stages"]
+                                                        for x in _paths(tree).values())}
+
+
+def _slot_logits(torch, lg):
+    """A data slot's :class:`SlotLogits` joined on its first part's device,
+    by plain ops (no collective counted)."""
+    dev = lg.parts[0].device
+    if lg.kind == "one":
+        return lg.parts[0]
+    return torch.cat([p.to(dev) for p in lg.parts], dim=-1 if lg.kind == "vocab" else 1)
+
+
+@contextlib.contextmanager
+def grid_recording(torch, events=None, logits=None, stages=None, rows=None):
+    """Watches the grid pipeline from outside the runtime while open: a
+    (start, end) CUDA event pair around each stage body
+    (``runtime._grid_stage``) appended to ``events``; each data slot's
+    logits (``runtime.unembed_row``, joined) to ``logits``; each stage
+    body's (sub-mesh, inputs, outputs) per slot to ``stages``; the token
+    rows each data slot embeds (``runtime.embed_row``) and the label rows
+    it is scored on (``runtime._nll_sums_row``) to ``rows`` as ("tokens" /
+    "labels", rows)."""
+    from repro_torch.models.common import abstract_mesh
+    from repro_torch.pipeline import runtime
+
+    real = {k: getattr(runtime, k) for k in ("_grid_stage", "unembed_row", "embed_row",
+                                            "_nll_sums_row")}
+
+    def stage_rec(views, live, xs, *a):
+        if events is not None:
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+        ys = real["_grid_stage"](views, live, xs, *a)
+        if events is not None:
+            end.record()
+            events.append((start, end))
+        if stages is not None:
+            stages.append((abstract_mesh(), [list(r) for r in xs], [list(r) for r in ys]))
+        return ys
+
+    def head_rec(*a):
+        lg = real["unembed_row"](*a)
+        logits.append(_slot_logits(torch, lg))
+        return lg
+
+    def embed_rec(ps, dims, tokens, *a):
+        rows.append(("tokens", tokens))
+        return real["embed_row"](ps, dims, tokens, *a)
+
+    def nll_rec(lg, labels, *a):
+        rows.append(("labels", labels))
+        return real["_nll_sums_row"](lg, labels, *a)
+
+    runtime._grid_stage = stage_rec
+    if logits is not None:
+        runtime.unembed_row = head_rec
+    if rows is not None:
+        runtime.embed_row, runtime._nll_sums_row = embed_rec, nll_rec
+    try:
+        yield
+    finally:
+        for k, v in real.items():
+            setattr(runtime, k, v)
+
+
+def check_grid_handoffs(torch, records: list, pl, M: int) -> int:
+    """Each stage step's input at (data slot d, model slot k) is the
+    previous pod's output at (d, k) of the same microbatch, on the
+    receiving slot's device (the very tensor where both slots name one
+    device: one card holds every copy of the same rows, so only identity
+    tells the slots apart); returns the sends checked."""
+    from repro_torch.models.sharding import _same_device
+
+    steps = grid_steps(pl, M)
+    if len(records) != len(steps):
+        fail(f"pipeline grid: {len(records)} stage steps, expected {len(steps)}")
+    out = {step: rec for step, rec in zip(steps, records)}
+    sends = 0
+    for (j, i), (sub, xs, _) in out.items():
+        if j == 0:
+            continue
+        prev = out[(j - 1, i)][2]
+        for d, (row, src_row) in enumerate(zip(xs, prev)):
+            devs = sub.model_devices(d)
+            for k, (x, src) in enumerate(zip(row, src_row)):
+                ok = _same_device(x.device, devs[k]) and (
+                    x is src if src.device == x.device else torch.equal(x.cpu(), src.cpu()))
+                if not ok:
+                    fail(f"pipeline grid: microbatch {i} at chain position {j}: slot ({d}, {k}) "
+                         f"did not receive slot ({d}, {k})'s rows of the previous pod")
+                sends += 1
+    return sends
+
+
+def check_grid_rows(torch, rows: list, batch: dict, run: dict) -> int:
+    """The rows each data slot embeds and is scored on: microbatch ``i``'s
+    data slot ``d`` takes rows ``d r .. (d + 1) r`` of the microbatch, in
+    order (tokens in the first pod's steps, labels in the last's)."""
+    M = run["microbatches"]
+    D, r = grid_rows(run)
+    mb = batch["tokens"].shape[0] // M
+    for kind, key in (("tokens", "tokens"), ("labels", "labels")):
+        got = [x for k, x in rows if k == kind]
+        want = [batch[key][i * mb + d * r:i * mb + (d + 1) * r] for i in range(M)
+                for d in range(D)]
+        if len(got) != len(want) or not all(
+                g.shape == w.shape and torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want)):
+            fail(f"pipeline grid: the {kind} rows the data slots took differ from the "
+                 f"microbatches' split over {D} data slots of {r} rows")
+    return 2 * M * D
+
+
+def grid_stage_ms(pl, M: int, events: list) -> dict:
+    out = dict.fromkeys(sorted(set(pl.mapping.alloc)), 0.0)
+    for (j, _), (start, end) in zip(grid_steps(pl, M), events):
+        out[pl.mapping.alloc[j]] += start.elapsed_time(end)
+    return out
+
+
+def grid_kernel_pass(torch, counters, cfg, pl, run: dict, mask, mesh, pipe, whole, batch,
+                     device) -> dict:
+    """Phase 27(a)'s passes under ``inference_mode``: with ``use_pallas``
+    from the placed stacks (counters and traffic zeroed just before and
+    read just after: on the card :func:`grid_launches` exactly, every
+    flash call on the bf16 route, the hand-offs :func:`grid_ppermute`);
+    again from the whole stacks under :func:`param_guard` (each split stage
+    weight read at most one layer's model-slot block at a time, none made
+    whole), with every flash attention and RMSNorm call held to its plain
+    version on its own inputs, each flash call at one model slot's heads,
+    every hand-off (:func:`check_grid_handoffs`) and every data slot's rows
+    (:func:`check_grid_rows`) checked; then with the plain versions: each
+    data slot's logits of each microbatch held to the kernel pass's by
+    :func:`_logits_close`'s criterion, the loss within
+    :data:`PIPELINE_KERNEL_TOL`.  On the card each pod's stage bodies are
+    timed by CUDA events in the first and the last pass."""
+    from repro_torch.launch import collectives
+    from repro_torch.pipeline.runtime import pipelined_loss_fn
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    kcfg = cfg.replace(use_pallas=True)
+    M = run["microbatches"]
+    want = grid_launches(cfg, pl, run)
+    sub = mesh.submesh("pod", 0)
+    out = {}
+
+    def timed(c, name, logits, counted=False):
+        events = [] if on_card else None
+        with grid_recording(torch, events=events, logits=logits):
+            sync()
+            if counted:
+                zero_counters(counters)
+                collectives.TRAFFIC.clear()
+            t0 = time.time()
+            loss = float(pipelined_loss_fn(c, pl, M, mask, mesh=mesh, stage_axis="pod")(
+                pipe, batch))
+            sync()
+            wall = time.time() - t0
+        out[name] = {"loss": loss, "wall_s": wall,
+                     "stage_ms": grid_stage_ms(pl, M, events) if on_card else None}
+        if counted:
+            out[name]["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+
+    with torch.inference_mode():
+        klogits, plogits, calls, heads, stages, rows = [], [], [], [], [], []
+        timed(kcfg, "kernel", klogits, counted=True)
+        klaunches = {c.__name__: c.launches for c in counters}
+        routes = route_counts(counters)
+        check_ppermute("pipeline grid kernel pass", out["kernel"]["collectives"],
+                       grid_ppermute(cfg, pl, run))
+        with mesh_recording(torch, calls, flash_heads_seen=heads), \
+                grid_recording(torch, stages=stages, rows=rows), \
+                param_guard(torch, whole, cfg, sub, per_layer=True) as guard:
+            pipelined_loss_fn(kcfg, pl, M, mask, mesh=mesh, stage_axis="pod")(whole, batch)
+        check_param_guard("pipeline grid", guard)
+        out["sends_checked"] = check_grid_handoffs(torch, stages, pl, M)
+        out["rows_checked"] = check_grid_rows(torch, rows, batch, run)
+        del stages, rows
+        timed(cfg, "plain", plogits)
+        close = [_logits_close(k, p, cfg.dtype) for k, p in zip(klogits, plogits)]
+        del klogits, plogits
+    if on_card:
+        check_launches("pipeline grid kernel pass", klaunches, want)
+        check_flash_routes("pipeline grid kernel pass", klaunches, routes)
+    out |= {"launches": klaunches, "routes": routes, "logits": close,
+            "largest_param_read": guard["max_read"],
+            "kernel_vs_plain_max_err": _check_calls(
+                "pipeline grid kernel pass", calls,
+                {"rmsnorm": want["rmsnorm"], "flash_attention": want["flash_attention"]}),
+            "flash_heads": sorted(set(heads))}
+    if want["flash_attention"] and out["flash_heads"] != [flash_heads(cfg, run["mesh"][2])]:
+        fail(f"pipeline grid: flash calls at (query, K/V) heads {out['flash_heads']}, expected "
+             f"{flash_heads(cfg, run['mesh'][2])}")
+    D = grid_rows(run)[0]
+    if len(close) != M * D or not all(c["ok"] for c in close):
+        fail(f"pipeline grid kernel pass: logits against the plain pass's per microbatch and "
+             f"data slot {close}")
+    err = abs(out["kernel"]["loss"] - out["plain"]["loss"])
+    if not err <= PIPELINE_KERNEL_TOL:
+        fail(f"pipeline grid kernel pass: loss {out['kernel']['loss']} against the plain "
+             f"pass's {out['plain']['loss']} (limit {PIPELINE_KERNEL_TOL})")
+    return out
+
+
+def grid_setup(torch, run: dict, device, smoke: bool, master: bool):
+    """The run's weights (seeded; serving-loaded unless ``master``), batch,
+    mesh and plan (``dryrun.pipeline_plan``); the stacks placed over each
+    pod's sub-mesh and packed whole."""
+    from repro_torch.models import get_model
+    from repro_torch.pipeline import runtime
+
+    cfg = mesh_cfg(run, smoke)
+    pl = grid_plan(cfg, run, device)
+    mesh = grid_mesh(run, device)
+    params = get_model(cfg).init(run["seed"], device, master=master)
+    P = run["mesh"][0]
+    placed, mask = runtime.make_stage_params(params["layers"], pl, P, mesh=mesh, cfg=cfg,
+                                             stage_axis="pod")
+    packed, _ = runtime.make_stage_params(params["layers"], pl, P)
+    del params["layers"]
+    gen = torch.Generator(device=device).manual_seed(run["seed"] + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (run["batch"], run["seq"]), device=device,
+                              generator=gen) for k in ("tokens", "labels")}
+    head = {"embed": params["embed"], "ln_f": params["ln_f"]}
+    return (cfg, pl, mesh, mask, head | {"stages": placed}, head | {"stages": packed}, batch)
+
+
+def grid_full_run(torch, counters, run: dict, device, smoke: bool = False,
+                  score_counters=()) -> dict:
+    """Phase 27(a): the plan (``score_counters`` zeroed just before and read
+    just after); the stage-only pipelined loss (the form without a grid)
+    from the same weights; the grid's loss and gradients from the placed
+    stacks (counters and traffic zeroed just before and read just after:
+    no launch, the hand-offs :func:`grid_ppermute` exactly), the loss within
+    :data:`PIPELINE_LOSS_TOL` of the stage-only one, the gradients
+    :func:`check_grid_grads`; the kernel passes (:func:`grid_kernel_pass`)."""
+    from repro_torch.launch import collectives
+    from repro_torch.pipeline.runtime import pipelined_loss_fn
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    zero_counters(score_counters)
+    t0 = time.time()
+    cfg, pl, mesh, mask, pipe, whole, batch = grid_setup(torch, run, device, smoke, False)
+    sync()
+    M = run["microbatches"]
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "setup_s": time.time() - t0,
+           "plan": {"planner": pl.planner, "stage_sizes": list(pl.stage_sizes),
+                    "pods": list(pl.mapping.alloc), "period": pl.period, "latency": pl.latency,
+                    "launches": {SCORE_ROWS[c.__name__]: c.launches for c in score_counters}}}
+    t0 = time.time()
+    with torch.no_grad():
+        out["stage_only_loss"] = float(pipelined_loss_fn(cfg, pl, M, mask)(whole, batch))
+    sync()
+    out["stage_only_s"] = time.time() - t0
+    lf = pipelined_loss_fn(cfg, pl, M, mask, mesh=mesh, stage_axis="pod")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    collectives.TRAFFIC.clear()
+    t0 = time.time()
+    loss, grads = grid_grads(torch, lf, pipe, batch)
+    sync()
+    out["grad_wall_s"] = time.time() - t0
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+    if any(out["launches"].values()):
+        fail(f"pipeline grid: the gradient pass launched {out['launches']}; it runs the plain "
+             "versions")
+    out["ppermute"] = grid_ppermute(cfg, pl, run)
+    check_ppermute("pipeline grid gradient pass", out["collectives"], out["ppermute"])
+    out["loss"], out["loss_err"] = loss, abs(loss - out["stage_only_loss"])
+    if not out["loss_err"] <= PIPELINE_LOSS_TOL:
+        fail(f"pipeline grid: loss {loss} against the stage-only {out['stage_only_loss']} "
+             f"(limit {PIPELINE_LOSS_TOL})")
+    out["grads"] = check_grid_grads(torch, pipe, grads, mask)
+    del grads
+    out["kernel_pass"] = grid_kernel_pass(torch, counters, cfg, pl, run, mask, mesh, pipe, whole,
+                                          batch, device)
+    return out
+
+
+def grid_pair_run(torch, run: dict, device, smoke: bool = False) -> dict:
+    """Phase 27(b): a float32 pair from master weights, the grid's loss and
+    every gradient leaf (placed blocks joined) against the stage-only
+    pipelined loss and gradients from the same weights: the loss and each
+    leaf within :data:`F32_PAIR_REL` by relative error (norm), every masked
+    slot's gradient exactly 0."""
+    from repro_torch.pipeline.runtime import pipelined_loss_fn
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg, pl, mesh, mask, pipe, whole, batch = grid_setup(torch, run, device, smoke, True)
+    M = run["microbatches"]
+    t0 = time.time()
+    loss, grads = grid_grads(torch, pipelined_loss_fn(cfg, pl, M, mask, mesh=mesh,
+                                                      stage_axis="pod"), pipe, batch)
+    sync()
+    wall = time.time() - t0
+    check_grid_grads(torch, pipe, grads, mask)
+    got = grid_global_grads(torch, pipe, grads)
+    del grads
+    t0 = time.time()
+    want_loss, want = pipeline_grads(torch, pipelined_loss_fn(cfg, pl, M, mask), whole, batch)
+    sync()
+    single = time.time() - t0
+    rel = {k: _rel(torch, [got[k]], [w.cpu()]) for k, w in want.items()}
+    out = {"config": cfg.arch_id, "layers": cfg.n_layers, "plan": list(pl.stage_sizes),
+           "loss": loss, "stage_only_loss": want_loss,
+           "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+           "worst_leaf": max(rel.items(), key=lambda kv: kv[1]), "grid_wall_s": wall,
+           "stage_only_wall_s": single}
+    if sorted(got) != sorted(want) or out["loss_rel_err"] > F32_PAIR_REL or \
+            out["worst_leaf"][1] > F32_PAIR_REL:
+        fail(f"pipeline grid float32 pair: loss {loss} against the stage-only {want_loss}, "
+             f"worst gradient leaf {out['worst_leaf']} (limit {F32_PAIR_REL})")
+    return out
+
+
+def pipeline_grid_phase(torch, counters, card, device: str = "cuda",
+                        runs: dict = PIPELINE_GRID_RUNS, smoke: bool = False, score_counters=(),
+                        work: pathlib.Path = REPO / "build" / "chip_smoke" / "grid_ref") -> dict:
+    """Phase 27 on ``device``: (a) :func:`grid_full_run`, (b)
+    :func:`grid_pair_run`, each from its own seeded weights, freed before
+    the next; (c) the smoke config in float32 on the grid, the cpu side in
+    a child process with ``MKL_CBWR=COMPATIBLE``: the plan ``==``, loss and
+    gradients within :data:`PIPELINE_SMOKE_TOL`."""
+    on_card = torch.device(device).type == "cuda"
+    out, by_path = {"card": card}, {}
+    t0 = time.time()
+    a = out["full"] = grid_full_run(torch, counters, runs["full"], device, smoke, score_counters)
+    a["part_s"] = time.time() - t0
+    by_path |= {"pipeline grid plan": a["plan"]["launches"], "pipeline grid train": a["launches"],
+                "pipeline grid kernel pass": a["kernel_pass"]["launches"]}
+    say_grid_part("full", a, runs["full"], card)
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    b = out["pair"] = grid_pair_run(torch, runs["pair"], device, smoke)
+    b["part_s"] = time.time() - t0
+    say_grid_part("pair", b, runs["pair"], card)
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    inputs = pipeline_smoke_inputs(torch, runs["full"]["arch"], runs["smoke"])
+    want = cpu_refs_in_child(torch, inputs, work, "--pipeline-cpu-ref")
+    got = pipeline_smoke_run(torch, inputs, device)
+    if got["plan"] != want["plan"]:
+        fail(f"pipeline grid smoke: plan {got['plan']} on {device} against {want['plan']} on cpu")
+    errs = {k: float((g - want["grads"][k]).abs().max()) for k, g in got["grads"].items()}
+    c = out["smoke_cpu_vs_card"] = {
+        "plan": got["plan"], "loss": got["loss"], "cpu_loss": want["loss"],
+        "loss_err": abs(got["loss"] - want["loss"]), "grad_err": max(errs.values()),
+        "part_s": time.time() - t0}
+    if sorted(errs) != sorted(want["grads"]) or c["loss_err"] > PIPELINE_SMOKE_TOL or \
+            c["grad_err"] > PIPELINE_SMOKE_TOL:
+        fail(f"pipeline grid smoke cpu vs {device} (float32): {c}, per leaf {errs} (limit "
+             f"{PIPELINE_SMOKE_TOL})")
+    say_grid_part("smoke", c, runs["smoke"], card)
+    out["by_path"] = by_path
+    return out
+
+
+def say_grid_part(name: str, r: dict, run: dict, card) -> None:
+    """The line phase 27 prints for part ``name`` as it ends."""
+    if name == "smoke":
+        say(f"phase pipeline grid: (c) smoke float32 B={run['batch']} S={run['seq']} M="
+            f"{run['microbatches']} on {run['mesh']}, plan {r['plan']}: cpu (a child with "
+            f"MKL_CBWR=COMPATIBLE) vs card: loss err {r['loss_err']:.3g}, worst gradient err "
+            f"{r['grad_err']:.3g} (limit {PIPELINE_SMOKE_TOL}); part {r['part_s']:.1f} s")
+        return
+    head = (f"phase pipeline grid: {r['config']} {r['layers']} layers B={run['batch']} "
+            f"S={run['seq']} M={run['microbatches']} on a {run['mesh']} {GRID_AXES} mesh:")
+    if name == "pair":
+        say(f"{head} (b) float32 pair, plan {r['plan']}: loss {r['loss']!r} vs stage-only "
+            f"{r['stage_only_loss']!r} (rel err {r['loss_rel_err']:.3g}), worst gradient leaf "
+            f"{r['worst_leaf'][0]} rel {r['worst_leaf'][1]:.3g} (limit {F32_PAIR_REL}); grid "
+            f"{r['grid_wall_s']:.3f} s, stage-only {r['stage_only_wall_s']:.3f} s; part "
+            f"{r['part_s']:.1f} s; {card}")
+        return
+    p, kp = r["plan"], r["kernel_pass"]
+    worst = {k: max(c[k] for c in kp["logits"]) for k in ("max_err", "mean_rel_err")}
+    say(f"{head} (a) plan {p['planner']} stages {p['stage_sizes']} on pods {p['pods']}, "
+        f"period {p['period']!r} s, latency {p['latency']!r} s; launches {p['launches']}; "
+        f"{card}")
+    say(f"{head} (a) gradient pass {r['grad_wall_s']:.3f} s: loss {r['loss']!r} vs stage-only "
+        f"{r['stage_only_loss']!r} (err {r['loss_err']:.3g}, limit {PIPELINE_LOSS_TOL}; "
+        f"stage-only forward {r['stage_only_s']:.3f} s); {r['grads']['blocks']} placed blocks "
+        f"on their slots, {r['grads']['masked_block_slots']} masked block slots all 0; ppermute "
+        f"{r['ppermute']}; collectives {r['collectives']}; peak {r['peak_mem_bytes']} B; "
+        f"{card}")
+    say(f"{head} (a) kernel pass loss {kp['kernel']['loss']!r}, plain {kp['plain']['loss']!r}; "
+        f"logits per microbatch and data slot worst {worst}; every call within its plain "
+        f"version (worst {kp['kernel_vs_plain_max_err']}); flash at {kp['flash_heads']}; "
+        f"{kp['sends_checked']} sends and {kp['rows_checked']} row splits checked; largest "
+        f"stage weight read {kp['largest_param_read']} elements; wall {kp['kernel']['wall_s']:.3f}"
+        f" s, plain {kp['plain']['wall_s']:.3f} s; stage device ms per pod (kernel) "
+        f"{kp['kernel']['stage_ms']}, plain {kp['plain']['stage_ms']}; launches {kp['launches']};"
+        f" part {r['part_s']:.1f} s; {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -6955,7 +7566,7 @@ def main() -> None:
     # a real run on one slot and on phase 21(c)'s mesh, then production dry
     # runs on meta in three child processes, started here, after the phases
     # whose host times are end-to-end metrics (the campaign, the planner,
-    # the fleet, serving), and joined after phase 26: phases 23-26 run
+    # the fleet, serving), and joined after phase 27: phases 23-27 run
     # beside them (their mesh walls are reported, not gated); the real runs'
     # counters zeroed just before and read just after
     t0 = time.time()
@@ -7014,6 +7625,21 @@ def main() -> None:
     report["decode_families"]["phase_s"] = time.time() - t0
     by_path.update(report["decode_families"].pop("by_path"))
     say(f"phase decode families: {report['decode_families']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 27. the planner's pipeline stages over each pod's data and model slots
+    # on the one card: qwen3-4b's plan over two pods at straggler 2 on a
+    # (2, 2, 2) mesh (the split-score counters zeroed just before and read
+    # just after), the gradient pass against the stage-only loss and the
+    # kernel passes (the model counters zeroed just before and read just
+    # after each), a float32 pair at 8 layers, the smoke config cpu against
+    # the card
+    t0 = time.time()
+    report["pipeline_grid"] = pipeline_grid_phase(torch, counters, card,
+                                                  score_counters=score_counters)
+    report["pipeline_grid"]["phase_s"] = time.time() - t0
+    by_path.update(report["pipeline_grid"].pop("by_path"))
+    say(f"phase pipeline grid: {report['pipeline_grid']['phase_s']:.1f} s")
 
     # 22(c), joined
     t0 = time.time()

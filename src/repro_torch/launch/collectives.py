@@ -1,21 +1,21 @@
 """Collectives over the slots of one mesh axis, in one process (the port's
-counterpart of ``jax.lax.all_gather``, ``psum``, ``psum_scatter`` and
-``axis_index`` inside a ``shard_map``).
+counterpart of ``jax.lax.all_gather``, ``psum``, ``psum_scatter``,
+``ppermute`` and ``axis_index`` inside a ``shard_map``).
 
 A slot's value is a tensor on the slot's device; a collective takes the
 slots' tensors as a list in slot order and returns the result on the device
 (or devices) it names.  Moving a tensor is ``.to(device)``, a no-op where
-two slots share a device (several slots may name one card), as in the
-pipeline runtime's hand-offs.  Every operation is differentiable through
-autograd: a gather's gradient is the slice, a sum's is a broadcast, a
-scatter's is the gather.  Sums run in slot order, so a result does not
+two slots share a device (several slots may name one card).  Every
+operation is differentiable through autograd: a gather's gradient is the
+slice, a sum's is a broadcast, a scatter's is the gather, a send's goes
+back to its source.  Sums run in slot order, so a result does not
 depend on which slot finishes first.
 
 All traffic between the slots of a mesh goes through this module (the model
-code, :func:`repro_torch.models.sharding.place` / ``gather`` and the mesh
-train step call nothing else to move a tensor between slots), so a process
-group can stand behind these functions later.  :data:`TRAFFIC` counts the
-calls and the bytes each kind of operation reads.
+code, :func:`repro_torch.models.sharding.place` / ``gather``, the mesh
+train step and the pipeline's hand-offs call nothing else to move a tensor
+between slots), so a process group can stand behind these functions later.
+:data:`TRAFFIC` counts the calls and the bytes each kind of operation reads.
 
 A block under :func:`counted_as` stands for ``n`` slots that do the same
 work (the dry run computes one data slot of a mesh whose data slots are
@@ -33,7 +33,7 @@ import torch
 from .. import resolve_device
 
 __all__ = ["TRAFFIC", "all_gather", "axis_index", "broadcast", "broadcast_tree", "count_scale",
-           "counted_as", "gather_to", "psum", "reduce_scatter", "scatter"]
+           "counted_as", "gather_to", "ppermute", "psum", "reduce_scatter", "scatter"]
 
 # operation -> [calls, bytes read]
 TRAFFIC: dict = {}
@@ -119,6 +119,21 @@ def broadcast_tree(tree, devices) -> list:
         per_key = {k: broadcast_tree(v, devices) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(len(devices))]
     return broadcast(tree, devices)
+
+
+def ppermute(xs: list, devices) -> list:
+    """Slot ``i``'s tensor ``xs[i]`` sent to its paired destination slot,
+    on that slot's device ``devices[i]`` (the pairs of ``jax.lax.ppermute``'s
+    ``perm``, one send each): a pipeline's hand-off from each slot of one
+    stage to the slot at the same place in the next.  One call, every
+    send's bytes counted; the gradient of each send goes back to its
+    source."""
+    devices = list(devices)
+    if len(devices) != len(xs):
+        raise ValueError(f"{len(xs)} sources for {len(devices)} destinations")
+    resolved = _unique(devices)
+    _count("ppermute", xs)
+    return [x.to(resolved[torch.device(d)]) for x, d in zip(xs, devices)]
 
 
 def _sum(xs: list, dev: torch.device) -> torch.Tensor:

@@ -397,45 +397,73 @@ def pipeline_plan(cfg, shape, straggler: float = 1.0, device=None):
     return plan(lm_workload(cfg, shape), pf, Objective("period"), mode="auto", device=device)
 
 
+def _placed_slot_bytes(tree) -> int:
+    """The bytes one slot holds of a tree of placed tensors (every slot's
+    block of a leaf is as large)."""
+    from ..models import sharding
+
+    total = []
+    sharding._map_leaves(lambda x: total.append(x.shards[0].numel()
+                                                * x.shards[0].element_size()), tree)
+    return sum(total)
+
+
 def run_pipeline_cell(arch: str, num_microbatches: int = 8, straggler: float = 1.0, *,
                       device="meta", shape=None, seed: int = 0, smoke: bool = False,
-                      detail: bool = True) -> dict:
+                      detail: bool = True, layers: int = None) -> dict:
     """Loss and gradient of the planner-driven pipeline over the 2-pod mesh
     (``pod`` is the stage axis), the reference's ``run_pipeline_cell``: the
     planner partitions the arch's layers into intervals from the
     reference's inputs (``lm_workload``, two pods of the reference's pod
     model with pod 1 slowed by ``straggler``, ``Objective("period")``,
-    ``mode="auto"``), and the pipelined loss runs them.  ``smoke`` takes the
-    smoke config, ``shape`` replaces ``train_4k``."""
+    ``mode="auto"``), and the pipelined loss runs them, each pod's stage
+    over its pod's (data, model) slots from its stack placed by
+    ``param_specs`` (``make_stage_params(..., mesh=)``).  ``smoke`` takes
+    the smoke config, ``shape`` replaces ``train_4k``, ``layers`` cuts the
+    depth (the plan covers the cut depth).  Where the data slots compute
+    independently it takes the symmetric data-slot shortcut: each pod's
+    data slot 0 alone, counted once per data slot."""
     from ..configs import SHAPES, get_config, get_smoke_config
-    from ..models import get_model
-    from ..pipeline.runtime import make_stage_params, pipelined_loss_fn, pod_devices
-    from ..optim.tree import tree_leaves
-    from .mesh import make_mesh
+    from ..models import get_model, sharding
+    from ..pipeline.runtime import make_stage_params, pipelined_loss_fn
+    from .mesh import make_mesh, model_axis_size, symmetric_data_slots, use_mesh
 
     dev = resolve_device(device)
     t_start = time.perf_counter()
     cfg = (get_smoke_config if smoke else get_config)(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=min(cfg.n_layers, layers))
     shape = shape or SHAPES["train_4k"]
     pl = pipeline_plan(cfg, shape, straggler, dev if dev.type == "cuda" else "cpu")
     dims = (2, 16, 16)
     m = make_mesh(dims, ("pod", "data", "model"), devices=[dev] * math.prod(dims))
+    subs = [m.submesh("pod", p) for p in range(2)]
     api = get_model(cfg)
     params = api.init(seed, dev, master=True)
-    devs = pod_devices(2, dev, m, "pod")
-    stages, mask = make_stage_params(params["layers"], pl, 2, devices=devs)
+    stages, mask = make_stage_params(params["layers"], pl, 2, mesh=m, cfg=cfg, stage_axis="pod")
     pipe = {"embed": params["embed"], "stages": stages, "ln_f": params["ln_f"]}
+    head = {"embed": params["embed"], "ln_f": params["ln_f"]}
     del params
     B, S = shape.global_batch, shape.seq_len
+    M = num_microbatches
     batch = make_inputs({k: v for k, v in api.input_specs(shape).items()
                          if k in ("tokens", "labels")}, dev, cfg.vocab_size, seed)
-    head = _tree_bytes(pipe["embed"]) + _tree_bytes(pipe["ln_f"]) + _tree_bytes(batch)
-    args_bytes = max(_tree_bytes(stages[p]) + (head if p == 0 else 0) for p in range(2))
-    loss_fn = pipelined_loss_fn(cfg, pl, num_microbatches, mask, mesh=m, stage_axis="pod")
-    leaves = tree_leaves(pipe)
+    # per (pod, data, model) slot, as the reference places them: the pod's
+    # stack by param_specs, the embedding and final norm by theirs (every
+    # pod holds them), the batch over the data axis
+    bspec = {k: sharding.make_batch_sharding(subs[0], B) for k in batch}
+    args_bytes = (max(_placed_slot_bytes(stages[p]) for p in range(2))
+                  + sharding.slot_bytes(head, sharding.param_specs(head, cfg, subs[0]), subs[0])
+                  + sharding.slot_bytes(batch, bspec, subs[0]))
+    n_data = len(subs[0].row_devices(B // M))
+    msize = model_axis_size(subs[0])
+    with use_mesh(subs[0]):
+        sym = n_data > 1 and api.train_forward.independent(cfg, B // M, S)
+    loss_fn = pipelined_loss_fn(cfg, pl, M, mask, mesh=m, stage_axis="pod")
+    leaves = sharding.tensors(pipe)
 
     def step():
-        with torch.enable_grad():
+        with torch.enable_grad(), symmetric_data_slots(sym):
             for p in leaves:
                 p.requires_grad_(True)
             try:
@@ -448,17 +476,19 @@ def run_pipeline_cell(arch: str, num_microbatches: int = 8, straggler: float = 1
         return loss.detach(), grads
 
     t_setup = time.perf_counter()
-    k = pl.num_stages
+    k = pl.num_stages * n_data * msize
+    k_sim = pl.num_stages * (1 if sym else n_data) * msize
     an, out_bytes, wall, card_peak = _run_step(step, dev, m.size, k, detail, (pipe, batch))
     rec = {
         "arch": arch, "shape": shape.name, "mesh": "pod2x16x16", "mode": "pipeline",
+        "placement": "mesh", "symmetric_data_slots": sym, "n_layers": cfg.n_layers,
         "device": str(dev), "devices": m.size, "ok": True,
         "plan": {"planner": pl.planner, "stage_sizes": list(pl.stage_sizes),
                  "alloc": list(pl.mapping.alloc), "period_s": pl.period,
                  "latency_s": pl.latency, "padding_overhead": pl.padding_overhead,
                  "straggler": straggler},
-        "num_microbatches": num_microbatches, "seq_len": S, "global_batch": B,
-        "memory": _memory(an["peak_bytes"], args_bytes, out_bytes, k, 0.0),
+        "num_microbatches": M, "seq_len": S, "global_batch": B,
+        "memory": _memory(an["peak_bytes"], args_bytes, out_bytes, k_sim, 0.0, msize, k),
         "hlo": an,
         "setup_s": t_setup - t_start, "step_s": wall,
     }
@@ -474,7 +504,7 @@ def _failure(rec: dict, e: Exception) -> dict:
 
 def _summary(rec: dict) -> dict:
     mem = rec["memory"]
-    out = {k: rec.get(k) for k in ("arch", "shape", "mesh", "ok", "step_s")}
+    out = {k: rec.get(k) for k in ("arch", "shape", "mesh", "ok", "step_s", "placement")}
     out["argument_gb"] = mem["argument_size_in_bytes"] / 1e9
     out["temp_gb"] = mem["temp_size_in_bytes"] / 1e9
     out["fits"] = mem["fits"]
@@ -522,6 +552,8 @@ def main(argv=None) -> None:
                     help="the planner-driven pipeline over the pod axis")
     ap.add_argument("--microbatches", type=int, default=8)
     ap.add_argument("--straggler", type=float, default=1.0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="with --pipeline: cut the depth (the plan covers the cut)")
     ap.add_argument("--device", default="meta", help="meta (default), cpu or cuda")
     ap.add_argument("--jobs", type=int, default=1, help="cells of --all run at once")
     args = ap.parse_args(argv)
@@ -536,11 +568,12 @@ def main(argv=None) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
 
     if args.pipeline:
-        tag = f"straggler{args.straggler}" if args.straggler != 1.0 else "even"
+        tag = (f"straggler{args.straggler}" if args.straggler != 1.0 else "even") + (
+            f"_{args.layers}L" if args.layers else "")
         path = out_dir / f"{args.arch}__pipeline_{tag}__pod2x16x16.json"
         try:
             rec = run_pipeline_cell(args.arch, args.microbatches, args.straggler,
-                                    device=args.device)
+                                    device=args.device, layers=args.layers)
         except Exception as e:
             rec = _failure({"arch": args.arch, "mode": "pipeline"}, e)
             path.write_text(json.dumps(rec, indent=1))

@@ -80,6 +80,21 @@ class Mesh:
         return tuple(d for k, d in enumerate(self.devices)
                      if (k // stride) % self.axis_sizes[a] == index)
 
+    def submesh(self, axis: str, index: int) -> "Mesh":
+        """The slice ``index`` along ``axis`` as a mesh over the other axes,
+        in their order, with that slice's devices row-major (abstract where
+        this mesh is): what the reference's ``shard_map`` over ``axis``
+        gives each of its programs.  A pipeline's stage runs under its
+        pod's sub-mesh, never the whole mesh, whose stage axis the model
+        code would take for data slots (``pod`` is a data axis)."""
+        a = self.axis_names.index(axis)
+        if not 0 <= index < self.axis_sizes[a]:
+            raise IndexError(f"{axis} index {index} outside 0..{self.axis_sizes[a] - 1}")
+        names = self.axis_names[:a] + self.axis_names[a + 1:]
+        sizes = self.axis_sizes[:a] + self.axis_sizes[a + 1:]
+        devices = None if self.devices is None else self.axis_devices(axis, index)
+        return Mesh(names, sizes, devices)
+
     def coords(self, slot: int) -> dict:
         """Axis name -> index of the row-major mesh slot ``slot``."""
         out = {}

@@ -45,8 +45,8 @@ from .common import ModelConfig
 
 __all__ = ["PartitionSpec", "ShardedTensor", "SlotViews", "StateBlocks", "StatePiece", "batch_spec",
            "gather", "make_batch_sharding", "model_dim", "model_split_dim", "named", "param_specs",
-           "place", "reduce_to_placement", "slot_bytes", "state_specs", "write_piece",
-           "zero1_specs"]
+           "place", "reduce_to_placement", "slot_bytes", "state_specs", "tensors",
+           "write_piece", "zero1_specs"]
 
 ATTN_PARENTS = {"attn", "self_attn", "cross_attn", "shared_attn"}
 
@@ -793,3 +793,13 @@ def _map_leaves(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_leaves(fn, v) for v in tree)
     return fn(tree)
+
+
+def tensors(tree) -> list:
+    """The distinct tensors of ``tree``: each placed block once (a
+    :class:`ShardedTensor`'s :meth:`~ShardedTensor.unique` shards), each
+    whole leaf; what a gradient is taken with respect to."""
+    out = []
+    _map_leaves(lambda x: out.extend([t for _, t in x.unique()] if isinstance(x, ShardedTensor)
+                                     else [x]), tree)
+    return out
