@@ -3523,12 +3523,18 @@ def mesh_launches(cfg, path: str, dsize: int, seq: int, msize: int = 1) -> dict:
     (2L + 1) per data slot, and the forward adds flash attention once per
     layer per model slot (at H / msize query heads) where the gate passes.
     Where they do not, model slot 0 alone normalizes before the attention,
-    which it runs whole: L + msize x (L + 1) per data slot, flash L.
-    Prefill never takes flash (as the reference)."""
+    which it runs whole: L + msize x (L + 1) per data slot, flash L, but
+    where the forward's block edges are sequence-parallel
+    (``transformer.seq_parallel``) every model slot normalizes its block of
+    the positions before either half: msize x (2L + 1).  Prefill never
+    takes flash (as the reference) and keeps the replicated edges."""
     from repro_torch.models.attention import heads_parallel
+    from repro_torch.models.transformer import seq_parallel
 
     out = dict.fromkeys(KERNEL_NAMES, 0)
-    L, per_layer = cfg.n_layers, (msize if heads_parallel(cfg, msize) else 1)
+    sp = path == "forward" and seq_parallel(cfg, msize, seq)
+    L = cfg.n_layers
+    per_layer = msize if heads_parallel(cfg, msize) or sp else 1
     out["rmsnorm"] = dsize * (per_layer * L + msize * (L + 1))
     if path == "forward":
         out["flash_attention"] = dsize * per_layer * L * flash_gate(seq, seq)
@@ -3562,11 +3568,18 @@ def mesh_collective_calls(cfg, path: str, dsize: int, msize: int, seq: int,
       ``gather`` of each data slot's logits and the aux loss's ``psum``;
       prefill's ``psum`` of the last position's partial logits where
       ``d_model`` is split, the logits' ``gather`` and two cache
-      ``gather`` per layer per data slot."""
+      ``gather`` per layer per data slot;
+    - a forward whose block edges are sequence-parallel
+      (``transformer.seq_parallel``: M divides the positions) all-gathers
+      the normalized rows before each half (onto model slot 0 alone, a
+      ``gather``, where it runs the attention whole) and after the final
+      norm, and each output ``psum`` becomes a ``reduce_scatter``, each
+      output ``broadcast`` a ``scatter`` over the positions."""
     import collections
 
     from repro_torch.launch.mesh import make_mesh, use_mesh
     from repro_torch.models import attention, get_model, moe, sharding
+    from repro_torch.models.transformer import seq_parallel
 
     M = msize
     params = get_model(cfg).init(0, "meta")
@@ -3581,25 +3594,31 @@ def mesh_collective_calls(cfg, path: str, dsize: int, msize: int, seq: int,
     split = sum(d is not None for d in named.values())
     calls["scatter"] += D * split + 1 + vlm
     calls["broadcast"] += D * (len(named) - split)
+    S = seq + (cfg.n_vis_tokens if vlm else 0)
+    sp = path == "forward" and seq_parallel(cfg, M, S)
+    out_sum, out_spread = ("reduce_scatter", "scatter") if sp else ("psum", "broadcast")
     if M > 1:
         calls["broadcast"] += D * (1 + vlm)
         if named["embed/tok"] is not None:
             calls["psum" if named["embed/tok"] == 0 else "all_gather"] += D
-        S = seq + (cfg.n_vis_tokens if vlm else 0)
         if attention.heads_parallel(cfg, M):
+            per["all_gather"] += sp
             for n in ("wk", "wv", "bk", "bv"):
                 d, axis = layer.get(f"attn/{n}"), 1 if n[0] == "w" else 0
                 if d is None or d == axis:
                     continue
                 per["all_gather" if d != "owner" else "broadcast"] += \
                     cfg.n_kv_heads if d == axis + 1 else 1
-            per["psum"] += 1
+            per[out_sum] += 1
         else:
+            per["gather"] += sp
             per["gather"] += sum(d is not None for k, d in layer.items() if k.startswith("attn/"))
             blocked = S > 2048 and S % 512 == 0 and not (path == "forward" and cfg.use_pallas)
             if blocked and S % M == 0 and (S // M) % 128 == 0:
-                per.update({"scatter": 3, "all_gather": 2, "gather": 1})
-            per["broadcast"] += 1
+                for k, v in {"scatter": 3, "all_gather": 2, "gather": 1}.items():
+                    per[k] += v
+            per[out_spread] += 1
+        per["all_gather"] += sp
     ffn = [("mlp", layer.get("mlp/wi"))]
     if cfg.family == "moe":
         with use_mesh(make_mesh((dsize, msize), ("data", "model"), devices=["meta"] * (dsize * M))):
@@ -3610,18 +3629,18 @@ def mesh_collective_calls(cfg, path: str, dsize: int, msize: int, seq: int,
         if not own:
             once.update({"gather": M if inner else 1, "scatter": M if inner else 1})
         if inner:
-            per["psum"] += 1
+            per[out_sum] += 1
         elif M > 1:
-            per["broadcast"] += 1
+            per[out_spread] += 1
         ffn = [("moe/dense", layer.get("moe/dense/wi"))] if cfg.dense_residual else []
     for pre, d in ffn:
         if M == 1:
             continue
         if d == 1:
-            per["psum"] += 1
+            per[out_sum] += 1
         else:
             per["gather"] += sum(v is not None for k, v in layer.items() if k.startswith(pre + "/"))
-            per["broadcast"] += 1
+            per[out_spread] += 1
     for k, v in per.items():
         calls[k] += v * L * D
     for k, v in once.items():
@@ -3629,6 +3648,7 @@ def mesh_collective_calls(cfg, path: str, dsize: int, msize: int, seq: int,
     head = named["embed/tok"] if cfg.tie_embeddings else named["embed/unembed"]
     d_split = M > 1 and head == (1 if cfg.tie_embeddings else 0)
     if path == "forward":
+        calls["all_gather"] += D * sp
         if d_split:
             calls["reduce_scatter" if seq % M == 0 else "psum"] += D
         calls["gather"] += D
@@ -3694,13 +3714,15 @@ def mesh_recording(torch, calls: list, moe_records=None, flash_heads_seen=None,
             flash_heads_seen.append((q.shape[2], k.shape[2]))
         return check("flash_attention", flash(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw))
 
-    def moe_rec(ps, dims, hs, cfg, n_data, data_slots):
-        ys, auxes = moe_grid(ps, dims, hs, cfg, n_data, data_slots)
+    def moe_rec(ps, dims, hs, cfg, n_data, data_slots, seq_out=False):
+        ys, auxes = moe_grid(ps, dims, hs, cfg, n_data, data_slots, seq_out=seq_out)
         dev = hs[0][0].device
         whole = {k: layers.whole_on([p[k] for p in ps[0]], dims[k], dev)
                  for k in ("router", "wi", "wg", "wo")}
-        moe_records.append(check_mesh_moe(torch, whole, [h[0] for h in hs], [y[0] for y in ys],
-                                          cfg))
+        # a sequence-parallel edge leaves each model slot its block of the
+        # positions: the data slot's output is their join
+        outs = [torch.cat([t.to(dev) for t in y], dim=1) if seq_out else y[0] for y in ys]
+        moe_records.append(check_mesh_moe(torch, whole, [h[0] for h in hs], outs, cfg))
         calls.append(("moe", moe_records[-1]["out_max_err"], True))
         return ys, auxes
 
@@ -3992,7 +4014,7 @@ def _train_pair(torch, counters, cfg, run: dict, device, analysis: bool) -> dict
     sync()
     collectives.TRAFFIC.clear()
     t0 = time.time()
-    with use_mesh(mesh):
+    with use_mesh(mesh), gathered_recording() as held:
         if analysis:
             (placed, popt, m_mesh), an = hlo_analysis.analyze(
                 lambda: step(placed, popt, batch), devices=mesh.size, detail=False)
@@ -4000,12 +4022,18 @@ def _train_pair(torch, counters, cfg, run: dict, device, analysis: bool) -> dict
             placed, popt, m_mesh = step(placed, popt, batch)
     sync()
     out["mesh_step_s"] = time.time() - t0
+    dsize, msize = run["mesh"]
+    # the zero1 blocks gathered where a layer uses them: at most one layer's
+    # alive at once, every computing slot's on this one device
+    out["gathered_layers_max"], out["gathers"] = held["layers"], held["calls"]
+    out["slot_view_bytes"] = held["bytes"] // (dsize * msize)
+    if held["layers"] > 1:
+        fail(f"mesh train: {held['layers']} layers' gathered zero1 blocks were alive at once")
+    want = zero1_gathers(cfg, params, mesh, run["batch"])
+    if want is not None and held["calls"] != want:
+        fail(f"mesh train: {held['calls']} zero1 gathers, expected {want}")
     if analysis:
-        dsize, msize = run["mesh"]
-        shared = dryrun._gathered_bytes(params, specs, mesh)
-        out["slot_view_bytes"] = shared // msize
-        out["slot_peak_bytes"] = int((an["peak_bytes"] - shared) / (dsize * msize)
-                                     + shared / msize)
+        out["slot_peak_bytes"] = int(an["peak_bytes"] / (dsize * msize))
     out["collectives"] = {op: list(v) for op, v in collectives.TRAFFIC.items()}
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
     out["launches"] = {c.__name__: c.launches for c in counters}
@@ -4027,6 +4055,67 @@ def _train_pair(torch, counters, cfg, run: dict, device, analysis: bool) -> dict
     out["replicated_moment_max_rel_err"] = max(repl, default=0.0)
     out["moment_rel_err"] = math.sqrt(diff2 / max(norm2, 1e-300))
     return out
+
+
+def zero1_gathers(cfg, params, mesh, batch: int):
+    """The zero1 gathers (``sharding.gather_blocks`` calls) of one train step
+    of a transformer family under ``zero1_specs`` (``None`` for the other
+    families): per microbatch, per data slot that takes rows and per model
+    slot, the embedding's zero1 leaves twice (the lookup and the
+    unembedding) and ``ln_f`` once, and each layer's zero1 leaves twice (the
+    forward and the backward's recomputation; a leaf whose layer axis is
+    split over ``model`` by its one owning model slot)."""
+    from repro_torch.models import sharding
+
+    if cfg.family not in ("dense", "moe", "vlm") or not cfg.fsdp_params:
+        return None
+    specs = sharding.zero1_specs(params, cfg, mesh)
+    M = mesh.shape["model"]
+    A = max(cfg.accum_steps, 1)
+    D = len(mesh.row_devices(batch // A))
+
+    def count(tree, per_layer: bool) -> int:
+        got = []
+        sharding._map_with_path(lambda _, s: got.append(s), tree)
+        split = [s for s in got if sharding._data_dim(s) is not None]
+        if not per_layer:
+            return M * len(split)
+        return sum(1 if sharding.model_dim(s) == 0 else M for s in split)
+
+    top = 2 * count(specs["embed"], False) + count({"ln_f": specs["ln_f"]}, False)
+    return A * D * (top + 2 * cfg.n_layers * count(specs["layers"], True))
+
+
+@contextlib.contextmanager
+def gathered_recording():
+    """Within the block every zero1 gather (``sharding.gather_blocks``) is
+    tracked by its storage until freed: ``layers``, the most layers whose
+    gathered blocks were alive at once; ``bytes``, the most bytes of them
+    (over every computing slot of the process); ``calls``, the gathers."""
+    import weakref
+
+    from repro_torch.models import sharding
+
+    real, live = sharding.gather_blocks, {}
+    held = {"layers": 0, "bytes": 0, "calls": 0}
+
+    def tracked(c, idx=()):
+        out = real(c, idx)
+        st = out.untyped_storage()
+        key = id(st)
+        if idx and key not in live:
+            live[key] = (idx[:1], st.nbytes(),
+                         weakref.ref(st, lambda _r, k=key: live.pop(k, None)))
+        held["calls"] += 1
+        held["layers"] = max(held["layers"], len({k for k, _, _ in list(live.values())}))
+        held["bytes"] = max(held["bytes"], sum(n for _, n, _ in list(live.values())))
+        return out
+
+    sharding.gather_blocks = tracked
+    try:
+        yield held
+    finally:
+        sharding.gather_blocks = real
 
 
 def mesh_train_run(torch, counters, run: dict, device, smoke: bool = False,
@@ -4402,7 +4491,8 @@ def say_tp_part(name: str, r: dict, run: dict, card) -> None:
             f"{f32['moment_rel_err']:.3g} (limit {MESH_GRAD_RTOL}), replicated leaves "
             f"{f32['replicated_moment_max_rel_err']:.3g} (limit {MESH_REPLICATED_RTOL}); per "
             f"slot {r['bytes_per_slot']} B of state + "
-            f"{r['slot_view_bytes']} B of data-gathered weights held, peak "
+            f"{r['slot_view_bytes']} B of data-gathered weights held at most "
+            f"({r['gathered_layers_max']} layer at a time, {r['gathers']} gathers), peak "
             f"{r['slot_peak_bytes']} B charged (card peak over every slot "
             f"{r['peak_mem_bytes']} B); collectives {r['collectives']}; part "
             f"{r['part_s']:.1f} s; {card}")
@@ -4533,11 +4623,21 @@ def dryrun_mesh(torch, counters, run: dict, device, smoke: bool = False) -> dict
         fail(f"dry run (b): the meta run's collectives differ from the {device} run's: {diffs}")
     if any(counted.values()):
         fail(f"dry run (b): the train step launched {counted}; training runs the plain versions")
-    return {"config": run["arch"], "launches": counted, "collectives": meta["hlo"]["collectives"],
-            "collective_counts": meta["hlo"]["collective_counts"],
-            "other_diffs": dryrun_diffs(real["hlo"], meta["hlo"], DRYRUN_EXACT),
-            "memory": meta["memory"], "wall_s": real["step_s"], "meta_step_s": meta["step_s"],
-            "measured_peak_bytes": real.get("measured_peak_bytes")}
+    # every slot on the one device: the meta run's placed arguments and peak
+    # above them against the card's allocation peak over the step
+    predicted = meta["memory"]["process_bytes"]
+    measured = real.get("measured_peak_bytes")
+    out = {"config": run["arch"], "launches": counted, "collectives": meta["hlo"]["collectives"],
+           "collective_counts": meta["hlo"]["collective_counts"],
+           "other_diffs": dryrun_diffs(real["hlo"], meta["hlo"], DRYRUN_EXACT),
+           "memory": meta["memory"], "wall_s": real["step_s"], "meta_step_s": meta["step_s"],
+           "predicted_peak_bytes": predicted, "measured_peak_bytes": measured}
+    if measured is not None:
+        out["peak_rel_err"] = abs(predicted - measured) / measured
+        if out["peak_rel_err"] > DRYRUN_PEAK_RTOL:
+            fail(f"dry run (b): predicted peak {predicted} B over the mesh's slots, the card's "
+                 f"{measured} B ({out['peak_rel_err']:.1%} apart, limit {DRYRUN_PEAK_RTOL:.0%})")
+    return out
 
 
 def dryrun_production_record(what: str, run: dict, smoke: bool = False) -> dict:
@@ -4689,7 +4789,9 @@ def dryrun_phase(torch, counters, card, device: str = "cuda", runs: dict = DRYRU
         f"== ({b['collectives']}, calls {b['collective_counts']}); other counts' differences "
         f"{b['other_diffs'] or 'none'}; per slot {b['memory']['argument_size_in_bytes']} B "
         f"arguments + {b['memory']['temp_size_in_bytes']} B temp; step {b['wall_s']:.3f} s, "
-        f"peak {b['measured_peak_bytes']} B; part {b['part_s']:.1f} s; {card}")
+        f"peak over the slots predicted {b['predicted_peak_bytes']} B, measured "
+        f"{b['measured_peak_bytes']} B ({b.get('peak_rel_err', 'n/a')} apart, limit "
+        f"{DRYRUN_PEAK_RTOL}); part {b['part_s']:.1f} s; {card}")
     if device == "cuda":
         torch.cuda.empty_cache()
     t0 = time.time()
@@ -6662,28 +6764,36 @@ def grid_rows(run: dict) -> tuple:
 def grid_launches(cfg, pl, run: dict) -> dict:
     """The kernels the grid's kernel pass launches: :func:`pipeline_launches`
     on every (data slot, model slot) that computes, where the heads divide
-    the model axis (else model slot 0 alone normalizes before the attention
-    and runs it)."""
+    the model axis (else model slot 0 alone runs the attention, and
+    normalizes before it unless the block edges are sequence-parallel,
+    where every slot normalizes its block of the positions)."""
     from repro_torch.models.attention import heads_parallel
+    from repro_torch.models.transformer import seq_parallel
 
     D, msize = grid_rows(run)[0], run["mesh"][2]
     steps = sum(pl.stage_sizes) * run["microbatches"] * D
     per = msize if heads_parallel(cfg, msize) else 1
+    norms = msize if seq_parallel(cfg, msize, run["seq"]) else per
     return dict.fromkeys(KERNEL_NAMES, 0) | {
-        "rmsnorm": steps * (per + msize),
+        "rmsnorm": steps * (norms + msize),
         "flash_attention": steps * per * flash_gate(run["seq"], run["seq"])}
 
 
 def grid_ppermute(cfg, pl, run: dict) -> list:
     """[calls, bytes] of the hand-offs: (intervals - 1) x M of them, one
-    ``ppermute`` a data slot, each of its model slots' sends of (rows, S,
-    d) residual rows in the compute dtype."""
+    ``ppermute`` a data slot, each of its model slots' sends of its (rows,
+    S / msize, d) block of the residual rows in the compute dtype (the whole
+    S where the model axis does not divide it: ``transformer.seq_parallel``)."""
     import torch
 
+    from repro_torch.models.transformer import seq_parallel
+
     D, rows = grid_rows(run)
+    msize, S = run["mesh"][2], run["seq"]
     calls = (pl.num_stages - 1) * run["microbatches"] * D
     item = torch.empty((), dtype=cfg.torch_dtype).element_size()
-    return [calls, calls * run["mesh"][2] * rows * run["seq"] * cfg.d_model * item]
+    seq = S // msize if seq_parallel(cfg, msize, S) else S
+    return [calls, calls * msize * rows * seq * cfg.d_model * item]
 
 
 def check_ppermute(what: str, traffic: dict, want: list) -> None:
@@ -7171,6 +7281,109 @@ def say_grid_part(name: str, r: dict, run: dict, card) -> None:
         f" part {r['part_s']:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------------------
+# 28. the port's examples on the card
+# ---------------------------------------------------------------------------
+
+# each example's arguments on the card: the reference's sizes, but
+# train_pipeline cut from 300 steps to 100 (one checkpoint at step 100)
+EXAMPLES = {"quickstart": [], "replan_straggler": [], "serve_batched": [],
+            "train_pipeline": ["--steps", "100"]}
+
+
+def _plan_lines(text: str) -> list:
+    """An example's printed lines with every wall time dropped (a ``wall=``
+    field, a plan report row's last column)."""
+    import re
+
+    row = re.compile(r"^(\S+\s+\S+\s+\S+\s+\S+\s+(?:True|False))\s+[\d.]+(.*)$")
+    out = []
+    for line in text.splitlines():
+        line = re.sub(r"wall=\S+", "wall=", line)
+        m = row.match(line)
+        out.append(m.group(1) + m.group(2) if m else line)
+    return out
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """(the example's return value, what it printed, wall seconds): its
+    ``main`` run in this process with stdout captured."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(argv)
+    return ret, buf.getvalue(), time.time() - t0
+
+
+def examples_phase(torch, counters, card, score_counters=(), device: str = "cuda",
+                   examples: dict = EXAMPLES) -> dict:
+    """Phase 28: ``python -m repro_torch.examples.<name>``'s four examples
+    run in this process on ``device``, every kernel counter zeroed just
+    before each and read just after.  ``quickstart`` and
+    ``replan_straggler`` print on the card what they print on the CPU
+    (``==`` but for wall times) and launch split scoring; ``serve_batched``
+    finishes every request, decode attention launched exactly once per
+    decode call and layer (:func:`decode_calls`; decode normalizes by the
+    plain version, as the reference's decode does), then runs again with
+    every one of those calls held to its plain version on its own inputs
+    (:func:`decode_recording`, phase 7's limit); ``train_pipeline``
+    learns (its final loss below its first) and, as every train step,
+    launches no kernel."""
+    out = {"by_path": {}}
+    on_card = torch.device(device).type == "cuda"
+    for name, argv in examples.items():
+        zero_counters(list(counters) + list(score_counters))
+        ret, text, wall = run_example(name, argv + ["--device", device])
+        launches = {c.__name__: c.launches for c in counters} | {
+            SCORE_ROWS[c.__name__]: c.launches for c in score_counters}
+        out["by_path"][f"example {name}"] = launches
+        r = {"wall_s": wall, "launches": {k: v for k, v in launches.items() if v},
+             "lines": len(text.splitlines())}
+        if name in ("quickstart", "replan_straggler"):
+            _, want, r["cpu_wall_s"] = run_example(name, argv + ["--device", "cpu"])
+            if _plan_lines(text) != _plan_lines(want):
+                fail(f"example {name}: the {device} run printed other plans than the cpu run")
+            if on_card and not launches["score_2way_f64"]:
+                fail(f"example {name}: no split-score launch on the card")
+        elif name == "serve_batched":
+            from repro_torch.configs import get_smoke_config
+            from repro_torch.examples import serve_batched
+
+            r.update({k: ret[k] for k in ("requests", "tokens_generated", "tokens_per_s")})
+            if not ret["all_done"]:
+                fail("example serve_batched: not every request finished")
+            a = serve_batched.parser().parse_args(argv)
+            want = decode_calls(a.requests, a.batch, a.prompt_len, a.max_new) \
+                * get_smoke_config("qwen3-4b").n_layers
+            got = {k: launches[k] for k in KERNEL_NAMES}
+            if on_card and got != dict.fromkeys(KERNEL_NAMES, 0) | {"decode_attention": want}:
+                fail(f"example serve_batched: launches {got}, expected {want} decode attention "
+                     "and nothing else")
+            calls = []
+            with decode_recording(torch, calls):
+                run_example(name, argv + ["--device", device])
+            r["checked_calls"] = len(calls)
+            r["kernel_vs_plain_max_err"] = max((c[1] for c in calls), default=None)
+            if len(calls) != want or not all(c[2] for c in calls):
+                fail(f"example serve_batched: {len(calls)} decode-attention calls held to the "
+                     f"plain version (expected {want}), "
+                     f"{sum(not c[2] for c in calls)} outside the limit")
+        else:
+            r.update({k: ret[k] for k in ("first_loss", "final_loss", "steps_run")})
+            if any(launches.get(k) for k in KERNEL_NAMES):
+                fail(f"example train_pipeline launched {launches}; training runs the plain "
+                     "versions")
+        out[name] = r
+        say(f"phase examples: {name} in {wall:.1f} s; launches {r['launches']}; "
+            + ", ".join(f"{k} {v}" for k, v in r.items()
+                        if k not in ("wall_s", "launches")) + f"; {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=pathlib.Path, default=None,
@@ -7640,6 +7853,15 @@ def main() -> None:
     report["pipeline_grid"]["phase_s"] = time.time() - t0
     by_path.update(report["pipeline_grid"].pop("by_path"))
     say(f"phase pipeline grid: {report['pipeline_grid']['phase_s']:.1f} s")
+
+    # 28. the port's examples (quickstart, replan_straggler, serve_batched,
+    # train_pipeline cut to 100 steps), every counter zeroed just before each
+    # and read just after
+    t0 = time.time()
+    report["examples"] = examples_phase(torch, counters, card, score_counters=score_counters)
+    report["examples"]["phase_s"] = time.time() - t0
+    by_path.update(report["examples"].pop("by_path"))
+    say(f"phase examples: {report['examples']['phase_s']:.1f} s")
 
     # 22(c), joined
     t0 = time.time()

@@ -15,8 +15,12 @@ solvers register after the ungrouped ones, as in the reference.
 
 Every entry point that reaches split scoring takes ``device=None`` (CUDA).
 The workload/platform/metrics host layer and the exact solvers are numpy
-copies of the reference's; the lockstep engine
-(:mod:`repro_torch.core.batched`) is imported on its own.
+copies of the reference's.  The lockstep engine's batched entry points
+(:mod:`repro_torch.core.batched`) are re-exported as the reference's are,
+but resolved at first use (:func:`__getattr__`): ``batched`` imports
+``repro_torch.kernels.split_score``, which imports this package's
+heuristics, so importing it here would make ``import
+repro_torch.kernels.split_score`` circular.
 """
 
 from .workload import Workload, make_workload, uniform_workload
@@ -59,6 +63,8 @@ __all__ = [
     "FIXED_PERIOD_HEURISTICS", "FIXED_LATENCY_HEURISTICS",
     "min_period_exhaustive",
     "sp_mono_p", "explo3_mono", "explo3_bi", "sp_bi_p", "sp_mono_l", "sp_bi_l",
+    "ProblemBatch", "batched_fixed_latency", "batched_min_period", "batched_sp_bi_p",
+    "batched_trajectories", "stack_instances",
     "ScoringDeviceError", "score_2way", "score_3way", "score_kernels",
     "scoring_device",
     "brute_force", "exact_min_period", "exact_min_latency",
@@ -73,3 +79,15 @@ __all__ = [
     "DealPlan", "plan_with_deal",
     "plan_pareto_tri", "replicate_greedy", "replicate_stage_plan",
 ]
+
+_BATCHED = ("ProblemBatch", "batched_fixed_latency", "batched_min_period", "batched_sp_bi_p",
+            "batched_trajectories", "stack_instances")
+
+
+def __getattr__(name: str):
+    """The batched entry points, imported at first use (module docstring)."""
+    if name in _BATCHED:
+        from . import batched
+
+        return getattr(batched, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

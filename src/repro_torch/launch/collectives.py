@@ -78,12 +78,50 @@ def gather_to(xs: list, dim: int, device) -> torch.Tensor:
     return torch.cat([x.to(dev) for x in xs], dim=dim)
 
 
-def all_gather(xs: list, dim: int, devices=None) -> list:
+class _AllGather32(torch.autograd.Function):
+    """Every receiver its own copy of the inputs joined along ``dim``; the
+    gradient of each input is its part of the receivers' gradients summed
+    in float32 in slot order and rounded once (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, dim, devices, *xs):
+        ctx.dim, ctx.sources = dim, [(x.device, x.dtype) for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        joined, first = {}, {}
+        out = []
+        for i, d in enumerate(devices):
+            if d not in joined:
+                joined[d] = torch.cat([x.to(d) for x in xs], dim=dim)
+            out.append(joined[d] if first.setdefault(d, i) == i else joined[d].clone())
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [g for g in grads if g is not None]
+        out = []
+        lo = 0
+        for (dev, dt), n in zip(ctx.sources, ctx.sizes):
+            out.append(_sum32([g.narrow(ctx.dim, lo, n) for g in live], dev).to(dt))
+            lo += n
+        return (None, None, *out)
+
+
+def all_gather(xs: list, dim: int, devices=None, grad32: bool = False) -> list:
     """Tiled all-gather: every slot gets the slots' tensors joined along
     ``dim`` on its device (``devices``, one per slot; the slots' own
-    devices by default).  Slots that share a device share one tensor."""
+    devices by default).  Slots that share a device share one tensor, and
+    autograd sums the receivers' gradients as it meets them.  With
+    ``grad32`` every receiver gets its own copy, and the gradient of each
+    input is its part of the receivers' gradients summed in float32 in slot
+    order and rounded once (a reduce-scatter that rounds as :func:`psum`
+    and :func:`reduce_scatter` do): the all-gather at a sequence-parallel
+    block edge, whose backward must equal that of the all-reduce it
+    replaces."""
     devices = [x.device for x in xs] if devices is None else list(devices)
     _count("all_gather", xs)
+    if grad32:
+        resolved = _unique(devices)
+        return list(_AllGather32.apply(dim, [resolved[torch.device(d)] for d in devices], *xs))
     joined = {d: torch.cat([x.to(dev) for x in xs], dim=dim)
               for d, dev in _unique(devices).items()}
     return [joined[torch.device(d)] for d in devices]
@@ -191,25 +229,42 @@ def psum(xs: list, device):
     return _sum(xs, dev)
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """Part ``i`` of the inputs' sum along ``dim`` on ``devices[i]``,
+    accumulated in float32 in slot order and rounded once to the inputs'
+    dtype (each part equals those rows of :func:`psum`'s all-reduce); the
+    gradient of each input is the parts' gradients joined (an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, dim, devices, *xs):
+        ctx.dim, ctx.sources = dim, [(x.device, x.dtype) for x in xs]
+        n = len(devices)
+        parts = [torch.chunk(x, n, dim=dim) for x in xs]
+        return tuple(_sum32([p[i] for p in parts], d).to(xs[0].dtype)
+                     for i, d in enumerate(devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = {}
+        for dev, dt in ctx.sources:
+            if (dev, dt) not in out:
+                out[(dev, dt)] = torch.cat([g.to(dev, dt) for g in grads], dim=ctx.dim)
+        return (None, None, *(out[s] for s in ctx.sources))
+
+
 def reduce_scatter(xs: list, dim: int, devices) -> list:
     """The slots' tensors summed, the sum cut into ``len(devices)`` equal
-    parts along ``dim``, part ``i`` on ``devices[i]``; each part summed in
-    slot order."""
+    parts along ``dim``, part ``i`` on ``devices[i]``: each part accumulated
+    in float32 in slot order and rounded once, as :func:`psum` rounds (so
+    part ``i`` equals those rows of the all-reduce bit for bit); its
+    gradient joins the parts' gradients."""
     devices = list(devices)
     n = len(devices)
     if xs[0].shape[dim] % n:
         raise ValueError(f"dim {dim} of size {xs[0].shape[dim]} does not split over {n} slots")
     resolved = _unique(devices)
     _count("reduce_scatter", xs)
-    parts = [torch.chunk(x, n, dim=dim) for x in xs]
-    out = []
-    for i, d in enumerate(devices):
-        dev = resolved[torch.device(d)]
-        acc = parts[0][i].to(dev)
-        for p in parts[1:]:
-            acc = acc + p[i].to(dev)
-        out.append(acc)
-    return out
+    return list(_ReduceScatter.apply(dim, [resolved[torch.device(d)] for d in devices], *xs))
 
 
 def axis_index(mesh, axis: str, slot: int) -> int:

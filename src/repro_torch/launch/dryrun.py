@@ -67,12 +67,12 @@ is per slot:
     names one device, so the simulated slots' live sets add up in that
     peak: the computing slots are every model slot of each data slot that
     took rows (the model slots of data slot 0 alone under the symmetric
-    shortcut), each with an equal
-    share, and one slot is charged ``(peak - shared) / k + shared / M``
-    for ``k`` simulated slots, where ``shared`` is what the data slots
-    share on the device: the ``zero1_specs`` blocks all-gathered over the
-    data axes, one tensor per model slot (``M`` of them) that slots on
-    their own cards each hold.
+    shortcut), each with an equal share, and one slot is charged
+    ``peak / k`` for ``k`` simulated slots.  Nothing in that peak is
+    shared between slots: a ``zero1_specs`` block is all-gathered over the
+    data axes by each computing slot where a layer uses it, inside the
+    layer's checkpoint, and freed with the layer (one layer's gathered
+    weights per slot at a time, as GSPMD gathers them next to their op).
   - ``fits``: whether argument plus temp bytes fit one H100's 80 GB.
 
 :func:`run_pipeline_cell` runs the paper's technique at production scale:
@@ -186,6 +186,26 @@ def _new_bytes(out, args_storages: set) -> int:
     return total
 
 
+def _held_bytes(*trees) -> int:
+    """The bytes of the distinct storages of the trees' tensors (each placed
+    block of a :class:`~repro_torch.models.sharding.ShardedTensor`): what
+    the process holds of them over every slot."""
+    from ..models import sharding
+
+    seen = {}
+
+    def one(t):
+        for x in (t.shards if isinstance(t, sharding.ShardedTensor)
+                  else (t,) if isinstance(t, torch.Tensor) else ()):
+            st = x.untyped_storage()
+            seen.setdefault(id(st), st.nbytes())
+        return t
+
+    for tree in trees:
+        sharding._map_leaves(one, tree)
+    return sum(seen.values())
+
+
 def _storages(*trees) -> set:
     from ..models import sharding
 
@@ -204,35 +224,18 @@ def _storages(*trees) -> set:
     return out
 
 
-def _memory(peak: int, args_bytes: int, out_bytes: int, k: int, shared: float,
-            msize: int = 1, computing: int = None) -> dict:
+def _memory(peak: int, args_bytes: int, out_bytes: int, k: int,
+            computing: int = None) -> dict:
     """The per-slot memory record of a step whose peak holds ``k``
-    simulated slots' live sets (of ``computing`` that compute)."""
-    temp = (peak - shared) / k + shared / msize if k > 1 else peak
+    simulated slots' live sets (of ``computing`` that compute): one slot
+    is charged ``peak / k``."""
+    temp = peak / k
     return {"argument_size_in_bytes": int(args_bytes),
             "output_size_in_bytes": int(out_bytes / k),
             "temp_size_in_bytes": int(temp),
             "computing_slots": computing or k,
             "simulated_slots": k,
-            "shared_bytes": int(shared),
             "fits": bool(args_bytes + temp <= H100_HBM_BYTES)}
-
-
-def _gathered_bytes(params, specs, mesh) -> int:
-    """The bytes the data slots share on one device of the blocks that the
-    specs split over the data axes, all-gathered over them: one whole-over-
-    data block per model slot."""
-    from ..models import sharding
-
-    msize = mesh.shape["model"] if "model" in mesh.axis_names else 1
-    total = []
-
-    def one(spec, leaf):
-        if sharding._data_dim(spec) is not None:
-            split = sharding.model_dim(spec) is not None
-            total.append(leaf.numel() * leaf.element_size() * (1 if split else msize))
-    sharding._map2(one, specs, params)
-    return sum(total)
 
 
 def _run_step(step, dev, mesh_devices: int, computing: int, detail: bool,
@@ -318,7 +321,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
                 cfg, rows, S + (cfg.n_vis_tokens if cfg.family == "vlm" else 0))
     k = n_data * msize
     k_sim = msize if sym else k
-    shared = _gathered_bytes(params, pspecs, m) if n_data > 1 else 0
     rec["symmetric_data_slots"] = sym
     rec["placement"] = "mesh"
 
@@ -371,7 +373,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *, device="met
 
     t_setup = time.perf_counter()
     an, out_bytes, wall, card_peak = _run_step(step, dev, m.size, k, detail, args)
-    rec["memory"] = _memory(an["peak_bytes"], args_bytes, out_bytes, k_sim, shared, msize, k)
+    rec["memory"] = _memory(an["peak_bytes"], args_bytes, out_bytes, k_sim, k)
+    # what one process holds over every slot of the mesh: the placed
+    # arguments' storages and the step's peak above them (the card's
+    # ``measured_peak_bytes``, phase 22)
+    rec["memory"]["process_bytes"] = int(_held_bytes(*args) + an["peak_bytes"])
     rec["hlo"] = an
     rec["model_flops"], rec["model_flops_6nd"] = model_flops(cfg, api, shape)
     rec["setup_s"] = t_setup - t_start
@@ -488,7 +494,7 @@ def run_pipeline_cell(arch: str, num_microbatches: int = 8, straggler: float = 1
                  "latency_s": pl.latency, "padding_overhead": pl.padding_overhead,
                  "straggler": straggler},
         "num_microbatches": M, "seq_len": S, "global_batch": B,
-        "memory": _memory(an["peak_bytes"], args_bytes, out_bytes, k_sim, 0.0, msize, k),
+        "memory": _memory(an["peak_bytes"], args_bytes, out_bytes, k_sim, k),
         "hlo": an,
         "setup_s": t_setup - t_start, "step_s": wall,
     }

@@ -60,7 +60,7 @@ import torch
 
 from ..launch import collectives
 from .common import ModelConfig, abstract_mesh, data_slot
-from .layers import _whole_tree, apply_rope, dense_init, rms_norm
+from .layers import _whole_tree, apply_rope, dense_init, rms_norm, row_spread, row_sum
 
 __all__ = ["CacheSlice", "KVCache", "attention", "attention_row", "blocked_attention",
            "cache_from_prefill", "core_attention", "cross_attention_row", "decode_attention_layer",
@@ -418,16 +418,17 @@ def _kv_row(leaves: list, dim, axis: int, heads: list, devs) -> list:
 
 def attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, positions, devs,
                   prefill: bool = False, *, causal: bool = True, kv_hs: Optional[list] = None,
-                  rope: bool = True) -> tuple:
+                  rope: bool = True, seq_out: bool = False) -> tuple:
     """Self-attention (causal unless ``causal`` is off) of one data slot
     over its model slots: ``hs[m]`` model slot ``m``'s copy of the
     normalized rows (only ``hs[0]`` is read where the heads do not divide
     the axis), ``ps[m]`` its block of the layer's attention weights.  With
     ``kv_hs`` (each slot's copy of the rows the keys and values come from,
     at positions from 0) it is a cross-attention; ``rope`` off applies no
-    rotary positions.  Returns (each slot's output, each slot's (k, v) over
-    its K/V heads, :func:`kv_heads` of the slots or ``None`` where slot 0
-    holds every head)."""
+    rotary positions.  Returns (each slot's output, with ``seq_out`` its
+    block of the positions (:func:`.layers.row_sum`), each slot's (k, v)
+    over its K/V heads, :func:`kv_heads` of the slots or ``None`` where
+    slot 0 holds every head)."""
     M = len(devs)
     kv_in = hs if kv_hs is None else kv_hs
 
@@ -448,13 +449,13 @@ def attention_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, positions, d
                                  prefill=prefill, sequence_parallel=False)
             outs.append(_out_proj(out, p["wo"].to(h.dtype)))
             kvs.append((k, v))
-        return collectives.psum(outs, list(devs)), kvs, heads
+        return row_sum(outs, devs, seq_out), kvs, heads
     w = _whole_tree(ps, dims, devs[0])
     h, x = hs[0], kv_in[0]
     q, k, v = _project_qkv(w, h, x, cfg, positions, kv_positions(x), rope=rope)
     out = _out_proj(core_attention(q, k, v, cfg, causal=causal, window=cfg.sliding_window,
                                    prefill=prefill), w["wo"].to(h.dtype))
-    outs = [out] if M == 1 else collectives.broadcast(out, devs)
+    outs = [out] if M == 1 else row_spread(out, devs, seq_out)
     return outs, [(k, v)], None
 
 

@@ -216,21 +216,25 @@ def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig, frames=None
           else [f.to(cfg.torch_dtype)] for f, dv in zip(frames, devs)]
     enc_pos = [torch.arange(row[0].shape[1], device=row[0].device)[None, :] for row in xs]
     edims = views.layer_dims("enc")
-    block = _maybe_remat(lambda lrows, xs: _enc_block_row(lrows, edims, xs, cfg, enc_pos, devs),
-                         cfg)
+    block = _maybe_remat(lambda i, xs: _enc_block_row(
+        [views.layer(jj, i, cfg.n_enc_layers, "enc") for jj in range(D)], edims, xs, cfg,
+        enc_pos, devs), cfg)
     for i in range(cfg.n_enc_layers):
-        xs = block([views.layer(jj, i, cfg.n_enc_layers, "enc") for jj in range(D)], xs)
-    encs = [[_ln(a, p["ln_enc"], cfg) for p, a in zip(views.rows[jj], xs[jj])] for jj in range(D)]
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, devs[jj])
+        xs = block(i, xs)
+    encs = [[_ln(a, p["ln_enc"], cfg) for p, a in zip(views.top(jj, "ln_enc"), xs[jj])]
+            for jj in range(D)]
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, devs[jj])
           for jj, t in enumerate(tokens_slots)]
     dec_pos = [torch.arange(row[0].shape[1], device=row[0].device)[None, :] for row in xs]
     ddims = views.layer_dims("dec")
-    block = _maybe_remat(lambda lrows, xs, encs: _dec_block_row(lrows, ddims, xs, encs, cfg,
-                                                                dec_pos, devs), cfg)
+    block = _maybe_remat(lambda i, xs, encs: _dec_block_row(
+        [views.layer(jj, i, cfg.n_layers, "dec") for jj in range(D)], ddims, xs, encs, cfg,
+        dec_pos, devs), cfg)
     for i in range(cfg.n_layers):
-        xs = block([views.layer(jj, i, cfg.n_layers, "dec") for jj in range(D)], xs, encs)
-    logits = [layers.unembed_row(views.rows[jj], views.dims,
-                                 [_ln(a, p["ln_f"], cfg) for p, a in zip(views.rows[jj], xs[jj])],
+        xs = block(i, xs, encs)
+    logits = [layers.unembed_row(views.top(jj, "embed"), views.dims,
+                                 [_ln(a, p["ln_f"], cfg)
+                                  for p, a in zip(views.top(jj, "ln_f"), xs[jj])],
                                  cfg, devs[jj]) for jj in range(D)]
     return logits, [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
 
@@ -351,7 +355,7 @@ def decode_slots(views, state: EncDecState, tokens_slots: list, cfg: ModelConfig
                                                                        "cross_k")
     rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
     devs = [mesh.model_devices(j) for j in data_slots]
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, dv)
           for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
     ldims = views.layer_dims("dec")
     L = cfg.n_layers
@@ -372,8 +376,9 @@ def decode_slots(views, state: EncDecState, tokens_slots: list, cfg: ModelConfig
             h = [_ln(a, p["ln3"], cfg) for p, a in zip(row, x)]
             y = layers.mlp_row([p["mlp"] for p in row], ldims["mlp"], h, cfg, devs[jj])
             xs[jj] = [a + o for a, o in zip(x, y)]
-    return [layers.unembed_row(views.rows[jj], views.dims,
-                               [_ln(a, p["ln_f"], cfg) for p, a in zip(views.rows[jj], xs[jj])],
+    return [layers.unembed_row(views.top(jj, "embed"), views.dims,
+                               [_ln(a, p["ln_f"], cfg)
+                                for p, a in zip(views.top(jj, "ln_f"), xs[jj])],
                                cfg, devs[jj])
             for jj in range(len(data_slots))]
 

@@ -185,27 +185,30 @@ def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig,
     data slot's aux loss, zero)."""
     mesh = abstract_mesh()
     devs = [mesh.model_devices(j) for j in views.data_slots]
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, dv)
           for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
     positions = [torch.arange(row[0].shape[1], device=row[0].device)[None, :] for row in xs]
     ng, g, _ = group_shape(cfg)
     masks = [[_layer_mask(cfg, a.device, a.dtype) for a in row] for row in xs]
     sdims = views.dims["shared_attn"]
     mdims = views.entry_dims("mamba_groups", 2)
-    group = _maybe_remat(lambda srows, mrows, xs, ms: _grid_group(
-        srows, sdims, mrows, mdims, xs, ms, cfg, positions, devs), cfg)
     D = len(views.data_slots)
-    srows = [[r["shared_attn"] for r in views.rows[jj]] for jj in range(D)]
-    for i in range(ng):
+
+    def run_group(i, xs, ms):
+        # the group's weights taken (zero1 blocks gathered) inside its checkpoint
+        srows = [[r["shared_attn"] for r in views.top(jj, "shared_attn")] for jj in range(D)]
         mrows = [[[{"ln": ln, "mix": mix}
                    for ln, mix in zip(views.entry(jj, "mamba_ln", i, j),
                                       views.entry(jj, "mamba_groups", i, j))]
                   for j in range(g)] for jj in range(D)]
-        ms = [[mk[i] for mk in row] for row in masks]
-        xs = group(srows, mrows, xs, ms)
-    logits = [layers.unembed_row(views.rows[jj], views.dims,
+        return _grid_group(srows, sdims, mrows, mdims, xs, ms, cfg, positions, devs)
+
+    group = _maybe_remat(run_group, cfg)
+    for i in range(ng):
+        xs = group(i, xs, [[mk[i] for mk in row] for row in masks])
+    logits = [layers.unembed_row(views.top(jj, "embed"), views.dims,
                                  [rms_norm(a, p["ln_f"], cfg.norm_eps)
-                                  for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+                                  for p, a in zip(views.top(jj, "ln_f"), xs[jj])], cfg, devs[jj])
               for jj in range(D)]
     return logits, [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
 
@@ -307,7 +310,7 @@ def decode_slots(views, state: HybridState, tokens_slots: list, cfg: ModelConfig
     cols = attn.decode_cols(kv, mesh, layout)
     rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
     devs = [mesh.model_devices(j) for j in data_slots]
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, dv)
           for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
     ng, g, _ = group_shape(cfg)
     masks = [[_layer_mask(cfg, a.device, a.dtype) for a in row] for row in xs]
@@ -315,7 +318,7 @@ def decode_slots(views, state: HybridState, tokens_slots: list, cfg: ModelConfig
     mdims = views.entry_dims("mamba_groups", 2)
     for i in range(ng):
         for jj, j in enumerate(data_slots):
-            row = [r["shared_attn"] for r in views.rows[jj]]
+            row = [r["shared_attn"] for r in views.top(jj, "shared_attn")]
             h = [rms_norm(x, p["ln"], cfg.norm_eps) for p, x in zip(row, xs[jj])]
             out = attn.decode_attention_layer(kv, mesh, i, rows[jj], j, [p["attn"] for p in row],
                                               sdims["attn"], h, cfg, devs[jj], layout, cols)
@@ -330,9 +333,9 @@ def decode_slots(views, state: HybridState, tokens_slots: list, cfg: ModelConfig
                 y = mamba2_decode_row(mixes, mdims, h, cfg, devs[jj], mb, (i, jl), rows[jj], j)
                 x = [a + mk[i, jl] * o for a, o, mk in zip(x, y, masks[jj])]
             xs[jj] = x
-    return [layers.unembed_row(views.rows[jj], views.dims,
+    return [layers.unembed_row(views.top(jj, "embed"), views.dims,
                                [rms_norm(a, p["ln_f"], cfg.norm_eps)
-                                for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+                                for p, a in zip(views.top(jj, "ln_f"), xs[jj])], cfg, devs[jj])
             for jj in range(len(data_slots))]
 
 

@@ -362,25 +362,55 @@ def _whole_tree(ps: list, dims, device):
     return whole_on(ps, dims, device)
 
 
-def mlp_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, devs) -> list:
+def seq_blocks(xs: list) -> list:
+    """Each model slot's block of the positions (dim 1) of its copy of a
+    data slot's rows (``xs[m]`` slot ``m``'s), each in storage of its own
+    so that the whole copy is freed: the layout of a sequence-parallel
+    block edge."""
+    M = len(xs)
+    n = xs[0].shape[1] // M
+    return [x.narrow(1, m * n, n).clone() for m, x in enumerate(xs)]
+
+
+def row_sum(parts: list, devs, seq_out: bool = False) -> list:
+    """A row-parallel product's partial sums over a data slot's model
+    slots: all-reduced (each slot the whole sum), or with ``seq_out``
+    reduce-scattered over the positions (each slot its block of them),
+    both accumulated in float32 in slot order and rounded once."""
+    from ..launch import collectives
+
+    if seq_out:
+        return collectives.reduce_scatter(parts, 1, list(devs))
+    return collectives.psum(parts, list(devs))
+
+
+def row_spread(x: torch.Tensor, devs, seq_out: bool = False) -> list:
+    """Model slot 0's whole output on every model slot (a broadcast), or
+    with ``seq_out`` each slot's block of its positions (a scatter)."""
+    from ..launch import collectives
+
+    return collectives.scatter(x, 1, devs) if seq_out else collectives.broadcast(x, devs)
+
+
+def mlp_row(ps: list, dims: dict, hs: list, cfg: ModelConfig, devs,
+            seq_out: bool = False) -> list:
     """:func:`mlp` over one data slot's model slots (``hs[m]`` slot ``m``'s
     copy of the rows): with the inner dim split (``wi``/``wg`` by column,
     ``wo`` by row, or ``wo`` replicated, each slot reading its rows of it:
     the hybrid's shared MLP, whose ``wo`` ``param_specs`` takes for an
     attention output) each slot's product is a partial sum, all-reduced in
-    model-slot order; otherwise model slot 0 computes with the layer's
-    weights whole and broadcasts.  Returns each slot's output."""
-    from ..launch import collectives
-
+    model-slot order (:func:`row_sum`); otherwise model slot 0 computes
+    with the layer's weights whole and broadcasts.  Returns each slot's
+    output, with ``seq_out`` its block of the positions."""
     if len(devs) == 1:
         return [mlp(ps[0], hs[0], cfg)]
     if dims["wi"] == 1 and dims["wo"] in (0, None):
         if dims["wo"] is None:
             f = ps[0]["wi"].shape[-1]
             ps = [dict(p, wo=p["wo"][m * f:(m + 1) * f]) for m, p in enumerate(ps)]
-        return collectives.psum([mlp(p, h, cfg) for p, h in zip(ps, hs)], list(devs))
+        return row_sum([mlp(p, h, cfg) for p, h in zip(ps, hs)], devs, seq_out)
     w = _whole_tree(ps, dims, devs[0])
-    return collectives.broadcast(mlp(w, hs[0], cfg), devs)
+    return row_spread(mlp(w, hs[0], cfg), devs, seq_out)
 
 
 def vocab_offset(m: int, block: int) -> int:

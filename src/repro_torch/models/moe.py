@@ -48,7 +48,7 @@ import torch.nn.functional as F
 from ..launch import collectives
 from ..launch.mesh import data_axis_size
 from .common import ModelConfig, abstract_mesh
-from .layers import _whole_tree, dense_init, init_mlp, mlp, mlp_row
+from .layers import _whole_tree, dense_init, init_mlp, mlp, mlp_row, row_spread, row_sum
 
 __all__ = ["KEEP_FLOAT32", "Routing", "init_moe", "moe_ffn", "moe_ffn_grid", "moe_ffn_slots",
            "moe_ffn_tokens", "route", "top_k"]
@@ -274,7 +274,7 @@ def per_data_slot(cfg: ModelConfig, rows: int, seq: int) -> bool:
 
 
 def moe_ffn_grid(ps: list, dims: dict, hs: list, cfg: ModelConfig, n_data: int,
-                 data_slots: list) -> tuple:
+                 data_slots: list, seq_out: bool = False) -> tuple:
     """The MoE of the transformer's mesh forward over the grid of computing
     data slots ``data_slots`` (of ``n_data`` that take rows) and their model
     slots: ``hs[jj][m]`` model slot ``m``'s copy of data slot
@@ -290,7 +290,9 @@ def moe_ffn_grid(ps: list, dims: dict, hs: list, cfg: ModelConfig, n_data: int,
     ``param_specs`` splits the experts, slot ``m`` dispatches to its block
     of them; where it splits each expert's ``ff``, to every expert on its
     columns; the slots' combines are partial sums, all-reduced in model-slot
-    order.  A layout that splits neither runs whole on model slot 0.  bf16
+    order (with ``seq_out`` reduce-scattered over the positions, each slot
+    its block: :func:`.layers.row_sum`).  A layout that splits neither runs
+    whole on model slot 0.  bf16
     expert weights are staged through float32, as :func:`moe_ffn_slots`
     stages them.  Arctic's dense residual is :func:`layers.mlp_row`."""
     mesh = abstract_mesh()
@@ -319,8 +321,8 @@ def moe_ffn_grid(ps: list, dims: dict, hs: list, cfg: ModelConfig, n_data: int,
 
     def reduce(parts, dv) -> list:
         if split:
-            return collectives.psum(parts, list(dv))
-        return parts if M == 1 else collectives.broadcast(parts[0], dv)
+            return row_sum(parts, dv, seq_out)
+        return parts if M == 1 else row_spread(parts[0], dv, seq_out)
 
     if own:
         ys, auxes = [], []
@@ -340,7 +342,7 @@ def moe_ffn_grid(ps: list, dims: dict, hs: list, cfg: ModelConfig, n_data: int,
         auxes = [aux] + [torch.zeros((), dtype=torch.float32, device=dv[0]) for dv in devs[1:]]
     if cfg.dense_residual:
         ys = [[y + r for y, r in zip(yrow, mlp_row([p["dense"] for p in prow], dims["dense"],
-                                                   hrow, cfg, dv))]
+                                                   hrow, cfg, dv, seq_out))]
               for yrow, prow, hrow, dv in zip(ys, ps, hs, devs)]
     return ys, auxes
 

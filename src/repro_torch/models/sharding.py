@@ -23,7 +23,8 @@ following :func:`named`'s placements; :func:`gather` joins the blocks back
 into global tensors.  :class:`SlotViews` gives each computing (data slot,
 model slot) the blocks it computes with under tensor parallelism: a leaf
 split over ``model`` stays split, one under the data axes (``zero1_specs``)
-is all-gathered over the data axes only.  :func:`reduce_to_placement` sums
+is all-gathered over the data axes only, one layer at a time where it is
+used.  :func:`reduce_to_placement` sums
 the slots' gradients of those views into a placement's blocks.  Their
 traffic goes through :mod:`repro_torch.launch.collectives`.
 :class:`StateBlocks` hands each mesh slot its blocks of a decode state
@@ -43,9 +44,10 @@ import torch
 from .. import resolve_device
 from .common import ModelConfig
 
-__all__ = ["PartitionSpec", "ShardedTensor", "SlotViews", "StateBlocks", "StatePiece", "batch_spec",
-           "gather", "make_batch_sharding", "model_dim", "model_split_dim", "named", "param_specs",
-           "place", "reduce_to_placement", "slot_bytes", "state_specs", "tensors",
+__all__ = ["DataBlocks", "PartitionSpec", "ShardedTensor", "SlotViews", "StateBlocks",
+           "StatePiece", "batch_spec", "gather", "gather_blocks", "make_batch_sharding",
+           "model_dim", "model_split_dim", "named", "param_specs", "place",
+           "reduce_to_placement", "slot_bytes", "state_specs", "tensors",
            "write_piece", "zero1_specs"]
 
 ATTN_PARENTS = {"attn", "self_attn", "cross_attn", "shared_attn"}
@@ -447,28 +449,71 @@ def _model_size(mesh) -> int:
     return mesh.shape["model"] if "model" in mesh.axis_names else 1
 
 
+class DataBlocks:
+    """One leaf's blocks under ``zero1_specs`` as a computing slot keeps
+    them until it uses them: ``blocks[j]`` data slot ``j``'s block of the
+    slot's model slot, in data-slot order (views of their own for the mesh
+    train step, so that each computing data slot's gradient of each block
+    stays apart), ``dim`` the dim the data axes split, ``device`` the
+    computing slot's.  :func:`gather_blocks` joins the part a use needs."""
+
+    __slots__ = ("blocks", "dim", "device")
+
+    def __init__(self, blocks, dim, device):
+        self.blocks, self.dim, self.device = list(blocks), dim, device
+
+
+def gather_blocks(c: DataBlocks, idx: tuple = ()) -> torch.Tensor:
+    """``c``'s leaf at the stacked index ``idx`` (its leading dims), whole
+    over the data slots on the computing slot's device: the blocks indexed
+    at ``idx`` and all-gathered along the data dim, or, where the data axes
+    split one of the stacked dims, the block that holds ``idx`` read from
+    its data slot.  Differentiable: each block's gradient is its part of
+    the gathered leaf's (the reduce-scatter of the reference's gather)."""
+    from ..launch import collectives
+
+    n = len(idx)
+    if c.dim < n:
+        per = c.blocks[0].shape[c.dim]
+        j, r = divmod(idx[c.dim], per)
+        local = idx[:c.dim] + (r,) + idx[c.dim + 1:]
+        return collectives.broadcast(c.blocks[j][local], [c.device])[0]
+    parts = [b[idx] if n else b for b in c.blocks]
+    return collectives.all_gather(parts, c.dim - n, [c.device])[0]
+
+
+def _gathered(tree, idx: tuple = ()):
+    """A tree of a slot's leaves with each :class:`DataBlocks` gathered at ``idx``."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v, idx) for k, v in tree.items()}
+    if isinstance(tree, DataBlocks):
+        return gather_blocks(tree, idx)
+    return tree
+
+
 class SlotViews:
     """What each computing slot of ``mesh`` computes with, tensor-parallel:
     for data slot ``data_slots[jj]`` and model slot ``m``, ``rows[jj][m]``
-    is a tree of ``tree``'s structure whose leaves are the slot's blocks
-    made whole over the data axes: a leaf split over ``model`` is the
-    slot's shard, a leaf replicated over ``model`` is whole.  ``dims`` is
-    the tree of the dim each leaf is split on over ``model`` (``None``:
-    replicated).
+    is a tree of ``tree``'s structure whose leaves are the slot's blocks:
+    a leaf split over ``model`` is the slot's shard, a leaf replicated over
+    ``model`` is whole.  ``dims`` is the tree of the dim each leaf is split
+    on over ``model`` (``None``: replicated).
 
     From placed state (:class:`ShardedTensor` leaves): a block that the
-    data axes split (``zero1_specs``) is all-gathered over the data slots
-    of its model slot, one tensor per model slot where those share a device;
-    any other block is the slot's own.  From whole tensors: each leaf is
-    cut over every data slot's model slots by its spec in ``specs``
-    (``scatter``; ``broadcast`` where replicated), which copies nothing
-    where a slot shares the tensor's device.  No slot receives a whole leaf
-    that the specs split.
+    data axes split (``zero1_specs``) stays as placed, a :class:`DataBlocks`
+    of its model slot's blocks over the data slots, and is all-gathered
+    over those data slots only where it is used, one layer or entry at a
+    time (:meth:`layer`, :meth:`entry`, :meth:`top`: the reference's GSPMD
+    gathers each weight next to the op that uses it); any other block is
+    the slot's own.  From whole tensors: each leaf is cut over every data
+    slot's model slots by its spec in ``specs`` (``scatter``; ``broadcast``
+    where replicated), which copies nothing where a slot shares the
+    tensor's device.  No slot receives a whole leaf that the specs split.
 
-    With ``leaves``, every slot's leaf is a tensor object of its own (an
-    alias of the block, ``detach``), so that autograd gives each slot its
-    own gradient (the mesh train step; :func:`reduce_to_placement` sums
-    them)."""
+    With ``leaves``, every slot's leaf (each block of a :class:`DataBlocks`)
+    is a tensor object of its own (an alias of the block, ``detach``), so
+    that autograd gives each slot its own gradient (the mesh train step;
+    :func:`reduce_to_placement` sums them)."""
 
     def __init__(self, tree, mesh, data_slots, specs=None, leaves: bool = False):
         from ..launch import collectives
@@ -484,23 +529,23 @@ class SlotViews:
         def one(path, x):
             if isinstance(x, ShardedTensor):
                 spec = x.spec
-                cells = [[x.shards[mesh.slot(**mesh.data_coords(j), model=m)]
-                          for m in range(self.msize)] for j in self.data_slots]
                 dd = _data_dim(spec)
-                if dd is not None:
-                    for m in range(self.msize):
-                        blocks = [x.shards[mesh.slot(**mesh.data_coords(j), model=m)]
-                                  for j in range(_data_size(mesh))]
-                        got = collectives.all_gather(blocks, dd, [d[m] for d in devs])
-                        for jj in range(len(self.data_slots)):
-                            cells[jj][m] = got[jj]
+                if dd is None:
+                    cells = [[x.shards[mesh.slot(**mesh.data_coords(j), model=m)]
+                              for m in range(self.msize)] for j in self.data_slots]
+                else:
+                    cells = [[DataBlocks([x.shards[mesh.slot(**mesh.data_coords(j), model=m)]
+                                          for j in range(_data_size(mesh))], dd, devs[jj][m])
+                              for m in range(self.msize)] for jj in range(len(self.data_slots))]
             else:
                 spec = spec_of[path]
                 k = model_dim(spec)
                 cells = [collectives.scatter(x, k, d) if k is not None
                          else collectives.broadcast(x, d) for d in devs]
             if leaves:
-                cells = [[c.detach() for c in row] for row in cells]
+                cells = [[DataBlocks([b.detach() for b in c.blocks], c.dim, c.device)
+                          if isinstance(c, DataBlocks) else c.detach() for c in row]
+                         for row in cells]
             return _Grid(cells, model_dim(spec))
 
         self._grid = _map_with_path(one, tree)
@@ -519,8 +564,9 @@ class SlotViews:
     def layer(self, jj: int, i: int, n_layers: int, key: str = "layers") -> list:
         """Layer ``i`` of the stacked subtree ``key``, one tree per model
         slot of computing data slot ``jj``: each leaf indexed at ``i`` on
-        its layer axis; where the specs split that axis over ``model``, the
-        slot that holds layer ``i`` has it whole and the others ``None``."""
+        its layer axis (a :class:`DataBlocks` gathered there); where the
+        specs split that axis over ``model``, the slot that holds layer
+        ``i`` has it whole and the others ``None``."""
         per = max(n_layers // self.msize, 1)
         return [_layer_of(self.rows[jj][m][key], self.dims[key], i, m, per)
                 for m in range(self.msize)]
@@ -533,15 +579,33 @@ class SlotViews:
 
     def entry(self, jj: int, key: str, *idx) -> list:
         """Entry ``idx`` of the subtree ``key``, stacked on ``len(idx)``
-        leading axes that the specs do not split (the hybrid's groups and
-        their layers, the xLSTM's), one tree per model slot of computing
-        data slot ``jj``."""
+        leading axes that the specs do not split over ``model`` (the
+        hybrid's groups and their layers, the xLSTM's), one tree per model
+        slot of computing data slot ``jj`` (a :class:`DataBlocks` gathered
+        at ``idx``)."""
         return [_index_of(self.rows[jj][m][key], idx) for m in range(self.msize)]
 
     def entry_dims(self, key: str, n: int):
         """The dims of :meth:`entry`'s leaves split over ``model`` (the
         ``n`` stacked axes dropped)."""
         return _entry_dims(self.dims[key], n)
+
+    def top(self, jj: int, *keys) -> list:
+        """The subtrees ``keys`` of computing data slot ``jj``'s trees, one
+        dict per model slot, each :class:`DataBlocks` gathered whole (the
+        embedding, a final norm, a shared block: gathered where they are
+        used)."""
+        return [{k: _gathered(self.rows[jj][m][k]) for k in keys} for m in range(self.msize)]
+
+    def tensors(self, jj: int, m: int) -> list:
+        """Computing data slot ``jj``'s model slot ``m``'s leaves in
+        :func:`repro_torch.optim.tree.tree_leaves` order: each a tensor, or
+        a :class:`DataBlocks`' list of blocks (what the mesh train step
+        takes gradients with respect to)."""
+        from ..optim.tree import tree_leaves
+
+        return [c.blocks if isinstance(c, DataBlocks) else c
+                for c in tree_leaves(self.rows[jj][m])]
 
 
 class _Blocks:
@@ -708,14 +772,16 @@ def _layer_of(tree, dims, i: int, m: int, per: int):
         return {k: _layer_of(tree[k], dims[k], i, m, per) for k in tree}
     if dims == 0:
         owner = i // per
-        return tree[i - owner * per] if m == owner else None
-    return tree[i]
+        if m != owner:
+            return None
+        i -= owner * per
+    return gather_blocks(tree, (i,)) if isinstance(tree, DataBlocks) else tree[i]
 
 
 def _index_of(tree, idx: tuple):
     if isinstance(tree, dict):
         return {k: _index_of(v, idx) for k, v in tree.items()}
-    return tree[idx]
+    return gather_blocks(tree, idx) if isinstance(tree, DataBlocks) else tree[idx]
 
 
 def _entry_dims(dims, n: int):
@@ -736,33 +802,47 @@ def _data_size(mesh) -> int:
     return _data_axes(mesh)[1]
 
 
-def reduce_to_placement(slot_grads: list, like: ShardedTensor) -> ShardedTensor:
+def reduce_to_placement(slot_grads: list, like: ShardedTensor,
+                        into: ShardedTensor = None) -> ShardedTensor:
     """The gradients of a leaf's :class:`SlotViews` (``slot_grads[jj][m]``
-    computing data slot ``jj``'s model slot ``m``'s, of the view's shape)
-    summed in float32 into the blocks of ``like``'s placement: each slot's
-    block on the slot's device.  A leaf split over ``model`` sums its model
-    slot's gradients over the data slots; a leaf replicated over ``model``
-    first sums each data slot's model slots (its views each met a part of
-    the rows' gradient), then the data slots.  Every sum runs in slot
-    order (a reduce-scatter over the data axes, after an all-reduce over
-    ``model`` for a replicated leaf)."""
+    computing data slot ``jj``'s model slot ``m``'s, of the view's shape;
+    for a :class:`DataBlocks` view the list of its blocks' gradients, in
+    data-slot order) summed in float32 into the blocks of ``like``'s
+    placement: each slot's block on the slot's device.  A leaf split over
+    ``model`` sums its model slot's gradients over the data slots; a leaf
+    replicated over ``model`` first sums each data slot's model slots (its
+    views each met a part of the rows' gradient), then the data slots.
+    Every sum runs in slot order (a reduce-scatter over the data axes,
+    after an all-reduce over ``model`` for a replicated leaf); a
+    :class:`DataBlocks` view's gradients are already cut over the data
+    slots, so each slot's block sums the gradients of its own block.  With
+    ``into`` (a placement of the same leaf: earlier microbatches' sums)
+    each block's sum is added into ``into``'s block in place as soon as it
+    is made, and ``into`` is returned."""
     from ..launch import collectives
 
     k = model_dim(like.spec)
+    blocks = isinstance(slot_grads[0][0], list)
     made, shards = {}, []
     for s, dev in enumerate(like.mesh.devices):
         key = (like.block(s), dev)
         if key not in made:
             region = list(like.region(s))
             m_s = like.mesh.coords(s).get("model", 0)
+            j_s = like.mesh.data_index(s)
+            if blocks:
+                region[_data_dim(like.spec)] = slice(None)
+            own = (lambda g: g[j_s]) if blocks else (lambda g: g)
             if k is not None:
                 region[k] = slice(None)
-                parts = [row[m_s][tuple(region)].float() for row in slot_grads]
+                parts = [own(row[m_s])[tuple(region)].float() for row in slot_grads]
             else:
                 region = tuple(region)
-                parts = [collectives.psum([g[region].float() for g in row], dev)
-                         if len(row) > 1 else row[0][region].float() for row in slot_grads]
+                parts = [collectives.psum([own(g)[region].float() for g in row], dev)
+                         if len(row) > 1 else own(row[0])[region].float() for row in slot_grads]
             made[key] = collectives.psum(parts, dev)
+            if into is not None:
+                made[key] = into.shards[s].add_(made[key])
         shards.append(made[key])
     return ShardedTensor(like.shape, like.spec, like.mesh, tuple(shards))
 

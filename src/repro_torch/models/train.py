@@ -16,14 +16,21 @@ of every family (each model's ``train_forward.slots``) takes placed state
 reference's jitted step with those in-shardings: every model slot of each
 data slot computes tensor-parallel from its own block of the weights
 (:class:`repro_torch.models.sharding.SlotViews`: the ``model`` shards as
-placed, a ``zero1_specs`` block all-gathered over the data axes only), on
-its data slot's rows of every microbatch.  The loss is the global mean over
-the slots' tokens, its cross-entropy computed on the vocabulary-split
-logits without gathering them (:func:`_nll_sums_row`); where the data
-slots compute independently each one's forward and backward runs on its
-own.  The gradients of the slots' views are summed in float32 in slot order
-into the placement's blocks (:func:`repro_torch.models.sharding.reduce_to_placement`),
-the clip norm is the global one, and AdamW updates each block in place.
+placed, a ``zero1_specs`` block all-gathered over the data axes only, one
+layer at a time inside the layer's checkpoint, so that the backward's
+recomputation gathers it again and each block's gradient is its part of
+the gathered weight's), on its data slot's rows of every microbatch.  The
+loss is the global mean over the slots' tokens, its cross-entropy computed
+on the vocabulary-split logits without gathering them
+(:func:`_nll_sums_row`); where the data slots compute independently each
+one's forward and backward runs on its own.  The gradients of the slots'
+views are summed in float32 in slot order into the placement's blocks
+(:func:`repro_torch.models.sharding.reduce_to_placement`, each zero1 block
+from its own block's gradients, so a ``zero1_specs`` step equals the
+``param_specs`` step bit for bit where the data slots compute
+independently; a later microbatch's sums added into the first's block by
+block), the clip norm is the global one, and AdamW updates each block in
+place.
 """
 
 from __future__ import annotations
@@ -248,6 +255,17 @@ def _global_norm(grads: list, mesh, devices) -> torch.Tensor:
     return torch.sqrt(collectives.psum(sq, devices[0]))
 
 
+def _listed(leaf) -> list:
+    """A slot view's tensors: a :class:`.sharding.DataBlocks`' blocks, or the one tensor."""
+    return leaf if isinstance(leaf, list) else [leaf]
+
+
+def _regrouped(leaf, got) -> object:
+    """``leaf``'s gradients taken from the iterator ``got``, grouped as
+    ``leaf`` is (a :class:`.sharding.DataBlocks`' list of blocks, or one)."""
+    return [next(got) for _ in leaf] if isinstance(leaf, list) else next(got)
+
+
 def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState, batch,
                schedule: dict, clip: float) -> tuple:
     """The step under the ambient mesh (module docstring).  Each data slot's
@@ -273,7 +291,7 @@ def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState,
     D = len(devices)
     dev0 = devices[0]
     views = forward.slot_views(params, cfg, range(D), leaves=True)
-    leaves = [[tree_leaves(t) for t in row] for row in views.rows]
+    leaves = [[views.tensors(jj, m) for m in range(views.msize)] for jj in range(D)]
     independent = forward.independent(cfg, mb, batch["tokens"].shape[1])
     symmetric = independent and D > 1 and symmetric_data()
     sections = [[0]] if symmetric else \
@@ -290,7 +308,7 @@ def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState,
                                   for b in batch_slots], list(devices))
         ce_j, aux_j, grads = [None] * D, [None] * D, [None] * D
         for sec in sections:
-            flat = [x for jj in sec for ls in leaves[jj] for x in ls]
+            flat = [x for jj in sec for ls in leaves[jj] for leaf in ls for x in _listed(leaf)]
             with collectives.counted_as(D if symmetric else 1), torch.enable_grad():
                 for p in flat:
                     p.requires_grad_(True)
@@ -313,25 +331,22 @@ def _mesh_step(forward, cfg: ModelConfig, A: int, params, opt_state: AdamWState,
                     for p in flat:
                         p.requires_grad_(False)
             for jj in sec:
-                grads[jj] = [[next(got) for _ in ls] for ls in leaves[jj]]
+                grads[jj] = [[_regrouped(leaf, got) for leaf in ls] for ls in leaves[jj]]
+            del got                    # else it holds every gradient past its reduction
             ce_j = [x.detach() if x is not None else None for x in ce_j]
             aux_j = [x.detach() if x is not None else None for x in aux_j]
         if symmetric:
             ce_j, aux_j, grads = [ce_j[0]] * D, [aux_j[0]] * D, [grads[0]] * D
         reduced = []
         for i, like in enumerate(placed):
+            # a later microbatch's sums added into the first's block by block
             reduced.append(sharding.reduce_to_placement([[g[i] for g in row] for row in grads],
-                                                        like))
+                                                        like, None if g_acc is None else g_acc[i]))
             for row in grads:          # each leaf's slot gradients freed once reduced
                 for g in row:
                     g[i] = None
         del grads
-        if g_acc is None:
-            g_acc = reduced
-        else:
-            for acc, g in zip(g_acc, reduced):
-                for s, t in acc.unique():
-                    t.add_(g.shards[s])
+        g_acc = reduced
         ce = collectives.psum(ce_j, dev0)
         aux = collectives.psum(aux_j, dev0)
         loss_sum = loss_sum + ce + AUX_WEIGHT * aux

@@ -33,22 +33,30 @@ forward, ``train_forward`` and prefill split the rows over the mesh's data
 slots where their count divides the batch (else data slot 0 takes them
 all), and each data slot's model slots compute tensor-parallel from their
 own blocks of the weights (:class:`repro_torch.models.sharding.SlotViews`:
-from a placed tree, or cut from a whole one), layer by layer over the grid
-(:func:`train_forward_slots`): every model slot holds its copy of the
-data slot's residual rows; the embedding, the attention heads, the FFN's
-inner dim (or the experts) and the vocabulary split over ``model`` as
-``param_specs`` places them, each split layer a column-parallel product
-and a row-parallel partial sum all-reduced over the model slots in order
+from a placed tree, or cut from a whole one; a ``zero1_specs`` block
+all-gathered over the data slots where a layer uses it, inside the layer's
+checkpoint), layer by layer over the grid (:func:`train_forward_slots`).
+The embedding, the attention heads, the FFN's inner dim (or the experts)
+and the vocabulary split over ``model`` as ``param_specs`` places them,
+each split layer a column-parallel product and a row-parallel partial sum
 (:func:`.layers.embed_row`, :func:`.attention.attention_row`,
 :func:`.layers.mlp_row`, :func:`.moe.moe_ffn_grid`,
-:func:`.layers.unembed_row`).  RMSNorm runs on each slot's copy (the
-kernel under ``use_pallas``), flash attention per slot at its head counts.
-Where the heads do not divide the model axis, model slot 0 takes one
-layer's projections whole and runs the attention sequence-parallel over
-the model slots, as the reference does.  The logits stay split over the
-vocabulary (:class:`.layers.SlotLogits`) until the forward gathers them
-onto the tokens' device; prefill's caches come out with their K/V heads
-per model slot and are gathered there too.
+:func:`.layers.unembed_row`).  Between blocks the forward and
+``train_forward`` hold each model slot's block of the positions where the
+model axis divides them (:func:`seq_parallel`, the reference's ``seq_sp``):
+each half normalizes the slot's block (the RMSNorm kernel under
+``use_pallas``), all-gathers the normalized rows over the model slots and
+reduce-scatters its partial sums over the positions, rounded once from
+float32 as the all-reduce rounds, so the logits equal the replicated
+form's bit for bit.  Prefill, a sequence the axis does not divide, and
+decode keep every model slot's copy of the rows, the partial sums
+all-reduced.  Flash attention runs per slot at its head counts.  Where the
+heads do not divide the model axis, model slot 0 takes one layer's
+projections whole and runs the attention sequence-parallel over the model
+slots, as the reference does.  The logits stay split over the vocabulary
+(:class:`.layers.SlotLogits`) until the forward gathers them onto the
+tokens' device; prefill's caches come out with their K/V heads per model
+slot and are gathered there too.
 
 Under an ambient mesh :func:`decode_step` runs over the grid as well
 (:func:`decode_slots`), with the decode state left where ``state_specs``
@@ -81,8 +89,8 @@ from .moe import KEEP_FLOAT32, init_moe, moe_ffn
 
 __all__ = ["DecodeState", "block_forward", "check_family", "data_slots_independent",
            "decode_independent", "decode_slots", "decode_step", "forward", "init_decode_state",
-           "init_params", "mesh_train_forward", "params_from_numpy", "prefill", "slot_views",
-           "train_forward", "train_forward_slots"]
+           "init_params", "mesh_train_forward", "params_from_numpy", "prefill", "seq_parallel",
+           "slot_views", "train_forward", "train_forward_slots"]
 
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -166,14 +174,29 @@ def block_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions) -> tupl
     return x + h, aux
 
 
+def seq_parallel(cfg: ModelConfig, msize: int, seq: int) -> bool:
+    """Whether a mesh forward's block edges split the positions over the
+    ``msize`` model slots (the reference's ``("batch", "seq_sp",
+    "d_model")`` constraint, ``seq_sp`` on ``model``): where the model axis
+    divides the ``seq`` positions.  Elsewhere every model slot holds the
+    rows whole, as the reference's ``shard`` drops an axis that does not
+    divide its dim."""
+    return msize > 1 and seq % msize == 0
+
+
 def _grid_block(lrows: list, ldims: dict, xs: list, cfg: ModelConfig, positions: list,
-                data_slots: list, n_data: int, prefill: bool = False) -> tuple:
+                data_slots: list, n_data: int, prefill: bool = False, sp: bool = False) -> tuple:
     """One layer over the grid: ``xs[jj][m]`` model slot ``m``'s copy of
-    computing data slot ``data_slots[jj]``'s rows, ``lrows[jj][m]`` its
-    block of the layer's weights.  Each data slot's attention half over its
-    model slots, then the FFN (the MoE across the grid).  Returns (the
-    slots' outputs, each data slot's aux loss, each data slot's
-    (per-slot (k, v), their K/V heads) when ``prefill``)."""
+    computing data slot ``data_slots[jj]``'s rows (with ``sp``, its block
+    of their positions), ``lrows[jj][m]`` its block of the layer's weights.
+    Each data slot's attention half over its model slots, then the FFN (the
+    MoE across the grid).  With ``sp`` each half normalizes the slot's
+    block, all-gathers the normalized rows over the model slots (onto model
+    slot 0 where it runs the attention whole) and reduce-scatters its
+    row-parallel partial sums over the positions, the residual added on the
+    block (Megatron's sequence parallelism, in both halves).  Returns (the
+    slots' outputs, each data slot's aux loss, each data slot's (per-slot
+    (k, v), their K/V heads) when ``prefill``)."""
     mesh = abstract_mesh()
     x2s, hs, kvs = [], [], []
     for jj, j in enumerate(data_slots):
@@ -181,20 +204,24 @@ def _grid_block(lrows: list, ldims: dict, xs: list, cfg: ModelConfig, positions:
         row = lrows[jj]
         own = attn.heads_parallel(cfg, len(devs))
         with data_slot_scope(j):
-            h1 = [rms_norm(x, p["ln1"], cfg.norm_eps, cfg.use_pallas) if own or m == 0 else None
-                  for m, (p, x) in enumerate(zip(row, xs[jj]))]
+            h1 = [rms_norm(x, p["ln1"], cfg.norm_eps, cfg.use_pallas) if sp or own or m == 0
+                  else None for m, (p, x) in enumerate(zip(row, xs[jj]))]
+            if sp:
+                h1 = collectives.all_gather(h1, 1, devs, grad32=True) if own else \
+                    [collectives.gather_to(h1, 1, devs[0])] + [None] * (len(devs) - 1)
             out, kv, heads = attn.attention_row([p["attn"] for p in row], ldims["attn"], h1, cfg,
-                                                positions[jj][0], devs, prefill)
+                                                positions[jj][0], devs, prefill, seq_out=sp)
         x2 = [x + a for x, a in zip(xs[jj], out)]
         x2s.append(x2)
         kvs.append((kv, heads))
-        hs.append([rms_norm(x, p["ln2"], cfg.norm_eps, cfg.use_pallas) for p, x in zip(row, x2)])
+        h2 = [rms_norm(x, p["ln2"], cfg.norm_eps, cfg.use_pallas) for p, x in zip(row, x2)]
+        hs.append(collectives.all_gather(h2, 1, devs, grad32=True) if sp else h2)
     if cfg.family == "moe":
         ys, auxes = moe.moe_ffn_grid([[p["moe"] for p in row] for row in lrows], ldims["moe"], hs,
-                                     cfg, n_data, data_slots)
+                                     cfg, n_data, data_slots, seq_out=sp)
     else:
         ys = [layers.mlp_row([p["mlp"] for p in row], ldims["mlp"], h, cfg,
-                             mesh.model_devices(j))
+                             mesh.model_devices(j), seq_out=sp)
               for row, h, j in zip(lrows, hs, data_slots)]
         auxes = [torch.zeros((), dtype=torch.float32, device=x2[0].device) for x2 in x2s]
     return [[x + y for x, y in zip(x2, yr)] for x2, yr in zip(x2s, ys)], auxes, kvs
@@ -231,27 +258,39 @@ def _grid_forward(views, tokens_slots: list, cfg: ModelConfig, prefix_slots=None
     """The layers over the grid of ``views``' computing data slots
     (``tokens_slots[jj]`` and ``prefix_slots[jj]`` data slot
     ``views.data_slots[jj]``'s, on its device): (each slot's final hidden
-    state, each data slot's aux loss, per layer each data slot's prefill
-    (k, v) and K/V heads when ``prefill``)."""
+    state, whole over the positions, each data slot's aux loss, per layer
+    each data slot's prefill (k, v) and K/V heads when ``prefill``).  A
+    forward whose positions the model axis divides (:func:`seq_parallel`;
+    never a prefill, as in the reference) holds each slot's block of the
+    positions between the blocks; the final norm runs on the blocks and the
+    normalized rows are all-gathered for the unembedding.  Each layer's
+    weights are taken (a ``zero1_specs`` block gathered over the data
+    slots) inside its checkpoint."""
     mesh = abstract_mesh()
     data_slots = views.data_slots
     n_data = n_data or len(data_slots)
     prefix_slots = prefix_slots or [None] * len(tokens_slots)
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, mesh.model_devices(j), pe)
-          for jj, (j, t, pe) in enumerate(zip(data_slots, tokens_slots, prefix_slots))]
+    devs = [mesh.model_devices(j) for j in data_slots]
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, dv, pe)
+          for jj, (dv, t, pe) in enumerate(zip(devs, tokens_slots, prefix_slots))]
     positions = [[torch.arange(x.shape[1], device=x.device)[None, :] for x in row] for row in xs]
+    sp = not prefill and seq_parallel(cfg, views.msize, xs[0][0].shape[1])
+    if sp:
+        xs = [layers.seq_blocks(row) for row in xs]
     auxes = [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
     ldims = views.layer_dims()
-    block = _maybe_remat(lambda lrows, xs: _grid_block(lrows, ldims, xs, cfg, positions,
-                                                       data_slots, n_data, prefill), cfg)
+    block = _maybe_remat(lambda i, xs: _grid_block(
+        [views.layer(jj, i, cfg.n_layers) for jj in range(len(data_slots))], ldims, xs, cfg,
+        positions, data_slots, n_data, prefill, sp), cfg)
     kvs = []
     for i in range(cfg.n_layers):
-        lrows = [views.layer(jj, i, cfg.n_layers) for jj in range(len(data_slots))]
-        xs, a, kv = block(lrows, xs)
+        xs, a, kv = block(i, xs)
         kvs.append(kv)
         auxes = [x + y for x, y in zip(auxes, a)]
-    hs = [[rms_norm(x, p["ln_f"], cfg.norm_eps, cfg.use_pallas) for p, x in zip(prow, row)]
-          for prow, row in zip(views.rows, xs)]
+    hs = [[rms_norm(x, p["ln_f"], cfg.norm_eps, cfg.use_pallas)
+           for p, x in zip(views.top(jj, "ln_f"), row)] for jj, row in enumerate(xs)]
+    if sp:
+        hs = [collectives.all_gather(row, 1, dv, grad32=True) for row, dv in zip(hs, devs)]
     return hs, auxes, kvs
 
 
@@ -272,7 +311,7 @@ def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig, prefix_embe
     for jj, (j, row) in enumerate(zip(views.data_slots, hs)):
         if prefix_embeds is not None:
             row = [h[:, prefix_embeds[jj].shape[1]:] for h in row]
-        logits.append(layers.unembed_row(views.rows[jj], views.dims, row, cfg,
+        logits.append(layers.unembed_row(views.top(jj, "embed"), views.dims, row, cfg,
                                          mesh.model_devices(j)))
     return logits, auxes
 
@@ -404,8 +443,8 @@ def _mesh_prefill(params, tokens, cfg: ModelConfig, prefix_embeds) -> tuple:
                                    prefill=True)
         dev = tokens.device
         logits = [layers.gather_logits(layers.unembed_row(
-            views.rows[jj], views.dims, [h[:, -1:] for h in row], cfg, mesh.model_devices(jj)),
-            dev) for jj, row in enumerate(hs)]
+            views.top(jj, "embed"), views.dims, [h[:, -1:] for h in row], cfg,
+            mesh.model_devices(jj)), dev) for jj, row in enumerate(hs)]
         caches = []
         for layer in kvs:
             per_slot = [attn.prefill_cache_kv(kv, heads, cfg.n_kv_heads, dev)
@@ -476,7 +515,7 @@ def decode_slots(views, state: DecodeState, tokens_slots: list, cfg: ModelConfig
     rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
     devs = [mesh.model_devices(j) for j in data_slots]
     dcfg = _decode_cfg(cfg)
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, dv)
           for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
     ldims = views.layer_dims()
     for i in range(cfg.n_layers):
@@ -498,9 +537,9 @@ def decode_slots(views, state: DecodeState, tokens_slots: list, cfg: ModelConfig
             ys = [layers.mlp_row([p["mlp"] for p in row], ldims["mlp"], h, cfg, dv)
                   for row, h, dv in zip(lrows, hs, devs)]
         xs = [[x + y for x, y in zip(x2, yr)] for x2, yr in zip(x2s, ys)]
-    return [layers.unembed_row(views.rows[jj], views.dims,
+    return [layers.unembed_row(views.top(jj, "embed"), views.dims,
                                [rms_norm(x, p["ln_f"], cfg.norm_eps)
-                                for p, x in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+                                for p, x in zip(views.top(jj, "ln_f"), xs[jj])], cfg, devs[jj])
             for jj in range(len(data_slots))]
 
 

@@ -439,18 +439,18 @@ def train_forward_slots(views, tokens_slots: list, cfg: ModelConfig,
     mesh = abstract_mesh()
     D = len(views.data_slots)
     devs = [mesh.model_devices(j) for j in views.data_slots]
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, devs[jj])
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, devs[jj])
           for jj, t in enumerate(tokens_slots)]
     ng, nm = xlstm_group_shape(cfg)
     mdims, sdims = views.entry_dims("mlstm", 2), views.entry_dims("slstm", 1)
-    group = _maybe_remat(lambda mrows, srows, xs: _grid_group(mrows, srows, mdims, sdims, xs,
-                                                              cfg, devs), cfg)
+    group = _maybe_remat(lambda g, xs: _grid_group(
+        [[views.entry(jj, "mlstm", g, j) for j in range(nm)] for jj in range(D)],
+        [views.entry(jj, "slstm", g) for jj in range(D)], mdims, sdims, xs, cfg, devs), cfg)
     for g in range(ng):
-        xs = group([[views.entry(jj, "mlstm", g, j) for j in range(nm)] for jj in range(D)],
-                   [views.entry(jj, "slstm", g) for jj in range(D)], xs)
-    logits = [layers.unembed_row(views.rows[jj], views.dims,
+        xs = group(g, xs)
+    logits = [layers.unembed_row(views.top(jj, "embed"), views.dims,
                                  [rms_norm(a, p["ln_f"], cfg.norm_eps)
-                                  for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+                                  for p, a in zip(views.top(jj, "ln_f"), xs[jj])], cfg, devs[jj])
               for jj in range(D)]
     return logits, [torch.zeros((), dtype=torch.float32, device=row[0].device) for row in xs]
 
@@ -745,7 +745,7 @@ def decode_slots(views, state: XLSTMState, tokens_slots: list, cfg: ModelConfig,
     blocks = sharding.StateBlocks(state, cfg, mesh, b * n_data)
     rows = [slice(j * b, (j + 1) * b) if n_data > 1 else slice(0, b) for j in data_slots]
     devs = [mesh.model_devices(j) for j in data_slots]
-    xs = [layers.embed_row(views.rows[jj], views.dims, t, cfg, dv)
+    xs = [layers.embed_row(views.top(jj, "embed"), views.dims, t, cfg, dv)
           for jj, (t, dv) in enumerate(zip(tokens_slots, devs))]
     ng, nm = xlstm_group_shape(cfg)
     mdims, sdims = views.entry_dims("mlstm", 2), views.entry_dims("slstm", 1)
@@ -758,9 +758,9 @@ def decode_slots(views, state: XLSTMState, tokens_slots: list, cfg: ModelConfig,
                 x = [a + o for a, o in zip(x, y)]
             xs[jj] = slstm_decode_row(views.entry(jj, "slstm", g), sdims, x, cfg, devs[jj],
                                       blocks, (g,), rows[jj], j)
-    return [layers.unembed_row(views.rows[jj], views.dims,
+    return [layers.unembed_row(views.top(jj, "embed"), views.dims,
                                [rms_norm(a, p["ln_f"], cfg.norm_eps)
-                                for p, a in zip(views.rows[jj], xs[jj])], cfg, devs[jj])
+                                for p, a in zip(views.top(jj, "ln_f"), xs[jj])], cfg, devs[jj])
             for jj in range(len(data_slots))]
 
 

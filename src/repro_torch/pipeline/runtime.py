@@ -50,9 +50,11 @@ from ..launch import collectives
 from ..launch.mesh import use_mesh
 from ..models import sharding
 from ..models.common import ModelConfig, symmetric_data
-from ..models.layers import embed, embed_row, index_tree, rms_norm, unembed, unembed_row
+from ..models.layers import (embed, embed_row, index_tree, rms_norm, seq_blocks, unembed,
+                             unembed_row)
 from ..models.train import _nll_sums_row, cross_entropy
-from ..models.transformer import _grid_block, _maybe_remat, block_forward, train_forward
+from ..models.transformer import (_grid_block, _maybe_remat, block_forward, seq_parallel,
+                                  train_forward)
 from ..optim.tree import tree_map
 from .schedule import gpipe_ticks
 
@@ -306,10 +308,11 @@ def _leaves(tree) -> list:
 
 
 def _grid_stage(views, live, xs: list, cfg: ModelConfig, positions: list, data_slots: list,
-                n_data: int, sub, scale: int) -> list:
+                n_data: int, sub, scale: int, sp: bool) -> list:
     """A pod's live slots over its grid (``xs[jj][m]`` model slot ``m``'s
-    copy of computing data slot ``data_slots[jj]``'s rows); masked slots
-    are identity.  Each layer runs under the pod's sub-mesh ``sub``, every
+    copy of computing data slot ``data_slots[jj]``'s rows, with ``sp`` its
+    block of their positions, as the model's own forward holds them between
+    blocks); masked slots are identity.  Each layer runs under the pod's sub-mesh ``sub``, every
     call counted ``scale`` times, and is checkpointed where ``cfg.remat``
     is ``"block"`` (as the model's own ``train_forward``): the step's
     recomputation in the backward pass then holds one layer's activations
@@ -317,14 +320,15 @@ def _grid_stage(views, live, xs: list, cfg: ModelConfig, positions: list, data_s
     sub-mesh itself."""
     ldims, L = views.layer_dims(), len(live)
 
-    def layer(lrows, xs):
+    def layer(i, xs):
         with use_mesh(sub), collectives.counted_as(scale):
-            return _grid_block(lrows, ldims, xs, cfg, positions, data_slots, n_data)[0]
+            return _grid_block([views.layer(jj, i, L) for jj in range(len(data_slots))], ldims,
+                               xs, cfg, positions, data_slots, n_data, sp=sp)[0]
 
     block = _maybe_remat(layer, cfg)
     for i, on in enumerate(live):
         if on:
-            xs = block([views.layer(jj, i, L) for jj in range(len(data_slots))], xs)
+            xs = block(i, xs)
     return xs
 
 
@@ -369,6 +373,7 @@ def _grid_loss_fn(cfg: ModelConfig, plan: StagePlan, num_microbatches: int, mask
         positions = [[[torch.arange(seq, device=dv)[None, :] for dv in devs] for devs in row]
                      for row in slot_devs]
         loss_dev = slot_devs[-1][0][0]
+        sp = seq_parallel(cfg, len(slot_devs[0][0]), seq)
         first_rows, last_rows = subs[0].row_devices(mb), subs[-1].row_devices(mb)
 
         def step(j, x, lab=None):
@@ -377,17 +382,21 @@ def _grid_loss_fn(cfg: ModelConfig, plan: StagePlan, num_microbatches: int, mask
             with use_mesh(subs[j]):
                 if j == 0:
                     with collectives.counted_as(scale):
-                        x = [embed_row(heads[0].rows[jj], heads[0].dims, x[d], cfg, devs)
+                        x = [embed_row(heads[0].top(jj, "embed"), heads[0].dims, x[d], cfg, devs)
                              for jj, (d, devs) in enumerate(zip(data_slots, slot_devs[0]))]
+                        if sp:
+                            x = [seq_blocks(row) for row in x]
                 xs = _grid_stage(views[j], live[alloc[j]], x, cfg, positions[j], data_slots, D,
-                                 subs[j], scale)
+                                 subs[j], scale, sp)
                 if lab is None:
                     return xs
                 with collectives.counted_as(scale):
                     nll = []
                     for jj, (d, devs) in enumerate(zip(data_slots, slot_devs[j])):
-                        row = heads[1].rows[jj]
+                        row = heads[1].top(jj, "embed", "ln_f")
                         hs = [rms_norm(x, p["ln_f"], cfg.norm_eps) for p, x in zip(row, xs[jj])]
+                        if sp:
+                            hs = collectives.all_gather(hs, 1, devs, grad32=True)
                         lg = unembed_row(row, heads[1].dims, hs, cfg, devs)
                         nll.append(_nll_sums_row(lg, lab[d], None, devs))
                 # data slot 0's term stands in for every data slot's under the shortcut

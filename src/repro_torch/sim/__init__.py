@@ -10,11 +10,11 @@ from .generators import (EXPERIMENTS, FAMILY_SETS, IMAGE_FAMILIES,
 from .experiments import (ExperimentResult, ReplicatedResult,
                           failure_thresholds, run_campaign, run_experiment,
                           run_replicated, summarize_experiment,
-                          summarize_replicated)
+                          summarize_replicated, trajectory)
 
 __all__ = ["EXPERIMENTS", "FAMILY_SETS", "PAPER_FAMILIES", "IMAGE_FAMILIES",
            "RELIABILITY_FAMILIES", "ExperimentSpec", "register_experiment",
            "InstanceBatch", "gen_instance", "gen_instance_batch",
            "ExperimentResult", "ReplicatedResult", "failure_thresholds",
            "run_campaign", "run_experiment", "run_replicated",
-           "summarize_experiment", "summarize_replicated"]
+           "summarize_experiment", "summarize_replicated", "trajectory"]

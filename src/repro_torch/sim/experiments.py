@@ -128,6 +128,13 @@ def _curve(cols, n_pairs: int) -> tuple:
     return mean_per, mean_lat, frac
 
 
+def trajectory(code: str, wl, pf, device=None) -> list:
+    """The (period, latency) trajectory of fixed-period heuristic ``code``
+    run to exhaustion on one instance (the reference's ``trajectory``), its
+    splits scored on ``device`` (``None``: cuda)."""
+    return split_trajectory(code, wl, pf, device)
+
+
 def _result_from_trajectory(traj: list, p_fix: float) -> Optional[tuple]:
     """First trajectory state with period <= p_fix, or None (failure)."""
     for per, lat in traj:

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import core, fleet
+from repro_torch import core, fleet, sim
 from repro_torch.configs import SHAPES, get_smoke_config
 from repro_torch.core import sharded
 from repro_torch.core.batched import ProblemBatch, batched_min_period, stack_instances
@@ -194,6 +194,13 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _example(name: str, *argv):
+    """An example's ``main`` with its default device (the card)."""
+    import importlib
+
+    return importlib.import_module(f"repro_torch.examples.{name}").main(list(argv))
+
+
 @pytest.mark.parametrize("entry", [
     lambda: repro_torch.resolve_device(),
     lambda: repro_torch.resolve_device("cuda"),
@@ -302,6 +309,13 @@ def _no_cuda(monkeypatch):
     lambda: perf_probe.probe("qwen3-4b", "decode_32k", device="cuda"),
     lambda: dryrun.make_inputs({}, None, 8),
     lambda: dryrun.pipeline_plan(_QWEN, SHAPES["train_4k"], 2.0),
+    lambda: collectives.all_gather([_X, _X], 0, ["cuda"] * 2, grad32=True),
+    lambda: _example("quickstart"),
+    lambda: _example("replan_straggler"),
+    lambda: _example("serve_batched", "--requests", "1", "--batch", "1", "--prompt-len", "2",
+                     "--max-new", "1"),
+    lambda: _example("train_pipeline", "--steps", "1", "--batch", "1", "--seq", "8"),
+    lambda: sim.trajectory("H1", *sim.gen_instance("E1", n=4, p=3, seed=1)),
 ], ids=["resolve_device", "resolve_device-cuda", "run_campaign",
         "run_experiment", "from_arrays", "serve_pool", "model_init",
         "init_decode_state", "params_from_numpy", "serve_pool-hybrid", "hybrid_init",
@@ -328,7 +342,9 @@ def _no_cuda(monkeypatch):
         "collectives.broadcast", "collectives.psum", "collectives.reduce_scatter",
         "ShardedLoader-mesh", "place_train_state", "prefill-mesh", "forward-mesh",
         "moe_ffn-mesh", "run_cell-cuda", "run_pipeline_cell-cuda", "probe-cuda",
-        "make_inputs", "pipeline_plan"])
+        "make_inputs", "pipeline_plan", "collectives.all_gather-grad32", "example-quickstart",
+        "example-replan_straggler", "example-serve_batched", "example-train_pipeline",
+        "sim.trajectory"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):

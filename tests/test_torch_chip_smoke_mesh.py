@@ -98,8 +98,8 @@ def test_a_seq_parallel_slot_that_ignores_its_offset_is_refused(monkeypatch):
 def test_an_moe_slot_that_dispatches_another_slots_rows_is_refused(monkeypatch):
     real = moe.moe_ffn_grid
 
-    def shifted(ps, dims, hs, cfg, n_data, data_slots):
-        return real(ps, dims, hs[1:] + hs[:1], cfg, n_data, data_slots)
+    def shifted(ps, dims, hs, cfg, n_data, data_slots, **kw):
+        return real(ps, dims, hs[1:] + hs[:1], cfg, n_data, data_slots, **kw)
 
     monkeypatch.setattr(moe, "moe_ffn_grid", shifted)
     with pytest.raises(SystemExit):
@@ -109,6 +109,6 @@ def test_an_moe_slot_that_dispatches_another_slots_rows_is_refused(monkeypatch):
 def test_a_gradient_reduction_that_drops_a_slot_is_refused(monkeypatch):
     real = sharding.reduce_to_placement
     monkeypatch.setattr(sharding, "reduce_to_placement",
-                        lambda grads, like: real(grads[:-1], like))
+                        lambda grads, like, into=None: real(grads[:-1], like, into))
     with pytest.raises(SystemExit):
         _run("train")

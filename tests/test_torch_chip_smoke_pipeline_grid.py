@@ -52,7 +52,9 @@ def test_pipeline_grid_phase_passes_on_cpu_slots(tmp_path):
     a, b, c = out["full"], out["pair"], out["smoke_cpu_vs_card"]
     assert a["plan"]["stage_sizes"] == [1, 2] and a["plan"]["pods"] == [1, 0]
     assert a["loss_err"] <= chip_smoke.PIPELINE_LOSS_TOL
-    assert a["ppermute"] == [1 * 2 * 2, 1 * 2 * 2 * 2 * 1 * 1536 * 128 * 4]
+    # each model slot sends its block of the positions (1536 / 2: the block
+    # edges are sequence-parallel)
+    assert a["ppermute"] == [1 * 2 * 2, 1 * 2 * 2 * 2 * 1 * (1536 // 2) * 128 * 4]
     assert a["collectives"]["ppermute"] == a["ppermute"]
     kp = a["kernel_pass"]
     assert kp["flash_heads"] == [(4, 1)]                   # 8 / 2 query heads, 2 / 2 K/V
@@ -70,15 +72,15 @@ def test_pipeline_grid_phase_passes_on_cpu_slots(tmp_path):
 def test_the_full_configs_launches_and_hand_offs_are_derived():
     """qwen3-4b at full width on (2, 2, 2), planned (12, 24): RMSNorm
     2 x 36 x 4 x 2 x 2 and flash 36 x 4 x 2 x 2 launches, all at 16 / 4
-    heads; (2 - 1) x 4 hand-offs a data slot, each of 2 sends of one row of
-    2,048 x 2,560 bf16."""
+    heads; (2 - 1) x 4 hand-offs a data slot, each of 2 sends of one row's
+    block of 2,048 / 2 positions x 2,560 bf16 (sequence-parallel edges)."""
     cfg = get_config("qwen3-4b")
     pl = chip_smoke.grid_plan(cfg, RUNS["full"], "cpu")
     assert (tuple(pl.stage_sizes), tuple(pl.mapping.alloc)) == ((12, 24), (1, 0))
     want = chip_smoke.grid_launches(cfg, pl, RUNS["full"])
     assert (want["rmsnorm"], want["flash_attention"]) == (1152, 576)
     assert chip_smoke.flash_heads(cfg, 2) == (16, 4)
-    assert chip_smoke.grid_ppermute(cfg, pl, RUNS["full"]) == [8, 8 * 2 * 2048 * 2560 * 2]
+    assert chip_smoke.grid_ppermute(cfg, pl, RUNS["full"]) == [8, 8 * 2 * 1024 * 2560 * 2]
     pair = chip_smoke.grid_plan(cfg.replace(n_layers=8), RUNS["pair"], "cpu")
     assert pair.num_stages == 2 and sum(pair.stage_sizes) == 8
 

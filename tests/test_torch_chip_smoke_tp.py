@@ -80,10 +80,10 @@ def _planted_psum(monkeypatch):
 def _planted_replicated(monkeypatch):
     real = sharding.reduce_to_placement
 
-    def planted(grads, like):
+    def planted(grads, like, into=None):
         if sharding.model_dim(like.spec) is None:
             grads = [[row[0]] * len(row) for row in grads]
-        return real(grads, like)
+        return real(grads, like, into)
     monkeypatch.setattr(sharding, "reduce_to_placement", planted)
 
 

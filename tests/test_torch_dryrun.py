@@ -175,13 +175,15 @@ def test_pipeline_plan_equals_the_reference(straggler):
     assert rec["hlo"]["dot_flops"] > 0 and rec["memory"]["temp_size_in_bytes"] > 0
     # each pod's stage over its (data, model) slots: the hand-offs are
     # ppermutes, one a data slot that takes rows (2 rows a microbatch on 16
-    # data slots: data slot 0 alone), and a slot holds less than the stack
+    # data slots: data slot 0 alone), each model slot sending its block of
+    # the positions (64 / 16), and a slot holds less than the stack
     assert rec["placement"] == "mesh"
     cfg = get_smoke_config("qwen3-4b")
     calls = (len(small.stage_sizes) - 1) * 4
     item = torch.empty((), dtype=cfg.torch_dtype).element_size()
     assert rec["hlo"]["collective_counts"]["ppermute"] == calls
-    assert rec["hlo"]["collectives"]["ppermute"] == calls * 16 * 2 * 64 * cfg.d_model * item
+    assert rec["hlo"]["collectives"]["ppermute"] \
+        == calls * 16 * 2 * (64 // 16) * cfg.d_model * item
     stack = sum(t.numel() * 4 for t in tree_leaves(
         get_model(cfg).init(0, "meta", master=True)["layers"]))
     assert 0 < rec["memory"]["argument_size_in_bytes"] < stack

@@ -431,8 +431,9 @@ def test_the_recomputation_runs_under_the_pods_sub_mesh(ref, monkeypatch, remat)
 
 def test_hand_offs_are_ppermutes_exactly_derived(ref):
     """(intervals - 1) x M hand-offs, each one ``ppermute`` a data slot of
-    its model slots' sends of a slot's (rows / D, S, d) residual rows; the
-    symmetric shortcut counts every collective as the full grid does."""
+    its model slots' sends of a slot's (rows / D, S / Mm, d) block of the
+    residual rows (sequence-parallel block edges); the symmetric shortcut
+    counts every collective as the full grid does."""
     cfg, params, pl, pipe, mask, batch = _setup(ref, "float32")
     mesh = _mesh((4, 2, 2))
     placed = dict(pipe, stages=_placed(params, pl, mesh, cfg))
@@ -445,8 +446,8 @@ def test_hand_offs_are_ppermutes_exactly_derived(ref):
         traffic[sym] = {k: list(v) for k, v in collectives.TRAFFIC.items()}
     m, (B, S) = pl.num_stages, batch["tokens"].shape
     D, Mm = 2, 2
-    assert traffic[False]["ppermute"] == [(m - 1) * M * D,
-                                          (m - 1) * M * D * Mm * (B // M // D) * S * 64 * 4]
+    assert traffic[False]["ppermute"] == [
+        (m - 1) * M * D, (m - 1) * M * D * Mm * (B // M // D) * (S // Mm) * 64 * 4]
     assert traffic[True] == traffic[False]
 
 

@@ -311,10 +311,10 @@ def test_tp_step_matches_the_unsharded_step_in_float32():
 def test_a_replicated_leafs_gradient_taken_m_times_breaks_the_step(monkeypatch):
     real = sharding.reduce_to_placement
 
-    def planted(grads, like):
+    def planted(grads, like, into=None):
         if sharding.model_dim(like.spec) is None:
             grads = [[row[0]] * len(row) for row in grads]
-        return real(grads, like)
+        return real(grads, like, into)
 
     monkeypatch.setattr(sharding, "reduce_to_placement", planted)
     cfg, params, batch = _float32_state()
